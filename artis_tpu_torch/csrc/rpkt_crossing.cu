@@ -2,7 +2,10 @@
 //
 // Replaces the Pallas TPU kernel propagate_blocked
 // (artis_tpu/transport/pallas_rpkt.py:1837, body _kernel :314-1822) in its
-// 1D spherical, resident-table, in-kernel-scatter configuration: each packet
+// resident-table, in-kernel-scatter configurations: the 1D spherical grid
+// (the default branch, :863-942), the 3D Cartesian grid (`cart3d`,
+// :588-631 and :712-750), the 2D cylindrical grid (`cyl2d`, :751-862) and
+// the detailed bf-rate estimators (`want_bfrate`, :1515-1532). Each packet
 // advances through up to max_inner cell crossings (optical-depth draw, shell
 // boundary distance, Doppler and abort frequency, continuum opacity with bf
 // selection, Sobolev line walk from its cursor, in-kernel isotropic electron
@@ -13,10 +16,20 @@
 // Design. One thread per packet; the packet state stays in registers for
 // the whole crossing loop. Cell values are direct __ldg loads. The line
 // walk reads line_nu and the packet's tau_factor[mgi, :] row from global
-// memory, starting at the packet's cursor. Per-cell estimators accumulate
-// in shared memory per block (ncells x (4 + 2 ngc) floats) and go to global
-// memory with one atomicAdd per nonzero entry at block end; the misc
-// counters are reduced the same way in double.
+// memory, starting at the packet's cursor. The grid geometry is a template
+// parameter (one instantiation per geometry, so the 1D kernel keeps its
+// registers); cell bounds at tmin come from the (ncells, ndim) cellmin /
+// cellmax tables and the model cell of a propagation cell from the host-built
+// mgi_of_cell table, which is how the XLA path maps 1D, 2D and 3D models.
+// Per-cell estimators (ncells x (4 + 2 ngc + ncont if bf-rate) floats)
+// accumulate in one of two ways, which the wrapper picks by their size: for
+// few cells in shared memory per block, flushed to global memory with one
+// atomicAdd per nonzero entry at block end; for many cells (2D and 3D
+// grids) every lane adds straight into the global rows, since a large
+// per-block copy costs its zeroing and flush in every block and cuts the
+// blocks per SM (measured crossover between 7.6 and 47 KB of rows,
+// rpkt_kernel.SHARED_ROWS_MAX). The misc counters are reduced in shared
+// memory in double.
 //
 // What bounds it on the card: (1) the line walk is a chain of dependent
 // global loads (line_nu[l], tau_factor[mgi, l]) whose length depends on the
@@ -48,6 +61,7 @@
 // scalar launch parameters; field order matches _Params in rpkt_kernel.py
 struct RpktParams {
   int n, ncells, nprop, nlines, ncont, ngc, nphixs, max_inner, relativistic, test_mode;
+  int geom, nx, ny, nz, want_bfrate, shared_rows;
   uint32_t seed_lo, seed_hi;
   float t2, tmin, max_path_step, phixs_dnu, last_nuovernuedge, pad0;
 };
@@ -63,6 +77,8 @@ constexpr float BIG = 3.0e38f;
 constexpr int BOUNDARY_ESCAPE = -99;
 constexpr int NMISC = 8;
 constexpr int BLOCK = 128;
+// grid geometries (the GridType values)
+constexpr int GEOM_SPH = 1, GEOM_CYL = 2, GEOM_CART = 3;
 
 struct Lanes {
   const float *px, *py, *pz, *dx, *dy, *dz, *nurf, *nucmf, *erf, *ecmf, *t;
@@ -71,7 +87,7 @@ struct Lanes {
 };
 
 struct Tables {
-  const float *cellmin0, *cellmax0, *nne, *te, *kappagrey, *rho, *chiffpart, *line_nu,
+  const float *cellmin, *cellmax, *nne, *te, *kappagrey, *rho, *chiffpart, *line_nu,
       *tau_factor, *cont_nu_edge, *bf_a, *bf_dep, *cont_phixs, *cont_prob, *gc_nu_edge;
   const int *mgi_of_cell, *thick, *cont_gidx;
 };
@@ -81,7 +97,7 @@ struct Outs {
       *chi_bf, *chi_cont, *em_x, *em_y, *em_z, *em_t;
   int *where, *next_trans, *evented, *escaped, *thick, *is_bb, *act_line, *bf_idx, *mgi, *nsc,
       *inkscat;
-  float *est, *gamma, *bfheat;
+  float *est, *gamma, *bfheat, *bfrate;
   double *misc;
 };
 
@@ -125,13 +141,14 @@ __device__ __forceinline__ float doppler_at(float dx, float dy, float dz, float 
 
 // distance to an expanding shell (grid.cc:1222-1312), -1 if none: the
 // float32 form with an exact 2^-33 rescale in the radial-velocity test and a
-// ping-pong guard against re-intersecting the shell just crossed
+// ping-pong guard against re-intersecting the shell just crossed. speed is
+// the speed along the unit direction d: c for a sphere, the xy-plane speed
+// for the circles of the cylindrical grid (with the z parts zero)
 __device__ float shell_distance(float px, float py, float pz, float dx, float dy, float dz,
                                 float pos2, float pdotd, float tstart, float radius_t,
-                                bool inner) {
-  const float speed = CLIGHT_PROP;
+                                bool inner, float speed) {
   const float kgeo = 1.16415321826934814453125e-10f;  // 2^-33
-  const float st_k = (float)(2.99792458e10 * 1.16415321826934814453125e-10) * tstart;
+  const float st_k = (speed * kgeo) * tstart;
   const float a = 1.0f - (radius_t / tstart / speed) * (radius_t / tstart / speed);
   const float b = 2.0f * (pdotd - radius_t * radius_t / tstart / speed);
   const float c = pos2 - radius_t * radius_t;
@@ -189,20 +206,133 @@ __device__ __forceinline__ void bf_window(const float* __restrict__ edges, int n
   hi = a;
 }
 
+// distance to a homologously expanding plane at coordbound (at tmin): the
+// float32 form with a guarded zero denominator (a packet moving with the
+// plane never reaches it)
+__device__ __forceinline__ float plane_distance(float posd, float veld, float tstart,
+                                                float coordbound, float tmin) {
+  float denom = coordbound - veld * tmin;
+  if (denom == 0.0f) denom = 1e-30f;
+  return CLIGHT_PROP * ((posd - veld * tstart) / denom * tmin - tstart);
+}
+
+// distance to the cell boundary and the next cell (-99: leaves the grid),
+// capped at max_path_step (grid.cc:2349-2597)
+template <int GEOM>
+__device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, int cell,
+                                         float px, float py, float pz, float dx, float dy,
+                                         float dz, float pos2, float pdotd, float tstart,
+                                         float& sdist, int& snext) {
+  if (GEOM == GEOM_SPH) {
+    const float coordmin0 = __ldg(tb.cellmin + cell), coordmax0 = __ldg(tb.cellmax + cell);
+    const float d_max = shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart,
+                                       coordmax0 * tstart / p.tmin, false, CLIGHT_PROP);
+    sdist = (d_max >= 0.0f && d_max < BIG) ? d_max : BIG;
+    snext = d_max >= 0.0f ? (cell == p.nprop - 1 ? BOUNDARY_ESCAPE : cell + 1) : -1;
+    const float r_inner = coordmin0 * tstart / p.tmin;
+    const float d_min = r_inner > 0.0f
+        ? shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart, r_inner, true, CLIGHT_PROP)
+        : -1.0f;
+    if (d_min >= 0.0f && d_min < sdist) {
+      sdist = d_min;
+      snext = cell == 0 ? BOUNDARY_ESCAPE : cell - 1;
+    }
+  } else if (GEOM == GEOM_CYL) {
+    // expanding circles in the xy plane for the rcyl bounds (the planar
+    // distance over the direction's xy length), homologous planes in z
+    const int n0 = p.nx, n1 = p.ny;
+    const int i_r = cell % n0, i_z = cell / n0;
+    const float dirxylen = sqrtf(dx * dx + dy * dy);
+    const bool has_xy = dirxylen > 1e-8f;
+    const float sdl = fmaxf(dirxylen, 1e-8f);
+    const float dxn = dx / sdl, dyn = dy / sdl;
+    const float xyspeed = sdl * CLIGHT_PROP;
+    const float pos2xy = px * px + py * py;
+    const float pdotdxy = px * dxn + py * dyn;
+    sdist = BIG;
+    snext = -1;
+    const float d_rc = shell_distance(px, py, 0.0f, dxn, dyn, 0.0f, pos2xy, pdotdxy, tstart,
+                                      __ldg(tb.cellmax + 2 * cell) * tstart / p.tmin, false,
+                                      xyspeed);
+    const float d_out = d_rc / sdl;
+    if (has_xy && d_rc >= 0.0f && d_out > 0.0f && d_out < sdist) {
+      sdist = d_out;
+      snext = i_r == n0 - 1 ? BOUNDARY_ESCAPE : cell + 1;
+    }
+    const float r_in = __ldg(tb.cellmin + 2 * cell) * tstart / p.tmin;
+    const float d_rc_in = r_in > 0.0f
+        ? shell_distance(px, py, 0.0f, dxn, dyn, 0.0f, pos2xy, pdotdxy, tstart, r_in, true,
+                         xyspeed)
+        : -1.0f;
+    const float d_in = d_rc_in / sdl;
+    if (has_xy && d_rc_in >= 0.0f && d_in < sdist) {
+      sdist = d_in;
+      snext = i_r == 0 ? BOUNDARY_ESCAPE : cell - 1;
+    }
+    const float velz = dz * CLIGHT_PROP;
+    const bool up = (velz * tstart) > pz;
+    const float db = plane_distance(
+        pz, velz, tstart, __ldg((up ? tb.cellmax : tb.cellmin) + 2 * cell + 1), p.tmin);
+    if (db >= 0.0f && db < sdist) {
+      sdist = db;
+      const bool at_edge = up ? (i_z == n1 - 1) : (i_z == 0);
+      snext = at_edge ? BOUNDARY_ESCAPE : cell + (up ? n0 : -n0);
+    }
+  } else {
+    const int nx = p.nx, ny = p.ny, nz = p.nz;
+    const int ci[3] = {cell % nx, (cell / nx) % ny, cell / (nx * ny)};
+    const int inc[3] = {1, nx, nx * ny};
+    const int nax[3] = {nx, ny, nz};
+    const float pv[3] = {px, py, pz};
+    const float dv[3] = {dx, dy, dz};
+    sdist = BIG;
+    snext = -1;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float veld = dv[ax] * CLIGHT_PROP;
+      const bool up = (veld * tstart) > pv[ax];
+      const float db = plane_distance(
+          pv[ax], veld, tstart, __ldg((up ? tb.cellmax : tb.cellmin) + 3 * cell + ax), p.tmin);
+      if (db >= 0.0f && db < sdist) {
+        sdist = db;
+        const bool at_edge = up ? (ci[ax] == nax[ax] - 1) : (ci[ax] == 0);
+        snext = at_edge ? BOUNDARY_ESCAPE : cell + (up ? inc[ax] : -inc[ax]);
+      }
+    }
+  }
+  if (sdist > p.max_path_step) {  // intra-cell step cap (grid.cc:2592-2594)
+    sdist = p.max_path_step;
+    snext = cell;
+  }
+}
+
+template <int GEOM>
 __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lanes in, Tables tb,
                                                               Outs out) {
   extern __shared__ double smem_d[];
   double* s_misc = smem_d;
-  float* s_est = reinterpret_cast<float*>(smem_d + NMISC);
-  float* s_gam = s_est + 4 * p.ncells;
-  float* s_bfh = s_gam + p.ncells * p.ngc;
-  const int nsh = p.ncells * (4 + 2 * p.ngc);
-  for (int i = threadIdx.x; i < nsh; i += blockDim.x) s_est[i] = 0.0f;
-  if (threadIdx.x < NMISC) s_misc[threadIdx.x] = 0.0;
+  const int nbfr = p.want_bfrate ? p.ncont : 0;
+  // estimator rows: this block's copy in shared memory, or the global rows
+  float *a_est, *a_gam, *a_bfh, *a_bfr;
+  if (p.shared_rows) {
+    a_est = reinterpret_cast<float*>(smem_d + NMISC);
+    a_gam = a_est + 4 * p.ncells;
+    a_bfh = a_gam + p.ncells * p.ngc;
+    a_bfr = a_bfh + p.ncells * p.ngc;
+    const int nsh = p.ncells * (4 + 2 * p.ngc + nbfr);
+    for (int i = threadIdx.x; i < nsh; i += blockDim.x) a_est[i] = 0.0f;
+  } else {
+    a_est = out.est;
+    a_gam = out.gamma;
+    a_bfh = out.bfheat;
+    a_bfr = out.bfrate;
+  }
+  for (int i = threadIdx.x; i < NMISC; i += blockDim.x) s_misc[i] = 0.0;
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   double m_nadv = 0.0, m_nesc = 0.0, m_lum = 0.0, m_escat = 0.0, m_thick = 0.0, m_cross = 0.0;
+  long long m_walk = 0, m_bfwin = 0;  // lines read by the walk, bf continua in windows
   if (lane < p.n) {
     const bool rel = p.relativistic != 0;
     const int nlines = p.nlines;
@@ -229,7 +359,6 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
       const float kgrey_p = __ldg(tb.kappagrey + smgi), rho_p = __ldg(tb.rho + smgi);
       const float chiffpart_p = __ldg(tb.chiffpart + smgi);
       const bool thick = nonempty && (__ldg(tb.thick + smgi) == 1);
-      const float coordmin0 = __ldg(tb.cellmin0 + cell), coordmax0 = __ldg(tb.cellmax0 + cell);
 
       float tau_next, sel_u, u_split, z1, z2;
       if (p.test_mode) {
@@ -249,24 +378,12 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
         u_split = v[0];
       }
 
-      // --- spherical boundary distance (grid.cc:2349-2597) ---
+      // --- boundary distance of the grid geometry ---
       const float pos2 = px * px + py * py + pz * pz;
       const float pdotd = px * dx + py * dy + pz * dz;
-      const float d_max =
-          shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart, coordmax0 * tstart / p.tmin, false);
-      float sdist = (d_max >= 0.0f && d_max < BIG) ? d_max : BIG;
-      int snext = d_max >= 0.0f ? (cell == p.nprop - 1 ? BOUNDARY_ESCAPE : cell + 1) : -1;
-      const float r_inner = coordmin0 * tstart / p.tmin;
-      const float d_min = r_inner > 0.0f
-          ? shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart, r_inner, true) : -1.0f;
-      if (d_min >= 0.0f && d_min < sdist) {
-        sdist = d_min;
-        snext = cell == 0 ? BOUNDARY_ESCAPE : cell - 1;
-      }
-      if (sdist > p.max_path_step) {  // intra-cell step cap (grid.cc:2592-2594)
-        sdist = p.max_path_step;
-        snext = cell;
-      }
+      float sdist;
+      int snext;
+      boundary<GEOM>(p, tb, cell, px, py, pz, dx, dy, dz, pos2, pdotd, tstart, sdist, snext);
       const float tdist = fmaxf((p.t2 - tstart) * CLIGHT_PROP, 0.0f);
       const float abort_dist = fminf(sdist, tdist);
 
@@ -292,6 +409,7 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
       int bf_lo = 0, bf_hi = 0;
       if (need_chi && p.ncont > 0) {
         bf_window(tb.cont_nu_edge, p.ncont, nu, p.last_nuovernuedge, bf_lo, bf_hi);
+        m_bfwin += bf_hi - bf_lo;
         for (int c = bf_lo; c < bf_hi; ++c) {
           const float edge = __ldg(tb.cont_nu_edge + c);
           const float sigma = bf_sigma(tb.cont_phixs + (size_t)c * p.nphixs, p.nphixs, nu, edge,
@@ -369,6 +487,7 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
             prevD = relD;
           }
         }
+        m_walk += max(0, min(ev_ntr, nlines) - cursor0);
       }
 
       // thick cells: grey opacity (rpkt.cc:647-654)
@@ -408,14 +527,17 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
       const bool crossing = take_boundary && snext >= 0;
       if (nonempty) {
         const float contrib = dist * ecmf1;
-        atomicAdd(s_est + 4 * mgi + 0, contrib);
-        atomicAdd(s_est + 4 * mgi + 1, contrib * nucmf1);
-        if (!thick) atomicAdd(s_est + 4 * mgi + 2, contrib * chi_ff);
-        if (crossing) atomicAdd(s_est + 4 * mgi + 3, 1.0f);
+        atomicAdd(a_est + 4 * mgi + 0, contrib);
+        atomicAdd(a_est + 4 * mgi + 1, contrib * nucmf1);
+        if (!thick) atomicAdd(a_est + 4 * mgi + 2, contrib * chi_ff);
+        if (crossing) atomicAdd(a_est + 4 * mgi + 3, 1.0f);
         if (!thick && bf_hi > bf_lo) {
-          // per-ground-continuum sigma*prob*corr (rpkt.cc:870-880) and the
-          // continuum selection draw (rpkt.cc:469-474), one pass
+          // per-ground-continuum sigma*prob*corr (rpkt.cc:870-880), the
+          // detailed per-continuum bf-rate (radfield.cc:204-233, weight
+          // contrib / nu_cmf * doppler at the segment-start frequency) and
+          // the continuum selection draw (rpkt.cc:469-474), one pass
           const float nuc1 = fmaxf(nucmf1, 1e-30f);
+          const float w_bfr = contrib / nuc1 * doppler;
           const float target = sel_u * chi_bf;
           float cum = 0.0f;
           int bf_idx = -1;
@@ -430,10 +552,12 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
             const int g = __ldg(tb.cont_gidx + c);
             if (g >= 0) {
               const float de = contrib * sigma * corr * __ldg(tb.cont_prob + c);
-              atomicAdd(s_gam + mgi * p.ngc + g, de / nuc1);
-              atomicAdd(s_bfh + mgi * p.ngc + g,
+              atomicAdd(a_gam + mgi * p.ngc + g, de / nuc1);
+              atomicAdd(a_bfh + mgi * p.ngc + g,
                         de * fmaxf(1.0f - __ldg(tb.gc_nu_edge + g) / nuc1, 0.0f));
             }
+            if (nbfr) atomicAdd(a_bfr + (size_t)mgi * nbfr + c,
+                                sigma * corr * __ldg(tb.cont_prob + c) * w_bfr);
           }
           if (take_event) ev_bfidx = bf_idx < 0 ? 0 : bf_idx;
         } else if (take_event) {
@@ -543,24 +667,45 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
     atomicAdd(s_misc + 3, m_escat);
     atomicAdd(s_misc + 4, m_thick);
     atomicAdd(s_misc + 5, m_cross);
+    atomicAdd(s_misc + 6, (double)m_walk);
+    atomicAdd(s_misc + 7, (double)m_bfwin);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < 4 * p.ncells; i += blockDim.x)
-    if (s_est[i] != 0.0f) atomicAdd(out.est + i, s_est[i]);
-  for (int i = threadIdx.x; i < p.ncells * p.ngc; i += blockDim.x) {
-    if (s_gam[i] != 0.0f) atomicAdd(out.gamma + i, s_gam[i]);
-    if (s_bfh[i] != 0.0f) atomicAdd(out.bfheat + i, s_bfh[i]);
+  if (p.shared_rows) {
+    for (int i = threadIdx.x; i < 4 * p.ncells; i += blockDim.x)
+      if (a_est[i] != 0.0f) atomicAdd(out.est + i, a_est[i]);
+    for (int i = threadIdx.x; i < p.ncells * p.ngc; i += blockDim.x) {
+      if (a_gam[i] != 0.0f) atomicAdd(out.gamma + i, a_gam[i]);
+      if (a_bfh[i] != 0.0f) atomicAdd(out.bfheat + i, a_bfh[i]);
+    }
+    for (int i = threadIdx.x; i < p.ncells * nbfr; i += blockDim.x)
+      if (a_bfr[i] != 0.0f) atomicAdd(out.bfrate + i, a_bfr[i]);
   }
-  if (threadIdx.x < NMISC && s_misc[threadIdx.x] != 0.0)
-    atomicAdd(out.misc + threadIdx.x, s_misc[threadIdx.x]);
+  for (int i = threadIdx.x; i < NMISC; i += blockDim.x)
+    if (s_misc[i] != 0.0) atomicAdd(out.misc + i, s_misc[i]);
+}
+
+template <int GEOM>
+cudaError_t launch(const RpktParams& p, const Lanes& in, const Tables& tb, const Outs& out,
+                   cudaStream_t stream) {
+  const int nbfr = p.want_bfrate ? p.ncont : 0;
+  const size_t smem = NMISC * sizeof(double) +
+      (p.shared_rows ? sizeof(float) * (size_t)p.ncells * (4 + 2 * p.ngc + nbfr) : 0);
+  cudaError_t err = cudaFuncSetAttribute(rpkt_crossing_kernel<GEOM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (p.n + BLOCK - 1) / BLOCK;
+  rpkt_crossing_kernel<GEOM><<<grid, BLOCK, smem, stream>>>(p, in, tb, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Pointer arrays follow the order of
 // LANE_F32 + LANE_I32 + (test_tau, test_sel), TABLES_F32 + TABLES_I32 and
-// OUT_F32 + OUT_I32 + (est, gamma, bfheat, misc) in rpkt_kernel.py. Launches
-// on the given stream without synchronising; returns cudaGetLastError().
+// OUT_F32 + OUT_I32 + (est, gamma, bfheat, bfrate, misc) in rpkt_kernel.py.
+// Launches on the given stream without synchronising; returns
+// cudaGetLastError() (cudaErrorInvalidValue for an unknown geometry).
 extern "C" int rpkt_crossing_launch(const RpktParams* prm, void** lanes, void** tables,
                                     void** outs, void* stream) {
   const RpktParams p = *prm;
@@ -579,12 +724,13 @@ extern "C" int rpkt_crossing_launch(const RpktParams* prm, void** lanes, void** 
            of[12], of[13], of[14], of[15], of[16], of[17], of[18],
            oi[0], oi[1], oi[2], oi[3], oi[4], oi[5], oi[6], oi[7], oi[8], oi[9], oi[10],
            reinterpret_cast<float*>(outs[30]), reinterpret_cast<float*>(outs[31]),
-           reinterpret_cast<float*>(outs[32]), reinterpret_cast<double*>(outs[33])};
-  const size_t smem = NMISC * sizeof(double) + sizeof(float) * (size_t)p.ncells * (4 + 2 * p.ngc);
-  cudaError_t err = cudaFuncSetAttribute(rpkt_crossing_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (p.n + BLOCK - 1) / BLOCK;
-  rpkt_crossing_kernel<<<grid, BLOCK, smem, static_cast<cudaStream_t>(stream)>>>(p, in, tb, out);
-  return (int)cudaGetLastError();
+           reinterpret_cast<float*>(outs[32]), reinterpret_cast<float*>(outs[33]),
+           reinterpret_cast<double*>(outs[34])};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (p.geom) {
+    case GEOM_SPH: return (int)launch<GEOM_SPH>(p, in, tb, out, st);
+    case GEOM_CYL: return (int)launch<GEOM_CYL>(p, in, tb, out, st);
+    case GEOM_CART: return (int)launch<GEOM_CART>(p, in, tb, out, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -11,9 +11,16 @@ tensor lives on the Simulation's ``device``; the r-packet crossing kernel
 runs as CUDA when that device is a GPU and as its plain version on the CPU.
 
 Ported slice: LTE grid updates (the ``first`` and ``lte`` modes — the
-kilonova_lte preset with ``num_lte_timesteps`` covering the run) on a
-SPHERICAL1D grid with DETAILED thermalisation. Other modes raise
-NotImplementedError.
+kilonova_lte preset with ``num_lte_timesteps`` covering the run) on
+SPHERICAL1D, CYLINDRICAL2D and CARTESIAN3D grids with DETAILED
+thermalisation, optionally with the detailed bf-rate estimators. Other modes
+raise NotImplementedError.
+
+The detailed bf-rate estimators (``detailed_bf_estimators_on``) are
+accumulated per (nonempty cell, bf continuum), carried through checkpoints
+and normalised into ``prev_bfrate_normed`` as the JAX driver does; their
+only consumer is the NLTE population solve, which is not ported, so nothing
+in the port reads them yet.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from . import packets as packets_mod
 from . import spectrum as spectrum_mod
 from . import stats as stats_mod
 from .atomic import to_device
-from .constants import DAY, FOURPI, LSUN, MEV, ONEOVER4PI
+from .constants import DAY, FOURPI, H, LSUN, MEV, ONEOVER4PI
 from .devutil import demote_to_f32
 from .estimators import Estimators, zero_estimators
 from .io import atomicdata as atomicdata_io
@@ -118,7 +125,7 @@ class Simulation:
     """Owns all static data and the evolving state of one run."""
 
     def __init__(self, rundir: str, opts: Options | None = None, datadir: str | None = None,
-                 device="cpu"):
+                 device="cuda"):
         self.device = torch.device(device)
         self.rundir = rundir
         self.datadir = datadir or os.path.join(rundir, "data")
@@ -243,6 +250,7 @@ class Simulation:
 
         self.est = self._zero_est()
         self.prev_est: Estimators | None = None
+        self.prev_bfrate_normed = None
         self.lc_lum = np.zeros(p.ntimesteps)
         self.lc_lumcmf = np.zeros(p.ntimesteps)
         self.gamma_dep_ts = np.zeros(p.ntimesteps)
@@ -335,8 +343,13 @@ class Simulation:
         return np.asarray(elem_massfrac)[:, lan].sum(axis=1)
 
     def _zero_est(self):
+        # detailed bf-rate estimators: one row per nonempty cell, one column
+        # per bf continuum (artis_tpu/driver.py:900-903)
+        bfr = self.opts.detailed_bf_estimators_on
         return zero_estimators(self.grid.nonempty_npts, max(self.ad.nbfcontinua_ground, 1),
-                               dtype=self.fdtype, device=self.device)
+                               dtype=self.fdtype, device=self.device,
+                               nbfrate=max(self.ad.nbfcontinua, 1) if bfr else 1,
+                               nbfrate_cells=self.grid.nonempty_npts if bfr else 1)
 
     # ------------------------------------------------------------------
     def _plasma_call(self, nts: int):
@@ -362,6 +375,11 @@ class Simulation:
             ffheating_norm = prev_est.ffheating * self._t(norm4pi * FOURPI)
             dep_heating = (prev_est.dep_gamma + prev_est.dep_positron + prev_est.dep_electron
                            + prev_est.dep_alpha) * self._t(norm4pi * FOURPI)
+            if (self.opts.detailed_bf_estimators_on
+                    and nts >= self.opts.detailed_bf_estimators_usefromtimestep):
+                # bfrate_raw * estimator_normfactor / H (radfield.cc:946;
+                # artis_tpu/driver.py:1305-1316), for the NLTE solve
+                self.prev_bfrate_normed = prev_est.bfrate * self._t(norm4pi * FOURPI / H)[:, None]
             lte_mode = nts < p.num_lte_timesteps
             if not (lte_mode or bool(np.all(_np(self.cells.thick) == 1))):
                 raise NotImplementedError(

@@ -1,11 +1,14 @@
-"""Propagation grid: 1D spherical shells.
+"""Propagation grid: 1D spherical shells, 2D cylindrical (rcyl, z) cells
+and 3D Cartesian cubes.
 
 Port of the JAX package's grid layer (reference: grid.cc:1048-1137 setup,
-grid.cc:2332-2597 get_cellindex_from_pos / boundary_distance,
-grid.cc:1222-1312 expanding_shell_intersection). Only the SPHERICAL1D grid is
-on the ported path; the 2D cylindrical and 3D Cartesian grids raise.
+grid.cc:470-527 model->grid mapping, grid.cc:2332-2597
+get_cellindex_from_pos / boundary_distance, grid.cc:1222-1312
+expanding_shell_intersection). Per-cell quantities are flat (ngrid, ...)
+tensors; the geometric routines are vectorised over packet batches.
 
-snext == -99 encodes escape from the grid.
+Cells are indexed x-fastest ("increment X first, then Y, then Z",
+reference: grid.cc:1419-1445). snext == -99 encodes escape from the grid.
 """
 
 from __future__ import annotations
@@ -30,14 +33,14 @@ META_FIELDS = ("grid_type", "ncoordgrid", "ngrid", "npts_model",
 class GridData:
     """Static propagation-grid geometry + model-cell association."""
 
-    cell_pos_min: torch.Tensor  # (ngrid, 1) at tmin
-    cell_pos_max: torch.Tensor  # (ngrid, 1)
+    cell_pos_min: torch.Tensor  # (ngrid, ndim) at tmin, grid coordinates
+    cell_pos_max: torch.Tensor  # (ngrid, ndim)
     mgi_of_cell: torch.Tensor  # (ngrid,); == npts_model for empty cells
     nonemptymgi_of_cell: torch.Tensor  # (ngrid,); -1 for empty
     cell_of_nonemptymgi: torch.Tensor  # (nonempty_npts,)
     rho_tmin_mgi: torch.Tensor  # (npts_model+1,)
     numpropcells_mgi: torch.Tensor  # (npts_model+1,)
-    vout_model: torch.Tensor  # (npts_model,)
+    vout_model: torch.Tensor  # (npts_model,) 1D shells' outer velocity (zeros otherwise)
     initial_radial_pos_sum_mgi: torch.Tensor  # (npts_model+1,)
 
     grid_type: GridType
@@ -48,7 +51,7 @@ class GridData:
     tmin: float
     rmax: float
     vmax: float
-    model_dim: int = 0
+    model_dim: int = 0  # dimensionality of the INPUT model
     model_ncoord: tuple = ()
 
     @property
@@ -64,43 +67,112 @@ class GridHost:
         self.__dict__.update(kw)
 
 
+def _geometry(model: ModelData, tmin: float, grid_type: GridType, ncoordgrid_xyz):
+    """(ncoordgrid, pos_min, pos_max, mgi_of_cell) at tmin for one grid type
+    and model dimensionality (reference: grid.cc:1048-1137, 470-527)."""
+    vmax = model.vmax
+    rmax = vmax * tmin
+    npts = model.npts_model
+    if grid_type == GridType.SPHERICAL1D:
+        if model.dim != 1:
+            raise ValueError(f"a {model.dim}D model on a SPHERICAL1D grid")
+        v_inner = np.concatenate([[0.0], model.vout_model[:-1]])
+        pos_min = (v_inner * tmin)[:, None]
+        pos_max = (model.vout_model * tmin)[:, None]
+        mgi_of_cell = np.where(model.rho_tmin > 0, np.arange(npts), npts)
+        return (npts, 1, 1), pos_min, pos_max, mgi_of_cell
+    if grid_type == GridType.CYLINDRICAL2D:
+        if model.dim != 2:
+            raise ValueError(f"a {model.dim}D model on a CYLINDRICAL2D grid")
+        n_rcyl, n_z = model.ncoord_model
+        ngrid = n_rcyl * n_z
+        i_r = np.arange(ngrid) % n_rcyl
+        i_z = np.arange(ngrid) // n_rcyl
+        pos_min = np.stack([i_r * rmax / n_rcyl, rmax * (-1.0 + i_z * 2.0 / n_z)], axis=-1)
+        pos_max = np.stack([(i_r + 1) * rmax / n_rcyl,
+                            rmax * (-1.0 + (i_z + 1) * 2.0 / n_z)], axis=-1)
+        mgi_of_cell = np.where(model.rho_tmin > 0, np.arange(ngrid), npts)
+        return (n_rcyl, n_z, 1), pos_min, pos_max, mgi_of_cell
+    if grid_type != GridType.CARTESIAN3D:
+        raise ValueError(grid_type)
+    ncoordgrid = tuple(int(v) for v in (model.ncoord_model if model.dim == 3
+                                         else ncoordgrid_xyz))
+    nx, ny, nz = ncoordgrid
+    if not nx == ny == nz:
+        raise ValueError(f"the 3D grid needs cubic cells (grid.cc:1069-1070), got {ncoordgrid}")
+    ngrid = nx * ny * nz
+    idx = np.arange(ngrid)
+    ix, iy, iz = idx % nx, (idx // nx) % ny, idx // (nx * ny)
+    wid = 2.0 * rmax / nx
+    pos_min = np.stack([-rmax + 2.0 * ix * rmax / nx, -rmax + 2.0 * iy * rmax / ny,
+                        -rmax + 2.0 * iz * rmax / nz], axis=-1)
+    pos_max = pos_min + wid
+    pos_mid = pos_min + 0.5 * wid
+    if model.dim == 3:
+        mgi_of_cell = np.where(model.rho_tmin > 0, idx, npts)
+    elif model.dim == 1:
+        # radial shell of the cell-centre velocity (grid.cc:470-487)
+        cellvmid = np.linalg.norm(pos_mid, axis=-1) / tmin
+        mgi = np.searchsorted(model.vout_model, cellvmid, side="left")
+        inside = mgi < npts
+        rho_ok = np.where(inside, model.rho_tmin[np.minimum(mgi, npts - 1)] > 0, False)
+        mgi_of_cell = np.where(inside & rho_ok, mgi, npts)
+    elif model.dim == 2:
+        # (rcyl, z) bin of the cell centre (grid.cc:489-517)
+        rcyl = np.sqrt(pos_mid[:, 0] ** 2 + pos_mid[:, 1] ** 2)
+        n_rcyl_model, n_z_model = model.ncoord_model
+        i_r = (rcyl / tmin / vmax * n_rcyl_model).astype(np.int64)
+        i_z = ((pos_mid[:, 2] / tmin + vmax) / (2 * vmax) * n_z_model).astype(np.int64)
+        valid = (i_r >= 0) & (i_r < n_rcyl_model) & (i_z >= 0) & (i_z < n_z_model)
+        mgi = np.where(valid, i_z * n_rcyl_model + i_r, npts)
+        rho_ok = model.rho_tmin[np.minimum(mgi, npts - 1)] > 0
+        mgi_of_cell = np.where(valid & rho_ok, mgi, npts)
+    else:
+        raise ValueError(model.dim)
+    return ncoordgrid, pos_min, pos_max, mgi_of_cell
+
+
 def grid_init(model: ModelData, tmin: float, grid_type: GridType,
               ncoordgrid_xyz=(50, 50, 50), with_host: bool = False,
               device="cpu"):
     """Build the propagation grid and map model cells onto it
-    (reference: grid.cc:2206-2325 grid_init, 1048-1137 setup_grid_*)."""
-    if grid_type != GridType.SPHERICAL1D:
-        raise NotImplementedError(f"grid_type={grid_type} (only SPHERICAL1D is ported)")
-    if model.dim != 1:
-        raise NotImplementedError(f"model dim {model.dim} on a SPHERICAL1D grid")
+    (reference: grid.cc:2206-2325 grid_init, 1048-1137 setup_grid_*).
+    ``ncoordgrid_xyz`` sizes the 3D grid of a 1D or 2D model; a 3D model
+    keeps its own grid."""
     vmax = model.vmax
     rmax = vmax * tmin
-    ncoordgrid = (model.npts_model, 1, 1)
-    ngrid = model.npts_model
-    v_inner = np.concatenate([[0.0], model.vout_model[:-1]])
-    pos_min = (v_inner * tmin)[:, None]
-    pos_max = (model.vout_model * tmin)[:, None]
-    mgi_of_cell = np.where(model.rho_tmin > 0, np.arange(ngrid), model.npts_model)
-    mgi_of_cell = mgi_of_cell.astype(np.int64)
+    ncoordgrid, pos_min, pos_max, mgi_of_cell = _geometry(model, tmin, grid_type,
+                                                          ncoordgrid_xyz)
+    mgi_of_cell = np.asarray(mgi_of_cell, dtype=np.int64)
+    ngrid = mgi_of_cell.shape[0]
 
     npts = model.npts_model
     numpropcells = np.bincount(mgi_of_cell, minlength=npts + 1).astype(np.int64)
+    # nonempty model cells: associated propcells AND rho > 0
+    # (reference: grid.cc:304-468 allocate_nonemptymodelcells)
     is_nonempty = (numpropcells[:npts] > 0) & (model.rho_tmin > 0)
     nonemptymgi_of_mgi = np.full(npts + 1, -1, dtype=np.int64)
     nonemptymgi_of_mgi[:npts][is_nonempty] = np.arange(is_nonempty.sum())
     nonemptymgi_of_cell = nonemptymgi_of_mgi[mgi_of_cell]
     nonempty_npts = int(is_nonempty.sum())
 
+    # a representative propagation cell for each nonempty model cell: the
+    # first one in cell order
+    cells_ne = np.nonzero(nonemptymgi_of_cell >= 0)[0]
+    uniq, first = np.unique(nonemptymgi_of_cell[cells_ne], return_index=True)
     cell_of_nonemptymgi = np.zeros(nonempty_npts, dtype=np.int64)
-    seen = np.full(nonempty_npts, False)
-    for cellidx in range(ngrid):
-        nemgi = nonemptymgi_of_cell[cellidx]
-        if nemgi >= 0 and not seen[nemgi]:
-            cell_of_nonemptymgi[nemgi] = cellidx
-            seen[nemgi] = True
+    cell_of_nonemptymgi[uniq] = cells_ne[first]
 
     rho_tmin_mgi = np.concatenate([model.rho_tmin, [0.0]])
-    radial_mid = 0.5 * (pos_min[:, 0] + pos_max[:, 0])
+    vout = model.vout_model if model.vout_model is not None else np.zeros(npts)
+
+    # per-model-cell sum of propcell radial midpoints at tmin
+    # (reference: grid.cc:304-333, get_cellradialposmid)
+    mid = 0.5 * (pos_min + pos_max)
+    if grid_type == GridType.SPHERICAL1D:
+        radial_mid = mid[:, 0]
+    else:
+        radial_mid = np.linalg.norm(mid, axis=1)
     initial_radial_pos_sum = np.zeros(npts + 1)
     np.add.at(initial_radial_pos_sum, mgi_of_cell, radial_mid)
 
@@ -118,16 +190,16 @@ def grid_init(model: ModelData, tmin: float, grid_type: GridType,
         return torch.as_tensor(np.asarray(x)).to(device)
 
     gd = GridData(
-        cell_pos_min=t(np.asarray(pos_min, np.float64)),
-        cell_pos_max=t(np.asarray(pos_max, np.float64)),
+        cell_pos_min=t(host.cell_pos_min),
+        cell_pos_max=t(host.cell_pos_max),
         mgi_of_cell=t(mgi_of_cell),
         nonemptymgi_of_cell=t(nonemptymgi_of_cell),
         cell_of_nonemptymgi=t(cell_of_nonemptymgi),
         rho_tmin_mgi=t(rho_tmin_mgi),
         numpropcells_mgi=t(numpropcells),
-        vout_model=t(np.asarray(model.vout_model, np.float64)),
+        vout_model=t(np.asarray(vout, np.float64)),
         initial_radial_pos_sum_mgi=t(initial_radial_pos_sum),
-        grid_type=grid_type, ncoordgrid=ncoordgrid, ngrid=ngrid,
+        grid_type=grid_type, ncoordgrid=tuple(int(v) for v in ncoordgrid), ngrid=int(ngrid),
         npts_model=npts, nonempty_npts=nonempty_npts, tmin=float(tmin),
         rmax=float(rmax), vmax=float(vmax), model_dim=int(model.dim),
         model_ncoord=tuple(int(v) for v in model.ncoord_model),
@@ -139,8 +211,9 @@ def grid_init(model: ModelData, tmin: float, grid_type: GridType,
 
 def _expanding_shell_intersection(pos, dirvec, speed, shellradius_tstart,
                                   isinnerboundary: bool, tstart):
-    """Closest forward distance to an expanding spherical shell; -1 where
-    there is no valid intersection (reference: grid.cc:1222-1312)."""
+    """Closest forward distance to an expanding spherical shell (or circle,
+    for 2D vectors); -1 where there is no valid intersection (reference:
+    grid.cc:1222-1312)."""
     dirdot = torch.sum(dirvec * dirvec, dim=-1)
     a = dirdot - (shellradius_tstart / tstart / speed) ** 2
     b = 2.0 * (torch.sum(dirvec * pos, dim=-1) - shellradius_tstart**2 / tstart / speed)
@@ -177,30 +250,109 @@ def _expanding_shell_intersection(pos, dirvec, speed, shellradius_tstart,
     return torch.where(disc > 0, result, neg)
 
 
+def _plane_crossing(grid: GridData, posd, veld, tstart, coordbound):
+    """Distance to a homologously expanding plane at ``coordbound`` (at tmin)
+    (reference: grid.cc:2448-2597)."""
+    tmin = grid.tmin
+    t_bound = (posd - veld * tstart) / (coordbound - veld * tmin) * tmin - tstart
+    return CLIGHT_PROP * t_bound
+
+
 def boundary_distance(grid: GridData, dirvec, pos, tstart, cellindex):
-    """Distance to the current shell boundary and the next cell index
-    (reference: grid.cc:2349-2597)."""
-    if grid.grid_type != GridType.SPHERICAL1D:
-        raise NotImplementedError(f"grid_type={grid.grid_type}")
+    """Distance to the current cell's boundary and the next cell index.
+
+    Vectorised over packets. Returns (distance, snext); snext == -99 means the
+    packet escapes the grid; snext == cellindex with distance == max_path_step
+    means an intra-cell step cap (reference: grid.cc:2349-2597)."""
     tmin = grid.tmin
     big = torch.finfo(pos.dtype).max
-    speed = torch.sqrt(torch.sum(dirvec * dirvec, dim=-1)) * CLIGHT_PROP
-    coordmax = grid.cell_pos_max[:, 0].to(pos.dtype)[cellindex]
-    coordmin = grid.cell_pos_min[:, 0].to(pos.dtype)[cellindex]
-    r_outer = coordmax * tstart / tmin
-    d_max = _expanding_shell_intersection(pos, dirvec, speed, r_outer, False, tstart)
-    bigt = torch.full_like(d_max, big)
-    distance = torch.where((d_max >= 0) & (d_max < big), d_max, bigt)
-    at_outer_edge = cellindex == (grid.ncoordgrid[0] - 1)
+    dt = pos.dtype
+    pos_min = grid.cell_pos_min.to(dt)[cellindex]
+    pos_max = grid.cell_pos_max.to(dt)[cellindex]
     esc = torch.full_like(cellindex, BOUNDARY_ESCAPE)
-    snext = torch.where(d_max >= 0, torch.where(at_outer_edge, esc, cellindex + 1),
-                        torch.full_like(cellindex, -1))
-    r_inner = coordmin * tstart / tmin
-    d_min_raw = _expanding_shell_intersection(pos, dirvec, speed, r_inner, True, tstart)
-    d_min = torch.where(r_inner > 0, d_min_raw, -torch.ones_like(d_min_raw))
-    take_min = (d_min >= 0) & (d_min < distance)
-    distance = torch.where(take_min, d_min, distance)
-    snext = torch.where(take_min, torch.where(cellindex == 0, esc, cellindex - 1), snext)
+
+    if grid.grid_type == GridType.SPHERICAL1D:
+        speed = torch.sqrt(torch.sum(dirvec * dirvec, dim=-1)) * CLIGHT_PROP
+        r_outer = pos_max[:, 0] * tstart / tmin
+        d_max = _expanding_shell_intersection(pos, dirvec, speed, r_outer, False, tstart)
+        distance = torch.where((d_max >= 0) & (d_max < big), d_max, torch.full_like(d_max, big))
+        at_outer_edge = cellindex == (grid.ncoordgrid[0] - 1)
+        snext = torch.where(d_max >= 0, torch.where(at_outer_edge, esc, cellindex + 1),
+                            torch.full_like(cellindex, -1))
+        r_inner = pos_min[:, 0] * tstart / tmin
+        d_min_raw = _expanding_shell_intersection(pos, dirvec, speed, r_inner, True, tstart)
+        d_min = torch.where(r_inner > 0, d_min_raw, -torch.ones_like(d_min_raw))
+        take_min = (d_min >= 0) & (d_min < distance)
+        distance = torch.where(take_min, d_min, distance)
+        snext = torch.where(take_min, torch.where(cellindex == 0, esc, cellindex - 1), snext)
+
+    elif grid.grid_type == GridType.CYLINDRICAL2D:
+        n0, n1 = grid.ncoordgrid[0], grid.ncoordgrid[1]
+        posnoz = pos[..., :2]
+        dirxylen = torch.sqrt(dirvec[..., 0] ** 2 + dirvec[..., 1] ** 2)
+        one = torch.ones_like(dirxylen)
+        safe_dirxylen = torch.where(dirxylen > 0, dirxylen, one)
+        xyspeed = dirxylen * CLIGHT_PROP
+        safe_xyspeed = torch.where(xyspeed > 0, xyspeed, one)
+        dirnoz = dirvec[..., :2] / safe_dirxylen[..., None]
+        i_r = cellindex % n0
+        i_z = cellindex // n0
+        distance = torch.full_like(tstart, big)
+        snext = torch.full_like(cellindex, -1)
+
+        r_outer = pos_max[:, 0] * tstart / tmin
+        d_rcyl_max = _expanding_shell_intersection(posnoz, dirnoz, xyspeed, r_outer, False,
+                                                   tstart)
+        d_z_from_rmax = d_rcyl_max / safe_xyspeed * dirvec[..., 2] * CLIGHT_PROP
+        d_max = torch.sqrt(d_rcyl_max**2 + d_z_from_rmax**2)
+        ok = (d_rcyl_max >= 0) & (d_max > 0) & (d_max < distance)
+        distance = torch.where(ok, d_max, distance)
+        snext = torch.where(ok, torch.where(i_r == n0 - 1, esc, cellindex + 1), snext)
+
+        r_inner = pos_min[:, 0] * tstart / tmin
+        d_rcyl_min = _expanding_shell_intersection(posnoz, dirnoz, xyspeed, r_inner, True,
+                                                   tstart)
+        d_rcyl_min = torch.where(r_inner > 0, d_rcyl_min, -one)
+        d_z_from_rmin = d_rcyl_min / safe_xyspeed * dirvec[..., 2] * CLIGHT_PROP
+        d_min = torch.sqrt(d_rcyl_min**2 + d_z_from_rmin**2)
+        ok = (d_rcyl_min >= 0) & (d_min >= 0) & (d_min < distance)
+        distance = torch.where(ok, d_min, distance)
+        snext = torch.where(ok, torch.where(i_r == 0, esc, cellindex - 1), snext)
+
+        # z planes, Cartesian-style
+        velz = dirvec[..., 2] * CLIGHT_PROP
+        posz = pos[..., 2]
+        moving_up = (velz * tstart) > posz
+        d_z = _plane_crossing(grid, posz, velz, tstart,
+                              torch.where(moving_up, pos_max[:, 1], pos_min[:, 1]))
+        ok = (d_z >= 0) & (d_z < distance)
+        at_edge = torch.where(moving_up, i_z == n1 - 1, i_z == 0)
+        step = torch.where(moving_up, n0, -n0)
+        distance = torch.where(ok, d_z, distance)
+        snext = torch.where(ok, torch.where(at_edge, esc, cellindex + step), snext)
+
+    elif grid.grid_type == GridType.CARTESIAN3D:
+        nx, ny, nz = grid.ncoordgrid
+        ncoord = (nx, ny, nz)
+        increments = (1, nx, nx * ny)
+        coords = (cellindex % nx, (cellindex // nx) % ny, cellindex // (nx * ny))
+        distance = torch.full_like(tstart, big)
+        snext = torch.full_like(cellindex, -1)
+        for d in range(3):
+            veld = dirvec[..., d] * CLIGHT_PROP
+            posd = pos[..., d]
+            moving_up = (veld * tstart) > posd
+            d_bound = _plane_crossing(grid, posd, veld, tstart,
+                                      torch.where(moving_up, pos_max[:, d], pos_min[:, d]))
+            ok = (d_bound >= 0) & (d_bound < distance)
+            at_edge = torch.where(moving_up, coords[d] == ncoord[d] - 1, coords[d] == 0)
+            step = torch.where(moving_up, increments[d], -increments[d])
+            distance = torch.where(ok, d_bound, distance)
+            snext = torch.where(ok, torch.where(at_edge, esc, cellindex + step), snext)
+    else:
+        raise ValueError(grid.grid_type)
+
+    # cap step length; stay in the same cell (reference: grid.cc:2592-2594)
     capped = distance > grid.max_path_step
     distance = torch.where(capped, torch.full_like(distance, grid.max_path_step), distance)
     snext = torch.where(capped, cellindex, snext)
@@ -208,7 +360,21 @@ def boundary_distance(grid: GridData, dirvec, pos, tstart, cellindex):
 
 
 def get_cellindex_from_pos(grid: GridData, pos, time):
-    """Propagation shell containing a position (reference: grid.cc:2332-2346)."""
+    """Propagation cell containing an xyz position (reference:
+    grid.cc:2332-2346)."""
+    if grid.grid_type == GridType.CARTESIAN3D:
+        nx = grid.ncoordgrid[0]
+        ii = ((pos / time[..., None] + grid.vmax) / (2 * grid.vmax) * nx).to(torch.int64)
+        ii = torch.clamp(ii, 0, nx - 1)
+        return ii[..., 0] + nx * ii[..., 1] + nx * nx * ii[..., 2]
+    if grid.grid_type == GridType.CYLINDRICAL2D:
+        n0, n1 = grid.ncoordgrid[0], grid.ncoordgrid[1]
+        rcyl = torch.sqrt(pos[..., 0] ** 2 + pos[..., 1] ** 2)
+        i_r = torch.clamp((rcyl / time / grid.vmax * n0).to(torch.int64), 0, n0 - 1)
+        i_z = torch.clamp(((pos[..., 2] / time + grid.vmax) / (2 * grid.vmax) * n1)
+                          .to(torch.int64), 0, n1 - 1)
+        return i_z * n0 + i_r
+    # SPHERICAL1D: non-uniform shells
     r = torch.sqrt(torch.sum(pos * pos, dim=-1))
     v = (r / time).to(torch.float64)
     idx = torch.searchsorted(grid.vout_model.to(v.device), v, side="left")
@@ -216,11 +382,17 @@ def get_cellindex_from_pos(grid: GridData, pos, time):
 
 
 def get_cell_volume_tmin(grid: GridData, host=None) -> np.ndarray:
-    """Shell volumes at tmin, (ngrid,), host float64 (reference:
+    """Propagation-cell volumes at tmin, (ngrid,), host float64 (reference:
     grid.cc:1358-1366)."""
+    if grid.grid_type == GridType.CARTESIAN3D:
+        wid = 2.0 * float(grid.rmax) / grid.ncoordgrid[0]
+        return np.full((grid.ngrid,), wid**3)
     if host is not None:
         pos_min, pos_max = host.cell_pos_min, host.cell_pos_max
     else:
         pos_min = grid.cell_pos_min.double().cpu().numpy()
         pos_max = grid.cell_pos_max.double().cpu().numpy()
+    if grid.grid_type == GridType.CYLINDRICAL2D:
+        dz = pos_max[:, 1] - pos_min[:, 1]
+        return dz * PI * (pos_max[:, 0] ** 2 - pos_min[:, 0] ** 2)
     return 4.0 / 3.0 * PI * (pos_max[:, 0] ** 3 - pos_min[:, 0] ** 3)

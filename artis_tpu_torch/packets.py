@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from . import geometry, rng
-from .constants import H
+from .constants import H, PI
 from .grid import GridData, get_cell_volume_tmin
 from .options import GridType, Options
 
@@ -202,11 +202,34 @@ def _sample_decaytimes(key, pathindex, tables: PelletTables, dtype):
     return tdecay, accepted
 
 
+def _sample_pos_in_cell(key, grid: GridData, cellindex, dtype):
+    """Uniform position within each packet's cell at tmin (reference:
+    packet.cc:37-64)."""
+    n = cellindex.shape[0]
+    dev = cellindex.device
+    pmin = grid.cell_pos_min.to(dtype)[cellindex]
+    pmax = grid.cell_pos_max.to(dtype)[cellindex]
+    if grid.grid_type == GridType.SPHERICAL1D:
+        # ratio form: r**3 at CGS radii overflows float32
+        z = rng.uniform(key, 2, n, dtype, dev)
+        r_inner, r_outer = pmin[:, 0], pmax[:, 0]
+        ratio3 = torch.where(r_outer > 0, r_inner / torch.clamp(r_outer, min=1.0),
+                             torch.zeros_like(r_outer)) ** 3
+        radius = r_outer * (z * ratio3 + (1.0 - z)) ** (1.0 / 3.0)
+        return rng.isotropic(key, 3, n, dtype, dev) * radius[:, None]
+    if grid.grid_type == GridType.CYLINDRICAL2D:
+        z = rng.uniform(key, 2, n, dtype, dev)
+        rcyl = torch.sqrt(z * pmin[:, 0] ** 2 + (1.0 - z) * pmax[:, 0] ** 2)
+        theta = rng.uniform(key, 3, n, dtype, dev) * 2.0 * PI
+        zpos = pmin[:, 1] + rng.uniform(key, 7, n, dtype, dev) * (pmax[:, 1] - pmin[:, 1])
+        return torch.stack([torch.cos(theta) * rcyl, torch.sin(theta) * rcyl, zpos], dim=-1)
+    # CARTESIAN3D
+    return pmin + rng.uniform(key, 2, (n, 3), dtype, dev) * (pmax - pmin)
+
+
 def packet_init(key, grid: GridData, tables: PelletTables, opts: Options,
                 device="cpu") -> PacketState:
     """Place all pellets (reference: packet.cc:86-162)."""
-    if grid.grid_type != GridType.SPHERICAL1D:
-        raise NotImplementedError(f"grid_type={grid.grid_type}")
     dtype = torch.float64 if opts.transport_dtype == "float64" else torch.float32
     npkts = opts.npkts
     st = empty_state(npkts, dtype, device)
@@ -214,15 +237,7 @@ def packet_init(key, grid: GridData, tables: PelletTables, opts: Options,
     target = rng.uniform(key, 1, npkts, torch.float64, device)
     cellindex = torch.searchsorted(tables.en_cumulative_cell, target, right=True)
     cellindex = torch.clamp(cellindex, max=grid.ngrid - 1)
-
-    # uniform position in the shell (ratio form: r**3 overflows float32)
-    z = rng.uniform(key, 2, npkts, dtype, device)
-    r_inner = grid.cell_pos_min[:, 0].to(dtype)[cellindex]
-    r_outer = grid.cell_pos_max[:, 0].to(dtype)[cellindex]
-    ratio3 = torch.where(r_outer > 0, r_inner / torch.clamp(r_outer, min=1.0),
-                         torch.zeros_like(r_outer)) ** 3
-    radius = r_outer * (z * ratio3 + (1.0 - z)) ** (1.0 / 3.0)
-    pos = rng.isotropic(key, 3, npkts, dtype, device) * radius[:, None]
+    pos = _sample_pos_in_cell(key, grid, cellindex, dtype)
 
     nonemptymgi = grid.nonemptymgi_of_cell[cellindex]
     chan_rows = tables.chan_cumulative[nonemptymgi]

@@ -86,15 +86,16 @@ class StepContext:
 
 def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     """Raise NotImplementedError naming the first option off the ported
-    slice (kilonova_lte-style LTE transport on a SPHERICAL1D grid)."""
+    slice (kilonova_lte-style LTE transport on a SPHERICAL1D, CYLINDRICAL2D
+    or CARTESIAN3D grid, optionally with detailed bf-rate estimators)."""
     off = [
-        ("grid_type", opts.grid_type != GridType.SPHERICAL1D),
+        ("grid_type", opts.grid_type not in (GridType.SPHERICAL1D, GridType.CYLINDRICAL2D,
+                                             GridType.CARTESIAN3D)),
         ("nlte_enabled", opts.nlte_enabled), ("nt_on", opts.nt_on),
         ("nt_solve_spencerfano", opts.nt_solve_spencerfano),
         ("vpkt_on", opts.vpkt_on), ("dipole", opts.dipole),
         ("multibin_radfield", opts.multibin_radfield),
         ("expansionopacities_on", opts.expansionopacities_on),
-        ("detailed_bf_estimators_on", opts.detailed_bf_estimators_on),
         ("detailed_line_estimators_on", opts.detailed_line_estimators_on),
         ("use_xcom_gammaphotoion", opts.use_xcom_gammaphotoion),
         ("record_linestat", opts.record_linestat),
@@ -113,6 +114,11 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
             raise NotImplementedError(f"option {name} is not ported")
     if opacity_case is not None and opacity_case < 4:
         raise NotImplementedError(f"opacity_case={opacity_case} (< 4) is not ported")
+
+
+def want_bfrate(opts: Options, dad: DeviceAtomicData) -> bool:
+    """Whether the crossing accumulates the detailed bf-rate estimators."""
+    return bool(opts.detailed_bf_estimators_on and dad.nbfcontinua > 0)
 
 
 def check_crossing_dtype(opts: Options) -> None:
@@ -598,7 +604,8 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
         max_inner=max(opts.rpkt_crossings_per_dispatch, 1),
         relativistic=opts.use_relativistic_doppler_shift,
         phixs_dnu=float(dad.nphixsnuincrement),
-        last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode)
+        last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
+        want_bfrate=want_bfrate(opts, dad), **rpkt_kernel.kernel_geometry(grid))
 
     def put(full, part):
         r = full.clone()
@@ -648,6 +655,8 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
         + out["gamma"][:, :ngc_real].to(est.gammaestimator.dtype),
         bfheatingestimator=est.bfheatingestimator
         + out["bfheat"][:, :ngc_real].to(est.bfheatingestimator.dtype))
+    if want_bfrate(opts, dad):
+        est = est.replace(bfrate=est.bfrate + out["bfrate"].to(est.bfrate.dtype))
     nadv = int(misc[0].item())
     if not bool(touched.any()):
         return (st, est) + none + (nadv,)

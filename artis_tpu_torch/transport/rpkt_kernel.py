@@ -1,18 +1,23 @@
 """The r-packet crossing kernel: its CUDA wrapper and its plain version.
 
 ``propagate`` advances every moving r-packet through up to ``max_inner``
-cell crossings: optical-depth draw, shell boundary distance, Doppler and
-abort frequency, continuum opacity (electron scattering + free-free +
-bound-free with phixs interpolation and log departure), continuum selection,
-the Sobolev line walk from each packet's cursor, in-kernel isotropic
-electron / thick-grey scattering, two half-moves with midpoint J, nuJ,
-ffheating and LUT photoionisation / bf-heating estimators, a Kahan-summed
-time and the boundary overshoot guard (reference: rpkt.cc:604-737
-do_rpkt_step without the event application).
+cell crossings: optical-depth draw, cell boundary distance (spherical
+shells, cylindrical (rcyl, z) cells or Cartesian cubes), Doppler and abort
+frequency, continuum opacity (electron scattering + free-free + bound-free
+with phixs interpolation and log departure), continuum selection, the
+Sobolev line walk from each packet's cursor, in-kernel isotropic electron /
+thick-grey scattering, two half-moves with midpoint J, nuJ, ffheating, LUT
+photoionisation / bf-heating and (optionally) detailed per-continuum
+bf-rate estimators, a Kahan-summed time and the boundary overshoot guard
+(reference: rpkt.cc:604-737 do_rpkt_step without the event application).
 
 It replaces the Pallas kernel ``propagate_blocked``
 (artis_tpu/transport/pallas_rpkt.py:1837, body ``_kernel`` :314-1822) in its
-1D spherical, resident-table, in-kernel-scatter configuration. For CUDA
+resident-table, in-kernel-scatter configurations: 1D spherical (:863-942),
+``cart3d`` (:588-631, :712-750), ``cyl2d`` (:751-862) and ``want_bfrate``
+(:1515-1532). The cylindrical distance scales the rcyl bounds to the step's
+start time as the XLA path does (artis_tpu/grid.py:372-390); the Pallas
+branch passes them at tmin. For CUDA
 tensors it launches ``csrc/rpkt_crossing.cu`` (built by ``build()``); for
 CPU tensors it runs ``propagate_reference``, the same computation written
 as a per-crossing loop over tensors. There is no fallback between the two.
@@ -53,14 +58,19 @@ OUT_F32 = ("posx", "posy", "posz", "dirx", "diry", "dirz", "nu_rf", "nu_cmf",
            "chi_cont", "em_x", "em_y", "em_z", "em_t")
 OUT_I32 = ("where", "next_trans", "evented", "escaped", "thick", "is_bb",
            "act_line", "bf_idx", "mgi", "nsc", "inkscat")
-TABLES_F32 = ("cellmin0", "cellmax0", "nne", "Te", "kappagrey", "rho",
+TABLES_F32 = ("cellmin", "cellmax", "nne", "Te", "kappagrey", "rho",
               "chiffpart", "line_nu", "tau_factor", "cont_nu_edge", "bf_a",
               "bf_dep", "cont_phixs", "cont_prob", "gc_nu_edge")
 TABLES_I32 = ("mgi_of_cell", "thick", "cont_gidx")
 # misc (float64): crossing steps, escapes, escaped cmf energy, in-kernel
-# electron scatters, thick-cell scatters, boundary crossings
-MISC = ("nadv", "nesc", "cmf_lum", "n_escat", "n_thickscat", "ncross")
+# electron scatters, thick-cell scatters, boundary crossings, lines read by
+# the walk (cursor advance) and bf continua in the opacity windows
+MISC = ("nadv", "nesc", "cmf_lum", "n_escat", "n_thickscat", "ncross", "nwalk", "nbfwin")
 NMISC = 8
+# grid geometry of a launch (the GridType values): the kernel is compiled
+# once per geometry
+GEOM_SPH, GEOM_CYL, GEOM_CART = 1, 2, 3
+GEOM_NDIM = {GEOM_SPH: 1, GEOM_CYL: 2, GEOM_CART: 3}
 
 
 # ---------------------------------------------------------------------------
@@ -77,11 +87,13 @@ def _doppler_at(dx, dy, dz, px, py, pz, t, relativistic):
     return dop
 
 
-def _shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart, radius_t, inner):
+def _shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart, radius_t, inner,
+                    speed=CLIGHT_PROP):
     """Distance to an expanding shell, -1 if none; the kernel's float32 form
     (grid.cc:1222-1312 with an exact 2^-33 rescale in the velocity test and
-    the ping-pong guard against re-intersecting the shell just crossed)."""
-    speed = CLIGHT_PROP
+    the ping-pong guard against re-intersecting the shell just crossed).
+    ``speed`` is the speed along the unit direction (d): c for a sphere, the
+    xy-plane speed for a cylinder (with the z parts zero)."""
     kgeo = 2.0 ** -33
     st_k = (speed * kgeo) * tstart
     a = 1.0 - (radius_t / tstart / speed) ** 2
@@ -120,6 +132,97 @@ def _shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart, radius_t, inner
     return torch.where(disc > 0, res, neg)
 
 
+def _plane_distance(posd, veld, tstart, coordbound, tmin):
+    """Distance to a homologously expanding plane at ``coordbound`` (at
+    tmin), the kernel's float32 form with a guarded zero denominator (a
+    packet moving with the plane never reaches it)."""
+    denom = coordbound - veld * tmin
+    denom = torch.where(denom != 0, denom, torch.full_like(denom, 1e-30))
+    return CLIGHT_PROP * ((posd - veld * tstart) / denom * tmin - tstart)
+
+
+def _boundary(geom, ncoord, tables, cell, px, py, pz, dx, dy, dz, pos2, pdotd, tstart,
+              tmin, max_path_step):
+    """(sdist, snext) of the kernel's grid geometry: spherical shells,
+    cylindrical (rcyl, z) cells or Cartesian cubes, with cell bounds at tmin
+    read from the cellmin/cellmax tables; snext -99 on leaving the grid and
+    the max_path_step cap (grid.cc:2349-2597)."""
+    nprop = tables["mgi_of_cell"].shape[0]
+    ndim = GEOM_NDIM[geom]
+    cmin = tables["cellmin"].view(nprop, ndim)[cell]
+    cmax = tables["cellmax"].view(nprop, ndim)[cell]
+    esc = torch.full_like(cell, BOUNDARY_ESCAPE)
+    big = torch.full_like(px, BIG)
+    neg = torch.full_like(px, -1.0)
+    if geom == GEOM_SPH:
+        d_max = _shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart,
+                                cmax[:, 0] * tstart / tmin, False)
+        sdist = torch.where((d_max >= 0) & (d_max < BIG), d_max, big)
+        snext = torch.where(d_max >= 0, torch.where(cell == nprop - 1, esc, cell + 1),
+                            torch.full_like(cell, -1))
+        r_inner = cmin[:, 0] * tstart / tmin
+        d_min = torch.where(r_inner > 0, _shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd,
+                                                         tstart, r_inner, True), neg)
+        take_min = (d_min >= 0) & (d_min < sdist)
+        sdist = torch.where(take_min, d_min, sdist)
+        snext = torch.where(take_min, torch.where(cell == 0, esc, cell - 1), snext)
+    elif geom == GEOM_CYL:
+        # expanding circles in the xy plane for the rcyl bounds (the planar
+        # distance over the direction's xy length), planes in z
+        n0, n1 = ncoord[0], ncoord[1]
+        i_r, i_z = cell % n0, cell // n0
+        dirxylen = torch.sqrt(dx * dx + dy * dy)
+        has_xy = dirxylen > 1e-8
+        sdl = torch.clamp(dirxylen, min=1e-8)
+        dxn, dyn = dx / sdl, dy / sdl
+        xyspeed = sdl * CLIGHT_PROP
+        zero = torch.zeros_like(px)
+        pos2xy = px * px + py * py
+        pdotdxy = px * dxn + py * dyn
+        sdist, snext = big, torch.full_like(cell, -1)
+        d_rc = _shell_distance(px, py, zero, dxn, dyn, zero, pos2xy, pdotdxy, tstart,
+                               cmax[:, 0] * tstart / tmin, False, speed=xyspeed)
+        d_out = d_rc / sdl
+        ok = has_xy & (d_rc >= 0) & (d_out > 0) & (d_out < sdist)
+        sdist = torch.where(ok, d_out, sdist)
+        snext = torch.where(ok, torch.where(i_r == n0 - 1, esc, cell + 1), snext)
+        r_in = cmin[:, 0] * tstart / tmin
+        d_rc = torch.where(r_in > 0, _shell_distance(px, py, zero, dxn, dyn, zero, pos2xy,
+                                                     pdotdxy, tstart, r_in, True,
+                                                     speed=xyspeed), neg)
+        d_in = d_rc / sdl
+        ok = has_xy & (d_rc >= 0) & (d_in < sdist)
+        sdist = torch.where(ok, d_in, sdist)
+        snext = torch.where(ok, torch.where(i_r == 0, esc, cell - 1), snext)
+        velz = dz * CLIGHT_PROP
+        up = (velz * tstart) > pz
+        db = _plane_distance(pz, velz, tstart, torch.where(up, cmax[:, 1], cmin[:, 1]), tmin)
+        ok = (db >= 0) & (db < sdist)
+        at_edge = torch.where(up, i_z == n1 - 1, i_z == 0)
+        sdist = torch.where(ok, db, sdist)
+        snext = torch.where(ok, torch.where(at_edge, esc, cell + torch.where(up, n0, -n0)),
+                            snext)
+    else:
+        nx, ny, nz = ncoord
+        coords = (cell % nx, (cell // nx) % ny, cell // (nx * ny))
+        sdist, snext = big, torch.full_like(cell, -1)
+        for ax, (pd, dd, inc, nax) in enumerate(((px, dx, 1, nx), (py, dy, nx, ny),
+                                                 (pz, dz, nx * ny, nz))):
+            veld = dd * CLIGHT_PROP
+            up = (veld * tstart) > pd
+            db = _plane_distance(pd, veld, tstart, torch.where(up, cmax[:, ax], cmin[:, ax]),
+                                 tmin)
+            ok = (db >= 0) & (db < sdist)
+            at_edge = torch.where(up, coords[ax] == nax - 1, coords[ax] == 0)
+            sdist = torch.where(ok, db, sdist)
+            snext = torch.where(ok, torch.where(at_edge, esc, cell + torch.where(up, inc, -inc)),
+                                snext)
+    capped = sdist > max_path_step
+    sdist = torch.where(capped, torch.full_like(sdist, max_path_step), sdist)
+    snext = torch.where(capped, cell, snext)
+    return sdist, snext
+
+
 def _bf_terms(nu, need_chi, tables, ngc, nphixs, phixs_dnu, last_nuovernuedge):
     """(B, C) window mask, cross-section and stimulated correction pieces."""
     edge = tables["cont_nu_edge"][None, :]
@@ -145,10 +248,11 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
                         ncells: int, ngc: int, nphixs: int, max_inner: int,
                         relativistic: bool, phixs_dnu: float,
                         last_nuovernuedge: float, test_mode: bool,
+                        geom: int = GEOM_SPH, ncoord=(1, 1, 1), want_bfrate: bool = False,
                         line_chunk: int = 128) -> dict:
     """The crossing kernel as a per-crossing loop over (N,) float32 tensors.
     Same signature and outputs as ``propagate``."""
-    from .linewalk import get_event_batch
+    from .linewalk import get_event_batch, initial_cursor
 
     s = {k: lanes[k].clone() for k in LANE_F32}
     px, py, pz = s["posx"], s["posy"], s["posz"]
@@ -171,21 +275,20 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
     em_x, em_y, em_z, em_t = zf.clone(), zf.clone(), zf.clone(), zf.clone()
     nsc = zi.clone()
     inkscat = zb.clone()
+    ncont = tables["cont_nu_edge"].shape[0]
     est = torch.zeros((ncells, 4), dtype=F32, device=dev)
     gam = torch.zeros((ncells, ngc), dtype=F32, device=dev)
     bfh = torch.zeros((ncells, ngc), dtype=F32, device=dev)
+    bfr = torch.zeros((ncells, ncont if want_bfrate else 0), dtype=F32, device=dev)
     misc = torch.zeros(NMISC, dtype=torch.float64, device=dev)
 
     mgi_of_cell = tables["mgi_of_cell"].long()
-    nprop = mgi_of_cell.shape[0]
     line_nu = tables["line_nu"]
     tau_factor = tables["tau_factor"]
-    ncont = tables["cont_nu_edge"].shape[0]
     gidx = tables["cont_gidx"].long()
     gmap = ((gidx[:, None] == torch.arange(ngc, device=dev)[None, :]) & (gidx[:, None] >= 0)).to(F32)
     cont_prob = tables["cont_prob"]
     gc_nu_edge = tables["gc_nu_edge"]
-    nu_lastline = line_nu[nlines - 1]
 
     for it in range(max_inner):
         mask = moving
@@ -201,8 +304,6 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         rho_p = tables["rho"][safe_mgi]
         chiffpart_p = tables["chiffpart"][safe_mgi]
         thick = nonempty & (tables["thick"][safe_mgi] == 1)
-        coordmin0 = tables["cellmin0"][cell]
-        coordmax0 = tables["cellmax0"][cell]
 
         if test_mode:
             tau_next = test_tau
@@ -218,22 +319,8 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
 
         pos2 = px * px + py * py + pz * pz
         pdotd = px * dx + py * dy + pz * dz
-        r_outer = coordmax0 * tstart / tmin
-        d_max = _shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart, r_outer, False)
-        sdist = torch.where((d_max >= 0) & (d_max < BIG), d_max, torch.full_like(d_max, BIG))
-        esc = torch.full_like(cell, BOUNDARY_ESCAPE)
-        snext = torch.where(d_max >= 0, torch.where(cell == nprop - 1, esc, cell + 1),
-                            torch.full_like(cell, -1))
-        r_inner = coordmin0 * tstart / tmin
-        d_min = torch.where(r_inner > 0, _shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd,
-                                                         tstart, r_inner, True),
-                            torch.full_like(r_inner, -1.0))
-        take_min = (d_min >= 0) & (d_min < sdist)
-        sdist = torch.where(take_min, d_min, sdist)
-        snext = torch.where(take_min, torch.where(cell == 0, esc, cell - 1), snext)
-        capped = sdist > max_path_step
-        sdist = torch.where(capped, torch.full_like(sdist, max_path_step), sdist)
-        snext = torch.where(capped, cell, snext)
+        sdist, snext = _boundary(geom, ncoord, tables, cell, px, py, pz, dx, dy, dz, pos2,
+                                 pdotd, tstart, tmin, max_path_step)
 
         tdist = torch.clamp((t2 - tstart) * CLIGHT_PROP, min=0.0)
         abort_dist = torch.minimum(sdist, tdist)
@@ -265,6 +352,7 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
             bf_idx = torch.where(hit.any(dim=1), torch.argmax(hit.to(torch.int8), dim=1), zi)
             contr_nl = torch.where(in_w, sigma * corr * cont_prob[None, :], torch.zeros_like(sigma))
             gamma_contr = contr_nl @ gmap
+            misc[7] += in_w.sum()
         else:
             chi_bf = zf
             bf_idx = zi
@@ -276,6 +364,10 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
             line_nu, lambda l: tau_factor[safe_mgi[:, None], l], nlines, nu, tstart, ntr,
             chi_cont, tau_next, abort_dist, nu_cmf_abort, dnudl, need_chi, relativistic,
             BIG, chunk=line_chunk)
+        # line-list cursor advance of the walk (the lines it read)
+        cursor0 = initial_cursor(line_nu, nu, ntr, nlines)
+        walked = torch.clamp(torch.clamp(ev.next_trans, max=nlines) - cursor0, min=0)
+        misc[6] += torch.where(need_chi, walked, zi).sum()
 
         chi_grey = kgrey_p * rho_p * doppler
         edist_thick = tau_next / torch.clamp(chi_grey, min=1e-30)
@@ -318,6 +410,13 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         nuc1 = torch.clamp(nucmf1, min=1e-30)[:, None]
         gam.index_add_(0, safe_mgi, de / nuc1)
         bfh.index_add_(0, safe_mgi, de * torch.clamp(1.0 - gc_nu_edge[None, :] / nuc1, min=0.0))
+        if want_bfrate and ncont > 0:
+            # detailed photoionisation-rate estimators per (cell, continuum)
+            # (radfield.cc:204-233): sigma * corr * probability at the
+            # segment-start frequency, weighted by contrib / nu_cmf * doppler
+            w_bfr = torch.where(seg_ok, contrib / nuc1[:, 0] * doppler, zf)
+            bfr.index_add_(0, safe_mgi, torch.where(in_w, sigma * corr * cont_prob[None, :],
+                                                    torch.zeros_like(sigma)) * w_bfr[:, None])
 
         fx, fy, fz = mx + dx * h, my + dy * h, mz + dz * h
         ft = mt + h / CLIGHT_PROP
@@ -394,6 +493,7 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
     out["est"] = est
     out["gamma"] = gam
     out["bfheat"] = bfh
+    out["bfrate"] = bfr
     out["misc"] = misc
     return out
 
@@ -454,6 +554,8 @@ class _Params(ctypes.Structure):
         ("nlines", ctypes.c_int), ("ncont", ctypes.c_int), ("ngc", ctypes.c_int),
         ("nphixs", ctypes.c_int), ("max_inner", ctypes.c_int),
         ("relativistic", ctypes.c_int), ("test_mode", ctypes.c_int),
+        ("geom", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
+        ("nz", ctypes.c_int), ("want_bfrate", ctypes.c_int), ("shared_rows", ctypes.c_int),
         ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
         ("t2", ctypes.c_float), ("tmin", ctypes.c_float),
         ("max_path_step", ctypes.c_float), ("phixs_dnu", ctypes.c_float),
@@ -468,13 +570,37 @@ def _ptrs(names, d):
     return arr
 
 
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
+# Largest estimator rows kept in shared memory. Measured on an H100 at
+# N=65536, max_inner=64 (chip_smoke.py): shared rows win at 832 B, 4 KB and
+# 7.6 KB of rows (3.9x, 1.10x, 1.31x), global atomics at 47 KB, 70 KB and
+# 122 KB (1.11x, 1.7x, 3.2x): every block zeroes and flushes its whole copy,
+# and large copies cut the blocks per SM, while few cells make global
+# atomics contend.
+SHARED_ROWS_MAX = 16 * 1024
+
+
+def row_bytes(ncells: int, ngc: int, nbfr: int) -> int:
+    """Shared memory of one block's estimator rows (J, nuJ, ffheating,
+    crossings, gamma and bf-heat per ground continuum, bf-rate per continuum)
+    plus the eight double counters."""
+    return 8 * NMISC + 4 * ncells * (4 + 2 * ngc + nbfr)
+
+
+def pick_shared_rows(ncells: int, ngc: int, nbfr: int) -> bool:
+    """Whether a launch keeps its estimator rows in shared memory (few
+    cells) rather than adding straight into the global rows (many cells)."""
+    return row_bytes(ncells, ngc, nbfr) <= SHARED_ROWS_MAX
+
+
 def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *, nlines,
             ncells, ngc, nphixs, max_inner, relativistic, phixs_dnu, last_nuovernuedge,
-            test_mode):
+            test_mode, geom=GEOM_SPH, ncoord=(1, 1, 1), want_bfrate=False, shared_rows=None):
     lib = build()
     dev = lanes["posx"].device
     n = lanes["posx"].shape[0]
     ncont = tables["cont_nu_edge"].shape[0]
+    nprop = tables["mgi_of_cell"].shape[0]
     for k in LANE_F32:
         _check(lanes[k], F32, (n,), k)
     for k in LANE_I32:
@@ -487,32 +613,53 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     _check(test_sel, F32, (n,), "test_sel")
     if tables["tau_factor"].shape != (ncells, tables["line_nu"].shape[0]):
         raise ValueError("tau_factor must be (ncells, nlines)")
-    smem = 4 * ncells * (4 + 2 * ngc)
-    if smem > 227 * 1024:
-        raise ValueError(f"estimator rows need {smem} bytes of shared memory (> 227 KB)")
+    if geom not in GEOM_NDIM:
+        raise ValueError(f"geometry {geom} is not one the kernel takes")
+    ndim = GEOM_NDIM[geom]
+    for k in ("cellmin", "cellmax"):
+        if tables[k].numel() != nprop * ndim:
+            raise ValueError(f"{k} must hold ({nprop}, {ndim}) cell bounds")
+    nx, ny, nz = (int(v) for v in ncoord)
+    if {GEOM_SPH: nx, GEOM_CYL: nx * ny, GEOM_CART: nx * ny * nz}[geom] != nprop:
+        raise ValueError(f"grid {ncoord} does not have {nprop} cells")
+    if geom == GEOM_CART and not nx == ny == nz:
+        raise ValueError(f"the 3D geometry needs a cubic grid, got {ncoord}")
+    nbfr = ncont if want_bfrate else 0
+    # estimator rows in shared memory (pick_shared_rows), else atomics
+    # straight into the global rows; a caller may force either mode to
+    # measure it
+    if shared_rows is None:
+        shared_rows = pick_shared_rows(ncells, ngc, nbfr)
+    elif shared_rows and row_bytes(ncells, ngc, nbfr) > SMEM_LIMIT:
+        raise ValueError(f"estimator rows need {row_bytes(ncells, ngc, nbfr)} bytes of "
+                         "shared memory (> 227 KB)")
     out = {k: torch.empty(n, dtype=F32, device=dev) for k in OUT_F32}
     out.update({k: torch.empty(n, dtype=I32, device=dev) for k in OUT_I32})
     out["est"] = torch.zeros((ncells, 4), dtype=F32, device=dev)
     out["gamma"] = torch.zeros((ncells, ngc), dtype=F32, device=dev)
     out["bfheat"] = torch.zeros((ncells, ngc), dtype=F32, device=dev)
+    out["bfrate"] = torch.zeros((ncells, nbfr), dtype=F32, device=dev)
     out["misc"] = torch.zeros(NMISC, dtype=torch.float64, device=dev)
-    prm = _Params(n=n, ncells=ncells, nprop=tables["mgi_of_cell"].shape[0], nlines=nlines,
+    prm = _Params(n=n, ncells=ncells, nprop=nprop, nlines=nlines,
                   ncont=ncont, ngc=ngc, nphixs=nphixs, max_inner=max_inner,
-                  relativistic=int(relativistic), test_mode=int(test_mode),
+                  relativistic=int(relativistic), test_mode=int(test_mode), geom=geom,
+                  nx=nx, ny=ny, nz=nz, want_bfrate=int(nbfr > 0), shared_rows=int(shared_rows),
                   seed_lo=seed & 0xFFFFFFFF, seed_hi=(seed >> 32) & 0xFFFFFFFF,
                   t2=t2, tmin=tmin, max_path_step=max_path_step, phixs_dnu=phixs_dnu,
                   last_nuovernuedge=last_nuovernuedge, pad0=0.0)
     in_lanes = dict(lanes, test_tau=test_tau, test_sel=test_sel)
     lane_ptrs = _ptrs(LANE_F32 + LANE_I32 + ("test_tau", "test_sel"), in_lanes)
     table_ptrs = _ptrs(TABLES_F32 + TABLES_I32, tables)
-    out_ptrs = _ptrs(OUT_F32 + OUT_I32 + ("est", "gamma", "bfheat", "misc"), out)
+    out_ptrs = _ptrs(OUT_F32 + OUT_I32 + ("est", "gamma", "bfheat", "bfrate", "misc"), out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if n > 0:
         err = lib.rpkt_crossing_launch(ctypes.byref(prm), lane_ptrs, table_ptrs, out_ptrs,
                                        ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"rpkt_crossing launch failed: cudaError {err}")
-        propagate.launches += 1
+        propagate.launches[CONFIG_OF_GEOM[geom]] += 1
+        if nbfr:
+            propagate.launches[CONFIG_BFRATE] += 1
     return out
 
 
@@ -529,19 +676,37 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
     """Advance moving r-packets through up to ``max_inner`` crossings.
 
     lanes: LANE_F32 (N,) float32 and LANE_I32 (N,) int32 tensors; tables:
-    TABLES_F32 float32 / TABLES_I32 int32 tensors (see ``kernel_tables``).
+    TABLES_F32 float32 / TABLES_I32 int32 tensors (see ``kernel_tables``);
+    ``geom`` / ``ncoord`` the grid (``kernel_geometry``); ``want_bfrate``
+    turns on the detailed bf-rate estimators.
     Returns OUT_F32/OUT_I32 lane tensors plus est (ncells, 4: J, nuJ,
-    ffheating, boundary crossings out of the cell), gamma and bfheat (ncells, ngc) and misc (MISC).
-    CUDA tensors launch the kernel; CPU tensors run the plain version."""
+    ffheating, boundary crossings out of the cell), gamma and bfheat
+    (ncells, ngc), bfrate (ncells, ncont, or ncells x 0 when off) and misc
+    (MISC). CUDA tensors launch the kernel; CPU tensors run the plain
+    version."""
     if lanes["posx"].is_cuda:
         return _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, **kw)
     return propagate_reference(seed, lanes, tables, test_tau, test_sel, t2, tmin,
                                max_path_step, **kw)
 
 
-# kernel launches since the last reset: a plain integer that a run resets
-# and reads to show that its main path went through the kernel
-propagate.launches = 0
+# kernel launches since the last reset, per kernel configuration: plain
+# integers that a run resets and reads to show that its main path went
+# through the kernel (a bf-rate launch counts for its geometry too)
+CONFIG_OF_GEOM = {GEOM_SPH: "rpkt_crossing_sph1d", GEOM_CYL: "rpkt_crossing_cyl2d",
+                  GEOM_CART: "rpkt_crossing_cart3d"}
+CONFIG_BFRATE = "rpkt_crossing_bfrate"
+propagate.launches = dict.fromkeys((*CONFIG_OF_GEOM.values(), CONFIG_BFRATE), 0)
+
+
+def reset_launches() -> None:
+    for k in propagate.launches:
+        propagate.launches[k] = 0
+
+
+def kernel_geometry(grid) -> dict:
+    """The ``geom`` and ``ncoord`` keywords of ``propagate`` for a grid."""
+    return dict(geom=int(grid.grid_type.value), ncoord=tuple(int(v) for v in grid.ncoordgrid))
 
 
 # Tolerances of compare_outputs. Both versions draw the same Philox numbers,
@@ -558,17 +723,19 @@ STATE_RTOL = 2e-3  # max over lanes: prop_time, nu_cmf, e_cmf, position
 # bf-heating to 1e-2 (the JAX package's sum tolerances), each cell plus a
 # 1e-6 share of its column's total for cells that hold almost nothing
 EST_RTOL = {"j": 5e-3, "nuj": 5e-3, "ffheating": 5e-3, "ncross": 5e-3, "gamma": 1e-2,
-            "bfheat": 1e-2}
+            "bfheat": 1e-2, "bfrate": 1e-2}
 VECTORS = {"pos": ("posx", "posy", "posz"), "dir": ("dirx", "diry", "dirz"),
            "em": ("em_x", "em_y", "em_z")}
 
 
-def compare_outputs(k: dict, p: dict) -> tuple[bool, dict]:
+def compare_outputs(k: dict, p: dict, est_k: dict | None = None,
+                    est_p: dict | None = None) -> tuple[bool, dict]:
     """Hold the kernel's outputs ``k`` to the plain version's ``p`` (same
     inputs, same draws): every lane output, every estimator cell and every
-    counter. Returns (ok, report); ``report["nonzero"]`` says which plain
-    estimator columns accumulated anything, so a caller can require each to
-    be exercised by at least one case."""
+    counter. The estimators are taken from ``est_k`` / ``est_p`` when given
+    (see ``check_kernel``). Returns (ok, report); ``report["nonzero"]`` says
+    which plain estimator columns accumulated anything, so a caller can
+    require each to be exercised by at least one case."""
     gk = {f: v.detach().cpu().numpy() for f, v in k.items()}
     gp = {f: v.detach().cpu().numpy() for f, v in p.items()}
     rep, ok = {}, True
@@ -604,17 +771,26 @@ def compare_outputs(k: dict, p: dict) -> tuple[bool, dict]:
         if name in ("pos", "prop_time", "nu_cmf", "e_cmf"):
             ok &= rep[f"{name}_maxrel"] <= STATE_RTOL
 
-    cols = {"j": gp["est"][:, 0], "nuj": gp["est"][:, 1], "ffheating": gp["est"][:, 2],
-            "ncross": gp["est"][:, 3], "gamma": gp["gamma"], "bfheat": gp["bfheat"]}
-    colk = {"j": gk["est"][:, 0], "nuj": gk["est"][:, 1], "ffheating": gk["est"][:, 2],
-            "ncross": gk["est"][:, 3], "gamma": gk["gamma"], "bfheat": gk["bfheat"]}
+    def columns(g):
+        return {"j": g["est"][:, 0], "nuj": g["est"][:, 1], "ffheating": g["est"][:, 2],
+                "ncross": g["est"][:, 3], "gamma": g["gamma"], "bfheat": g["bfheat"],
+                "bfrate": g["bfrate"]}
+
+    if est_k is not None:
+        cols = columns({f: v.detach().cpu().numpy() for f, v in est_p.items()})
+        colk = columns({f: v.detach().cpu().numpy() for f, v in est_k.items()})
+    else:
+        cols, colk = columns(gp), columns(gk)
     rep["nonzero"] = {}
     for name, a in cols.items():
         a = a.astype(np.float64)
         b = colk[name].astype(np.float64)
+        if a.shape != b.shape:
+            raise ValueError(f"{name}: kernel {b.shape} against plain {a.shape}")
         total = np.abs(a).sum(axis=0)
         excess = np.abs(b - a) - EST_RTOL[name] * np.abs(a) - 1e-6 * total
-        rep[f"{name}_cellmaxrel"] = float(np.max(np.abs(b - a) / np.maximum(np.abs(a), 1e-300)))
+        rep[f"{name}_cellmaxrel"] = (float(np.max(np.abs(b - a) / np.maximum(np.abs(a), 1e-300)))
+                                     if a.size else 0.0)
         rep["nonzero"][name] = bool(total.sum() > 0)
         ok &= bool(np.all(excess <= 0))
     # counters within 2% + 3 packets (the JAX package's crossing-count
@@ -627,14 +803,45 @@ def compare_outputs(k: dict, p: dict) -> tuple[bool, dict]:
     return bool(ok), rep
 
 
+def check_kernel(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: float,
+                 tmin: float, max_path_step: float, shared_rows=None, **kw):
+    """Launch the kernel on CUDA lanes, run its plain version on the same
+    inputs and compare them (``compare_outputs``). Float32 rounding (CUDA's
+    math functions against torch's) can tip a near-tie, after which a lane
+    follows another path through other cells; a few such lanes out of
+    65536 move the estimators of cells that few lanes visit by more than
+    their rounding tolerance. The lanes whose cell or packet type differ
+    are therefore held still (``moving`` = 0) in a second launch of both
+    versions, whose estimators are compared cell by cell; lane outputs and
+    counters come from the first. Returns (ok, report, kernel outputs,
+    plain outputs)."""
+    args = (seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step)
+    k = _launch(*args, shared_rows=shared_rows, **kw)
+    p = propagate_reference(*args, **kw)
+    diverged = ((k["where"] != p["where"]) | (k["escaped"] != p["escaped"])
+                | (k["evented"] != p["evented"]))
+    est_k = est_p = None
+    if bool(diverged.any()):
+        held = dict(lanes, moving=torch.where(diverged, torch.zeros_like(lanes["moving"]),
+                                              lanes["moving"]).contiguous())
+        args = (seed, held) + args[2:]
+        est_k = _launch(*args, shared_rows=shared_rows, **kw)
+        est_p = propagate_reference(*args, **kw)
+    ok, rep = compare_outputs(k, p, est_k, est_p)
+    rep["diverged_lanes"] = int(diverged.sum())
+    return ok, rep, k, p
+
+
 def kernel_tables(dad, grid, cells, ctx) -> dict:
     """The per-timestep table set of the kernel, float32/int32 contiguous on
     the cells' device (the wrapper-side counterpart of rpkt_step_pallas's
-    table dict)."""
+    table dict). The cell bounds are the grid's (ngrid, ndim) tables at
+    tmin; the model cell of each propagation cell is the grid's host-built
+    ``nonemptymgi_of_cell``, so every model dimensionality maps as the XLA
+    path maps it."""
     dev = cells.Te.device
     ncells = cells.Te.shape[0]
     ngc = max(dad.nbfcontinua_ground, 1)
-    nprop = int(grid.ncoordgrid[0])
 
     def f(x):
         return x.to(device=dev, dtype=F32).contiguous()
@@ -659,8 +866,8 @@ def kernel_tables(dad, grid, cells, ctx) -> dict:
             cont_prob=torch.zeros(0, dtype=F32, device=dev),
             cont_gidx=torch.zeros(0, dtype=I32, device=dev))
     return dict(
-        mgi_of_cell=i(grid.nonemptymgi_of_cell[:nprop]),
-        cellmin0=f(grid.cell_pos_min[:nprop, 0]), cellmax0=f(grid.cell_pos_max[:nprop, 0]),
+        mgi_of_cell=i(grid.nonemptymgi_of_cell),
+        cellmin=f(grid.cell_pos_min), cellmax=f(grid.cell_pos_max),
         nne=f(cells.nne), Te=f(cells.Te), kappagrey=f(cells.kappagrey), rho=f(cells.rho),
         thick=i(cells.thick), chiffpart=f(ctx.chi_ff_nnionpart), line_nu=f(dad.line_nu),
         tau_factor=f(ctx.tau_sob_factor), gc_nu_edge=f(dad.groundcont_nu_edge[:ngc]),

@@ -7,18 +7,32 @@ line is printed):
   1. device check: a CUDA device is required; prints nvidia-smi's name and
      power limit;
   2. build: compiles the r-packet crossing kernel from csrc/ with nvcc;
-  3. kernel vs plain version on the card, at the default scene's shapes
-     (65536 r-packets, 16 shells, 196 lines) with tables from the port's own
-     timestep 0, and on the r-packets that the port's own timestep 0 leaves
-     in flight; injected and Philox draws; the tolerances of the JAX
-     package's kernel parity tests; then the time of each side at
-     max_inner=64;
-  4. the default scene end to end through ``artis_tpu_torch.cli.main_sn3d``
-     (65536 packets, float32), checking that the main path launched the
-     kernel, that every timestep completed and that the outputs are finite;
-  5. a realistic size end to end: 128 shells with the default density
-     profile, a ~1e5-line Fe atom, 2^20 packets;
-  6. prints the kernel record and, last, the device record.
+  3. kernel vs plain version on the card, injected and Philox draws, the
+     tolerances of the JAX package's kernel parity tests
+     (rpkt_kernel.compare_outputs, every estimator cell by cell):
+     - 1D spherical: the default scene's shapes (65536 r-packets, 16 shells,
+       196 lines) with timestep-0 tables, and the r-packets the port's own
+       timestep 0 leaves in flight at the default and the 128-shell /
+       101k-line sizes;
+     - 3D Cartesian with detailed bf-rate estimators: a 1D model on the
+       50^3 grid (max_inner 1, 4, 64), a 2D model on a 12^3 grid, the big
+       scene (16^3 3D model, 2176 cells, 101k lines) with its own
+       timestep-0 tables and the lanes its timestep 0 leaves in flight
+       (timestep 1's non-grey tables), and a 32^3 model whose estimator
+       rows exceed shared memory;
+     - 2D cylindrical: the 25 x 50 kilonova_2d_2dgrid model;
+     then the time of each kernel configuration against its plain version
+     at N=65536, max_inner=64 (plain, kernel, kernel, plain), the kernel in
+     both estimator-row modes (shared memory, global atomics) where the
+     rows fit shared memory;
+  4. end to end through ``artis_tpu_torch.cli.main_sn3d``, each run with the
+     launch counts reset just before it and read just after: the default
+     1D scene (65536 packets), the 128-shell 1D scene (2^20 packets), the
+     big 3D scene with detailed bf-rate estimators (2^20 packets,
+     timesteps 0-2) and kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
+     timesteps 0-1); every timestep completes, every output is finite and
+     packets escape;
+  5. prints the kernel records, the card and, last, the device record.
 """
 
 from __future__ import annotations
@@ -39,8 +53,18 @@ sys.path.insert(0, REPO)
 
 NPKTS_DEFAULT = 65536
 NPKTS_REAL = 1 << 20
+NPKTS_2D = 1 << 18
 KERNEL_SOURCE = "artis_tpu_torch/csrc/rpkt_crossing.cu"
-REPLACES = "artis_tpu/transport/pallas_rpkt.py:1837"
+PALLAS = "artis_tpu/transport/pallas_rpkt.py"
+# kernel configuration -> (record name, the Pallas branch it replaces)
+CONFIGS = {
+    "rpkt_crossing_sph1d": ("K1", f"{PALLAS}:863"),
+    "rpkt_crossing_cart3d": ("K2", f"{PALLAS}:712"),
+    "rpkt_crossing_cyl2d": ("K3", f"{PALLAS}:751"),
+    "rpkt_crossing_bfrate": ("K5-bfrate", f"{PALLAS}:1515"),
+}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
+FP32_OPS_PER_S = 67e12
 
 
 def log(msg):
@@ -64,15 +88,54 @@ def real_scene(d):
     write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
 
 
-# the main path's options (besides npkts and the SPHERICAL1D grid)
+def big_scene(d):
+    """The JAX package's bench `big` scene (bench.py:161-188): a 16^3 3D
+    model (2176 nonempty cells) with the 101,010-line Fe atom."""
+    from artis_tpu_torch.synthdata import make_run, write_synthetic_atomicdata
+
+    make_run(d, ncells=16, ntimesteps=4, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
+             model_dim=3, logrho0=-9.0, logrho_slope=-0.15)
+    write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
+
+
+def cyl_scene(d):
+    """kilonova_2d_2dgrid (tests/test_configmatrix.py) at 25 x 50 cells."""
+    from artis_tpu_torch.synthdata import make_run
+
+    make_run(d, ncells=25, ntimesteps=3, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
+             model_dim=2, logrho0=-9.0, logrho_slope=-0.15)
+
+
+def small_cyl_scene(d):
+    from artis_tpu_torch.synthdata import make_run
+
+    make_run(d, ncells=10, ntimesteps=3, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
+             model_dim=2, logrho0=-9.0, logrho_slope=-0.15)
+
+
+def model2d_scene(d):
+    from artis_tpu_torch.synthdata import make_run
+
+    make_run(d, ncells=3, ntimesteps=6, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
+             model_dim=2, logrho0=-9.0, logrho_slope=-0.15)
+
+
+def model32_scene(d):
+    from artis_tpu_torch.synthdata import make_run
+
+    make_run(d, ncells=32, ntimesteps=6, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
+             model_dim=3, logrho0=-9.0, logrho_slope=-0.15 * 15 / 31)
+
+
+# the main path's options (besides npkts and the grid)
 OPTS = dict(transport_dtype="float32", mintemp=1000.0, maxtemp=20000.0, tablesize=20,
             rpkt_crossings_per_dispatch=64)
 
 
-def cli_args(d, npkts):
+def cli_args(d, npkts, grid_type, **extra):
     args = ["--rundir", d, "--device", "cuda", "--set", f"npkts={npkts}",
-            "--set", "grid_type=SPHERICAL1D"]
-    for k, v in OPTS.items():
+            "--set", f"grid_type={grid_type}"]
+    for k, v in dict(OPTS, **extra).items():
         args += ["--set", f"{k}={v!r}"]
     return args
 
@@ -103,21 +166,30 @@ def phase_build():
 
 
 def forced_lanes(sim, t0, n, seed):
-    """In-flight r-packets spread over the shells at time t0 (the JAX parity
-    tests' _force_rpkt_state), as float32/int32 CUDA lane tensors, with
-    numpy-made injected draws."""
+    """In-flight r-packets spread over the grid at time t0 (the JAX parity
+    tests' _force_rpkt_state; shells for 1D, a volume for 2D/3D), as
+    float32/int32 CUDA lane tensors, with numpy-made injected draws."""
     import torch
+
+    from artis_tpu_torch.grid import get_cellindex_from_pos
+    from artis_tpu_torch.options import GridType
 
     rng = np.random.default_rng(seed)
     grid = sim.grid
-    ncell = int(grid.ncoordgrid[0])
-    cell = rng.integers(0, ncell, n)
-    rmin = sim.grid_host.cell_pos_min[:ncell, 0] * t0 / grid.tmin
-    rmax = sim.grid_host.cell_pos_max[:ncell, 0] * t0 / grid.tmin
-    r = rmin[cell] + (rmax[cell] - rmin[cell]) * rng.uniform(0.02, 0.98, n)
     u = rng.normal(size=(n, 3))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
-    pos = u * r[:, None]
+    if grid.grid_type == GridType.SPHERICAL1D:
+        ncell = int(grid.ncoordgrid[0])
+        cell = rng.integers(0, ncell, n)
+        rmin = sim.grid_host.cell_pos_min[:ncell, 0] * t0 / grid.tmin
+        rmax = sim.grid_host.cell_pos_max[:ncell, 0] * t0 / grid.tmin
+        r = rmin[cell] + (rmax[cell] - rmin[cell]) * rng.uniform(0.02, 0.98, n)
+        pos = u * r[:, None]
+    else:
+        rmax_t = grid.rmax * t0 / grid.tmin
+        pos = u * (rmax_t * rng.uniform(0.0, 0.95, n) ** (1 / 3))[:, None]
+        cell = get_cellindex_from_pos(grid, torch.as_tensor(pos),
+                                      torch.full((n,), t0, dtype=torch.float64)).numpy()
     dv = rng.normal(size=(n, 3))
     dv /= np.linalg.norm(dv, axis=1, keepdims=True)
     nu = 10 ** rng.uniform(14.2, 15.9, n)
@@ -145,13 +217,16 @@ def ionised_tables(tables):
                 chiffpart=nne * 3.69255e8 / torch.sqrt(te))
 
 
-def _kernel_kw(sim):
+def _kernel_kw(sim, want_bfrate):
+    from artis_tpu_torch.transport import rpkt_kernel
+
     dad = sim.dad
     return dict(nlines=dad.nlines, ncells=sim.cells.Te.shape[0],
                 ngc=max(dad.nbfcontinua_ground, 1), nphixs=dad.nphixspoints,
                 relativistic=sim.opts.use_relativistic_doppler_shift,
                 phixs_dnu=float(dad.nphixsnuincrement),
-                last_nuovernuedge=float(dad.last_phixs_nuovernuedge))
+                last_nuovernuedge=float(dad.last_phixs_nuovernuedge),
+                want_bfrate=want_bfrate, **rpkt_kernel.kernel_geometry(sim.grid))
 
 
 def _captured_case(sim, seed):
@@ -176,7 +251,7 @@ def _captured_case(sim, seed):
     return (f"captured(N={ncap}) max_inner=64", cap, tables, tau, sel, float(ctx1.t2), 64)
 
 
-def _check_cases(sim, cases, nonzero):
+def _check_cases(sim, cases, nonzero, want_bfrate=False):
     """Kernel against plain version on each case, injected and Philox draws
     (rpkt_kernel.compare_outputs); raises on any disagreement. Marks in
     ``nonzero`` each estimator the plain version accumulated. Returns the
@@ -185,19 +260,16 @@ def _check_cases(sim, cases, nonzero):
 
     from artis_tpu_torch.transport import rpkt_kernel
 
-    kw = _kernel_kw(sim)
+    kw = _kernel_kw(sim, want_bfrate)
     tmin, mps = float(sim.grid.tmin), float(sim.grid.max_path_step)
-    before = rpkt_kernel.propagate.launches
+    before = dict(rpkt_kernel.propagate.launches)
     ok_all, errs = True, []
     for tag, ln, tb, ta, se, t2, max_inner in cases:
         for test_mode in (True, False):
-            args = (12345, ln, tb, ta, se, t2, tmin, mps)
-            k = rpkt_kernel.propagate(*args, max_inner=max_inner, test_mode=test_mode, **kw)
+            ok, rep, k, p = rpkt_kernel.check_kernel(
+                12345, ln, tb, ta, se, t2, tmin, mps,
+                max_inner=max_inner, test_mode=test_mode, **kw)
             torch.cuda.synchronize()
-            p = rpkt_kernel.propagate_reference(*args, max_inner=max_inner,
-                                                test_mode=test_mode, **kw)
-            torch.cuda.synchronize()
-            ok, rep = rpkt_kernel.compare_outputs(k, p)
             both = (k["where"] == p["where"]) & (k["escaped"] == p["escaped"])
             err = float((k["prop_time"].double() - p["prop_time"].double())[both].abs().max()) \
                 if bool(both.any()) else 0.0
@@ -210,21 +282,115 @@ def _check_cases(sim, cases, nonzero):
             errs.append(err)
     # comparison launches (and the timesteps run to capture lanes) are not
     # main-path launches
-    rpkt_kernel.propagate.launches = before
+    rpkt_kernel.propagate.launches.update(before)
     if not ok_all:
-        raise RuntimeError("kernel disagrees with its plain version")
+        raise RuntimeError(f"kernel disagrees with its plain version ({sim.rundir})")
     return errs
 
 
-def _phase3_sim(workdir, name, make_scene, npkts):
+def _phase3_sim(workdir, name, make_scene, npkts, grid_type="SPHERICAL1D", **extra):
     from artis_tpu_torch.driver import Simulation
     from artis_tpu_torch.options import GridType, kilonova_lte
 
     d = os.path.join(workdir, name)
     os.makedirs(d)
     make_scene(d)
-    opts = kilonova_lte(npkts=npkts, grid_type=GridType.SPHERICAL1D, **OPTS)
+    opts = kilonova_lte(npkts=npkts, grid_type=GridType[grid_type], **OPTS, **extra)
     return Simulation(d, opts, device="cuda")
+
+
+def _cases(name, sim, tables, t0, t2, mis, seed, n=NPKTS_DEFAULT):
+    lanes, tau, sel = forced_lanes(sim, t0, n, seed)
+    return [(f"{name} max_inner={mi}", lanes, tables, tau, sel, t2, mi) for mi in mis]
+
+
+def _nongrey_tables(sim, ctx):
+    import torch
+
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    tables = rpkt_kernel.kernel_tables(sim.dad, sim.grid, sim.cells, ctx)
+    return tables, dict(tables, thick=torch.zeros_like(tables["thick"]))
+
+
+def _timed(fn, reps):
+    import torch
+
+    out = fn()
+    torch.cuda.synchronize()
+    s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps, out
+
+
+def _bound_ms(out, n, ncells, ngc, nbfr, ndim):
+    """The least time the card could take for one call with these inputs:
+    bytes moved (lane state in and out once, one cell row per crossing, the
+    lines the walk read, the bf continua in the opacity windows, the
+    estimator rows out once) over the HBM rate, against an operation count
+    (about 400 float32 operations per crossing, 20 per line read and 40 per
+    bf continuum, counted from the source) over the float32 peak. Returns
+    (ms, 'bytes' or 'operations')."""
+    misc = out["misc"].double().cpu().numpy()
+    nadv, nwalk, nbfwin = misc[0], misc[6], misc[7]
+    lane_bytes = n * (17 * 4 + 30 * 4)  # 17 lane inputs, 30 lane outputs
+    row_bytes = 4 * (1 + 6 + 2 * ndim)  # mgi, six cell values, cell bounds
+    bf_bytes = 4 * (1 + 2 + 3 + 1)  # edge, two phixs points, a/dep/prob, ground index
+    est_bytes = 4 * ncells * (4 + 2 * ngc + nbfr)
+    nbytes = lane_bytes + nadv * row_bytes + nwalk * 8 + nbfwin * bf_bytes + est_bytes
+    ops = 400.0 * nadv + 20.0 * nwalk + 40.0 * nbfwin
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7):
+    """Kernel against plain version at N=65536, max_inner=64, Philox draws:
+    CUDA-event means in turns, plain, each estimator-row mode the rows
+    allow (shared, global), the same in reverse, plain. ``ms`` is the mode
+    the wrapper picks."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    lanes, tau, sel = forced_lanes(sim, t0, NPKTS_DEFAULT, seed)
+    kw = _kernel_kw(sim, want_bfrate)
+    args = (12345, lanes, tables, tau, sel, t2, float(sim.grid.tmin),
+            float(sim.grid.max_path_step))
+    ncont = sim.dad.nbfcontinua if want_bfrate else 0
+    rows = rpkt_kernel.row_bytes(kw["ncells"], kw["ngc"], ncont)
+    modes = [True, False] if rows <= rpkt_kernel.SMEM_LIMIT else [False]
+    picked = rpkt_kernel.pick_shared_rows(kw["ncells"], kw["ngc"], ncont)
+    before = dict(rpkt_kernel.propagate.launches)
+    run_p = lambda: rpkt_kernel.propagate_reference(*args, max_inner=64, test_mode=False, **kw)
+
+    def run_k(mode):
+        return lambda: rpkt_kernel._launch(*args, max_inner=64, test_mode=False,
+                                           shared_rows=mode, **kw)
+
+    p1, _ = _timed(run_p, 1)
+    times = {m: [] for m in modes}
+    for m in modes + modes[::-1]:
+        t, out = _timed(run_k(m), 10)
+        times[m].append(t)
+    p2, _ = _timed(run_p, 1)
+    rpkt_kernel.propagate.launches.update(before)
+    bound, by = _bound_ms(out, NPKTS_DEFAULT, kw["ncells"], kw["ngc"], ncont,
+                          rpkt_kernel.GEOM_NDIM[kw["geom"]])
+    misc = out["misc"].double().cpu().numpy()
+    name = {True: "shared", False: "global"}
+    log(f"timing[{label}] (N={NPKTS_DEFAULT}, max_inner=64): "
+        + ", ".join(f"kernel with {name[m]} rows {' / '.join(f'{t:.4f}' for t in times[m])} ms"
+                    for m in modes)
+        + f", plain version {p1:.4f} / {p2:.4f} ms, bound {bound:.6f} ms ({by}); crossings "
+        f"{misc[0]:.0f}, lines read {misc[6]:.0f}, bf continua {misc[7]:.0f}, estimator rows "
+        f"{rows} bytes, the wrapper picks {name[picked]} rows")
+    rec = dict(ms=min(times[picked]), plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
+               library_ms=None, rows=name[picked])
+    for m in modes:
+        rec[f"{name[m]}_rows_ms"] = min(times[m])
+    return rec
 
 
 def phase_kernel_vs_plain(workdir):
@@ -232,13 +398,17 @@ def phase_kernel_vs_plain(workdir):
 
     from artis_tpu_torch.transport import rpkt_kernel
 
+    rec = {k: {} for k in CONFIGS}
+    errs = {k: [] for k in CONFIGS}
+    nonzero = {}
+
+    # --- K1: 1D spherical ---
     sim = _phase3_sim(workdir, "phase3", default_scene, NPKTS_DEFAULT)
     ctx = sim.update_grid(0)
-    tables = rpkt_kernel.kernel_tables(sim.dad, sim.grid, sim.cells, ctx)
+    tables, tables_ng = _nongrey_tables(sim, ctx)
     # timestep 0 of this scene is grey (every shell thick); the second table
     # set clears the grey flag so the continuum and line walk run too, the
     # third ionises the shells so free-free heating accumulates
-    tables_ng = dict(tables, thick=torch.zeros_like(tables["thick"]))
     lanes, tau, sel = forced_lanes(sim, float(ctx.ts), NPKTS_DEFAULT, seed=0)
     log(f"phase 3 shapes: N={NPKTS_DEFAULT} ncells={sim.cells.Te.shape[0]} "
         f"nlines={sim.dad.nlines} ncont={sim.dad.nbfcontinua}")
@@ -247,54 +417,119 @@ def phase_kernel_vs_plain(workdir):
                                    ("nongrey", tables_ng, (1, 4, 64)),
                                    ("ionised", ionised_tables(tables), (4, 64)))
              for mi in mis]
+    timing_1d = (tables_ng, float(ctx.ts), float(ctx.t2))
     cases.append(_captured_case(sim, seed=1))
-    nonzero = {}
-    errs = _check_cases(sim, cases, nonzero)
-    # the long line walk: lanes captured at the realistic size (101k lines)
+    errs["rpkt_crossing_sph1d"] += _check_cases(sim, cases, nonzero)
+    rec["rpkt_crossing_sph1d"] = _time_config(sim, *timing_1d, False, "K1 sph1d")
     real = _phase3_sim(workdir, "phase3_real", real_scene, NPKTS_REAL)
     log(f"phase 3 realistic shapes: ncells={real.cells.Te.shape[0]} "
         f"nlines={real.dad.nlines} ncont={real.dad.nbfcontinua}")
-    errs += _check_cases(real, [_captured_case(real, seed=2)], nonzero)
-    real.close()
-    del real
+    captured = _captured_case(real, seed=2)
+    errs["rpkt_crossing_sph1d"] += _check_cases(real, [captured], nonzero)
+    # the row modes at 128 shells (4 KB of rows), with timestep 1's tables
+    _time_config(real, captured[2], float(real.ts.start[1]), captured[5], False,
+                 "K1 sph1d, 128 shells")
+    for s in (sim, real):
+        s.close()
+    del sim, real
+    gc.collect()
+
+    # --- K2 + K5-bfrate: the 3D Cartesian grid ---
+    cart = ("rpkt_crossing_cart3d", "rpkt_crossing_bfrate")
+    for name, scene, ncoord in (("1dmodel_50cube", default_scene, 50),
+                                ("2dmodel_12cube", model2d_scene, 12)):
+        sim = _phase3_sim(workdir, f"phase3_{name}", scene, NPKTS_DEFAULT, "CARTESIAN3D",
+                          ncoordgrid_x=ncoord, ncoordgrid_y=ncoord, ncoordgrid_z=ncoord,
+                          detailed_bf_estimators_on=True)
+        ctx = sim.update_grid(0)
+        _, tb = _nongrey_tables(sim, ctx)
+        log(f"phase 3 {name}: grid {sim.grid.ncoordgrid} ncells={sim.cells.Te.shape[0]}")
+        e = _check_cases(sim, _cases(name, sim, tb, float(ctx.ts), float(ctx.t2), (1, 4, 64),
+                                     seed=3), nonzero, want_bfrate=True)
+        for k in cart:
+            errs[k] += e
+        sim.close()
+        del sim
+        gc.collect()
+
+    big = _phase3_sim(workdir, "phase3_big", big_scene, NPKTS_REAL, "CARTESIAN3D",
+                      detailed_bf_estimators_on=True)
+    ctx = big.update_grid(0)
+    tables, tables_ng = _nongrey_tables(big, ctx)
+    ncells = big.cells.Te.shape[0]
+    rows = rpkt_kernel.row_bytes(ncells, max(big.dad.nbfcontinua_ground, 1),
+                                 big.dad.nbfcontinua)
+    log(f"phase 3 big scene: grid {big.grid.ncoordgrid} ncells={ncells} "
+        f"nlines={big.dad.nlines} ncont={big.dad.nbfcontinua} tau table "
+        f"{tables['tau_factor'].numel() * 4} bytes, estimator rows {rows} bytes")
+    t0, t2 = float(ctx.ts), float(ctx.t2)
+    e = _check_cases(big, _cases("big", big, tables_ng, t0, t2, (1, 64), seed=4), nonzero,
+                     want_bfrate=True)
+    rec["rpkt_crossing_cart3d"] = _time_config(big, tables_ng, t0, t2, False, "K2 cart3d")
+    rec["rpkt_crossing_bfrate"] = _time_config(big, tables_ng, t0, t2, True,
+                                               "K5-bfrate cart3d")
+    e += _check_cases(big, [_captured_case(big, seed=5)], nonzero, want_bfrate=True)
+    for k in cart:
+        errs[k] += e
+    big.close()
+    del big
+    gc.collect()
+
+    m32 = _phase3_sim(workdir, "phase3_32cube", model32_scene, NPKTS_DEFAULT, "CARTESIAN3D",
+                      detailed_bf_estimators_on=True)
+    ctx = m32.update_grid(0)
+    ncells = m32.cells.Te.shape[0]
+    rows = rpkt_kernel.row_bytes(ncells, max(m32.dad.nbfcontinua_ground, 1),
+                                 m32.dad.nbfcontinua)
+    log(f"phase 3 32^3 model: ncells={ncells}, estimator rows {rows} bytes")
+    if rows <= rpkt_kernel.SMEM_LIMIT:
+        raise RuntimeError("the 32^3 model's estimator rows fit shared memory: the "
+                           "global-atomics mode is not exercised")
+    _, tb = _nongrey_tables(m32, ctx)
+    e = _check_cases(m32, _cases("32cube", m32, tb, float(ctx.ts), float(ctx.t2), (1, 16, 64),
+                                 seed=6), nonzero, want_bfrate=True)
+    for k in cart:
+        errs[k] += e
+    m32.close()
+    del m32
+    gc.collect()
+
+    # --- K3: the 2D cylindrical grid ---
+    cyl = _phase3_sim(workdir, "phase3_cyl", cyl_scene, NPKTS_DEFAULT, "CYLINDRICAL2D",
+                      detailed_bf_estimators_on=True)
+    ctx = cyl.update_grid(0)
+    _, tb = _nongrey_tables(cyl, ctx)
+    log(f"phase 3 cylindrical: grid {cyl.grid.ncoordgrid} ncells={cyl.cells.Te.shape[0]}")
+    errs["rpkt_crossing_cyl2d"] += _check_cases(
+        cyl, _cases("cyl2d", cyl, tb, float(ctx.ts), float(ctx.t2), (1, 4, 64), seed=8),
+        nonzero, want_bfrate=True)
+    rec["rpkt_crossing_cyl2d"] = _time_config(cyl, tb, float(ctx.ts), float(ctx.t2), False,
+                                              "K3 cyl2d")
+    cyl.close()
+    del cyl
+    gc.collect()
+    # the row modes at 10 x 20 cylindrical cells (about 9 KB of rows)
+    small = _phase3_sim(workdir, "phase3_cyl_small", small_cyl_scene, NPKTS_DEFAULT,
+                        "CYLINDRICAL2D")
+    ctx = small.update_grid(0)
+    _time_config(small, _nongrey_tables(small, ctx)[1], float(ctx.ts), float(ctx.t2), False,
+                 "K3 cyl2d, 10 x 20 cells")
+    small.close()
+    del small
+
     # a comparison of estimators that stayed zero on both sides tests nothing
     if not all(nonzero.values()):
         raise RuntimeError(f"an estimator never accumulated in phase 3: {nonzero}")
-    kw = _kernel_kw(sim)
-    mps = float(sim.grid.max_path_step)
-    t2 = float(ctx.t2)
-    tmin = float(ctx.tmin)
-    before = rpkt_kernel.propagate.launches
-
-    def timed(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        for _ in range(reps):
-            fn()
-        e.record()
-        torch.cuda.synchronize()
-        return s.elapsed_time(e) / reps
-
-    args = (12345, lanes, tables_ng, tau, sel, t2, tmin, mps)
-    run_k = lambda: rpkt_kernel.propagate(*args, max_inner=64, test_mode=False, **kw)
-    run_p = lambda: rpkt_kernel.propagate_reference(*args, max_inner=64, test_mode=False, **kw)
-    # plain, kernel, kernel, plain within one process on one card
-    p1 = timed(run_p, 1)
-    k1 = timed(run_k, 10)
-    k2 = timed(run_k, 10)
-    p2 = timed(run_p, 1)
-    rpkt_kernel.propagate.launches = before
-    sim.close()
-    ms, plain_ms = min(k1, k2), min(p1, p2)
-    log(f"phase 3 timing (N={NPKTS_DEFAULT}, max_inner=64, non-grey tables): kernel "
-        f"{k1:.4f} / {k2:.4f} ms, plain version {p1:.4f} / {p2:.4f} ms")
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+    for k in CONFIGS:
+        rec[k]["max_abs_err"] = max(errs[k])
+    torch.cuda.synchronize()
+    return rec
 
 
-def _run_scene(workdir, name, make_scene, npkts):
-    """One end-to-end run through the CLI; returns its record."""
+def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
+    """One end-to-end run through the CLI with the launch counts reset just
+    before it; fails unless every configuration in ``expect`` launched.
+    Returns its record."""
     import torch
 
     from artis_tpu_torch.cli import main_sn3d
@@ -307,16 +542,17 @@ def _run_scene(workdir, name, make_scene, npkts):
     # cycle) so the peak below is this run's own
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
-    rpkt_kernel.propagate.launches = 0
+    rpkt_kernel.reset_launches()
     t0 = time.time()
-    rc = main_sn3d(cli_args(d, npkts))
+    rc = main_sn3d(cli_args(d, npkts, grid_type, **extra))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = rpkt_kernel.propagate.launches
+    launches = dict(rpkt_kernel.propagate.launches)
     if rc != 0:
         raise RuntimeError(f"{name}: main_sn3d returned {rc}")
-    if launches <= 0:
-        raise RuntimeError(f"{name}: the main path never launched the crossing kernel")
+    for k in expect:
+        if launches[k] <= 0:
+            raise RuntimeError(f"{name}: the main path never launched {k}: {launches}")
     tlog = json.load(open(os.path.join(d, "transport_log.json")))
     if not tlog or not all(r["completed"] for r in tlog):
         raise RuntimeError(f"{name}: not every timestep ran to completion: {tlog}")
@@ -362,16 +598,39 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    record = dict(name="rpkt_crossing", route="cuda", source=KERNEL_SOURCE,
-                  replaces=REPLACES)
+    t_start = time.time()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        record["build_s"] = phase_build()
-        record.update(phase_kernel_vs_plain(workdir))
-        record["launches"] = _run_scene(workdir, "default_scene", default_scene,
-                                        NPKTS_DEFAULT)["launches"]
-        _run_scene(workdir, "realistic_scene", real_scene, NPKTS_REAL)
+        build_s = phase_build()
+        rec = phase_kernel_vs_plain(workdir)
+        log(f"phase 3 done at {time.time() - t_start:.1f} s")
+        runs = {
+            "default_scene": _run_scene(workdir, "default_scene", default_scene, NPKTS_DEFAULT,
+                                        "SPHERICAL1D", ["rpkt_crossing_sph1d"]),
+            "realistic_scene": _run_scene(workdir, "realistic_scene", real_scene, NPKTS_REAL,
+                                          "SPHERICAL1D", ["rpkt_crossing_sph1d"]),
+            "big_scene": _run_scene(workdir, "big_scene", big_scene, NPKTS_REAL, "CARTESIAN3D",
+                                    ["rpkt_crossing_cart3d", "rpkt_crossing_bfrate"],
+                                    detailed_bf_estimators_on=True),
+            "kilonova_2d_2dgrid": _run_scene(workdir, "kilonova_2d_2dgrid", cyl_scene,
+                                             NPKTS_2D, "CYLINDRICAL2D",
+                                             ["rpkt_crossing_cyl2d"]),
+        }
+    # each configuration's launches come from the run of the main path that
+    # drives it
+    main_run = {"rpkt_crossing_sph1d": "default_scene", "rpkt_crossing_cart3d": "big_scene",
+                "rpkt_crossing_bfrate": "big_scene", "rpkt_crossing_cyl2d": "kilonova_2d_2dgrid"}
+    kernels = []
+    for key, (label, replaces) in CONFIGS.items():
+        r = rec[key]
+        kernels.append(dict(name=f"{label} {key}", route="cuda", source=KERNEL_SOURCE,
+                            replaces=replaces, launches=runs[main_run[key]]["launches"][key],
+                            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=r["library_ms"], build_s=build_s,
+                            **{k: v for k, v in r.items() if k.endswith("rows_ms")}))
+    log(f"total {time.time() - t_start:.1f} s")
     log(f"card: {card}")
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,16 +7,19 @@ repository's tests/conftest.py configures jax, hence on the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-The comparison is rpkt_kernel.compare_outputs, which holds every output:
+The comparison is rpkt_kernel.check_kernel (compare_outputs on the kernel's
+and the plain version's outputs; the estimators of a second launch in which
+the few lanes whose cell or packet type differ are held still), which holds
+every output:
 cell and packet type agree on > 97% of lanes (tests/test_pallas_rpkt.py);
 every other integer output (activating line, bf continuum, grey flag,
 cursor, scatter counts) on >= 99.9% of the agreeing lanes, and every float
 output within rel 1e-4 there; prop_time, nu_cmf, e_cmf and position to
 rtol 2e-3 on every agreeing lane; J / nuJ / ffheating / crossings cell by
-cell to rel 5e-3 and LUT gamma / bf-heating to rel 1e-2 (float32 atomics add
-in an order that changes from run to run); counters within 2% + 3. Both
-sides draw the same Philox numbers, so what remains is float32 rounding
-(CUDA's math functions against torch's)."""
+cell to rel 5e-3 and LUT gamma / bf-heating / detailed bf-rate to rel 1e-2
+(float32 atomics add in an order that changes from run to run); counters
+within 2% + 3. Both sides draw the same Philox numbers, so what remains is
+float32 rounding (CUDA's math functions against torch's)."""
 
 import glob
 import os
@@ -29,41 +32,57 @@ from artis_tpu_torch.synthdata import make_run
 
 NPKTS = 4096
 
+# name -> (make_run keywords, Options keywords) of the kernel-check scenes
+SCENES = {
+    "sph1d": (dict(ncells=8), dict(grid_type="SPHERICAL1D")),
+    "1dmodel_3dgrid": (dict(ncells=8), dict(grid_type="CARTESIAN3D", ncoordgrid_x=8,
+                                            ncoordgrid_y=8, ncoordgrid_z=8)),
+    "2dmodel_3dgrid": (dict(ncells=3, model_dim=2),
+                       dict(grid_type="CARTESIAN3D", ncoordgrid_x=12, ncoordgrid_y=12,
+                            ncoordgrid_z=12)),
+    "3dmodel": (dict(ncells=6, model_dim=3), dict(grid_type="CARTESIAN3D")),
+    "cyl2d": (dict(ncells=4, model_dim=2), dict(grid_type="CYLINDRICAL2D")),
+}
+
 
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the kernel runs only on the card")
 
 
-def _opts(npkts):
+def _opts(npkts, grid_type="SPHERICAL1D", **kw):
     from artis_tpu_torch.options import GridType, kilonova_lte
 
-    return kilonova_lte(grid_type=GridType.SPHERICAL1D, npkts=npkts, mintemp=1000.0,
-                        maxtemp=20000.0, tablesize=20, transport_dtype="float32")
+    return kilonova_lte(grid_type=GridType[grid_type], npkts=npkts, mintemp=1000.0,
+                        maxtemp=20000.0, tablesize=20, transport_dtype="float32", **kw)
 
 
 @pytest.fixture(scope="module")
-def scene(tmp_path_factory):
+def scenes(tmp_path_factory):
     _need_cuda()
     from artis_tpu_torch.driver import Simulation
 
-    d = str(tmp_path_factory.mktemp("cuda_scene"))
-    make_run(d, ncells=8, ntimesteps=4, tmin_days=2.0, tmax_days=4.0, ngreyts=0, logrho0=-8.0)
-    sim = Simulation(d, _opts(NPKTS), device="cuda")
-    return sim, sim.update_grid(0)
+    out = {}
+    for name, (mk, okw) in SCENES.items():
+        d = str(tmp_path_factory.mktemp(f"cuda_{name}"))
+        make_run(d, ntimesteps=4, tmin_days=2.0, tmax_days=4.0, ngreyts=0, logrho0=-8.0, **mk)
+        sim = Simulation(d, _opts(NPKTS, detailed_bf_estimators_on=True, **okw), device="cuda")
+        out[name] = (sim, sim.update_grid(0))
+    return out
 
 
 def _forced_lanes(sim, ctx, seed):
-    """In-flight r-packets spread over the shells, with numpy-made draws."""
+    """In-flight r-packets spread over the grid, with numpy-made draws."""
+    from artis_tpu_torch.grid import get_cellindex_from_pos
+
     rng = np.random.default_rng(seed)
     t0 = float(ctx.ts)
-    ncell = int(sim.grid.ncoordgrid[0])
-    cell = rng.integers(0, ncell, NPKTS)
-    rmin = sim.grid_host.cell_pos_min[:ncell, 0] * t0 / sim.grid.tmin
-    rmax = sim.grid_host.cell_pos_max[:ncell, 0] * t0 / sim.grid.tmin
-    r = rmin[cell] + (rmax[cell] - rmin[cell]) * rng.uniform(0.02, 0.98, NPKTS)
+    rmax_t = sim.grid.rmax * t0 / sim.grid.tmin
     u = rng.normal(size=(NPKTS, 3))
-    pos = u / np.linalg.norm(u, axis=1, keepdims=True) * r[:, None]
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    pos = u * (rmax_t * rng.uniform(0.05, 0.9, NPKTS) ** (1 / 3))[:, None]
+    cell = get_cellindex_from_pos(sim.grid, torch.as_tensor(pos, device="cuda"),
+                                  torch.full((NPKTS,), t0, dtype=torch.float64, device="cuda"))
     dv = rng.normal(size=(NPKTS, 3))
     dv /= np.linalg.norm(dv, axis=1, keepdims=True)
     nu = 10 ** rng.uniform(14.2, 15.9, NPKTS)
@@ -72,54 +91,87 @@ def _forced_lanes(sim, ctx, seed):
     lanes = dict(posx=f(pos[:, 0]), posy=f(pos[:, 1]), posz=f(pos[:, 2]),
                  dirx=f(dv[:, 0]), diry=f(dv[:, 1]), dirz=f(dv[:, 2]), nu_rf=f(nu),
                  nu_cmf=f(nu * 0.98), e_rf=f(np.ones(NPKTS)), e_cmf=f(np.full(NPKTS, 0.98)),
-                 prop_time=f(np.full(NPKTS, t0)), where=i(cell), next_trans=i(np.zeros(NPKTS)),
-                 moving=i(np.ones(NPKTS)), lane_id=i(np.arange(NPKTS)))
+                 prop_time=f(np.full(NPKTS, t0)), where=cell.to(torch.int32).contiguous(),
+                 next_trans=i(np.zeros(NPKTS)), moving=i(np.ones(NPKTS)),
+                 lane_id=i(np.arange(NPKTS)))
     return lanes, f(-np.log(rng.uniform(0.05, 0.95, NPKTS))), f(rng.uniform(0.0, 1.0, NPKTS))
+
+
+def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None):
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    dad = sim.dad
+    lanes, tau, sel = _forced_lanes(sim, ctx, seed=max_inner)
+    tables = rpkt_kernel.kernel_tables(dad, sim.grid, sim.cells, ctx)
+    # timestep 0 of these scenes is not grey; clear the flag regardless so
+    # the continuum and the line walk run in every cell
+    tables["thick"] = torch.zeros_like(tables["thick"])
+    kw = dict(nlines=dad.nlines, ncells=sim.cells.Te.shape[0],
+              ngc=max(dad.nbfcontinua_ground, 1), nphixs=dad.nphixspoints,
+              max_inner=max_inner, relativistic=sim.opts.use_relativistic_doppler_shift,
+              phixs_dnu=float(dad.nphixsnuincrement),
+              last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
+              want_bfrate=want_bfrate, **rpkt_kernel.kernel_geometry(sim.grid))
+    before = sum(rpkt_kernel.propagate.launches.values())
+    ok, rep, _, _ = rpkt_kernel.check_kernel(
+        99, lanes, tables, tau, sel, float(ctx.t2), float(ctx.tmin),
+        float(sim.grid.max_path_step), shared_rows=shared_rows, **kw)
+    torch.cuda.synchronize()
+    launches = 1 + (rep["diverged_lanes"] > 0)
+    assert sum(rpkt_kernel.propagate.launches.values()) == before + launches * (1 + want_bfrate)
+    assert ok, rep
+    # the estimators accumulated, so their comparison tested something
+    for name in ("j", "nuj", "ncross") + (("bfrate",) if want_bfrate else ()):
+        assert rep["nonzero"][name], (name, rep)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("test_mode", [True, False])
 @pytest.mark.parametrize("max_inner", [1, 16])
-def test_kernel_matches_plain_version(scene, max_inner, test_mode):
-    from artis_tpu_torch.transport import rpkt_kernel
-
-    sim, ctx = scene
-    dad = sim.dad
-    lanes, tau, sel = _forced_lanes(sim, ctx, seed=max_inner)
-    tables = rpkt_kernel.kernel_tables(dad, sim.grid, sim.cells, ctx)
-    args = (99, lanes, tables, tau, sel, float(ctx.t2), float(ctx.tmin),
-            float(sim.grid.max_path_step))
-    kw = dict(nlines=dad.nlines, ncells=sim.cells.Te.shape[0],
-              ngc=max(dad.nbfcontinua_ground, 1), nphixs=dad.nphixspoints,
-              max_inner=max_inner, relativistic=sim.opts.use_relativistic_doppler_shift,
-              phixs_dnu=float(dad.nphixsnuincrement),
-              last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode)
-    before = rpkt_kernel.propagate.launches
-    k = rpkt_kernel.propagate(*args, **kw)
-    torch.cuda.synchronize()
-    assert rpkt_kernel.propagate.launches == before + 1
-    p = rpkt_kernel.propagate_reference(*args, **kw)
-    ok, rep = rpkt_kernel.compare_outputs(k, p)
-    assert ok, rep
-    # the radiation-field estimators accumulated, so their comparison tested
-    # something
-    assert rep["nonzero"]["j"] and rep["nonzero"]["nuj"] and rep["nonzero"]["ncross"], rep
+def test_kernel_matches_plain_version(scenes, max_inner, test_mode):
+    """The 1D spherical configuration without bf-rate estimators."""
+    _check(*scenes["sph1d"], max_inner, test_mode, want_bfrate=False)
 
 
 @pytest.mark.cuda
-def test_main_path_launches_the_kernel(tmp_path):
+@pytest.mark.parametrize("max_inner", [1, 16])
+@pytest.mark.parametrize("name", list(SCENES))
+def test_kernel_geometries_with_bfrate(scenes, name, max_inner):
+    """Every geometry and model mapping with the detailed bf-rate estimators,
+    Philox draws."""
+    _check(*scenes[name], max_inner, test_mode=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_inner", [1, 16])
+@pytest.mark.parametrize("name", ["3dmodel", "cyl2d"])
+def test_kernel_global_atomics_mode(scenes, name, max_inner):
+    """Estimator rows added straight into global memory (the mode the
+    wrapper takes for many cells), forced on a small grid."""
+    _check(*scenes[name], max_inner, test_mode=True, shared_rows=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["SPHERICAL1D", "CARTESIAN3D"])
+def test_main_path_launches_the_kernel(tmp_path, grid):
     _need_cuda()
     from artis_tpu_torch.cli import main_sn3d
     from artis_tpu_torch.transport import rpkt_kernel
 
     d = str(tmp_path)
-    make_run(d, ncells=8, ntimesteps=3, tmin_days=2.0, tmax_days=4.0, ngreyts=1)
-    rpkt_kernel.propagate.launches = 0
+    mk = dict(model_dim=3, ncells=6) if grid == "CARTESIAN3D" else dict(ncells=8)
+    make_run(d, ntimesteps=3, tmin_days=2.0, tmax_days=4.0, ngreyts=1, **mk)
+    rpkt_kernel.reset_launches()
+    extra = ["--set", "detailed_bf_estimators_on=True"] if grid == "CARTESIAN3D" else []
     assert main_sn3d(["--rundir", d, "--device", "cuda", "--set", "npkts=2000",
-                      "--set", "transport_dtype=float32", "--set", "grid_type=SPHERICAL1D",
+                      "--set", "transport_dtype=float32", "--set", f"grid_type={grid}",
                       "--set", "mintemp=1000.0", "--set", "maxtemp=20000.0",
-                      "--set", "tablesize=20"]) == 0
-    assert rpkt_kernel.propagate.launches > 0
+                      "--set", "tablesize=20", *extra]) == 0
+    launched = rpkt_kernel.propagate.launches
+    if grid == "CARTESIAN3D":
+        assert launched["rpkt_crossing_cart3d"] > 0 and launched["rpkt_crossing_bfrate"] > 0
+    else:
+        assert launched["rpkt_crossing_sph1d"] > 0
     assert len(glob.glob(os.path.join(d, "estimators_*.out"))) == 2
     lc = np.loadtxt(os.path.join(d, "light_curve.out"), ndmin=2)
     assert np.all(np.isfinite(lc)) and lc[:, 1].sum() > 0

@@ -27,7 +27,7 @@
 // atomicAdd per nonzero entry at block end; for many cells (2D and 3D
 // grids) every lane adds straight into the global rows, since a large
 // per-block copy costs its zeroing and flush in every block and cuts the
-// blocks per SM (measured crossover between 7.6 and 47 KB of rows,
+// blocks per SM (measured crossover between 24 and 26 KB of rows,
 // rpkt_kernel.SHARED_ROWS_MAX). The misc counters are reduced in shared
 // memory in double.
 //

@@ -209,154 +209,167 @@ def grid_init(model: ModelData, tmin: float, grid_type: GridType,
     return gd
 
 
-def _expanding_shell_intersection(pos, dirvec, speed, shellradius_tstart,
-                                  isinnerboundary: bool, tstart):
-    """Closest forward distance to an expanding spherical shell (or circle,
-    for 2D vectors); -1 where there is no valid intersection (reference:
-    grid.cc:1222-1312)."""
-    dirdot = torch.sum(dirvec * dirvec, dim=-1)
-    a = dirdot - (shellradius_tstart / tstart / speed) ** 2
-    b = 2.0 * (torch.sum(dirvec * pos, dim=-1) - shellradius_tstart**2 / tstart / speed)
-    c = torch.sum(pos * pos, dim=-1) - shellradius_tstart**2
+def _expanding_shell_intersection(px, py, pz, dx, dy, dz, tstart, radius_t, inner: bool,
+                                  speed=CLIGHT_PROP):
+    """Closest forward distance to a shell (or, with the z parts zero, a
+    circle) of radius ``radius_t`` at ``tstart`` expanding homologously; -1
+    where there is no valid intersection (reference: grid.cc:1222-1312).
+    (dx, dy, dz) is a unit vector and ``speed`` the packet's speed along it:
+    c for a sphere, the xy-plane speed for a cylinder. The radial-velocity
+    test compares squares rescaled by an exact 2^-33, so float32 neither
+    overflows nor underflows there; in float32 a root within 2e-6 of the
+    radius is dropped, which keeps a packet from re-intersecting the shell it
+    has just crossed."""
+    kgeo = 2.0 ** -33
+    pos2 = px * px + py * py + pz * pz
+    pdotd = px * dx + py * dy + pz * dz
+    st_k = (speed * kgeo) * tstart
+    a = 1.0 - (radius_t / tstart / speed) ** 2
+    b = 2.0 * (pdotd - radius_t ** 2 / tstart / speed)
+    c = pos2 - radius_t ** 2
     disc = b * b - 4.0 * a * c
-    sqrt_disc = torch.sqrt(torch.clamp(disc, min=0.0))
-    dist1 = (-b + sqrt_disc) / 2.0 / a
-    dist2 = (-b - sqrt_disc) / 2.0 / a
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    inv2a = 0.5 / a
+    d1 = (-b + sq) * inv2a
+    d2 = (-b - sq) * inv2a
+    rk = radius_t * kgeo
 
-    posfinal1 = pos + dist1[..., None] * dirvec
-    posfinal2 = pos + dist2[..., None] * dirvec
-    v_rad_shell = shellradius_tstart / tstart
-    r1 = torch.sqrt(torch.sum(posfinal1 * posfinal1, dim=-1))
-    r2 = torch.sqrt(torch.sum(posfinal2 * posfinal2, dim=-1))
-    one = torch.ones_like(r1)
-    v1 = torch.sum(dirvec * posfinal1, dim=-1) * speed / torch.where(r1 > 0, r1, one)
-    v2 = torch.sum(dirvec * posfinal2, dim=-1) * speed / torch.where(r2 > 0, r2, one)
-    if isinnerboundary:
-        bad1 = v1 > v_rad_shell
-        bad2 = v2 > v_rad_shell
+    def vr_gt(d):
+        fx = px + d * dx
+        fy = py + d * dy
+        fz = pz + d * dz
+        r2k = torch.clamp(fx * fx + fy * fy + fz * fz, min=1.0) * (kgeo * kgeo)
+        dotf = (dx * fx + dy * fy + dz * fz) * kgeo
+        return dotf, (dotf * dotf) * (st_k * st_k), (rk * rk) * r2k
+
+    dotf1, a21, b21 = vr_gt(d1)
+    dotf2, a22, b22 = vr_gt(d2)
+    if inner:
+        bad1 = (dotf1 > 0) & (a21 > b21)
+        bad2 = (dotf2 > 0) & (a22 > b22)
     else:
-        bad1 = v1 < v_rad_shell
-        bad2 = v2 < v_rad_shell
-    # float32 ping-pong guard (see the kernel's note)
-    eps = (2e-6 * shellradius_tstart) if pos.dtype == torch.float32 else 0.0
-    neg = -one
-    dist1 = torch.where(bad1 | (dist1 < eps), neg, dist1)
-    dist2 = torch.where(bad2 | (dist2 < eps), neg, dist2)
-    both_neg = (dist1 < 0) & (dist2 < 0)
-    result = torch.where(
-        both_neg, neg,
-        torch.where(dist2 < 0, dist1,
-                    torch.where(dist1 < 0, dist2, torch.minimum(dist1, dist2))))
-    return torch.where(disc > 0, result, neg)
+        bad1 = (dotf1 <= 0) | (a21 < b21)
+        bad2 = (dotf2 <= 0) | (a22 < b22)
+    eps = 2e-6 * radius_t if px.dtype == torch.float32 else 0.0
+    neg = torch.full_like(d1, -1.0)
+    d1 = torch.where(bad1 | (d1 < eps), neg, d1)
+    d2 = torch.where(bad2 | (d2 < eps), neg, d2)
+    both_neg = (d1 < 0) & (d2 < 0)
+    dmin = torch.where((d1 >= 0) & ((d2 < 0) | (d1 <= d2)), d1, d2)
+    res = torch.where(both_neg, neg, dmin)
+    return torch.where(disc > 0, res, neg)
 
 
-def _plane_crossing(grid: GridData, posd, veld, tstart, coordbound):
-    """Distance to a homologously expanding plane at ``coordbound`` (at tmin)
-    (reference: grid.cc:2448-2597)."""
-    tmin = grid.tmin
-    t_bound = (posd - veld * tstart) / (coordbound - veld * tmin) * tmin - tstart
-    return CLIGHT_PROP * t_bound
+def _plane_crossing(posd, veld, tstart, coordbound, tmin):
+    """Distance to a homologously expanding plane at ``coordbound`` (at
+    tmin) (reference: grid.cc:2448-2597); a zero denominator (a packet
+    moving with the plane, which never reaches it) is guarded."""
+    denom = coordbound - veld * tmin
+    denom = torch.where(denom != 0, denom, torch.full_like(denom, 1e-30))
+    return CLIGHT_PROP * ((posd - veld * tstart) / denom * tmin - tstart)
+
+
+def cell_boundary(grid_type, ncoord, pos_min, pos_max, cell, pos, dirv, tstart, tmin: float,
+                  max_path_step: float):
+    """Distance to the boundary of each packet's cell and the next cell
+    index, in any float dtype: the one geometry of the crossing kernel's
+    plain version and of ``boundary_distance``.
+
+    ``pos`` and ``dirv`` are (x, y, z) tuples of (N,) tensors, (dirv a unit
+    vector); ``pos_min`` / ``pos_max`` the (N, ndim) bounds of each packet's
+    cell at ``tmin``; ``ncoord`` the grid's cells per axis. snext == -99
+    where the packet leaves the grid; snext == cell with the distance
+    ``max_path_step`` where the step is capped (reference:
+    grid.cc:2349-2597)."""
+    grid_type = GridType(grid_type)
+    px, py, pz = pos
+    dx, dy, dz = dirv
+    big = torch.full_like(px, torch.finfo(px.dtype).max)
+    neg = torch.full_like(px, -1.0)
+    esc = torch.full_like(cell, BOUNDARY_ESCAPE)
+    if grid_type == GridType.SPHERICAL1D:
+        d_max = _expanding_shell_intersection(px, py, pz, dx, dy, dz, tstart,
+                                              pos_max[:, 0] * tstart / tmin, False)
+        distance = torch.where(d_max >= 0, d_max, big)
+        snext = torch.where(d_max >= 0, torch.where(cell == ncoord[0] - 1, esc, cell + 1),
+                            torch.full_like(cell, -1))
+        r_inner = pos_min[:, 0] * tstart / tmin
+        d_min = torch.where(r_inner > 0,
+                            _expanding_shell_intersection(px, py, pz, dx, dy, dz, tstart,
+                                                          r_inner, True), neg)
+        take_min = (d_min >= 0) & (d_min < distance)
+        distance = torch.where(take_min, d_min, distance)
+        snext = torch.where(take_min, torch.where(cell == 0, esc, cell - 1), snext)
+    elif grid_type == GridType.CYLINDRICAL2D:
+        # expanding circles in the xy plane for the rcyl bounds (the planar
+        # distance over the direction's xy length), planes in z; a packet
+        # moving (almost) along z meets no circle
+        n0, n1 = ncoord[0], ncoord[1]
+        i_r, i_z = cell % n0, cell // n0
+        dirxylen = torch.sqrt(dx * dx + dy * dy)
+        has_xy = dirxylen > 1e-8
+        sdl = torch.clamp(dirxylen, min=1e-8)
+        dxn, dyn = dx / sdl, dy / sdl
+        xyspeed = sdl * CLIGHT_PROP
+        zero = torch.zeros_like(px)
+        distance, snext = big, torch.full_like(cell, -1)
+        d_rc = _expanding_shell_intersection(px, py, zero, dxn, dyn, zero, tstart,
+                                             pos_max[:, 0] * tstart / tmin, False,
+                                             speed=xyspeed)
+        d_out = d_rc / sdl
+        ok = has_xy & (d_rc >= 0) & (d_out > 0) & (d_out < distance)
+        distance = torch.where(ok, d_out, distance)
+        snext = torch.where(ok, torch.where(i_r == n0 - 1, esc, cell + 1), snext)
+        r_inner = pos_min[:, 0] * tstart / tmin
+        d_rc = torch.where(r_inner > 0,
+                           _expanding_shell_intersection(px, py, zero, dxn, dyn, zero, tstart,
+                                                         r_inner, True, speed=xyspeed), neg)
+        d_in = d_rc / sdl
+        ok = has_xy & (d_rc >= 0) & (d_in < distance)
+        distance = torch.where(ok, d_in, distance)
+        snext = torch.where(ok, torch.where(i_r == 0, esc, cell - 1), snext)
+        velz = dz * CLIGHT_PROP
+        up = (velz * tstart) > pz
+        d_z = _plane_crossing(pz, velz, tstart, torch.where(up, pos_max[:, 1], pos_min[:, 1]),
+                              tmin)
+        ok = (d_z >= 0) & (d_z < distance)
+        at_edge = torch.where(up, i_z == n1 - 1, i_z == 0)
+        distance = torch.where(ok, d_z, distance)
+        snext = torch.where(ok, torch.where(at_edge, esc, cell + torch.where(up, n0, -n0)),
+                            snext)
+    elif grid_type == GridType.CARTESIAN3D:
+        nx, ny, nz = ncoord
+        coords = (cell % nx, (cell // nx) % ny, cell // (nx * ny))
+        distance, snext = big, torch.full_like(cell, -1)
+        for ax, (posd, dird, inc, nax) in enumerate(((px, dx, 1, nx), (py, dy, nx, ny),
+                                                     (pz, dz, nx * ny, nz))):
+            veld = dird * CLIGHT_PROP
+            up = (veld * tstart) > posd
+            d_bound = _plane_crossing(posd, veld, tstart,
+                                      torch.where(up, pos_max[:, ax], pos_min[:, ax]), tmin)
+            ok = (d_bound >= 0) & (d_bound < distance)
+            at_edge = torch.where(up, coords[ax] == nax - 1, coords[ax] == 0)
+            distance = torch.where(ok, d_bound, distance)
+            snext = torch.where(ok, torch.where(at_edge, esc, cell + torch.where(up, inc, -inc)),
+                                snext)
+    else:
+        raise ValueError(grid_type)
+
+    # cap step length; stay in the same cell (reference: grid.cc:2592-2594)
+    capped = distance > max_path_step
+    distance = torch.where(capped, torch.full_like(distance, max_path_step), distance)
+    snext = torch.where(capped, cell, snext)
+    return distance, snext
 
 
 def boundary_distance(grid: GridData, dirvec, pos, tstart, cellindex):
-    """Distance to the current cell's boundary and the next cell index.
-
-    Vectorised over packets. Returns (distance, snext); snext == -99 means the
-    packet escapes the grid; snext == cellindex with distance == max_path_step
-    means an intra-cell step cap (reference: grid.cc:2349-2597)."""
-    tmin = grid.tmin
-    big = torch.finfo(pos.dtype).max
+    """Distance to the current cell's boundary and the next cell index
+    (``cell_boundary`` on the grid's cell bounds), vectorised over (N, 3)
+    packet positions and unit directions."""
     dt = pos.dtype
-    pos_min = grid.cell_pos_min.to(dt)[cellindex]
-    pos_max = grid.cell_pos_max.to(dt)[cellindex]
-    esc = torch.full_like(cellindex, BOUNDARY_ESCAPE)
-
-    if grid.grid_type == GridType.SPHERICAL1D:
-        speed = torch.sqrt(torch.sum(dirvec * dirvec, dim=-1)) * CLIGHT_PROP
-        r_outer = pos_max[:, 0] * tstart / tmin
-        d_max = _expanding_shell_intersection(pos, dirvec, speed, r_outer, False, tstart)
-        distance = torch.where((d_max >= 0) & (d_max < big), d_max, torch.full_like(d_max, big))
-        at_outer_edge = cellindex == (grid.ncoordgrid[0] - 1)
-        snext = torch.where(d_max >= 0, torch.where(at_outer_edge, esc, cellindex + 1),
-                            torch.full_like(cellindex, -1))
-        r_inner = pos_min[:, 0] * tstart / tmin
-        d_min_raw = _expanding_shell_intersection(pos, dirvec, speed, r_inner, True, tstart)
-        d_min = torch.where(r_inner > 0, d_min_raw, -torch.ones_like(d_min_raw))
-        take_min = (d_min >= 0) & (d_min < distance)
-        distance = torch.where(take_min, d_min, distance)
-        snext = torch.where(take_min, torch.where(cellindex == 0, esc, cellindex - 1), snext)
-
-    elif grid.grid_type == GridType.CYLINDRICAL2D:
-        n0, n1 = grid.ncoordgrid[0], grid.ncoordgrid[1]
-        posnoz = pos[..., :2]
-        dirxylen = torch.sqrt(dirvec[..., 0] ** 2 + dirvec[..., 1] ** 2)
-        one = torch.ones_like(dirxylen)
-        safe_dirxylen = torch.where(dirxylen > 0, dirxylen, one)
-        xyspeed = dirxylen * CLIGHT_PROP
-        safe_xyspeed = torch.where(xyspeed > 0, xyspeed, one)
-        dirnoz = dirvec[..., :2] / safe_dirxylen[..., None]
-        i_r = cellindex % n0
-        i_z = cellindex // n0
-        distance = torch.full_like(tstart, big)
-        snext = torch.full_like(cellindex, -1)
-
-        r_outer = pos_max[:, 0] * tstart / tmin
-        d_rcyl_max = _expanding_shell_intersection(posnoz, dirnoz, xyspeed, r_outer, False,
-                                                   tstart)
-        d_z_from_rmax = d_rcyl_max / safe_xyspeed * dirvec[..., 2] * CLIGHT_PROP
-        d_max = torch.sqrt(d_rcyl_max**2 + d_z_from_rmax**2)
-        ok = (d_rcyl_max >= 0) & (d_max > 0) & (d_max < distance)
-        distance = torch.where(ok, d_max, distance)
-        snext = torch.where(ok, torch.where(i_r == n0 - 1, esc, cellindex + 1), snext)
-
-        r_inner = pos_min[:, 0] * tstart / tmin
-        d_rcyl_min = _expanding_shell_intersection(posnoz, dirnoz, xyspeed, r_inner, True,
-                                                   tstart)
-        d_rcyl_min = torch.where(r_inner > 0, d_rcyl_min, -one)
-        d_z_from_rmin = d_rcyl_min / safe_xyspeed * dirvec[..., 2] * CLIGHT_PROP
-        d_min = torch.sqrt(d_rcyl_min**2 + d_z_from_rmin**2)
-        ok = (d_rcyl_min >= 0) & (d_min >= 0) & (d_min < distance)
-        distance = torch.where(ok, d_min, distance)
-        snext = torch.where(ok, torch.where(i_r == 0, esc, cellindex - 1), snext)
-
-        # z planes, Cartesian-style
-        velz = dirvec[..., 2] * CLIGHT_PROP
-        posz = pos[..., 2]
-        moving_up = (velz * tstart) > posz
-        d_z = _plane_crossing(grid, posz, velz, tstart,
-                              torch.where(moving_up, pos_max[:, 1], pos_min[:, 1]))
-        ok = (d_z >= 0) & (d_z < distance)
-        at_edge = torch.where(moving_up, i_z == n1 - 1, i_z == 0)
-        step = torch.where(moving_up, n0, -n0)
-        distance = torch.where(ok, d_z, distance)
-        snext = torch.where(ok, torch.where(at_edge, esc, cellindex + step), snext)
-
-    elif grid.grid_type == GridType.CARTESIAN3D:
-        nx, ny, nz = grid.ncoordgrid
-        ncoord = (nx, ny, nz)
-        increments = (1, nx, nx * ny)
-        coords = (cellindex % nx, (cellindex // nx) % ny, cellindex // (nx * ny))
-        distance = torch.full_like(tstart, big)
-        snext = torch.full_like(cellindex, -1)
-        for d in range(3):
-            veld = dirvec[..., d] * CLIGHT_PROP
-            posd = pos[..., d]
-            moving_up = (veld * tstart) > posd
-            d_bound = _plane_crossing(grid, posd, veld, tstart,
-                                      torch.where(moving_up, pos_max[:, d], pos_min[:, d]))
-            ok = (d_bound >= 0) & (d_bound < distance)
-            at_edge = torch.where(moving_up, coords[d] == ncoord[d] - 1, coords[d] == 0)
-            step = torch.where(moving_up, increments[d], -increments[d])
-            distance = torch.where(ok, d_bound, distance)
-            snext = torch.where(ok, torch.where(at_edge, esc, cellindex + step), snext)
-    else:
-        raise ValueError(grid.grid_type)
-
-    # cap step length; stay in the same cell (reference: grid.cc:2592-2594)
-    capped = distance > grid.max_path_step
-    distance = torch.where(capped, torch.full_like(distance, grid.max_path_step), distance)
-    snext = torch.where(capped, cellindex, snext)
-    return distance, snext
+    return cell_boundary(grid.grid_type, grid.ncoordgrid, grid.cell_pos_min.to(dt)[cellindex],
+                         grid.cell_pos_max.to(dt)[cellindex], cellindex, pos.unbind(-1),
+                         dirvec.unbind(-1), tstart, grid.tmin, grid.max_path_step)
 
 
 def get_cellindex_from_pos(grid: GridData, pos, time):

@@ -43,7 +43,7 @@ import torch
 
 from .. import rng
 from ..constants import CLIGHT, CLIGHTSQUARED, CLIGHT_PROP, SIGMA_T
-from ..grid import BOUNDARY_ESCAPE
+from ..grid import BOUNDARY_ESCAPE, cell_boundary
 
 F32 = torch.float32
 I32 = torch.int32
@@ -87,142 +87,6 @@ def _doppler_at(dx, dy, dz, px, py, pz, t, relativistic):
     return dop
 
 
-def _shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart, radius_t, inner,
-                    speed=CLIGHT_PROP):
-    """Distance to an expanding shell, -1 if none; the kernel's float32 form
-    (grid.cc:1222-1312 with an exact 2^-33 rescale in the velocity test and
-    the ping-pong guard against re-intersecting the shell just crossed).
-    ``speed`` is the speed along the unit direction (d): c for a sphere, the
-    xy-plane speed for a cylinder (with the z parts zero)."""
-    kgeo = 2.0 ** -33
-    st_k = (speed * kgeo) * tstart
-    a = 1.0 - (radius_t / tstart / speed) ** 2
-    b = 2.0 * (pdotd - radius_t ** 2 / tstart / speed)
-    c = pos2 - radius_t ** 2
-    disc = b * b - 4.0 * a * c
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    inv2a = 0.5 / a
-    d1 = (-b + sq) * inv2a
-    d2 = (-b - sq) * inv2a
-    rk = radius_t * kgeo
-
-    def vr_gt(d):
-        fx = px + d * dx
-        fy = py + d * dy
-        fz = pz + d * dz
-        r2k = torch.clamp(fx * fx + fy * fy + fz * fz, min=1.0) * (kgeo * kgeo)
-        dotf = (dx * fx + dy * fy + dz * fz) * kgeo
-        return dotf, (dotf * dotf) * (st_k * st_k), (rk * rk) * r2k
-
-    dotf1, a21, b21 = vr_gt(d1)
-    dotf2, a22, b22 = vr_gt(d2)
-    if inner:
-        bad1 = (dotf1 > 0) & (a21 > b21)
-        bad2 = (dotf2 > 0) & (a22 > b22)
-    else:
-        bad1 = (dotf1 <= 0) | (a21 < b21)
-        bad2 = (dotf2 <= 0) | (a22 < b22)
-    eps = 2e-6 * radius_t
-    neg = torch.full_like(d1, -1.0)
-    d1 = torch.where(bad1 | (d1 < eps), neg, d1)
-    d2 = torch.where(bad2 | (d2 < eps), neg, d2)
-    both_neg = (d1 < 0) & (d2 < 0)
-    dmin = torch.where((d1 >= 0) & ((d2 < 0) | (d1 <= d2)), d1, d2)
-    res = torch.where(both_neg, neg, dmin)
-    return torch.where(disc > 0, res, neg)
-
-
-def _plane_distance(posd, veld, tstart, coordbound, tmin):
-    """Distance to a homologously expanding plane at ``coordbound`` (at
-    tmin), the kernel's float32 form with a guarded zero denominator (a
-    packet moving with the plane never reaches it)."""
-    denom = coordbound - veld * tmin
-    denom = torch.where(denom != 0, denom, torch.full_like(denom, 1e-30))
-    return CLIGHT_PROP * ((posd - veld * tstart) / denom * tmin - tstart)
-
-
-def _boundary(geom, ncoord, tables, cell, px, py, pz, dx, dy, dz, pos2, pdotd, tstart,
-              tmin, max_path_step):
-    """(sdist, snext) of the kernel's grid geometry: spherical shells,
-    cylindrical (rcyl, z) cells or Cartesian cubes, with cell bounds at tmin
-    read from the cellmin/cellmax tables; snext -99 on leaving the grid and
-    the max_path_step cap (grid.cc:2349-2597)."""
-    nprop = tables["mgi_of_cell"].shape[0]
-    ndim = GEOM_NDIM[geom]
-    cmin = tables["cellmin"].view(nprop, ndim)[cell]
-    cmax = tables["cellmax"].view(nprop, ndim)[cell]
-    esc = torch.full_like(cell, BOUNDARY_ESCAPE)
-    big = torch.full_like(px, BIG)
-    neg = torch.full_like(px, -1.0)
-    if geom == GEOM_SPH:
-        d_max = _shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart,
-                                cmax[:, 0] * tstart / tmin, False)
-        sdist = torch.where((d_max >= 0) & (d_max < BIG), d_max, big)
-        snext = torch.where(d_max >= 0, torch.where(cell == nprop - 1, esc, cell + 1),
-                            torch.full_like(cell, -1))
-        r_inner = cmin[:, 0] * tstart / tmin
-        d_min = torch.where(r_inner > 0, _shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd,
-                                                         tstart, r_inner, True), neg)
-        take_min = (d_min >= 0) & (d_min < sdist)
-        sdist = torch.where(take_min, d_min, sdist)
-        snext = torch.where(take_min, torch.where(cell == 0, esc, cell - 1), snext)
-    elif geom == GEOM_CYL:
-        # expanding circles in the xy plane for the rcyl bounds (the planar
-        # distance over the direction's xy length), planes in z
-        n0, n1 = ncoord[0], ncoord[1]
-        i_r, i_z = cell % n0, cell // n0
-        dirxylen = torch.sqrt(dx * dx + dy * dy)
-        has_xy = dirxylen > 1e-8
-        sdl = torch.clamp(dirxylen, min=1e-8)
-        dxn, dyn = dx / sdl, dy / sdl
-        xyspeed = sdl * CLIGHT_PROP
-        zero = torch.zeros_like(px)
-        pos2xy = px * px + py * py
-        pdotdxy = px * dxn + py * dyn
-        sdist, snext = big, torch.full_like(cell, -1)
-        d_rc = _shell_distance(px, py, zero, dxn, dyn, zero, pos2xy, pdotdxy, tstart,
-                               cmax[:, 0] * tstart / tmin, False, speed=xyspeed)
-        d_out = d_rc / sdl
-        ok = has_xy & (d_rc >= 0) & (d_out > 0) & (d_out < sdist)
-        sdist = torch.where(ok, d_out, sdist)
-        snext = torch.where(ok, torch.where(i_r == n0 - 1, esc, cell + 1), snext)
-        r_in = cmin[:, 0] * tstart / tmin
-        d_rc = torch.where(r_in > 0, _shell_distance(px, py, zero, dxn, dyn, zero, pos2xy,
-                                                     pdotdxy, tstart, r_in, True,
-                                                     speed=xyspeed), neg)
-        d_in = d_rc / sdl
-        ok = has_xy & (d_rc >= 0) & (d_in < sdist)
-        sdist = torch.where(ok, d_in, sdist)
-        snext = torch.where(ok, torch.where(i_r == 0, esc, cell - 1), snext)
-        velz = dz * CLIGHT_PROP
-        up = (velz * tstart) > pz
-        db = _plane_distance(pz, velz, tstart, torch.where(up, cmax[:, 1], cmin[:, 1]), tmin)
-        ok = (db >= 0) & (db < sdist)
-        at_edge = torch.where(up, i_z == n1 - 1, i_z == 0)
-        sdist = torch.where(ok, db, sdist)
-        snext = torch.where(ok, torch.where(at_edge, esc, cell + torch.where(up, n0, -n0)),
-                            snext)
-    else:
-        nx, ny, nz = ncoord
-        coords = (cell % nx, (cell // nx) % ny, cell // (nx * ny))
-        sdist, snext = big, torch.full_like(cell, -1)
-        for ax, (pd, dd, inc, nax) in enumerate(((px, dx, 1, nx), (py, dy, nx, ny),
-                                                 (pz, dz, nx * ny, nz))):
-            veld = dd * CLIGHT_PROP
-            up = (veld * tstart) > pd
-            db = _plane_distance(pd, veld, tstart, torch.where(up, cmax[:, ax], cmin[:, ax]),
-                                 tmin)
-            ok = (db >= 0) & (db < sdist)
-            at_edge = torch.where(up, coords[ax] == nax - 1, coords[ax] == 0)
-            sdist = torch.where(ok, db, sdist)
-            snext = torch.where(ok, torch.where(at_edge, esc, cell + torch.where(up, inc, -inc)),
-                                snext)
-    capped = sdist > max_path_step
-    sdist = torch.where(capped, torch.full_like(sdist, max_path_step), sdist)
-    snext = torch.where(capped, cell, snext)
-    return sdist, snext
-
-
 def _bf_terms(nu, need_chi, tables, ngc, nphixs, phixs_dnu, last_nuovernuedge):
     """(B, C) window mask, cross-section and stimulated correction pieces."""
     edge = tables["cont_nu_edge"][None, :]
@@ -248,10 +112,12 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
                         ncells: int, ngc: int, nphixs: int, max_inner: int,
                         relativistic: bool, phixs_dnu: float,
                         last_nuovernuedge: float, test_mode: bool,
-                        geom: int = GEOM_SPH, ncoord=(1, 1, 1), want_bfrate: bool = False,
-                        line_chunk: int = 128) -> dict:
+                        geom: int = GEOM_SPH, ncoord=None, want_bfrate: bool = False,
+                        line_chunk: int = 128, walk_log: list | None = None) -> dict:
     """The crossing kernel as a per-crossing loop over (N,) float32 tensors.
-    Same signature and outputs as ``propagate``."""
+    Same signature and outputs as ``propagate``. ``walk_log``, where given,
+    gets one (model cell, first line, end line) triple of tensors per
+    crossing: the lines each lane's walk read there."""
     from .linewalk import get_event_batch, initial_cursor
 
     s = {k: lanes[k].clone() for k in LANE_F32}
@@ -283,6 +149,10 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
     misc = torch.zeros(NMISC, dtype=torch.float64, device=dev)
 
     mgi_of_cell = tables["mgi_of_cell"].long()
+    nprop = mgi_of_cell.shape[0]
+    ncoord = ncoord or (nprop, 1, 1)
+    cellmin = tables["cellmin"].view(nprop, GEOM_NDIM[geom])
+    cellmax = tables["cellmax"].view(nprop, GEOM_NDIM[geom])
     line_nu = tables["line_nu"]
     tau_factor = tables["tau_factor"]
     gidx = tables["cont_gidx"].long()
@@ -318,9 +188,8 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
             u_split = rng.philox_uniform4(seed, lane_id, it, 1)[0]
 
         pos2 = px * px + py * py + pz * pz
-        pdotd = px * dx + py * dy + pz * dz
-        sdist, snext = _boundary(geom, ncoord, tables, cell, px, py, pz, dx, dy, dz, pos2,
-                                 pdotd, tstart, tmin, max_path_step)
+        sdist, snext = cell_boundary(geom, ncoord, cellmin[cell], cellmax[cell], cell,
+                                     (px, py, pz), (dx, dy, dz), tstart, tmin, max_path_step)
 
         tdist = torch.clamp((t2 - tstart) * CLIGHT_PROP, min=0.0)
         abort_dist = torch.minimum(sdist, tdist)
@@ -368,6 +237,9 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         cursor0 = initial_cursor(line_nu, nu, ntr, nlines)
         walked = torch.clamp(torch.clamp(ev.next_trans, max=nlines) - cursor0, min=0)
         misc[6] += torch.where(need_chi, walked, zi).sum()
+        if walk_log is not None:
+            read = need_chi & (walked > 0)
+            walk_log.append((safe_mgi[read], cursor0[read], (cursor0 + walked)[read]))
 
         chi_grey = kgrey_p * rho_p * doppler
         edist_thick = tau_next / torch.clamp(chi_grey, min=1e-30)
@@ -572,12 +444,12 @@ def _ptrs(names, d):
 
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
 # Largest estimator rows kept in shared memory. Measured on an H100 at
-# N=65536, max_inner=64 (chip_smoke.py): shared rows win at 832 B, 4 KB and
-# 7.6 KB of rows (3.9x, 1.10x, 1.31x), global atomics at 47 KB, 70 KB and
-# 122 KB (1.11x, 1.7x, 3.2x): every block zeroes and flushes its whole copy,
-# and large copies cut the blocks per SM, while few cells make global
-# atomics contend.
-SHARED_ROWS_MAX = 16 * 1024
+# N=65536, max_inner=64 (``python3 chip_smoke.py --rows-sweep``: 1D shells,
+# 3D models and cylinders of growing cell counts): shared rows won up to
+# 24640 B of rows, global atomics from 26560 B: every block zeroes and
+# flushes its whole copy, and large copies cut the blocks per SM, while few
+# cells make global atomics contend.
+SHARED_ROWS_MAX = 25 * 1024
 
 
 def row_bytes(ncells: int, ngc: int, nbfr: int) -> int:
@@ -595,7 +467,7 @@ def pick_shared_rows(ncells: int, ngc: int, nbfr: int) -> bool:
 
 def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *, nlines,
             ncells, ngc, nphixs, max_inner, relativistic, phixs_dnu, last_nuovernuedge,
-            test_mode, geom=GEOM_SPH, ncoord=(1, 1, 1), want_bfrate=False, shared_rows=None):
+            test_mode, geom=GEOM_SPH, ncoord=None, want_bfrate=False, shared_rows=None):
     lib = build()
     dev = lanes["posx"].device
     n = lanes["posx"].shape[0]
@@ -619,7 +491,7 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     for k in ("cellmin", "cellmax"):
         if tables[k].numel() != nprop * ndim:
             raise ValueError(f"{k} must hold ({nprop}, {ndim}) cell bounds")
-    nx, ny, nz = (int(v) for v in ncoord)
+    nx, ny, nz = (int(v) for v in (ncoord or (nprop, 1, 1)))
     if {GEOM_SPH: nx, GEOM_CYL: nx * ny, GEOM_CART: nx * ny * nz}[geom] != nprop:
         raise ValueError(f"grid {ncoord} does not have {nprop} cells")
     if geom == GEOM_CART and not nx == ny == nz:
@@ -677,7 +549,8 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
 
     lanes: LANE_F32 (N,) float32 and LANE_I32 (N,) int32 tensors; tables:
     TABLES_F32 float32 / TABLES_I32 int32 tensors (see ``kernel_tables``);
-    ``geom`` / ``ncoord`` the grid (``kernel_geometry``); ``want_bfrate``
+    ``geom`` / ``ncoord`` the grid (``kernel_geometry``; 1D shells by
+    default, as many as ``mgi_of_cell`` has cells); ``want_bfrate``
     turns on the detailed bf-rate estimators.
     Returns OUT_F32/OUT_I32 lane tensors plus est (ncells, 4: J, nuJ,
     ffheating, boundary crossings out of the cell), gamma and bfheat
@@ -712,9 +585,13 @@ def kernel_geometry(grid) -> dict:
 # Tolerances of compare_outputs. Both versions draw the same Philox numbers,
 # so they differ only by float32 rounding (CUDA's math functions against
 # torch's), which can tip a rare near-tie (boundary against event, a line at
-# the walk's optical-depth threshold) the other way; hence agreement
-# fractions rather than exact equality on the lane outcomes.
-OUTCOME_AGREE = 0.97  # cell and packet type (tests/test_pallas_rpkt.py)
+# the walk's optical-depth threshold) the other way. Such lanes end in
+# another cell or as another packet type: at most 6 of 65536 on an H100, so
+# a launch may have DIVERGED_MIN of them or a DIVERGED_FRAC share of its
+# lanes, whichever is more; a geometry fault that sends lanes to a wrong
+# neighbour misroutes far more.
+DIVERGED_MIN = 16
+DIVERGED_FRAC = 2.5e-4
 FIELD_AGREE = 0.999  # every other integer output, and floats within FIELD_RTOL
 FIELD_RTOL = 1e-4  # float32 rounding differences are ~1e-6 relative
 STATE_RTOL = 2e-3  # max over lanes: prop_time, nu_cmf, e_cmf, position
@@ -741,10 +618,11 @@ def compare_outputs(k: dict, p: dict, est_k: dict | None = None,
     rep, ok = {}, True
     same_cell = gk["where"] == gp["where"]
     same_type = (gk["escaped"] == gp["escaped"]) & (gk["evented"] == gp["evented"])
+    both = same_cell & same_type
     rep["cell_agree"] = float(same_cell.mean())
     rep["ptype_agree"] = float(same_type.mean())
-    ok &= rep["cell_agree"] > OUTCOME_AGREE and rep["ptype_agree"] > OUTCOME_AGREE
-    both = same_cell & same_type
+    rep["diverged_lanes"] = int((~both).sum())
+    ok &= rep["diverged_lanes"] <= max(DIVERGED_MIN, DIVERGED_FRAC * both.size)
     same = both.copy()
     for f in OUT_I32:
         if f in ("where", "escaped", "evented"):
@@ -808,13 +686,13 @@ def check_kernel(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: f
     """Launch the kernel on CUDA lanes, run its plain version on the same
     inputs and compare them (``compare_outputs``). Float32 rounding (CUDA's
     math functions against torch's) can tip a near-tie, after which a lane
-    follows another path through other cells; a few such lanes out of
-    65536 move the estimators of cells that few lanes visit by more than
-    their rounding tolerance. The lanes whose cell or packet type differ
-    are therefore held still (``moving`` = 0) in a second launch of both
-    versions, whose estimators are compared cell by cell; lane outputs and
-    counters come from the first. Returns (ok, report, kernel outputs,
-    plain outputs)."""
+    follows another path through other cells; ``compare_outputs`` allows
+    only a few such lanes (DIVERGED_MIN, DIVERGED_FRAC), but even those move
+    the estimators of cells that few lanes visit by more than their
+    rounding tolerance. The diverged lanes are therefore held still
+    (``moving`` = 0) in a second launch of both versions, whose estimators
+    are compared cell by cell; lane outputs and counters come from the
+    first. Returns (ok, report, kernel outputs, plain outputs)."""
     args = (seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step)
     k = _launch(*args, shared_rows=shared_rows, **kw)
     p = propagate_reference(*args, **kw)
@@ -828,7 +706,6 @@ def check_kernel(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: f
         est_k = _launch(*args, shared_rows=shared_rows, **kw)
         est_p = propagate_reference(*args, **kw)
     ok, rep = compare_outputs(k, p, est_k, est_p)
-    rep["diverged_lanes"] = int(diverged.sum())
     return ok, rep, k, p
 
 

@@ -33,6 +33,12 @@ line is printed):
      timesteps 0-1); every timestep completes, every output is finite and
      packets escape;
   5. prints the kernel records, the card and, last, the device record.
+
+    python3 chip_smoke.py --rows-sweep
+
+times the kernel's two estimator-row modes over growing cell counts
+(``rows_sweep``), the measurement behind rpkt_kernel.SHARED_ROWS_MAX, and
+prints no result line.
 """
 
 from __future__ import annotations
@@ -103,13 +109,6 @@ def cyl_scene(d):
     from artis_tpu_torch.synthdata import make_run
 
     make_run(d, ncells=25, ntimesteps=3, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
-             model_dim=2, logrho0=-9.0, logrho_slope=-0.15)
-
-
-def small_cyl_scene(d):
-    from artis_tpu_torch.synthdata import make_run
-
-    make_run(d, ncells=10, ntimesteps=3, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
              model_dim=2, logrho0=-9.0, logrho_slope=-0.15)
 
 
@@ -327,24 +326,85 @@ def _timed(fn, reps):
     return s.elapsed_time(e) / reps, out
 
 
-def _bound_ms(out, n, ncells, ngc, nbfr, ndim):
-    """The least time the card could take for one call with these inputs:
-    bytes moved (lane state in and out once, one cell row per crossing, the
-    lines the walk read, the bf continua in the opacity windows, the
-    estimator rows out once) over the HBM rate, against an operation count
-    (about 400 float32 operations per crossing, 20 per line read and 40 per
-    bf continuum, counted from the source) over the float32 peak. Returns
-    (ms, 'bytes' or 'operations')."""
+def _union_len(start, end):
+    """Length of the union of the intervals [start, end)."""
+    import torch
+
+    if start.numel() == 0:
+        return 0
+    order = torch.argsort(start)
+    s, e = start[order], end[order]
+    # each interval adds what lies beyond the farthest end before it
+    reach = torch.cat([s[:1], torch.cummax(e, 0).values[:-1]])
+    return int(torch.clamp(e - torch.maximum(s, reach), min=0).sum())
+
+
+def _walk_entries(walk_log, nlines):
+    """(distinct lines, distinct (model cell, line) pairs) that the line
+    walks of a plain-version run read."""
+    import torch
+
+    mgi, lo, hi = (torch.cat([w[i] for w in walk_log]).long() for i in range(3))
+    base = mgi * (nlines + 1)
+    return _union_len(lo, hi), _union_len(base + lo, base + hi)
+
+
+def _bound_ms(out, walk_log, tables, kw, test_mode):
+    """The least time the card could take for one call with these inputs,
+    each input read once and each output written once: the lane inputs the
+    call reads (the injected draws only in test mode) and its lane outputs;
+    the cell, bound and continuum tables at most once (no more than the
+    crossings and opacity windows read of them); of the line tables, the
+    distinct lines and (model cell, line) entries that the walks of this
+    run read (``walk_log`` of a plain-version run on the same inputs); the
+    estimator rows and counters out once. That over the HBM rate, against
+    an operation count (about 400 float32 operations per crossing, 20 per
+    line read and 40 per bf continuum in a window, counted from the source)
+    over the float32 peak. Returns (ms, 'bytes' or 'operations', bytes)."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
     misc = out["misc"].double().cpu().numpy()
     nadv, nwalk, nbfwin = misc[0], misc[6], misc[7]
-    lane_bytes = n * (17 * 4 + 30 * 4)  # 17 lane inputs, 30 lane outputs
-    row_bytes = 4 * (1 + 6 + 2 * ndim)  # mgi, six cell values, cell bounds
-    bf_bytes = 4 * (1 + 2 + 3 + 1)  # edge, two phixs points, a/dep/prob, ground index
-    est_bytes = 4 * ncells * (4 + 2 * ngc + nbfr)
-    nbytes = lane_bytes + nadv * row_bytes + nwalk * 8 + nbfwin * bf_bytes + est_bytes
+    n = out["posx"].shape[0]
+    ncells, ngc, nbfr = kw["ncells"], kw["ngc"], out["bfrate"].shape[1]
+    size = lambda *names: sum(4 * tables[k].numel() for k in names)
+    ndim = rpkt_kernel.GEOM_NDIM[kw["geom"]]
+    cell_row = 4 * (1 + 6 + 2 * ndim)  # mgi, six cell values, the cell's bounds
+    cell_tables = size("mgi_of_cell", "cellmin", "cellmax", "nne", "Te", "kappagrey", "rho",
+                       "chiffpart", "thick")
+    bf_row = 4 * (1 + 2 + 3 + 1)  # edge, two phixs points, a/dep/prob, ground index
+    bf_tables = size("cont_nu_edge", "cont_phixs", "cont_prob", "cont_gidx", "bf_a", "bf_dep",
+                     "gc_nu_edge")
+    lines, entries = _walk_entries(walk_log, kw["nlines"])
+    nbytes = (n * 4 * ((17 if test_mode else 15) + 30) + min(nadv * cell_row, cell_tables)
+              + min(nbfwin * bf_row, bf_tables) + 4 * (lines + entries)
+              + 4 * ncells * (4 + 2 * ngc + nbfr) + 8 * len(misc))
     ops = 400.0 * nadv + 20.0 * nwalk + 40.0 * nbfwin
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (nbytes,)
+
+
+def _timing_inputs(sim, tables, t0, t2, want_bfrate, seed):
+    lanes, tau, sel = forced_lanes(sim, t0, NPKTS_DEFAULT, seed)
+    args = (12345, lanes, tables, tau, sel, t2, float(sim.grid.tmin),
+            float(sim.grid.max_path_step))
+    return args, dict(_kernel_kw(sim, want_bfrate), max_inner=64, test_mode=False)
+
+
+def _time_modes(args, kw, modes):
+    """CUDA-event means of the kernel in each estimator-row mode (True:
+    shared memory, False: global atomics), in turns and then in reverse;
+    also returns the last launch's outputs."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    times = {m: [] for m in modes}
+    for m in modes + modes[::-1]:
+        t, out = _timed(lambda: rpkt_kernel._launch(*args, shared_rows=m, **kw), 10)
+        times[m].append(t)
+    return times, out
+
+
+ROW_MODE = {True: "shared", False: "global"}
 
 
 def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7):
@@ -354,42 +414,31 @@ def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7):
     the wrapper picks."""
     from artis_tpu_torch.transport import rpkt_kernel
 
-    lanes, tau, sel = forced_lanes(sim, t0, NPKTS_DEFAULT, seed)
-    kw = _kernel_kw(sim, want_bfrate)
-    args = (12345, lanes, tables, tau, sel, t2, float(sim.grid.tmin),
-            float(sim.grid.max_path_step))
+    args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed)
     ncont = sim.dad.nbfcontinua if want_bfrate else 0
     rows = rpkt_kernel.row_bytes(kw["ncells"], kw["ngc"], ncont)
     modes = [True, False] if rows <= rpkt_kernel.SMEM_LIMIT else [False]
     picked = rpkt_kernel.pick_shared_rows(kw["ncells"], kw["ngc"], ncont)
     before = dict(rpkt_kernel.propagate.launches)
-    run_p = lambda: rpkt_kernel.propagate_reference(*args, max_inner=64, test_mode=False, **kw)
-
-    def run_k(mode):
-        return lambda: rpkt_kernel._launch(*args, max_inner=64, test_mode=False,
-                                           shared_rows=mode, **kw)
-
+    run_p = lambda: rpkt_kernel.propagate_reference(*args, **kw)
     p1, _ = _timed(run_p, 1)
-    times = {m: [] for m in modes}
-    for m in modes + modes[::-1]:
-        t, out = _timed(run_k(m), 10)
-        times[m].append(t)
+    times, out = _time_modes(args, kw, modes)
     p2, _ = _timed(run_p, 1)
     rpkt_kernel.propagate.launches.update(before)
-    bound, by = _bound_ms(out, NPKTS_DEFAULT, kw["ncells"], kw["ngc"], ncont,
-                          rpkt_kernel.GEOM_NDIM[kw["geom"]])
+    walk_log = []
+    rpkt_kernel.propagate_reference(*args, walk_log=walk_log, **kw)
+    bound, by, nbytes = _bound_ms(out, walk_log, tables, kw, test_mode=False)
     misc = out["misc"].double().cpu().numpy()
-    name = {True: "shared", False: "global"}
     log(f"timing[{label}] (N={NPKTS_DEFAULT}, max_inner=64): "
-        + ", ".join(f"kernel with {name[m]} rows {' / '.join(f'{t:.4f}' for t in times[m])} ms"
-                    for m in modes)
-        + f", plain version {p1:.4f} / {p2:.4f} ms, bound {bound:.6f} ms ({by}); crossings "
-        f"{misc[0]:.0f}, lines read {misc[6]:.0f}, bf continua {misc[7]:.0f}, estimator rows "
-        f"{rows} bytes, the wrapper picks {name[picked]} rows")
+        + ", ".join(f"kernel with {ROW_MODE[m]} rows "
+                    f"{' / '.join(f'{t:.4f}' for t in times[m])} ms" for m in modes)
+        + f", plain version {p1:.4f} / {p2:.4f} ms, bound {bound:.6f} ms ({by}, {nbytes:.0f} "
+        f"bytes); crossings {misc[0]:.0f}, lines read {misc[6]:.0f}, bf continua "
+        f"{misc[7]:.0f}, estimator rows {rows} bytes, the wrapper picks {ROW_MODE[picked]} rows")
     rec = dict(ms=min(times[picked]), plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
-               library_ms=None, rows=name[picked])
+               library_ms=None, rows=ROW_MODE[picked])
     for m in modes:
-        rec[f"{name[m]}_rows_ms"] = min(times[m])
+        rec[f"{ROW_MODE[m]}_rows_ms"] = min(times[m])
     return rec
 
 
@@ -424,11 +473,7 @@ def phase_kernel_vs_plain(workdir):
     real = _phase3_sim(workdir, "phase3_real", real_scene, NPKTS_REAL)
     log(f"phase 3 realistic shapes: ncells={real.cells.Te.shape[0]} "
         f"nlines={real.dad.nlines} ncont={real.dad.nbfcontinua}")
-    captured = _captured_case(real, seed=2)
-    errs["rpkt_crossing_sph1d"] += _check_cases(real, [captured], nonzero)
-    # the row modes at 128 shells (4 KB of rows), with timestep 1's tables
-    _time_config(real, captured[2], float(real.ts.start[1]), captured[5], False,
-                 "K1 sph1d, 128 shells")
+    errs["rpkt_crossing_sph1d"] += _check_cases(real, [_captured_case(real, seed=2)], nonzero)
     for s in (sim, real):
         s.close()
     del sim, real
@@ -508,14 +553,6 @@ def phase_kernel_vs_plain(workdir):
     cyl.close()
     del cyl
     gc.collect()
-    # the row modes at 10 x 20 cylindrical cells (about 9 KB of rows)
-    small = _phase3_sim(workdir, "phase3_cyl_small", small_cyl_scene, NPKTS_DEFAULT,
-                        "CYLINDRICAL2D")
-    ctx = small.update_grid(0)
-    _time_config(small, _nongrey_tables(small, ctx)[1], float(ctx.ts), float(ctx.t2), False,
-                 "K3 cyl2d, 10 x 20 cells")
-    small.close()
-    del small
 
     # a comparison of estimators that stayed zero on both sides tests nothing
     if not all(nonzero.values()):
@@ -592,13 +629,69 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     return rec
 
 
+# the estimator-row sweep: (geometry, make_run keywords, grid type) of
+# each scene, cell counts growing from a few hundred bytes of rows to most
+# of the 227 KB a block may hold
+SWEEP = ([("sph1d", dict(ncells=n, logrho_slope=-0.15 * 15 / (n - 1)), "SPHERICAL1D")
+          for n in (64, 256, 512, 1024, 2048)]
+         + [("3dmodel", dict(ncells=n, model_dim=3), "CARTESIAN3D") for n in (6, 8, 10, 12)]
+         + [("cyl2d", dict(ncells=n, model_dim=2), "CYLINDRICAL2D") for n in (10, 15, 20)])
+
+
+def rows_sweep(workdir):
+    """The kernel with its estimator rows in shared memory against global
+    atomics (N=65536, max_inner=64, Philox draws, no bf-rate estimators) on
+    each SWEEP scene, timed in turns and then in reverse; logs each point,
+    the largest rows at which shared memory won and the smallest at which
+    global atomics won (where rpkt_kernel.SHARED_ROWS_MAX belongs)."""
+    from artis_tpu_torch.synthdata import make_run
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    points = []
+    for i, (geo, mk, grid) in enumerate(SWEEP):
+        keys = dict(ntimesteps=3, tmin_days=5.0, tmax_days=9.0, ngreyts=1, logrho0=-9.0,
+                    logrho_slope=-0.15)
+        sim = _phase3_sim(workdir, f"sweep{i}", lambda d: make_run(d, **dict(keys, **mk)),
+                          NPKTS_DEFAULT, grid)
+        ctx = sim.update_grid(0)
+        args, kw = _timing_inputs(sim, _nongrey_tables(sim, ctx)[1], float(ctx.ts),
+                                  float(ctx.t2), False, seed=7)
+        rows = rpkt_kernel.row_bytes(kw["ncells"], kw["ngc"], 0)
+        times, out = _time_modes(args, kw, [True, False])
+        shared, glob_ = min(times[True]), min(times[False])
+        points.append(dict(geometry=geo, ncells=kw["ncells"], rows=rows, shared_ms=shared,
+                           global_ms=glob_))
+        log(f"sweep[{geo} ncells={kw['ncells']}] rows {rows} bytes: shared "
+            f"{' / '.join(f'{t:.4f}' for t in times[True])} ms, global "
+            f"{' / '.join(f'{t:.4f}' for t in times[False])} ms, global/shared "
+            f"{glob_ / shared:.3f}; crossings {float(out['misc'][0]):.0f}")
+        sim.close()
+        del sim
+        gc.collect()
+    won = {m: [p["rows"] for p in points if (p["shared_ms"] < p["global_ms"]) == m]
+           for m in (True, False)}
+    log(f"sweep: shared rows won up to {max(won[True], default=None)} bytes, global atomics "
+        f"from {min(won[False], default=None)} bytes; SHARED_ROWS_MAX is "
+        f"{rpkt_kernel.SHARED_ROWS_MAX}")
+    log(json.dumps({"rows_sweep": points}))
+
+
 def main():
+    if sys.argv[1:] not in ([], ["--rows-sweep"]):
+        raise SystemExit("usage: python3 chip_smoke.py [--rows-sweep]")
     card = phase_device()
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    if sys.argv[1:]:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+            phase_build()
+            rows_sweep(workdir)
+        log(f"total {time.time() - t_start:.1f} s")
+        log(f"card: {card}")
+        return
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         build_s = phase_build()
         rec = phase_kernel_vs_plain(workdir)
@@ -619,6 +712,11 @@ def main():
     # drives it
     main_run = {"rpkt_crossing_sph1d": "default_scene", "rpkt_crossing_cart3d": "big_scene",
                 "rpkt_crossing_bfrate": "big_scene", "rpkt_crossing_cyl2d": "kilonova_2d_2dgrid"}
+    # K2's time is the cart3d geometry without bf-rate estimators; the main
+    # path launches it only with them, so its launches are K5-bfrate's
+    rec["rpkt_crossing_cart3d"]["note"] = ("ms, plain_ms and bound_ms: the cart3d geometry "
+                                           "without bf-rate estimators; launches: the big "
+                                           "scene's, each also a K5-bfrate launch")
     kernels = []
     for key, (label, replaces) in CONFIGS.items():
         r = rec[key]
@@ -627,7 +725,8 @@ def main():
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], build_s=build_s,
-                            **{k: v for k, v in r.items() if k.endswith("rows_ms")}))
+                            **{k: v for k, v in r.items()
+                               if k.endswith("rows_ms") or k == "note"}))
     log(f"total {time.time() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

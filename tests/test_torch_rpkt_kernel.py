@@ -267,15 +267,28 @@ def _mutate(out, kind):
         o["gamma"] = o["gamma"] * 1.05
     elif kind == "nesc":
         o["misc"][1] += 10
+    elif kind == "cell_1pct":  # every 100th lane sent on to the next cell
+        o["where"][::100] += 1
     return o
 
 
+def _tiled(out, reps):
+    """The crossing outputs of ``reps`` copies of every lane (the per-cell
+    rows and counters as they were)."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    lane = set(rpkt_kernel.OUT_F32 + rpkt_kernel.OUT_I32)
+    return {f: (v.repeat(reps) if f in lane else v) for f, v in out.items()}
+
+
 @pytest.mark.parametrize("kind", [None, "act_line", "bf_idx", "chi_bf", "dir", "j_wrong_cell",
-                                  "gamma", "nesc"])
+                                  "gamma", "nesc", "cell_1pct"])
 def test_compare_outputs_rejects_each_fault(scene, kind):
     """The kernel-vs-plain check of the card (rpkt_kernel.compare_outputs)
     accepts identical outputs and rejects a wrong activating line, bf
-    continuum, opacity, direction, per-cell J, gamma estimator or counter."""
+    continuum, opacity, direction, per-cell J, gamma estimator or counter,
+    and 1% of 65536 lanes sent to a wrong cell (a geometry fault that a
+    97% cell agreement would let pass)."""
     from artis_tpu_torch.transport import engine as teng
     from artis_tpu_torch.transport import rpkt_kernel
 
@@ -295,5 +308,7 @@ def test_compare_outputs_rejects_each_fault(scene, kind):
         phixs_dnu=float(dad.nphixsnuincrement),
         last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=True)
     assert int((out["is_bb"] > 0).sum()) > 0 and float(out["gamma"].sum()) > 0
+    if kind == "cell_1pct":
+        out = _tiled(out, 65536 // n)
     ok, rep = rpkt_kernel.compare_outputs(_mutate(out, kind), out)
     assert ok == (kind is None), rep

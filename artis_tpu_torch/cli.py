@@ -7,6 +7,9 @@ kernel). Multi-device runs (--mesh) and exspec are not ported.
 
     python -m artis_tpu_torch.cli --rundir RUN --preset kilonova_lte \
         --set npkts=65536 --set transport_dtype=float32 --device cuda
+
+Enum fields take their member names: --set grid_type=CYLINDRICAL2D,
+--set particle_thermalisation_scheme=BARNES.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ def _build_opts(args) -> "options_mod.Options":
             parsed = val
         if key == "grid_type":
             parsed = options_mod.GridType[str(val)]
+        elif key in ("particle_thermalisation_scheme", "gamma_thermalisation_scheme"):
+            parsed = options_mod.ThermalisationScheme[str(parsed)]
         overrides[key] = parsed
     return preset_fn(**overrides)
 

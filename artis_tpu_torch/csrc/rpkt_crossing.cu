@@ -4,11 +4,13 @@
 // (artis_tpu/transport/pallas_rpkt.py:1837, body _kernel :314-1822) in its
 // resident-table, in-kernel-scatter configurations: the 1D spherical grid
 // (the default branch, :863-942), the 3D Cartesian grid (`cart3d`,
-// :588-631 and :712-750), the 2D cylindrical grid (`cyl2d`, :751-862) and
-// the detailed bf-rate estimators (`want_bfrate`, :1515-1532). Each packet
+// :588-631 and :712-750), the 2D cylindrical grid (`cyl2d`, :751-862), the
+// detailed bf-rate estimators (`want_bfrate`, :1515-1532) and the binned
+// expansion opacities (`expansion_mode`, :1136-1200). Each packet
 // advances through up to max_inner cell crossings (optical-depth draw, shell
 // boundary distance, Doppler and abort frequency, continuum opacity with bf
-// selection, Sobolev line walk from its cursor, in-kernel isotropic electron
+// selection, Sobolev line walk from its cursor or the walk over wavelength
+// bins of binned line opacity, in-kernel isotropic electron
 // and thick-grey scattering, two half-moves with midpoint J / nuJ /
 // ffheating / LUT gamma and bf-heating estimators, Kahan-summed time and the
 // boundary overshoot guard). Reference physics: rpkt.cc:604-737.
@@ -21,6 +23,8 @@
 // registers); cell bounds at tmin come from the (ncells, ndim) cellmin /
 // cellmax tables and the model cell of a propagation cell from the host-built
 // mgi_of_cell table, which is how the XLA path maps 1D, 2D and 3D models.
+// Expansion-opacity mode is a second template parameter, so the line-walk
+// instantiations keep their registers.
 // Per-cell estimators (ncells x (4 + 2 ngc + ncont if bf-rate) floats)
 // accumulate in one of two ways, which the wrapper picks by their size: for
 // few cells in shared memory per block, flushed to global memory with one
@@ -40,6 +44,21 @@
 // its slowest lane. The caller compacts the moving lanes into one launch so
 // no warp carries finished packets from the start; sorting lanes by cell or
 // cursor, and a persistent-thread work queue, are later optimisations.
+//
+// Expansion-opacity mode (port of expansionopacity.get_event_expansion_batch,
+// rpkt.cc:199-290). Where the Pallas branch computes all 970 bins of every
+// lane at every crossing (a one-hot MXU gather of the kappa rows and a
+// triangular-matmul cumsum), each thread here walks only the bins its path
+// crosses: from the bin of its comoving frequency toward the red, reading
+// kappa[mgi, b] from the global (ncells, 970) table, adding
+// (chi_cont + kappa rho doppler) * (path length in the bin) until the
+// optical-depth target is reached. A bin is 35.5 A, about 0.7 % in
+// wavelength, so a crossing walks a few bins; the row is a dependent
+// chain of loads like the line walk's, from a table of 3.8 MB at 988 cells
+// (L2-resident). The JAX semantics are kept where they look odd: bin 0 has
+// no upper edge (a packet bluer than LAMBDA_MIN accrues bin 0 from where it
+// stands); a packet redder than the last bin has no path length in any bin
+// and so sees no event, not even a continuum one.
 //
 // Random numbers: counter-based Philox4x32-10 keyed by (seed, lane id), with
 // (crossing index, sub-stream) as counter, so results depend neither on the
@@ -61,7 +80,7 @@
 // scalar launch parameters; field order matches _Params in rpkt_kernel.py
 struct RpktParams {
   int n, ncells, nprop, nlines, ncont, ngc, nphixs, max_inner, relativistic, test_mode;
-  int geom, nx, ny, nz, want_bfrate, shared_rows;
+  int geom, nx, ny, nz, want_bfrate, shared_rows, expansion, nbins;
   uint32_t seed_lo, seed_hi;
   float t2, tmin, max_path_step, phixs_dnu, last_nuovernuedge, pad0;
 };
@@ -79,6 +98,10 @@ constexpr int NMISC = 8;
 constexpr int BLOCK = 128;
 // grid geometries (the GridType values)
 constexpr int GEOM_SPH = 1, GEOM_CYL = 2, GEOM_CART = 3;
+// expansion-opacity bin layout (expansionopacity.py: LAMBDA_MIN, DELTA_LAMBDA)
+// and 1e8 c [A/s]; the bin edges are computed in double and rounded to
+// float, as the plain version computes them
+constexpr double LAMBDA_MIN_A = 534.5, DELTA_LAMBDA_A = 35.5, CLIGHT_ANGSTROM = 2.99792458e18;
 
 struct Lanes {
   const float *px, *py, *pz, *dx, *dy, *dz, *nurf, *nucmf, *erf, *ecmf, *t;
@@ -88,7 +111,8 @@ struct Lanes {
 
 struct Tables {
   const float *cellmin, *cellmax, *nne, *te, *kappagrey, *rho, *chiffpart, *line_nu,
-      *tau_factor, *cont_nu_edge, *bf_a, *bf_dep, *cont_phixs, *cont_prob, *gc_nu_edge;
+      *tau_factor, *cont_nu_edge, *bf_a, *bf_dep, *cont_phixs, *cont_prob, *gc_nu_edge,
+      *expo_kappa;
   const int *mgi_of_cell, *thick, *cont_gidx;
 };
 
@@ -306,7 +330,7 @@ __device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, 
   }
 }
 
-template <int GEOM>
+template <int GEOM, bool EXPO>
 __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lanes in, Tables tb,
                                                               Outs out) {
   extern __shared__ double smem_d[];
@@ -360,11 +384,12 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
       const float chiffpart_p = __ldg(tb.chiffpart + smgi);
       const bool thick = nonempty && (__ldg(tb.thick + smgi) == 1);
 
-      float tau_next, sel_u, u_split, z1, z2;
+      float tau_next, sel_u, u_split, u_bb, z1, z2;
       if (p.test_mode) {
         tau_next = test_tau;
         sel_u = test_sel;
         u_split = test_sel;
+        u_bb = test_sel;
         z1 = 0.37f;
         z2 = 0.81f;
       } else {
@@ -376,6 +401,7 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
         z1 = u[2];
         z2 = u[3];
         u_split = v[0];
+        u_bb = v[1];
       }
 
       // --- boundary distance of the grid geometry ---
@@ -422,72 +448,109 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
       const float chi_cont_cmf = chi_escat + chi_ff + chi_bf;
       const float chi_cont = chi_cont_cmf * doppler;
 
-      // --- Sobolev line walk from the packet's cursor (rpkt.cc:77-197) ---
       float ev_edist = BIG;
       int ev_ntr = ntr, ev_lact = -99;
       bool ev_bb = false;
       if (need_chi) {
-        int cursor0;
-        if (ntr > nlines - 1 || nu < nu_lastline) {
-          cursor0 = nlines;
-        } else if (ntr > 0) {
-          cursor0 = min(ntr, nlines);
-        } else {  // fresh cursor: count of lines bluer than nu
-          int a = 0, b = nlines;
-          while (a < b) {
-            const int m = (a + b) >> 1;
-            if (__ldg(tb.line_nu + m) > nu) a = m + 1; else b = m;
-          }
-          cursor0 = a;
-        }
-        const float safe_chi = fmaxf(chi_cont, 1e-30f);
-        if (cursor0 >= nlines) {
-          const float cd = fmaxf(tau_next / safe_chi, 0.0f);
-          if (cd <= abort_dist) {
-            ev_edist = cd;
-            ev_ntr = nlines + 1;
+        if constexpr (EXPO) {
+          // --- binned expansion-opacity walk (rpkt.cc:199-290) ---
+          ev_ntr = -1;  // no line cursor in this mode (pallas_rpkt.py:1198)
+          const float safe_chi = fmaxf(chi_cont, 1e-30f);
+          const float rho_dop = rho_p * doppler;
+          const float* __restrict__ krow = tb.expo_kappa + (size_t)smgi * p.nbins;
+          // start one bin bluer than the packet's own (a guard against the
+          // rounding of the estimate): bins bluer than the packet have no path
+          // length, so starting early changes nothing
+          const double lam = CLIGHT_ANGSTROM / (double)nu;
+          const double bin_est = fmin((lam - LAMBDA_MIN_A) / DELTA_LAMBDA_A, (double)p.nbins);
+          float cum = 0.0f, dprev = 0.0f;
+          for (int b = max((int)floor(bin_est) - 1, 0); b < p.nbins; ++b) {
+            const float nu_lo =
+                (float)(CLIGHT_ANGSTROM / (LAMBDA_MIN_A + (double)(b + 1) * DELTA_LAMBDA_A));
+            float de = rel ? (nu_lo - nu) / dnudl : CLIGHT_PROP * tstart * (nu / nu_lo - 1.0f);
+            de = fminf(fmaxf(de, 0.0f), 1e30f);
+            const float seg = fmaxf(de - dprev, 0.0f);
+            if (seg > 0.0f) {
+              ++m_walk;
+              const float chi_bb = __ldg(krow + b) * rho_dop;
+              const float chi_t = safe_chi + chi_bb;
+              const float dtau = chi_t * seg;
+              if (cum + dtau >= tau_next) {
+                ev_edist = fmaxf(dprev + (tau_next - cum) / fmaxf(chi_t, 1e-30f), 0.0f);
+                ev_bb = u_bb <= chi_bb / fmaxf(chi_t, 1e-30f);
+                break;
+              }
+              cum += dtau;
+            }
+            dprev = de;
+            // an event past the abort distance lies beyond the boundary or the
+            // time limit and is never taken: the walk may stop here
+            if (dprev > abort_dist) break;
           }
         } else {
-          const float* __restrict__ taurow = tb.tau_factor + (size_t)smgi * nlines;
-          float tau_cum = 0.0f, prevD = 0.0f;
-          for (int l = cursor0;; ++l) {
-            if (l > nlines - 1) {  // past the end of the list
-              const float cd = fmaxf((tau_next - tau_cum) / safe_chi, 0.0f);
-              if (cd <= abort_dist) {
-                ev_edist = cd;
-                ev_ntr = nlines + 1;
-              } else {
-                ev_ntr = nlines - 1;
-              }
-              break;
+          // --- Sobolev line walk from the packet's cursor (rpkt.cc:77-197) ---
+          int cursor0;
+          if (ntr > nlines - 1 || nu < nu_lastline) {
+            cursor0 = nlines;
+          } else if (ntr > 0) {
+            cursor0 = min(ntr, nlines);
+          } else {  // fresh cursor: count of lines bluer than nu
+            int a = 0, b = nlines;
+            while (a < b) {
+              const int m = (a + b) >> 1;
+              if (__ldg(tb.line_nu + m) > nu) a = m + 1; else b = m;
             }
-            const float nu_k = __ldg(tb.line_nu + l);
-            float relD = rel ? (nu_k - nu) / dnudl : CLIGHT_PROP * tstart * (nu / nu_k - 1.0f);
-            relD = fminf(fmaxf(relD, 0.0f), 1e30f);
-            const float t_prev = tstart + prevD / CLIGHT_PROP;
-            const float tau_line = __ldg(taurow + l) * t_prev;
-            const float contdist = fmaxf((tau_next - tau_cum) / safe_chi, 0.0f);
-            if (contdist <= relD) {
-              ev_edist = contdist;
-              ev_ntr = l;
-              break;
-            }
-            if (nu_k < nu_cmf_abort) {
-              ev_ntr = l;
-              break;
-            }
-            if (tau_next - tau_cum <= safe_chi * relD + tau_line) {
-              ev_edist = relD;
-              ev_ntr = l + 1;
-              ev_bb = true;
-              ev_lact = l;
-              break;
-            }
-            tau_cum += tau_line;
-            prevD = relD;
+            cursor0 = a;
           }
+          const float safe_chi = fmaxf(chi_cont, 1e-30f);
+          if (cursor0 >= nlines) {
+            const float cd = fmaxf(tau_next / safe_chi, 0.0f);
+            if (cd <= abort_dist) {
+              ev_edist = cd;
+              ev_ntr = nlines + 1;
+            }
+          } else {
+            const float* __restrict__ taurow = tb.tau_factor + (size_t)smgi * nlines;
+            float tau_cum = 0.0f, prevD = 0.0f;
+            for (int l = cursor0;; ++l) {
+              if (l > nlines - 1) {  // past the end of the list
+                const float cd = fmaxf((tau_next - tau_cum) / safe_chi, 0.0f);
+                if (cd <= abort_dist) {
+                  ev_edist = cd;
+                  ev_ntr = nlines + 1;
+                } else {
+                  ev_ntr = nlines - 1;
+                }
+                break;
+              }
+              const float nu_k = __ldg(tb.line_nu + l);
+              float relD = rel ? (nu_k - nu) / dnudl : CLIGHT_PROP * tstart * (nu / nu_k - 1.0f);
+              relD = fminf(fmaxf(relD, 0.0f), 1e30f);
+              const float t_prev = tstart + prevD / CLIGHT_PROP;
+              const float tau_line = __ldg(taurow + l) * t_prev;
+              const float contdist = fmaxf((tau_next - tau_cum) / safe_chi, 0.0f);
+              if (contdist <= relD) {
+                ev_edist = contdist;
+                ev_ntr = l;
+                break;
+              }
+              if (nu_k < nu_cmf_abort) {
+                ev_ntr = l;
+                break;
+              }
+              if (tau_next - tau_cum <= safe_chi * relD + tau_line) {
+                ev_edist = relD;
+                ev_ntr = l + 1;
+                ev_bb = true;
+                ev_lact = l;
+                break;
+              }
+              tau_cum += tau_line;
+              prevD = relD;
+            }
+          }
+          m_walk += max(0, min(ev_ntr, nlines) - cursor0);
         }
-        m_walk += max(0, min(ev_ntr, nlines) - cursor0);
       }
 
       // thick cells: grey opacity (rpkt.cc:647-654)
@@ -685,17 +748,17 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
     if (s_misc[i] != 0.0) atomicAdd(out.misc + i, s_misc[i]);
 }
 
-template <int GEOM>
+template <int GEOM, bool EXPO>
 cudaError_t launch(const RpktParams& p, const Lanes& in, const Tables& tb, const Outs& out,
                    cudaStream_t stream) {
   const int nbfr = p.want_bfrate ? p.ncont : 0;
   const size_t smem = NMISC * sizeof(double) +
       (p.shared_rows ? sizeof(float) * (size_t)p.ncells * (4 + 2 * p.ngc + nbfr) : 0);
-  cudaError_t err = cudaFuncSetAttribute(rpkt_crossing_kernel<GEOM>,
+  cudaError_t err = cudaFuncSetAttribute(rpkt_crossing_kernel<GEOM, EXPO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int grid = (p.n + BLOCK - 1) / BLOCK;
-  rpkt_crossing_kernel<GEOM><<<grid, BLOCK, smem, stream>>>(p, in, tb, out);
+  rpkt_crossing_kernel<GEOM, EXPO><<<grid, BLOCK, smem, stream>>>(p, in, tb, out);
   return cudaGetLastError();
 }
 
@@ -716,8 +779,8 @@ extern "C" int rpkt_crossing_launch(const RpktParams* prm, void** lanes, void** 
            lf[15], lf[16]};
   const float* const* tf = reinterpret_cast<const float* const*>(tables);
   Tables tb{tf[0], tf[1], tf[2], tf[3], tf[4], tf[5], tf[6], tf[7], tf[8], tf[9], tf[10], tf[11],
-            tf[12], tf[13], tf[14], reinterpret_cast<const int*>(tables[15]),
-            reinterpret_cast<const int*>(tables[16]), reinterpret_cast<const int*>(tables[17])};
+            tf[12], tf[13], tf[14], tf[15], reinterpret_cast<const int*>(tables[16]),
+            reinterpret_cast<const int*>(tables[17]), reinterpret_cast<const int*>(tables[18])};
   float* const* of = reinterpret_cast<float* const*>(outs);
   int* const* oi = reinterpret_cast<int* const*>(outs + 19);
   Outs out{of[0], of[1], of[2], of[3], of[4], of[5], of[6], of[7], of[8], of[9], of[10], of[11],
@@ -727,10 +790,17 @@ extern "C" int rpkt_crossing_launch(const RpktParams* prm, void** lanes, void** 
            reinterpret_cast<float*>(outs[32]), reinterpret_cast<float*>(outs[33]),
            reinterpret_cast<double*>(outs[34])};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool ex = p.expansion != 0;
   switch (p.geom) {
-    case GEOM_SPH: return (int)launch<GEOM_SPH>(p, in, tb, out, st);
-    case GEOM_CYL: return (int)launch<GEOM_CYL>(p, in, tb, out, st);
-    case GEOM_CART: return (int)launch<GEOM_CART>(p, in, tb, out, st);
+    case GEOM_SPH:
+      return (int)(ex ? launch<GEOM_SPH, true>(p, in, tb, out, st)
+                      : launch<GEOM_SPH, false>(p, in, tb, out, st));
+    case GEOM_CYL:
+      return (int)(ex ? launch<GEOM_CYL, true>(p, in, tb, out, st)
+                      : launch<GEOM_CYL, false>(p, in, tb, out, st));
+    case GEOM_CART:
+      return (int)(ex ? launch<GEOM_CART, true>(p, in, tb, out, st)
+                      : launch<GEOM_CART, false>(p, in, tb, out, st));
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -12,9 +12,18 @@ runs as CUDA when that device is a GPU and as its plain version on the CPU.
 
 Ported slice: LTE grid updates (the ``first`` and ``lte`` modes — the
 kilonova_lte preset with ``num_lte_timesteps`` covering the run) on
-SPHERICAL1D, CYLINDRICAL2D and CARTESIAN3D grids with DETAILED
-thermalisation, optionally with the detailed bf-rate estimators. Other modes
-raise NotImplementedError.
+SPHERICAL1D, CYLINDRICAL2D and CARTESIAN3D grids, optionally with the
+detailed bf-rate estimators and with binned expansion opacities; particle
+thermalisation INSTANT, DETAILED, BARNES or WOLLAEGER, gamma thermalisation
+by detailed transport or the BARNES, WOLLAEGER or GUTTMAN scheme. Other
+modes raise NotImplementedError.
+
+With ``expansionopacities_on`` the grid update also builds the binned
+opacities and their Planck-weighted cumulative, and, for
+``rpkt_boundbound_thermalisation_probability`` < 0, the per-cell cumulative
+line weights that resolve a bound-bound event's line. These tables are
+rebuilt every timestep from the level populations, so checkpoints carry
+none of them.
 
 The detailed bf-rate estimators (``detailed_bf_estimators_on``) are
 accumulated per (nonempty cell, bf continuum), carried through checkpoints
@@ -55,7 +64,9 @@ from .plasma import transitionrates as transitionrates_mod
 from .transport import engine as engine_mod
 from .transport import linewalk as linewalk_mod
 from .transport import macroatom as macroatom_mod
+from .transport import expansionopacity as expo_mod
 from .transport import opacity as opacity_mod
+from .transport import thermalisation as therm_mod
 
 GREY_OP = 0.1  # reference: globals.h:240
 
@@ -88,7 +99,10 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid,
     (reference: update_grid.cc:869-1072, the LTE branch 961-978).
 
     mode: "first" (temperatures pre-assigned) or "lte". Returns
-    (cells, levelpops, nnion, chi_ff_part, rates, tau_sob, bf_a, bf_dep)."""
+    (cells, levelpops, nnion, chi_ff_part, rates, tau_sob, bf_a, bf_dep,
+    expo), expo the expansion-opacity tables (kappa, planck_cum, wcum,
+    binoffsets), None when that mode is off; wcum and binoffsets are None
+    unless rpkt_boundbound_thermalisation_probability < 0."""
     if mode == "lte":
         t_j = radfield_mod.get_t_j_from_j(j_norm, opts.mintemp, opts.maxtemp)
         valid = torch.isfinite(t_j) & (j_norm > 0)
@@ -114,7 +128,21 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid,
     tau_sob = linewalk_mod.build_tau_factor(dad, levelpops)
     bf_a, bf_dep = opacity_mod.build_bf_tables(dad, levelpops, nnion, cells.nne,
                                                cells.nnetot, cells.Te)
-    return cells, levelpops, nnion, chi_ff_part, rates, tau_sob, bf_a, bf_dep
+    expo = None
+    if opts.expansionopacities_on:
+        kappa, pc = expo_mod.build_expansion_opacities(tau_sob, dad.line_nu, cells.rho,
+                                                       cells.TR, t_mid)
+        wcum = binoff = None
+        if opts.rpkt_boundbound_thermalisation_probability < 0:
+            # float64 whatever the transport dtype: a float32 cumulative over
+            # ~1e5 lines keeps about 7 digits of the row's total, so a bin
+            # whose lines weigh less than ~1e-7 of it would get no weight
+            # (tests/test_torch_expansion.py). 988 cells x 101,010 lines
+            # take 798 MB.
+            wcum, binoff = expo_mod.build_line_selection(tau_sob.to(torch.float64),
+                                                         dad.line_nu, t_mid)
+        expo = (kappa, pc, wcum, binoff)
+    return cells, levelpops, nnion, chi_ff_part, rates, tau_sob, bf_a, bf_dep, expo
 
 
 def _np(x):
@@ -267,7 +295,18 @@ class Simulation:
         np.add.at(assoc_vol_mgi, self.grid_host.mgi_of_cell, vol_tmin_all)
         self._assoc_vol = assoc_vol_mgi
         self._assoc_vol_model = assoc_vol_mgi[: self.model.npts_model]
-        self.mtot_input = float((self.model.rho_tmin * self._assoc_vol_model).sum())
+        m_cell = self.model.rho_tmin * self._assoc_vol_model
+        self.mtot_input = float(m_cell.sum())
+        # Barnes et al. 2016 time scales from the ejecta mass and kinetic
+        # energy (artis_tpu/driver.py:985-999)
+        npts = self.model.npts_model
+        radial_pos_avg = (self.grid_host.initial_radial_pos_sum_mgi[:npts]
+                          / np.maximum(self.grid_host.numpropcells_mgi[:npts], 1))
+        e_kin = max(float(np.sum(0.5 * m_cell * (radial_pos_avg / p.tmin) ** 2)), 1e-30)
+        mtot = max(self.mtot_input, 1e-30)
+        self._barnes = (therm_mod.barnes_t_ineff(mtot, e_kin),
+                        therm_mod.barnes_tau_ineff_particle(mtot, e_kin, alpha=False),
+                        therm_mod.barnes_tau_ineff_particle(mtot, e_kin, alpha=True))
         self.gammaline_energy = self._t(self.gamma.line_energy)
         self.gammaline_cumfrac = self._t(self.gamma.line_cumfrac)
         self.gammaline_nlines = torch.as_tensor(np.asarray(self.gamma.nuc_nlines)).long().to(dev)
@@ -414,7 +453,7 @@ class Simulation:
 
         mode, results = self._plasma_call(nts)
         (self.cells, levelpops, nnion, chi_ff_part, self.rates, tau_sob, bf_a,
-         bf_dep) = results
+         bf_dep, expo) = results
 
         # grey optical depth and thick flags (update_grid.cc:1007-1035)
         assoc_cells = self.grid_host.numpropcells_mgi[mgi]
@@ -431,11 +470,14 @@ class Simulation:
         onei = torch.zeros(1, dtype=torch.int64, device=dev)
         ncells = self.grid.nonempty_npts
         rho_mgi = np.concatenate([self.model.rho_tmin, [0.0]])
+        kappa, pc, wcum, binoff = expo if expo is not None else (one, one, None, None)
         return engine_mod.StepContext(
             levelpops=levelpops, nnion=nnion, chi_ff_nnionpart=chi_ff_part,
             tau_sob_factor=tau_sob, bf_a=bf_a, bf_dep=bf_dep,
-            expopac_kappa=one, expopac_planck_cum=one, expopac_wcum=one,
-            expopac_binoffsets=onei, elem_numberdens=torch.zeros((ncells, 1), dtype=fd, device=dev),
+            expopac_kappa=kappa, expopac_planck_cum=pc,
+            expopac_wcum=one if wcum is None else wcum,
+            expopac_binoffsets=onei if binoff is None else binoff,
+            elem_numberdens=torch.zeros((ncells, 1), dtype=fd, device=dev),
             xcom_energy=one, xcom_sigma=one, vpkt_cum_tau=one, vpkt_cum_taunu=one,
             vpkt_cfg=None, nt_frac_ion_by_ion=one, nt_frac_ionization=one,
             nt_ionenfrac_auger=one, nt_frac_excitation=one, nt_exc_fracdep_cum=one,
@@ -443,7 +485,9 @@ class Simulation:
             gammaline_energy=self.gammaline_energy, gammaline_cumfrac=self.gammaline_cumfrac,
             gammaline_nlines=self.gammaline_nlines,
             nuc_engamma=self._t(self.dec.nuc_endecay_gamma),
-            barnes_t_ineff=one, barnes_tau_ineff_lepton=one, barnes_tau_ineff_alpha=one,
+            barnes_t_ineff=self._t(self._barnes[0]),
+            barnes_tau_ineff_lepton=self._t(self._barnes[1]),
+            barnes_tau_ineff_alpha=self._t(self._barnes[2]),
             rho_t_mgi=self._t(rho_mgi * (p.tmin / tmid) ** 3), rho_tmin_mgi=self._t(rho_mgi),
             tmin=float(p.tmin), ts=float(self.ts.start[nts]),
             t2=float(self.ts.start[nts] + self.ts.width[nts]), t_mid=tmid,

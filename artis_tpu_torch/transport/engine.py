@@ -42,8 +42,9 @@ from . import rpkt_kernel
 @dataclasses.dataclass(frozen=True)
 class StepContext:
     """Per-timestep data prepared by the driver before transport. Fields of
-    modes that are not ported (expansion opacities, XCOM, vpkt, non-thermal
-    solver, detailed line estimators) hold (1,)-sized placeholders."""
+    modes that are not ported (XCOM, vpkt, non-thermal solver, detailed line
+    estimators) hold (1,)-sized placeholders, and so do the expansion-opacity
+    tables when that mode is off."""
 
     levelpops: torch.Tensor
     nnion: torch.Tensor
@@ -51,10 +52,10 @@ class StepContext:
     tau_sob_factor: torch.Tensor  # (ncells, nlines)
     bf_a: torch.Tensor
     bf_dep: torch.Tensor  # LOG departure
-    expopac_kappa: torch.Tensor
-    expopac_planck_cum: torch.Tensor
-    expopac_wcum: torch.Tensor
-    expopac_binoffsets: torch.Tensor
+    expopac_kappa: torch.Tensor  # (ncells, NBINS) expansion opacities [cm^2/g]
+    expopac_planck_cum: torch.Tensor  # (ncells, NBINS) Planck x kappa cumulative
+    expopac_wcum: torch.Tensor  # (ncells, nlines) cumulative bb-line weights
+    expopac_binoffsets: torch.Tensor  # (NBINS+1,) line segment offsets per bin
     elem_numberdens: torch.Tensor
     xcom_energy: torch.Tensor
     xcom_sigma: torch.Tensor
@@ -72,11 +73,11 @@ class StepContext:
     gammaline_cumfrac: torch.Tensor
     gammaline_nlines: torch.Tensor
     nuc_engamma: torch.Tensor
-    barnes_t_ineff: torch.Tensor
-    barnes_tau_ineff_lepton: torch.Tensor
-    barnes_tau_ineff_alpha: torch.Tensor
-    rho_t_mgi: torch.Tensor
-    rho_tmin_mgi: torch.Tensor
+    barnes_t_ineff: torch.Tensor  # scalar [s] (Barnes gamma thermalisation)
+    barnes_tau_ineff_lepton: torch.Tensor  # scalar [s] (Barnes particle scheme)
+    barnes_tau_ineff_alpha: torch.Tensor  # scalar [s]
+    rho_t_mgi: torch.Tensor  # (npts_model+1,) density at t_mid (Wollaeger)
+    rho_tmin_mgi: torch.Tensor  # (npts_model+1,) density at tmin (Guttman)
     tmin: float
     ts: float  # timestep start [s]
     t2: float  # timestep end [s]
@@ -86,8 +87,11 @@ class StepContext:
 
 def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     """Raise NotImplementedError naming the first option off the ported
-    slice (kilonova_lte-style LTE transport on a SPHERICAL1D, CYLINDRICAL2D
-    or CARTESIAN3D grid, optionally with detailed bf-rate estimators)."""
+    slice: kilonova_lte-style LTE transport on a SPHERICAL1D, CYLINDRICAL2D
+    or CARTESIAN3D grid, optionally with detailed bf-rate estimators and
+    with binned expansion opacities; particles thermalise by the INSTANT,
+    DETAILED, BARNES or WOLLAEGER scheme, gammas by detailed transport or
+    the BARNES, WOLLAEGER or GUTTMAN scheme."""
     off = [
         ("grid_type", opts.grid_type not in (GridType.SPHERICAL1D, GridType.CYLINDRICAL2D,
                                              GridType.CARTESIAN3D)),
@@ -95,7 +99,6 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
         ("nt_solve_spencerfano", opts.nt_solve_spencerfano),
         ("vpkt_on", opts.vpkt_on), ("dipole", opts.dipole),
         ("multibin_radfield", opts.multibin_radfield),
-        ("expansionopacities_on", opts.expansionopacities_on),
         ("detailed_line_estimators_on", opts.detailed_line_estimators_on),
         ("use_xcom_gammaphotoion", opts.use_xcom_gammaphotoion),
         ("record_linestat", opts.record_linestat),
@@ -104,10 +107,9 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
         ("use_lut_photoion=False", not opts.use_lut_photoion),
         ("use_lut_bfheating=False", not opts.use_lut_bfheating),
         ("force_saha_ion_balance=False", not opts.force_saha_ion_balance),
-        ("particle_thermalisation_scheme",
-         opts.particle_thermalisation_scheme != ThermalisationScheme.DETAILED),
-        ("gamma_thermalisation_scheme",
-         opts.gamma_thermalisation_scheme != ThermalisationScheme.DETAILED),
+        # the JAX package has no GUTTMAN particle scheme either
+        ("particle_thermalisation_scheme=GUTTMAN",
+         opts.particle_thermalisation_scheme == ThermalisationScheme.GUTTMAN),
     ]
     for name, bad in off:
         if bad:
@@ -259,12 +261,12 @@ def pellet_step(key, st: PacketState, est: Estimators, ctx: StepContext, opts: O
 
 def nonthermal_predeposit_step(key, st: PacketState, est: Estimators, ctx: StepContext,
                                grid: GridData, cells_rho, opts: Options):
-    """Shingles+2023 local deposition (the DETAILED scheme,
-    update_packets.cc:75-113)."""
+    """Particle thermalisation of the non-thermal predeposit packets, by the
+    scheme of ``particle_thermalisation_scheme`` (update_packets.cc:30-143):
+    INSTANT deposits at once; DETAILED (Shingles+2023) deposits along the
+    particle's energy-loss track; BARNES and WOLLAEGER absorb with an
+    analytic probability and let the rest escape."""
     scheme = opts.particle_thermalisation_scheme
-    if scheme not in (ThermalisationScheme.DETAILED,
-                      ThermalisationScheme.DETAILEDWITHGAMMAPRODUCTS):
-        raise NotImplementedError(f"particle thermalisation scheme {scheme}")
     n = st.npkts
     is_beta_minus = st.ptype == TYPE_NONTHERMAL_PREDEPOSIT_BETAMINUS
     is_beta_plus = st.ptype == TYPE_NONTHERMAL_PREDEPOSIT_BETAPLUS
@@ -273,34 +275,63 @@ def nonthermal_predeposit_step(key, st: PacketState, est: Estimators, ctx: StepC
     deposit_type = _w(is_alpha, TYPE_NTALPHA_DEPOSITED,
                       torch.full_like(st.ptype, TYPE_NTLEPTON_DEPOSITED))
     nonemptymgi = grid.nonemptymgi_of_cell[st.where]
+    nonempty = nonemptymgi >= 0
+    safe_mgi = torch.clamp(nonemptymgi, min=0)
     ts = st.prop_time
     z = torch.zeros_like(ts)
-    rho = _w(nonemptymgi >= 0, cells_rho.to(ts.dtype)[torch.clamp(nonemptymgi, min=0)], z)
-    endot = torch.where(is_alpha, 5.0e11 * MEV * rho, 4.0e10 * MEV * rho)
-    endot = torch.clamp(endot, min=1e-300)
-    particle_en = H * st.nu_cmf
-    t_enzero = ts + particle_en / endot
-    en_deposited = _w(mask, st.e_cmf * (torch.clamp(t_enzero, max=ctx.t2) - ts)
-                      / (particle_en / endot), z)
-    rnd_en_absorb = _uniform(key, 21, n, st.pos) * particle_en
-    t_absorb = ts + rnd_en_absorb / endot
-    t_new = torch.clamp(t_absorb, max=ctx.t2)
-    absorbed = mask & (t_absorb <= ctx.t2)
-    newtype = _w(absorbed, deposit_type, st.ptype)
-    new_nucmf = _w(mask & ~absorbed, (particle_en - endot * (t_new - ts)) / H, st.nu_cmf)
-    newpos = _w3(mask, st.pos * (t_new / ts)[:, None], st.pos)
-    newtime = _w(mask, t_new, st.prop_time)
+    newpos, newtime, new_nucmf = st.pos, st.prop_time, st.nu_cmf
+    if scheme == ThermalisationScheme.INSTANT:
+        en_deposited = _w(mask, st.e_cmf, z)
+        newtype = _w(mask, deposit_type, st.ptype)
+        deposited_now = mask
+    elif scheme in (ThermalisationScheme.DETAILED,
+                    ThermalisationScheme.DETAILEDWITHGAMMAPRODUCTS):
+        # Shingles+2023 local deposition (update_packets.cc:75-113)
+        rho = _w(nonempty, cells_rho.to(ts.dtype)[safe_mgi], z)
+        endot = torch.where(is_alpha, 5.0e11 * MEV * rho, 4.0e10 * MEV * rho)
+        endot = torch.clamp(endot, min=1e-300)
+        particle_en = H * st.nu_cmf
+        t_enzero = ts + particle_en / endot
+        en_deposited = _w(mask, st.e_cmf * (torch.clamp(t_enzero, max=ctx.t2) - ts)
+                          / (particle_en / endot), z)
+        rnd_en_absorb = _uniform(key, 21, n, st.pos) * particle_en
+        t_absorb = ts + rnd_en_absorb / endot
+        t_new = torch.clamp(t_absorb, max=ctx.t2)
+        absorbed = mask & (t_absorb <= ctx.t2)
+        newtype = _w(absorbed, deposit_type, st.ptype)
+        new_nucmf = _w(mask & ~absorbed, (particle_en - endot * (t_new - ts)) / H, st.nu_cmf)
+        newpos = _w3(mask, st.pos * (t_new / ts)[:, None], st.pos)
+        newtime = _w(mask, t_new, st.prop_time)
+        deposited_now = absorbed
+    elif scheme in (ThermalisationScheme.BARNES, ThermalisationScheme.WOLLAEGER):
+        if scheme == ThermalisationScheme.BARNES:
+            # Barnes et al. 2016 (update_packets.cc:42-57)
+            tau_ineff = torch.where(is_alpha, ctx.barnes_tau_ineff_alpha.to(ts.dtype),
+                                    ctx.barnes_tau_ineff_lepton.to(ts.dtype))
+            x = 2.0 * ts * ts / torch.clamp(tau_ineff * tau_ineff, min=1e-300)
+        else:
+            # Wollaeger+2018 local thermalisation (update_packets.cc:59-75)
+            rho = _w(nonempty, cells_rho.to(ts.dtype)[safe_mgi], torch.full_like(ts, 1e-300))
+            a_const = _w(is_alpha, 1.2e-11, torch.full_like(ts, 1.3e-11))
+            x = 2.0 * a_const / torch.clamp(ts * rho, min=1e-300)
+        f_p = torch.log1p(x) / torch.clamp(x, min=1e-300)
+        absorbed = mask & (_uniform(key, 22, n, st.pos) < f_p)
+        en_deposited = _w(absorbed, st.e_cmf, z)
+        newtype = _w(absorbed, deposit_type, _w(mask, TYPE_ESCAPE, st.ptype))
+        deposited_now = absorbed
+    else:
+        raise NotImplementedError(f"particle thermalisation scheme {scheme}")
     frompart = st.originated_from_particlenotgamma
     est = est.replace(
         dep_electron=cell_add(est.dep_electron, nonemptymgi, en_deposited, mask & is_beta_minus & frompart),
         dep_positron=cell_add(est.dep_positron, nonemptymgi, en_deposited, mask & is_beta_plus & frompart),
         dep_alpha=cell_add(est.dep_alpha, nonemptymgi, en_deposited, mask & is_alpha & frompart),
         electron_dep_discrete=est.electron_dep_discrete
-        + _w(absorbed & is_beta_minus & frompart, st.e_cmf, z).sum(),
+        + _w(deposited_now & is_beta_minus & frompart, st.e_cmf, z).sum(),
         positron_dep_discrete=est.positron_dep_discrete
-        + _w(absorbed & is_beta_plus & frompart, st.e_cmf, z).sum(),
+        + _w(deposited_now & is_beta_plus & frompart, st.e_cmf, z).sum(),
         alpha_dep_discrete=est.alpha_dep_discrete
-        + _w(absorbed & is_alpha & frompart, st.e_cmf, z).sum())
+        + _w(deposited_now & is_alpha & frompart, st.e_cmf, z).sum())
     return st.replace(ptype=newtype, pos=newpos, prop_time=newtime, nu_cmf=new_nucmf), est
 
 
@@ -412,12 +443,52 @@ def _meanf_sigma(x):
     return 3 * SIGMA_T * (term0 + term1 + term2 + term3 + term4) / (8 * x)
 
 
+def gamma_analytic_step(key, st: PacketState, est: Estimators, ctx: StepContext,
+                        grid: GridData, opts: Options):
+    """Analytic thermalisation: each gamma packet is absorbed (to a k-packet)
+    with the scheme's efficiency or escapes (reference: gammapkt.cc:819-971
+    barnes / wollaeger / guttman)."""
+    from . import thermalisation as th
+
+    mask = (st.ptype == TYPE_GAMMA) & (st.prop_time < ctx.t2)
+    scheme = opts.gamma_thermalisation_scheme
+    dt = st.pos.dtype
+    if scheme == ThermalisationScheme.BARNES:
+        f = th.barnes_f_gamma(torch.clamp(st.prop_time, min=1.0), ctx.barnes_t_ineff.to(dt))
+    elif scheme == ThermalisationScheme.WOLLAEGER:
+        f = th.wollaeger_f_gamma(grid, st.pos, st.prop_time, st.where, ctx.rho_t_mgi.to(dt))
+    else:  # GUTTMAN: the directions of the gamma packets only
+        idx = torch.nonzero(mask)[:, 0]
+        f = torch.zeros_like(st.prop_time)
+        if idx.numel():
+            kd = rng.fold_in(key, 61)
+            dirs = torch.stack([_isotropic(kd, i, st.npkts, st.pos)[idx]
+                                for i in range(th.GUTTMAN_NDIRS)])
+            f[idx] = th.guttman_f_gamma(dirs, grid, st.pos[idx], st.prop_time[idx],
+                                        st.where[idx], ctx.rho_tmin_mgi.to(dt), ctx.tmin)
+    absorbed = mask & (_uniform(key, 62, st.npkts, st.pos) < f)
+    escaping = mask & ~absorbed
+    nonemptymgi = grid.nonemptymgi_of_cell[st.where]
+    est = est.replace(
+        dep_gamma=cell_add(est.dep_gamma, nonemptymgi, st.e_cmf, absorbed & (nonemptymgi >= 0)),
+        nesc=est.nesc + escaping.sum().to(est.nesc.dtype))
+    st = st.replace(
+        ptype=_w(absorbed, TYPE_KPKT, _w(escaping, TYPE_ESCAPE, st.ptype)),
+        absorptiontype=_w(absorbed, -4, st.absorptiontype),
+        escape_type=_w(escaping, TYPE_GAMMA, st.escape_type),
+        escape_time=_w(escaping, st.prop_time, st.escape_time))
+    return st, est
+
+
 def gamma_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: GridData,
                cells_rho, cells_nnetot, cells_ffegrp, gamma_kappagrey: float, opts: Options):
-    """One flight step of all gamma packets, DETAILED scheme
-    (reference: gammapkt.cc:719-817)."""
-    if opts.gamma_thermalisation_scheme != ThermalisationScheme.DETAILED:
-        raise NotImplementedError(f"gamma thermalisation {opts.gamma_thermalisation_scheme}")
+    """One flight step of all gamma packets (reference: gammapkt.cc:719-817),
+    or the analytic absorb-or-escape of the BARNES, WOLLAEGER and GUTTMAN
+    schemes (``gamma_analytic_step``)."""
+    if opts.gamma_thermalisation_scheme in (ThermalisationScheme.BARNES,
+                                            ThermalisationScheme.WOLLAEGER,
+                                            ThermalisationScheme.GUTTMAN):
+        return gamma_analytic_step(key, st, est, ctx, grid, opts)
     n = st.npkts
     dt = st.pos.dtype
     rel = opts.use_relativistic_doppler_shift
@@ -605,7 +676,8 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
         relativistic=opts.use_relativistic_doppler_shift,
         phixs_dnu=float(dad.nphixsnuincrement),
         last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
-        want_bfrate=want_bfrate(opts, dad), **rpkt_kernel.kernel_geometry(grid))
+        want_bfrate=want_bfrate(opts, dad), expansion=opts.expansionopacities_on,
+        **rpkt_kernel.kernel_geometry(grid))
 
     def put(full, part):
         r = full.clone()
@@ -682,7 +754,12 @@ def _rpkt_apply_events(key, st, est, ctx, grid, dad, cells, opts, opacity_case,
     """Apply the physical-event outcomes of the lanes that had one
     (reference: rpkt.cc:411-557 rpkt_event_*). Electron scattering was
     already handled inside the kernel, so the continuum split is drawn from
-    the conditional distribution over [chi_es, chi_tot]."""
+    the conditional distribution over [chi_es, chi_tot]. In expansion-opacity
+    mode a bound-bound event has no line yet: with
+    ``rpkt_boundbound_thermalisation_probability`` >= 0 it scatters
+    coherently, re-emitted from Planck x kappa with that probability; below
+    0 the line is drawn within the hit bin and activates the macro-atom, and
+    a bin without line weight scatters coherently."""
     n = st.npkts
     ev_thick = take_event & thick
     ev_bb = take_event & ~thick & is_bb
@@ -699,6 +776,29 @@ def _rpkt_apply_events(key, st, est, ctx, grid, dad, cells, opts, opacity_case,
     stats.bump(counters, stats.MA_STAT_ACTIVATION_BB, ev_bb)
 
     iso_mask = ev_thick
+    if opts.expansionopacities_on:
+        from . import expansionopacity as expo
+
+        p_therm = opts.rpkt_boundbound_thermalisation_probability
+        safe_mgi = torch.clamp(nonemptymgi, min=0)
+        if p_therm >= 0.0:
+            # fixed-probability thermalisation (rpkt.cc:706-713)
+            thermalise = ev_bb & (_uniform(key, 56, n, st.pos) < p_therm)
+            nu_new = expo.sample_planck_times_expansion_opacity(
+                _uniform(key, 57, n, st.pos), _uniform(key, 64, n, st.pos),
+                ctx.expopac_planck_cum, safe_mgi, thermalise)
+            st = st.replace(nu_cmf=_w(thermalise, nu_new.to(st.nu_cmf.dtype), st.nu_cmf),
+                            emissiontype=_w(thermalise, EMTYPE_FREEFREE, st.emissiontype))
+            iso_mask = ev_thick | ev_bb
+            ev_bb = torch.zeros_like(ev_bb)
+        else:
+            # every reference preset: the line within the hit bin activates
+            # the macro-atom (rpkt.cc:238-262, 703-705)
+            line, ok = expo.sample_bb_line(_uniform(key, 56, n, st.pos), ctx.expopac_wcum,
+                                           ctx.expopac_binoffsets, safe_mgi, st.nu_cmf, ev_bb)
+            ev_act_line = _w(ev_bb & ok, line, ev_act_line)
+            iso_mask = ev_thick | (ev_bb & ~ok)
+            ev_bb = ev_bb & ok
     scatter_mask = iso_mask | ev_escat
     st_scattered = emit_rpkt_batch(key, 53, st, iso_mask, opts)
     st_scattered = electron_scatter_batch(key, 59, st_scattered, ev_escat, opts)

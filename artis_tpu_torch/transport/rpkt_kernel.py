@@ -5,7 +5,9 @@ cell crossings: optical-depth draw, cell boundary distance (spherical
 shells, cylindrical (rcyl, z) cells or Cartesian cubes), Doppler and abort
 frequency, continuum opacity (electron scattering + free-free + bound-free
 with phixs interpolation and log departure), continuum selection, the
-Sobolev line walk from each packet's cursor, in-kernel isotropic electron /
+Sobolev line walk from each packet's cursor (or, in expansion-opacity mode,
+the walk over wavelength bins of binned line opacity), in-kernel isotropic
+electron /
 thick-grey scattering, two half-moves with midpoint J, nuJ, ffheating, LUT
 photoionisation / bf-heating and (optionally) detailed per-continuum
 bf-rate estimators, a Kahan-summed time and the boundary overshoot guard
@@ -14,10 +16,10 @@ bf-rate estimators, a Kahan-summed time and the boundary overshoot guard
 It replaces the Pallas kernel ``propagate_blocked``
 (artis_tpu/transport/pallas_rpkt.py:1837, body ``_kernel`` :314-1822) in its
 resident-table, in-kernel-scatter configurations: 1D spherical (:863-942),
-``cart3d`` (:588-631, :712-750), ``cyl2d`` (:751-862) and ``want_bfrate``
-(:1515-1532). The cylindrical distance scales the rcyl bounds to the step's
-start time as the XLA path does (artis_tpu/grid.py:372-390); the Pallas
-branch passes them at tmin. For CUDA
+``cart3d`` (:588-631, :712-750), ``cyl2d`` (:751-862), ``want_bfrate``
+(:1515-1532) and ``expansion_mode`` (:1136-1200). The cylindrical distance
+scales the rcyl bounds to the step's start time as the XLA path does
+(artis_tpu/grid.py:372-390); the Pallas branch passes them at tmin. For CUDA
 tensors it launches ``csrc/rpkt_crossing.cu`` (built by ``build()``); for
 CPU tensors it runs ``propagate_reference``, the same computation written
 as a per-crossing loop over tensors. There is no fallback between the two.
@@ -27,7 +29,8 @@ index as counter, drawn identically by both versions (``rng.philox_uniform4``),
 so results do not depend on block size or on lane order. Test mode takes
 ``test_tau`` (one optical depth per lane, reused every crossing) and
 ``test_sel`` (continuum selection and scatter split), and the fixed redirect
-uniforms z1=0.37, z2=0.81 — exactly the JAX kernel's injection contract.
+uniforms z1=0.37, z2=0.81 — exactly the JAX kernel's injection contract
+(``test_sel`` is also the bound-bound split of an expansion-opacity event).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import torch
 from .. import rng
 from ..constants import CLIGHT, CLIGHTSQUARED, CLIGHT_PROP, SIGMA_T
 from ..grid import BOUNDARY_ESCAPE, cell_boundary
+from .expansionopacity import NBINS, bin_walk
 
 F32 = torch.float32
 I32 = torch.int32
@@ -60,11 +64,12 @@ OUT_I32 = ("where", "next_trans", "evented", "escaped", "thick", "is_bb",
            "act_line", "bf_idx", "mgi", "nsc", "inkscat")
 TABLES_F32 = ("cellmin", "cellmax", "nne", "Te", "kappagrey", "rho",
               "chiffpart", "line_nu", "tau_factor", "cont_nu_edge", "bf_a",
-              "bf_dep", "cont_phixs", "cont_prob", "gc_nu_edge")
+              "bf_dep", "cont_phixs", "cont_prob", "gc_nu_edge", "expo_kappa")
 TABLES_I32 = ("mgi_of_cell", "thick", "cont_gidx")
 # misc (float64): crossing steps, escapes, escaped cmf energy, in-kernel
 # electron scatters, thick-cell scatters, boundary crossings, lines read by
-# the walk (cursor advance) and bf continua in the opacity windows
+# the walk (cursor advance; in expansion mode, wavelength bins read) and bf
+# continua in the opacity windows
 MISC = ("nadv", "nesc", "cmf_lum", "n_escat", "n_thickscat", "ncross", "nwalk", "nbfwin")
 NMISC = 8
 # grid geometry of a launch (the GridType values): the kernel is compiled
@@ -107,17 +112,45 @@ def _bf_terms(nu, need_chi, tables, ngc, nphixs, phixs_dnu, last_nuovernuedge):
     return in_w, sigma
 
 
+def _expansion_event(kappa_rho_dop, nu, tstart, safe_chi, tau_next, abort_dist, dnudl,
+                     need_chi, u_bb, relativistic):
+    """The kernel's expansion-opacity event: the bin walk
+    (``expansionopacity.bin_walk``) with the continuum opacity floored at
+    1e-30 as the Pallas branch floors it, and the bound-bound split
+    u_bb <= bb_frac. The cursor is set to -1 and the activating line to -99
+    (pallas_rpkt.py:1198-1199). Returns (EventResult, first bin read, bins
+    read): a lane reads the bins with path length from the first up to its
+    event bin, stopping after the first bin whose lower edge lies beyond the
+    abort distance, where the kernel leaves its loop (an event there would
+    lie beyond the boundary or the time limit and is never taken)."""
+    from .linewalk import EventResult
+
+    w = bin_walk(kappa_rho_dop, nu, tstart, safe_chi, tau_next, dnudl, need_chi,
+                 relativistic, BIG)
+    seg, d_prev = w["seg"], w["d_prev"]
+    b = torch.arange(NBINS, device=nu.device)[None, :]
+    last = torch.where(w["anyhit"], w["j"], torch.full_like(w["j"], NBINS - 1))
+    read = (seg > 0) & (d_prev <= abort_dist[:, None]) & (b <= last[:, None])
+    first = torch.argmax((seg > 0).to(torch.int8), dim=1)
+    ev = EventResult(edist=w["edist"], next_trans=torch.full_like(first, -1),
+                     is_boundbound=w["anyhit"] & need_chi & (u_bb <= w["bb_frac"]),
+                     activating_line=torch.full_like(first, -99))
+    return ev, first, read.sum(dim=1)
+
+
 def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel,
                         t2: float, tmin: float, max_path_step: float, *, nlines: int,
                         ncells: int, ngc: int, nphixs: int, max_inner: int,
                         relativistic: bool, phixs_dnu: float,
                         last_nuovernuedge: float, test_mode: bool,
                         geom: int = GEOM_SPH, ncoord=None, want_bfrate: bool = False,
-                        line_chunk: int = 128, walk_log: list | None = None) -> dict:
+                        expansion: bool = False, line_chunk: int = 128,
+                        walk_log: list | None = None) -> dict:
     """The crossing kernel as a per-crossing loop over (N,) float32 tensors.
     Same signature and outputs as ``propagate``. ``walk_log``, where given,
-    gets one (model cell, first line, end line) triple of tensors per
-    crossing: the lines each lane's walk read there."""
+    gets one (model cell, first entry, end entry) triple of tensors per
+    crossing: the lines (in expansion mode, the wavelength bins) each lane's
+    walk read there."""
     from .linewalk import get_event_batch, initial_cursor
 
     s = {k: lanes[k].clone() for k in LANE_F32}
@@ -185,7 +218,8 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
             u = rng.philox_uniform4(seed, lane_id, it, 0)
             tau_next = -torch.log(u[0])
             sel_u, z1, z2 = u[1], u[2], u[3]
-            u_split = rng.philox_uniform4(seed, lane_id, it, 1)[0]
+            v = rng.philox_uniform4(seed, lane_id, it, 1)
+            u_split = v[0]
 
         pos2 = px * px + py * py + pz * pz
         sdist, snext = cell_boundary(geom, ncoord, cellmin[cell], cellmax[cell], cell,
@@ -229,17 +263,23 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         chi_cont_cmf = chi_escat + chi_ff + chi_bf
         chi_cont = chi_cont_cmf * doppler
 
-        ev = get_event_batch(
-            line_nu, lambda l: tau_factor[safe_mgi[:, None], l], nlines, nu, tstart, ntr,
-            chi_cont, tau_next, abort_dist, nu_cmf_abort, dnudl, need_chi, relativistic,
-            BIG, chunk=line_chunk)
-        # line-list cursor advance of the walk (the lines it read)
-        cursor0 = initial_cursor(line_nu, nu, ntr, nlines)
-        walked = torch.clamp(torch.clamp(ev.next_trans, max=nlines) - cursor0, min=0)
+        if expansion:
+            ev, first, walked = _expansion_event(
+                tables["expo_kappa"][safe_mgi] * (rho_p * doppler)[:, None], nu, tstart,
+                torch.clamp(chi_cont, min=1e-30), tau_next, abort_dist, dnudl, need_chi,
+                test_sel if test_mode else v[1], relativistic)
+        else:
+            ev = get_event_batch(
+                line_nu, lambda l: tau_factor[safe_mgi[:, None], l], nlines, nu, tstart, ntr,
+                chi_cont, tau_next, abort_dist, nu_cmf_abort, dnudl, need_chi, relativistic,
+                BIG, chunk=line_chunk)
+            # line-list cursor advance of the walk (the lines it read)
+            first = initial_cursor(line_nu, nu, ntr, nlines)
+            walked = torch.clamp(torch.clamp(ev.next_trans, max=nlines) - first, min=0)
         misc[6] += torch.where(need_chi, walked, zi).sum()
         if walk_log is not None:
             read = need_chi & (walked > 0)
-            walk_log.append((safe_mgi[read], cursor0[read], (cursor0 + walked)[read]))
+            walk_log.append((safe_mgi[read], first[read], (first + walked)[read]))
 
         chi_grey = kgrey_p * rho_p * doppler
         edist_thick = tau_next / torch.clamp(chi_grey, min=1e-30)
@@ -428,6 +468,7 @@ class _Params(ctypes.Structure):
         ("relativistic", ctypes.c_int), ("test_mode", ctypes.c_int),
         ("geom", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
         ("nz", ctypes.c_int), ("want_bfrate", ctypes.c_int), ("shared_rows", ctypes.c_int),
+        ("expansion", ctypes.c_int), ("nbins", ctypes.c_int),
         ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
         ("t2", ctypes.c_float), ("tmin", ctypes.c_float),
         ("max_path_step", ctypes.c_float), ("phixs_dnu", ctypes.c_float),
@@ -467,7 +508,8 @@ def pick_shared_rows(ncells: int, ngc: int, nbfr: int) -> bool:
 
 def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *, nlines,
             ncells, ngc, nphixs, max_inner, relativistic, phixs_dnu, last_nuovernuedge,
-            test_mode, geom=GEOM_SPH, ncoord=None, want_bfrate=False, shared_rows=None):
+            test_mode, geom=GEOM_SPH, ncoord=None, want_bfrate=False, expansion=False,
+            shared_rows=None):
     lib = build()
     dev = lanes["posx"].device
     n = lanes["posx"].shape[0]
@@ -485,6 +527,8 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     _check(test_sel, F32, (n,), "test_sel")
     if tables["tau_factor"].shape != (ncells, tables["line_nu"].shape[0]):
         raise ValueError("tau_factor must be (ncells, nlines)")
+    if expansion and tables["expo_kappa"].shape != (ncells, NBINS):
+        raise ValueError(f"expo_kappa must be (ncells, {NBINS}) in expansion mode")
     if geom not in GEOM_NDIM:
         raise ValueError(f"geometry {geom} is not one the kernel takes")
     ndim = GEOM_NDIM[geom]
@@ -516,7 +560,8 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
                   ncont=ncont, ngc=ngc, nphixs=nphixs, max_inner=max_inner,
                   relativistic=int(relativistic), test_mode=int(test_mode), geom=geom,
                   nx=nx, ny=ny, nz=nz, want_bfrate=int(nbfr > 0), shared_rows=int(shared_rows),
-                  seed_lo=seed & 0xFFFFFFFF, seed_hi=(seed >> 32) & 0xFFFFFFFF,
+                  expansion=int(expansion), nbins=NBINS, seed_lo=seed & 0xFFFFFFFF,
+                  seed_hi=(seed >> 32) & 0xFFFFFFFF,
                   t2=t2, tmin=tmin, max_path_step=max_path_step, phixs_dnu=phixs_dnu,
                   last_nuovernuedge=last_nuovernuedge, pad0=0.0)
     in_lanes = dict(lanes, test_tau=test_tau, test_sel=test_sel)
@@ -532,6 +577,8 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
         propagate.launches[CONFIG_OF_GEOM[geom]] += 1
         if nbfr:
             propagate.launches[CONFIG_BFRATE] += 1
+        if expansion:
+            propagate.launches[CONFIG_EXPANSION] += 1
     return out
 
 
@@ -555,8 +602,9 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
     Returns OUT_F32/OUT_I32 lane tensors plus est (ncells, 4: J, nuJ,
     ffheating, boundary crossings out of the cell), gamma and bfheat
     (ncells, ngc), bfrate (ncells, ncont, or ncells x 0 when off) and misc
-    (MISC). CUDA tensors launch the kernel; CPU tensors run the plain
-    version."""
+    (MISC). ``expansion`` walks the (ncells, NBINS) ``expo_kappa`` table's
+    wavelength bins in place of the line list. CUDA tensors launch the
+    kernel; CPU tensors run the plain version."""
     if lanes["posx"].is_cuda:
         return _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, **kw)
     return propagate_reference(seed, lanes, tables, test_tau, test_sel, t2, tmin,
@@ -565,11 +613,14 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
 
 # kernel launches since the last reset, per kernel configuration: plain
 # integers that a run resets and reads to show that its main path went
-# through the kernel (a bf-rate launch counts for its geometry too)
+# through the kernel (a bf-rate or expansion launch counts for its geometry
+# too)
 CONFIG_OF_GEOM = {GEOM_SPH: "rpkt_crossing_sph1d", GEOM_CYL: "rpkt_crossing_cyl2d",
                   GEOM_CART: "rpkt_crossing_cart3d"}
 CONFIG_BFRATE = "rpkt_crossing_bfrate"
-propagate.launches = dict.fromkeys((*CONFIG_OF_GEOM.values(), CONFIG_BFRATE), 0)
+CONFIG_EXPANSION = "rpkt_crossing_expansion"
+propagate.launches = dict.fromkeys((*CONFIG_OF_GEOM.values(), CONFIG_BFRATE,
+                                    CONFIG_EXPANSION), 0)
 
 
 def reset_launches() -> None:
@@ -715,7 +766,8 @@ def kernel_tables(dad, grid, cells, ctx) -> dict:
     table dict). The cell bounds are the grid's (ngrid, ndim) tables at
     tmin; the model cell of each propagation cell is the grid's host-built
     ``nonemptymgi_of_cell``, so every model dimensionality maps as the XLA
-    path maps it."""
+    path maps it. ``expo_kappa`` is the context's (ncells, NBINS) expansion
+    opacity table (a placeholder when that mode is off)."""
     dev = cells.Te.device
     ncells = cells.Te.shape[0]
     ngc = max(dad.nbfcontinua_ground, 1)
@@ -748,4 +800,4 @@ def kernel_tables(dad, grid, cells, ctx) -> dict:
         nne=f(cells.nne), Te=f(cells.Te), kappagrey=f(cells.kappagrey), rho=f(cells.rho),
         thick=i(cells.thick), chiffpart=f(ctx.chi_ff_nnionpart), line_nu=f(dad.line_nu),
         tau_factor=f(ctx.tau_sob_factor), gc_nu_edge=f(dad.groundcont_nu_edge[:ngc]),
-        **cont)
+        expo_kappa=f(ctx.expopac_kappa), **cont)

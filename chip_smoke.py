@@ -21,6 +21,10 @@ line is printed):
        (timestep 1's non-grey tables), and a 32^3 model whose estimator
        rows exceed shared memory;
      - 2D cylindrical: the 25 x 50 kilonova_2d_2dgrid model;
+     - binned expansion opacities (K4): a dense 8-shell 1D scene (max_inner
+       1, 4, 64), the 25 x 50 cylinder with the 101k-line Fe atom and the
+       big scene's 16^3 model with its own opacity bins; bound-bound bin
+       events must occur;
      then the time of each kernel configuration against its plain version
      at N=65536, max_inner=64 (plain, kernel, kernel, plain), the kernel in
      both estimator-row modes (shared memory, global atomics) where the
@@ -29,9 +33,13 @@ line is printed):
      launch counts reset just before it and read just after: the default
      1D scene (65536 packets), the 128-shell 1D scene (2^20 packets), the
      big 3D scene with detailed bf-rate estimators (2^20 packets,
-     timesteps 0-2) and kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
-     timesteps 0-1); every timestep completes, every output is finite and
-     packets escape;
+     timesteps 0-2), kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
+     timesteps 0-1), kilonova_2d_2dgrid_expansionopac at 25 x 50 with the
+     Fe atom (2^18 packets, timesteps 0-2; macro-atom bound-bound
+     activations must occur) and the default scene with Barnes particle
+     and Guttman gamma thermalisation (gamma lines written for Ni56 and
+     Co56; gamma packets must be emitted); every timestep completes, every
+     output is finite and packets escape;
   5. prints the kernel records, the card and, last, the device record.
 
     python3 chip_smoke.py --rows-sweep
@@ -68,6 +76,7 @@ CONFIGS = {
     "rpkt_crossing_cart3d": ("K2", f"{PALLAS}:712"),
     "rpkt_crossing_cyl2d": ("K3", f"{PALLAS}:751"),
     "rpkt_crossing_bfrate": ("K5-bfrate", f"{PALLAS}:1515"),
+    "rpkt_crossing_expansion": ("K4", f"{PALLAS}:1136"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12
@@ -110,6 +119,37 @@ def cyl_scene(d):
 
     make_run(d, ncells=25, ntimesteps=3, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
              model_dim=2, logrho0=-9.0, logrho_slope=-0.15)
+
+
+def cyl_fe_scene(d):
+    """kilonova_2d_2dgrid_expansionopac (tests/test_configmatrix.py) at
+    25 x 50 cells with the 101,010-line Fe atom."""
+    from artis_tpu_torch.synthdata import make_run, write_synthetic_atomicdata
+
+    make_run(d, ncells=25, ntimesteps=4, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
+             model_dim=2, logrho0=-9.0, logrho_slope=-0.15)
+    write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
+
+
+def expo_dense_scene(d):
+    """tests/test_pallas_rpkt.py::scene_expo: 8 dense shells, so the binned
+    line opacity drives events."""
+    from artis_tpu_torch.synthdata import make_run
+
+    make_run(d, ncells=8, ntimesteps=4, tmin_days=2.0, tmax_days=4.0, ngreyts=0, logrho0=-6.8)
+
+
+# synthetic gamma-line lists (MeV, photons per decay): a few of the
+# strongest Ni56 and Co56 lines, so that decays make gamma packets
+GAMMA_LINES = {"ni56": ((0.158, 0.988), (0.750, 0.495), (0.812, 0.860)),
+               "co56": ((0.847, 1.000), (1.238, 0.670), (2.598, 0.170))}
+
+
+def default_gamma_scene(d):
+    default_scene(d)
+    for nuc, lines in GAMMA_LINES.items():
+        with open(os.path.join(d, f"{nuc}_lines.txt"), "w") as f:
+            f.write(f"{len(lines)}\n" + "".join(f"{e} {p}\n" for e, p in lines))
 
 
 def model2d_scene(d):
@@ -216,7 +256,7 @@ def ionised_tables(tables):
                 chiffpart=nne * 3.69255e8 / torch.sqrt(te))
 
 
-def _kernel_kw(sim, want_bfrate):
+def _kernel_kw(sim, want_bfrate, expansion=False):
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
@@ -225,7 +265,8 @@ def _kernel_kw(sim, want_bfrate):
                 relativistic=sim.opts.use_relativistic_doppler_shift,
                 phixs_dnu=float(dad.nphixsnuincrement),
                 last_nuovernuedge=float(dad.last_phixs_nuovernuedge),
-                want_bfrate=want_bfrate, **rpkt_kernel.kernel_geometry(sim.grid))
+                want_bfrate=want_bfrate, expansion=expansion,
+                **rpkt_kernel.kernel_geometry(sim.grid))
 
 
 def _captured_case(sim, seed):
@@ -250,16 +291,17 @@ def _captured_case(sim, seed):
     return (f"captured(N={ncap}) max_inner=64", cap, tables, tau, sel, float(ctx1.t2), 64)
 
 
-def _check_cases(sim, cases, nonzero, want_bfrate=False):
+def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False):
     """Kernel against plain version on each case, injected and Philox draws
     (rpkt_kernel.compare_outputs); raises on any disagreement. Marks in
-    ``nonzero`` each estimator the plain version accumulated. Returns the
+    ``nonzero`` each estimator the plain version accumulated (and, for the
+    expansion mode, whether a bound-bound bin event occurred). Returns the
     prop_time max_abs_err of each."""
     import torch
 
     from artis_tpu_torch.transport import rpkt_kernel
 
-    kw = _kernel_kw(sim, want_bfrate)
+    kw = _kernel_kw(sim, want_bfrate, expansion)
     tmin, mps = float(sim.grid.tmin), float(sim.grid.max_path_step)
     before = dict(rpkt_kernel.propagate.launches)
     ok_all, errs = True, []
@@ -277,6 +319,11 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False):
                 f"{json.dumps(rep)}")
             for name, nz in rep["nonzero"].items():
                 nonzero[name] = nonzero.get(name, False) or nz
+            if expansion:
+                nbb = int(((p["is_bb"] > 0) & (p["evented"] > 0)).sum())
+                log(f"compare[{tag}]: {nbb} bound-bound bin events")
+                nonzero["expansion_bb_events"] = nonzero.get("expansion_bb_events",
+                                                             False) or nbb > 0
             ok_all &= ok
             errs.append(err)
     # comparison launches (and the timesteps run to capture lanes) are not
@@ -339,13 +386,14 @@ def _union_len(start, end):
     return int(torch.clamp(e - torch.maximum(s, reach), min=0).sum())
 
 
-def _walk_entries(walk_log, nlines):
-    """(distinct lines, distinct (model cell, line) pairs) that the line
-    walks of a plain-version run read."""
+def _walk_entries(walk_log, nentries):
+    """(distinct entries, distinct (model cell, entry) pairs) that the walks
+    of a plain-version run read: lines of a line walk, wavelength bins of
+    an expansion-opacity walk; ``nentries`` entries per cell."""
     import torch
 
     mgi, lo, hi = (torch.cat([w[i] for w in walk_log]).long() for i in range(3))
-    base = mgi * (nlines + 1)
+    base = mgi * (nentries + 1)
     return _union_len(lo, hi), _union_len(base + lo, base + hi)
 
 
@@ -356,11 +404,13 @@ def _bound_ms(out, walk_log, tables, kw, test_mode):
     the cell, bound and continuum tables at most once (no more than the
     crossings and opacity windows read of them); of the line tables, the
     distinct lines and (model cell, line) entries that the walks of this
-    run read (``walk_log`` of a plain-version run on the same inputs); the
-    estimator rows and counters out once. That over the HBM rate, against
-    an operation count (about 400 float32 operations per crossing, 20 per
-    line read and 40 per bf continuum in a window, counted from the source)
-    over the float32 peak. Returns (ms, 'bytes' or 'operations', bytes)."""
+    run read (``walk_log`` of a plain-version run on the same inputs; in
+    expansion mode the distinct (model cell, bin) kappa entries, and no line
+    table); the estimator rows and counters out once. That over the HBM
+    rate, against an operation count (about 400 float32 operations per
+    crossing, 20 per line read, 30 per bin read and 40 per bf continuum in
+    a window, counted from the source) over the float32 peak. Returns (ms,
+    'bytes' or 'operations', bytes)."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     misc = out["misc"].double().cpu().numpy()
@@ -375,20 +425,23 @@ def _bound_ms(out, walk_log, tables, kw, test_mode):
     bf_row = 4 * (1 + 2 + 3 + 1)  # edge, two phixs points, a/dep/prob, ground index
     bf_tables = size("cont_nu_edge", "cont_phixs", "cont_prob", "cont_gidx", "bf_a", "bf_dep",
                      "gc_nu_edge")
-    lines, entries = _walk_entries(walk_log, kw["nlines"])
+    expansion = kw.get("expansion", False)
+    lines, entries = _walk_entries(walk_log, rpkt_kernel.NBINS if expansion else kw["nlines"])
+    if expansion:
+        lines = 0  # the bin edges are computed, not read
     nbytes = (n * 4 * ((17 if test_mode else 15) + 30) + min(nadv * cell_row, cell_tables)
               + min(nbfwin * bf_row, bf_tables) + 4 * (lines + entries)
               + 4 * ncells * (4 + 2 * ngc + nbfr) + 8 * len(misc))
-    ops = 400.0 * nadv + 20.0 * nwalk + 40.0 * nbfwin
+    ops = 400.0 * nadv + (30.0 if expansion else 20.0) * nwalk + 40.0 * nbfwin
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (nbytes,)
 
 
-def _timing_inputs(sim, tables, t0, t2, want_bfrate, seed):
+def _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion=False):
     lanes, tau, sel = forced_lanes(sim, t0, NPKTS_DEFAULT, seed)
     args = (12345, lanes, tables, tau, sel, t2, float(sim.grid.tmin),
             float(sim.grid.max_path_step))
-    return args, dict(_kernel_kw(sim, want_bfrate), max_inner=64, test_mode=False)
+    return args, dict(_kernel_kw(sim, want_bfrate, expansion), max_inner=64, test_mode=False)
 
 
 def _time_modes(args, kw, modes):
@@ -407,14 +460,14 @@ def _time_modes(args, kw, modes):
 ROW_MODE = {True: "shared", False: "global"}
 
 
-def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7):
+def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7, expansion=False):
     """Kernel against plain version at N=65536, max_inner=64, Philox draws:
     CUDA-event means in turns, plain, each estimator-row mode the rows
     allow (shared, global), the same in reverse, plain. ``ms`` is the mode
     the wrapper picks."""
     from artis_tpu_torch.transport import rpkt_kernel
 
-    args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed)
+    args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion)
     ncont = sim.dad.nbfcontinua if want_bfrate else 0
     rows = rpkt_kernel.row_bytes(kw["ncells"], kw["ngc"], ncont)
     modes = [True, False] if rows <= rpkt_kernel.SMEM_LIMIT else [False]
@@ -433,7 +486,8 @@ def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7):
         + ", ".join(f"kernel with {ROW_MODE[m]} rows "
                     f"{' / '.join(f'{t:.4f}' for t in times[m])} ms" for m in modes)
         + f", plain version {p1:.4f} / {p2:.4f} ms, bound {bound:.6f} ms ({by}, {nbytes:.0f} "
-        f"bytes); crossings {misc[0]:.0f}, lines read {misc[6]:.0f}, bf continua "
+        f"bytes); crossings {misc[0]:.0f}, {'bins' if expansion else 'lines'} read "
+        f"{misc[6]:.0f}, bf continua "
         f"{misc[7]:.0f}, estimator rows {rows} bytes, the wrapper picks {ROW_MODE[picked]} rows")
     rec = dict(ms=min(times[picked]), plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
                library_ms=None, rows=ROW_MODE[picked])
@@ -516,6 +570,17 @@ def phase_kernel_vs_plain(workdir):
     e += _check_cases(big, [_captured_case(big, seed=5)], nonzero, want_bfrate=True)
     for k in cart:
         errs[k] += e
+    # K4 on the same 16^3 model: its own opacity bins from timestep 1's
+    # tables (the captured case ran timestep 0), with bf-rate estimators
+    from artis_tpu_torch.transport.expansionopacity import build_expansion_opacities
+
+    ctx1 = big.update_grid(1)
+    kappa, _ = build_expansion_opacities(ctx1.tau_sob_factor, big.dad.line_nu, big.cells.rho,
+                                         big.cells.TR, ctx1.t_mid)
+    tb = dict(_nongrey_tables(big, ctx1)[1], expo_kappa=kappa.float().contiguous())
+    errs["rpkt_crossing_expansion"] += _check_cases(
+        big, _cases("big_expansion", big, tb, float(ctx1.ts), float(ctx1.t2), (1, 64), seed=9),
+        nonzero, want_bfrate=True, expansion=True)
     big.close()
     del big
     gc.collect()
@@ -552,6 +617,35 @@ def phase_kernel_vs_plain(workdir):
                                               "K3 cyl2d")
     cyl.close()
     del cyl
+    gc.collect()
+
+    # --- K4: binned expansion opacities ---
+    k4 = "rpkt_crossing_expansion"
+    dense = _phase3_sim(workdir, "phase3_expo_dense", expo_dense_scene, NPKTS_DEFAULT,
+                        expansionopacities_on=True)
+    ctx = dense.update_grid(0)
+    tb = _nongrey_tables(dense, ctx)[1]
+    log(f"phase 3 expansion 1D: ncells={dense.cells.Te.shape[0]} kappa table "
+        f"{tuple(tb['expo_kappa'].shape)}")
+    errs[k4] += _check_cases(dense, _cases("expo_dense", dense, tb, float(ctx.ts), float(ctx.t2),
+                                           (1, 4, 64), seed=10), nonzero, expansion=True)
+    dense.close()
+    del dense
+    gc.collect()
+    cylfe = _phase3_sim(workdir, "phase3_expo_cyl", cyl_fe_scene, NPKTS_DEFAULT, "CYLINDRICAL2D",
+                        expansionopacities_on=True)
+    ctx = cylfe.update_grid(0)
+    tb = _nongrey_tables(cylfe, ctx)[1]
+    log(f"phase 3 expansion cylinder: grid {cylfe.grid.ncoordgrid} "
+        f"ncells={cylfe.cells.Te.shape[0]} nlines={cylfe.dad.nlines} kappa table "
+        f"{tb['expo_kappa'].numel() * 4} bytes, line cumulative "
+        f"{ctx.expopac_wcum.numel() * ctx.expopac_wcum.element_size()} bytes")
+    t0, t2 = float(ctx.ts), float(ctx.t2)
+    errs[k4] += _check_cases(cylfe, _cases("expo_cyl_fe", cylfe, tb, t0, t2, (1, 64), seed=11),
+                             nonzero, expansion=True)
+    rec[k4] = _time_config(cylfe, tb, t0, t2, False, "K4 expansion cyl2d", expansion=True)
+    cylfe.close()
+    del cylfe
     gc.collect()
 
     # a comparison of estimators that stayed zero on both sides tests nothing
@@ -620,9 +714,18 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     for r in tlog:
         log(f"{name}: timestep {r['nts']}: {r['steps']} rpkt steps in {r['seconds']} s = "
             f"{r['steps'] / max(r['seconds'], 1e-12)} rpkt steps/s ({r['iters']} iterations)")
+    # event counters summed over the timesteps, from the run's log
+    counters = {}
+    for line in open(os.path.join(d, "output_0-0.txt")):
+        key, sep, val = line.strip().partition(": ")
+        if sep and key.isidentifier() and val.isdigit():
+            counters[key] = counters.get(key, 0) + int(val)
+    dep = np.loadtxt(os.path.join(d, "deposition.out"), ndmin=2)
     rec = dict(npkts=npkts, launches=launches, wall_s=wall, steps=steps, transport_s=secs,
                steps_per_s=steps / max(secs, 1e-12),
-               peak_mem_bytes=torch.cuda.max_memory_allocated(), timesteps=tlog)
+               peak_mem_bytes=torch.cuda.max_memory_allocated(), timesteps=tlog,
+               counters=counters, gamma_emission_lsun=float(dep[:, 14].sum()),
+               gamma_dep_lsun=float(dep[:, 5].sum()))
     log(f"{name}: {npkts} packets, {len(tlog)} timesteps, kernel launches {launches}, "
         f"work-weighted {rec['steps_per_s']} rpkt steps/s, wall {wall:.1f} s, peak memory "
         f"{rec['peak_mem_bytes']} bytes")
@@ -707,11 +810,32 @@ def main():
             "kilonova_2d_2dgrid": _run_scene(workdir, "kilonova_2d_2dgrid", cyl_scene,
                                              NPKTS_2D, "CYLINDRICAL2D",
                                              ["rpkt_crossing_cyl2d"]),
+            "kilonova_2d_2dgrid_expansionopac": _run_scene(
+                workdir, "kilonova_2d_2dgrid_expansionopac", cyl_fe_scene, NPKTS_2D,
+                "CYLINDRICAL2D", ["rpkt_crossing_cyl2d", "rpkt_crossing_expansion"],
+                expansionopacities_on=True, rpkt_boundbound_thermalisation_probability=-1.0),
+            "default_scene_barnes_guttman": _run_scene(
+                workdir, "default_scene_barnes_guttman", default_gamma_scene, NPKTS_DEFAULT,
+                "SPHERICAL1D", ["rpkt_crossing_sph1d"], particle_thermalisation_scheme="BARNES",
+                gamma_thermalisation_scheme="GUTTMAN"),
         }
+    # bin events activated the macro-atom on lines of their bins, and the
+    # analytic schemes resolved gamma packets
+    n_bb = runs["kilonova_2d_2dgrid_expansionopac"]["counters"].get("ma_stat_activation_bb", 0)
+    log(f"kilonova_2d_2dgrid_expansionopac: {n_bb} macro-atom bound-bound activations")
+    if n_bb <= 0:
+        raise RuntimeError("kilonova_2d_2dgrid_expansionopac: no macro-atom bound-bound "
+                           "activation")
+    bg = runs["default_scene_barnes_guttman"]
+    log(f"default_scene_barnes_guttman: gamma emission {bg['gamma_emission_lsun']} Lsun, "
+        f"gamma deposition {bg['gamma_dep_lsun']} Lsun (summed over timesteps)")
+    if bg["gamma_emission_lsun"] <= 0:
+        raise RuntimeError("default_scene_barnes_guttman: no gamma packet was emitted")
     # each configuration's launches come from the run of the main path that
     # drives it
     main_run = {"rpkt_crossing_sph1d": "default_scene", "rpkt_crossing_cart3d": "big_scene",
-                "rpkt_crossing_bfrate": "big_scene", "rpkt_crossing_cyl2d": "kilonova_2d_2dgrid"}
+                "rpkt_crossing_bfrate": "big_scene", "rpkt_crossing_cyl2d": "kilonova_2d_2dgrid",
+                "rpkt_crossing_expansion": "kilonova_2d_2dgrid_expansionopac"}
     # K2's time is the cart3d geometry without bf-rate estimators; the main
     # path launches it only with them, so its launches are K5-bfrate's
     rec["rpkt_crossing_cart3d"]["note"] = ("ms, plain_ms and bound_ms: the cart3d geometry "

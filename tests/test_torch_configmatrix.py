@@ -1,0 +1,77 @@
+"""The kilonova configurations of the reference CI's matrix on the port, on
+the CPU (tests/test_configmatrix.py runs them on the JAX package):
+kilonova_1d_1dgrid, kilonova_1d_3dgrid, kilonova_2d_2dgrid (with Barnes
+particle thermalisation and with binned expansion opacities) and
+kilonova_2d_3dgrid, each miniaturised the same way (384 packets, 3
+timesteps, a few model cells) and run through the port's Simulation for two
+timesteps with the sanity checks of test_config: every packet accounted
+for, finite non-negative energies not above the injected total (+5 %),
+transport happened, finite temperatures, the output files written.
+kilonova_2d_2dgrid_xcomgammaphotoion waits for a synthetic
+xcom_photoion_data.txt. The table is the port's own copy; the JAX test
+module is not imported."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+
+def _mini(**kw):
+    base = dict(npkts=384, mintemp=1000.0, maxtemp=20000.0, tablesize=12, linewalk_chunk=64,
+                transport_dtype="float32")
+    base.update(kw)
+    return base
+
+
+GRID8 = dict(grid_type="CARTESIAN3D", ncoordgrid_x=8, ncoordgrid_y=8, ncoordgrid_z=8)
+# name -> (Options keywords of the kilonova_lte preset, model_dim, make_run keywords)
+CONFIGS = {
+    "kilonova_1d_1dgrid": (_mini(grid_type="SPHERICAL1D"), 1, {}),
+    "kilonova_1d_3dgrid": (_mini(**GRID8), 1, {}),
+    "kilonova_2d_2dgrid": (_mini(grid_type="CYLINDRICAL2D"), 2, dict(ncells=3)),
+    "kilonova_2d_2dgrid_barnesthermalisation": (
+        _mini(grid_type="CYLINDRICAL2D", particle_thermalisation_scheme="BARNES"), 2,
+        dict(ncells=3)),
+    "kilonova_2d_2dgrid_expansionopac": (
+        _mini(grid_type="CYLINDRICAL2D", expansionopacities_on=True), 2, dict(ncells=3)),
+    "kilonova_2d_3dgrid": (_mini(**GRID8), 2, dict(ncells=3)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_config(name, tmp_path):
+    from artis_tpu_torch import options as to
+    from artis_tpu_torch.driver import Simulation
+    from artis_tpu_torch.synthdata import make_run
+
+    okw, model_dim, make_kw = CONFIGS[name]
+    okw = dict(okw, grid_type=to.GridType[okw["grid_type"]])
+    if "particle_thermalisation_scheme" in okw:
+        okw["particle_thermalisation_scheme"] = to.ThermalisationScheme[
+            okw["particle_thermalisation_scheme"]]
+    d = str(tmp_path)
+    mk = dict(ncells=5, ntimesteps=3, tmin_days=1.5, tmax_days=3.0, ngreyts=0,
+              model_dim=model_dim)
+    mk.update(make_kw)
+    make_run(d, **mk)
+    opts = to.kilonova_lte(**okw)
+    sim = Simulation(d, opts, datadir="/nonexistent", device="cpu")
+    for ts in range(mk["ntimesteps"] - 1):
+        sim.do_timestep(ts)
+    sim.finish()
+    sim.close()
+
+    types = sim.state.ptype.numpy()
+    assert len(types) == opts.npkts
+    e_cmf = sim.state.e_cmf.double().numpy()
+    assert np.all(np.isfinite(e_cmf)) and np.all(e_cmf >= 0)
+    assert e_cmf.sum() * sim.pellet_tables.e0 <= sim.pellet_tables.norm * 1.05
+    assert int(sim.total_rpkt_steps) > 0
+    assert np.all(np.isfinite(sim.cells.Te.numpy()))
+    for fn in ("light_curve.out", "spec.out", "deposition.out", "estimators_0000.out",
+               "timesteps.out"):
+        assert os.path.exists(os.path.join(d, fn)), fn

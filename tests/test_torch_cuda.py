@@ -1,5 +1,6 @@
-"""The CUDA r-packet crossing kernel on the card: against its plain version,
-and on the main path through the CLI.
+"""The CUDA r-packet crossing kernel on the card: against its plain version
+(every geometry, the bf-rate estimators, both estimator-row modes and the
+binned expansion-opacity walk K4), and on the main path through the CLI.
 
 Every test here needs an NVIDIA GPU and skips where there is none. The file
 imports no jax, so it runs where only PyTorch is installed; the
@@ -97,7 +98,8 @@ def _forced_lanes(sim, ctx, seed):
     return lanes, f(-np.log(rng.uniform(0.05, 0.95, NPKTS))), f(rng.uniform(0.0, 1.0, NPKTS))
 
 
-def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None):
+def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
+           expansion=False):
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
@@ -111,18 +113,21 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None):
               max_inner=max_inner, relativistic=sim.opts.use_relativistic_doppler_shift,
               phixs_dnu=float(dad.nphixsnuincrement),
               last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
-              want_bfrate=want_bfrate, **rpkt_kernel.kernel_geometry(sim.grid))
+              want_bfrate=want_bfrate, expansion=expansion,
+              **rpkt_kernel.kernel_geometry(sim.grid))
     before = sum(rpkt_kernel.propagate.launches.values())
-    ok, rep, _, _ = rpkt_kernel.check_kernel(
+    ok, rep, _, plain = rpkt_kernel.check_kernel(
         99, lanes, tables, tau, sel, float(ctx.t2), float(ctx.tmin),
         float(sim.grid.max_path_step), shared_rows=shared_rows, **kw)
     torch.cuda.synchronize()
     launches = 1 + (rep["diverged_lanes"] > 0)
-    assert sum(rpkt_kernel.propagate.launches.values()) == before + launches * (1 + want_bfrate)
+    assert sum(rpkt_kernel.propagate.launches.values()) == (
+        before + launches * (1 + want_bfrate + expansion))
     assert ok, rep
     # the estimators accumulated, so their comparison tested something
     for name in ("j", "nuj", "ncross") + (("bfrate",) if want_bfrate else ()):
         assert rep["nonzero"][name], (name, rep)
+    return plain
 
 
 @pytest.mark.cuda
@@ -175,3 +180,61 @@ def test_main_path_launches_the_kernel(tmp_path, grid):
     assert len(glob.glob(os.path.join(d, "estimators_*.out"))) == 2
     lc = np.loadtxt(os.path.join(d, "light_curve.out"), ndmin=2)
     assert np.all(np.isfinite(lc)) and lc[:, 1].sum() > 0
+
+
+# name -> (make_run keywords, Options keywords) of the expansion-opacity
+# scenes: dense enough that the binned line opacity drives events
+EXPO_SCENES = {
+    "sph1d": (dict(ncells=8, logrho0=-6.8), dict(grid_type="SPHERICAL1D")),
+    "cyl2d": (dict(ncells=4, model_dim=2, logrho0=-7.5), dict(grid_type="CYLINDRICAL2D")),
+    "3dmodel": (dict(ncells=6, model_dim=3, logrho0=-7.5), dict(grid_type="CARTESIAN3D")),
+}
+
+
+@pytest.fixture(scope="module")
+def expo_scenes(tmp_path_factory):
+    _need_cuda()
+    from artis_tpu_torch.driver import Simulation
+
+    out = {}
+    for name, (mk, okw) in EXPO_SCENES.items():
+        d = str(tmp_path_factory.mktemp(f"cuda_expo_{name}"))
+        make_run(d, ntimesteps=4, tmin_days=2.0, tmax_days=4.0, ngreyts=0, **mk)
+        sim = Simulation(d, _opts(NPKTS, expansionopacities_on=True, **okw), device="cuda")
+        out[name] = (sim, sim.update_grid(0))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("max_inner", [1, 16])
+@pytest.mark.parametrize("name", list(EXPO_SCENES))
+def test_expansion_kernel_matches_plain_version(expo_scenes, name, max_inner, test_mode):
+    """K4: the expansion-opacity bin walk in every geometry; bound-bound
+    events occur, so the bin walk is what decides the outcome."""
+    plain = _check(*expo_scenes[name], max_inner, test_mode, want_bfrate=False,
+                   expansion=True)
+    assert int(((plain["is_bb"] > 0) & (plain["evented"] > 0)).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_main_path_launches_the_expansion_kernel(tmp_path):
+    _need_cuda()
+    from artis_tpu_torch import stats
+    from artis_tpu_torch.cli import main_sn3d
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    d = str(tmp_path)
+    make_run(d, ntimesteps=3, tmin_days=2.0, tmax_days=4.0, ngreyts=0, model_dim=2, ncells=4,
+             logrho0=-7.5)
+    rpkt_kernel.reset_launches()
+    assert main_sn3d(["--rundir", d, "--device", "cuda", "--set", "npkts=2000",
+                      "--set", "transport_dtype=float32", "--set", "grid_type=CYLINDRICAL2D",
+                      "--set", "mintemp=1000.0", "--set", "maxtemp=20000.0",
+                      "--set", "tablesize=20", "--set", "expansionopacities_on=True"]) == 0
+    launched = rpkt_kernel.propagate.launches
+    assert launched["rpkt_crossing_cyl2d"] > 0 and launched["rpkt_crossing_expansion"] > 0
+    lc = np.loadtxt(os.path.join(d, "light_curve.out"), ndmin=2)
+    assert np.all(np.isfinite(lc)) and lc[:, 1].sum() > 0
+    log = open(os.path.join(d, "output_0-0.txt")).read()
+    assert stats.COUNTER_NAMES[stats.MA_STAT_ACTIVATION_BB] in log

@@ -103,7 +103,8 @@ def _close(a, b, name):
 
 
 # JAX result tuple positions: cells, levelpops, nnion, chi_ff_part, rates,
-# tau_sob, bf_a, bf_dep (the port returns exactly these eight)
+# tau_sob, bf_a, bf_dep (the port returns these eight, then its
+# expansion-opacity tables)
 ARRAYS = {"levelpops": 1, "nnion": 2, "chi_ff_nnionpart": 3, "tau_sob": 5, "bf_a": 6,
           "bf_dep": 7}
 CELL_FIELDS = ("Te", "TR", "TJ", "W", "nne", "ion_groundlevelpops", "ion_partfuncts",

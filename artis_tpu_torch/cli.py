@@ -1,12 +1,15 @@
-"""Command-line driver: sn3d (simulation).
+"""Command-line drivers: sn3d (simulation) and exspec (spectra).
 
-Port of the JAX package's CLI (reference: sn3d.cc:686-946 main). The preset
-is selected at runtime with --preset plus field overrides (--set key=value);
---device picks where the tensors live (a CUDA device runs the crossing
-kernel). Multi-device runs (--mesh) and exspec are not ported.
+Port of the JAX package's CLI (reference: sn3d.cc:686-946 main,
+exspec.cc:155-248 main). The preset is selected at runtime with --preset
+plus field overrides (--set key=value); --device picks where the tensors
+live (a CUDA device runs the crossing kernel). Multi-device runs (--mesh)
+are not ported.
 
     python -m artis_tpu_torch.cli --rundir RUN --preset kilonova_lte \
         --set npkts=65536 --set transport_dtype=float32 --device cuda
+    python -c "from artis_tpu_torch.cli import main_exspec; \
+        main_exspec(['--rundir', 'RUN', '--preset', 'classic'])"
 
 Enum fields take their member names: --set grid_type=CYLINDRICAL2D,
 --set particle_thermalisation_scheme=BARNES.
@@ -66,6 +69,22 @@ def main_sn3d(argv=None) -> int:
         sim.run(walltime_hours=args.walltimehours)
     finally:
         sim.close()
+    return 0
+
+
+def main_exspec(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="artis-exspec-torch",
+                                 description="spectrum/light-curve extraction")
+    ap.add_argument("--rundir", default=".")
+    ap.add_argument("--preset", default="kilonova_lte",
+                    choices=["kilonova_lte", "classic", "nltenebular",
+                             "nltewithoutnonthermal", "christinenonthermal"])
+    ap.add_argument("--set", action="append", metavar="KEY=VALUE")
+    args = ap.parse_args(argv)
+
+    from .exspec import run_exspec
+
+    run_exspec(args.rundir, _build_opts(args))
     return 0
 
 

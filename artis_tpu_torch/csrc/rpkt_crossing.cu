@@ -2,11 +2,16 @@
 //
 // Replaces the Pallas TPU kernel propagate_blocked
 // (artis_tpu/transport/pallas_rpkt.py:1837, body _kernel :314-1822) in its
-// resident-table, in-kernel-scatter configurations: the 1D spherical grid
+// resident-table configurations: the 1D spherical grid
 // (the default branch, :863-942), the 3D Cartesian grid (`cart3d`,
 // :588-631 and :712-750), the 2D cylindrical grid (`cyl2d`, :751-862), the
-// detailed bf-rate estimators (`want_bfrate`, :1515-1532) and the binned
-// expansion opacities (`expansion_mode`, :1136-1200). Each packet
+// detailed bf-rate estimators (`want_bfrate`, :1515-1532), the binned
+// expansion opacities (`expansion_mode`, :1136-1200) and the deferred events
+// of dipole scattering (`inkernel_scatter=False`, :1416-1435, K6: a runtime
+// flag, under which electron and thick-cell grey scattering end the lane's
+// loop as events for the event pass instead of isotropic redirects; the
+// scatter-split uniform is still drawn, so the draw layout does not depend
+// on the mode). Each packet
 // advances through up to max_inner cell crossings (optical-depth draw, shell
 // boundary distance, Doppler and abort frequency, continuum opacity with bf
 // selection, Sobolev line walk from its cursor or the walk over wavelength
@@ -80,7 +85,7 @@
 // scalar launch parameters; field order matches _Params in rpkt_kernel.py
 struct RpktParams {
   int n, ncells, nprop, nlines, ncont, ngc, nphixs, max_inner, relativistic, test_mode;
-  int geom, nx, ny, nz, want_bfrate, shared_rows, expansion, nbins;
+  int geom, nx, ny, nz, want_bfrate, shared_rows, expansion, nbins, defer_scatter;
   uint32_t seed_lo, seed_hi;
   float t2, tmin, max_path_step, phixs_dnu, last_nuovernuedge, pad0;
 };
@@ -573,10 +578,13 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
       float dist = take_boundary ? sdist + 3e-6f * sqrtf(pos2) : (take_event ? edist : tdist);
       dist = fmaxf(dist, 0.0f);
 
-      // in-kernel isotropic scattering: electron scattering and thick grey
-      const bool is_escat = take_event && !thick && !is_bb && nonempty &&
+      // in-kernel isotropic scattering: electron scattering and thick grey;
+      // in the deferred mode (K6, dipole scattering) every event, these
+      // two included, leaves the loop for the event pass
+      const bool ink = p.defer_scatter == 0;
+      const bool is_escat = ink && take_event && !thick && !is_bb && nonempty &&
                             (u_split * chi_cont_cmf < chi_escat);
-      const bool ev_thick_k = take_event && thick;
+      const bool ev_thick_k = ink && take_event && thick;
       const bool scat = is_escat || ev_thick_k;
       take_event = take_event && !scat;
 

@@ -10,13 +10,18 @@ timestep, then the estimators come back for the next grid update. Every
 tensor lives on the Simulation's ``device``; the r-packet crossing kernel
 runs as CUDA when that device is a GPU and as its plain version on the CPU.
 
-Ported slice: LTE grid updates (the ``first`` and ``lte`` modes — the
-kilonova_lte preset with ``num_lte_timesteps`` covering the run) on
+Ported slice: the ``first`` and ``lte`` grid updates, and the ``nlte``
+update without NLTE populations or the non-thermal solver (the timesteps
+from ``num_lte_timesteps`` on: the full-spectrum T_R / W fit, the
+thermal-balance T_e solve, the thick-cell T_J override and, with
+``force_saha_ion_balance`` off, the rate-balance ionisation from the LUT
+gamma estimators), so the kilonova_lte and classic presets run; on
 SPHERICAL1D, CYLINDRICAL2D and CARTESIAN3D grids, optionally with the
-detailed bf-rate estimators and with binned expansion opacities; particle
-thermalisation INSTANT, DETAILED, BARNES or WOLLAEGER, gamma thermalisation
-by detailed transport or the BARNES, WOLLAEGER or GUTTMAN scheme. Other
-modes raise NotImplementedError.
+detailed bf-rate estimators, binned expansion opacities and dipole /
+polarised electron scattering; particle thermalisation INSTANT, DETAILED,
+BARNES or WOLLAEGER, gamma thermalisation by detailed transport or the
+BARNES, WOLLAEGER or GUTTMAN scheme. Other modes raise
+NotImplementedError.
 
 With ``expansionopacities_on`` the grid update also builds the binned
 opacities and their Planck-weighted cumulative, and, for
@@ -48,7 +53,7 @@ from . import spectrum as spectrum_mod
 from . import stats as stats_mod
 from .atomic import to_device
 from .constants import DAY, FOURPI, H, LSUN, MEV, ONEOVER4PI
-from .devutil import demote_to_f32
+from .devutil import demote_to_f32, map_tensors
 from .estimators import Estimators, zero_estimators
 from .io import atomicdata as atomicdata_io
 from .io import gammadata as gammadata_io
@@ -60,6 +65,7 @@ from .plasma import cellstate as cellstate_mod
 from .plasma import ltepop as ltepop_mod
 from .plasma import radfield as radfield_mod
 from .plasma import ratecoeff as ratecoeff_mod
+from .plasma import thermalbalance as thermalbalance_mod
 from .plasma import transitionrates as transitionrates_mod
 from .transport import engine as engine_mod
 from .transport import linewalk as linewalk_mod
@@ -92,25 +98,66 @@ def _kappagrey_just2022(x_lan, t_r):
 
 
 def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid,
-                          ffheating_norm, dep_heating, mode: str):
-    """All tensor work of one LTE grid update: T_J from J ("lte"), the
-    Saha/nne balance, level populations, ff-opacity parts, macro-atom /
-    cooling rate tables, and the per-timestep transport tables
-    (reference: update_grid.cc:869-1072, the LTE branch 961-978).
+                          ffheating_norm, dep_heating, mode: str, gammaest_norm=None):
+    """All tensor work of one grid update: the temperatures, the Saha /
+    rate-balance nne solve, level populations, ff-opacity parts, macro-atom
+    / cooling rate tables, and the per-timestep transport tables
+    (reference: update_grid.cc:869-1072).
 
-    mode: "first" (temperatures pre-assigned) or "lte". Returns
-    (cells, levelpops, nnion, chi_ff_part, rates, tau_sob, bf_a, bf_dep,
-    expo), expo the expansion-opacity tables (kappa, planck_cum, wcum,
-    binoffsets), None when that mode is off; wcum and binoffsets are None
-    unless rpkt_boundbound_thermalisation_probability < 0."""
+    mode: "first" (temperatures pre-assigned), "lte" (T_J from J, the LTE
+    branch 961-978) or "nlte" without NLTE populations (979-1002: the
+    full-spectrum T_R / W fit, the thermal-balance T_e solve, the T_J path
+    for thick cells, and the per-ion photoionisation rates and
+    ``corrphotoionrenorm`` from the normalised LUT gamma estimators
+    ``gammaest_norm`` (ncells, ngc), which feed the rate-balance ionisation
+    and the rate tables). Returns (cells, levelpops, nnion, chi_ff_part,
+    rates, tau_sob, bf_a, bf_dep, expo), expo the expansion-opacity tables
+    (kappa, planck_cum, wcum, binoffsets), None when that mode is off; wcum
+    and binoffsets are None unless
+    rpkt_boundbound_thermalisation_probability < 0."""
+    f64 = torch.float64
     if mode == "lte":
         t_j = radfield_mod.get_t_j_from_j(j_norm, opts.mintemp, opts.maxtemp)
         valid = torch.isfinite(t_j) & (j_norm > 0)
         t_j = torch.where(valid, t_j, cells.TJ)
         cells = cells.replace(TJ=t_j, TR=t_j, Te=t_j, W=torch.ones_like(t_j))
+    elif mode == "nlte":
+        t_j, t_r, w, valid = radfield_mod.fit_params_fullspec(j_norm, nuj_norm, opts.mintemp,
+                                                              opts.maxtemp)
+        cells = cells.replace(TJ=torch.where(valid, t_j, cells.TJ),
+                              TR=torch.where(valid, t_r, cells.TR),
+                              W=torch.where(valid, w, cells.W))
+        # the thermal balance in float64 whatever the cells' dtype (see
+        # plasma/thermalbalance.py); the populations are solved below
+        t_e = thermalbalance_mod.call_t_e_finder(
+            dad, rc, map_tensors(lambda x: x.to(f64) if x.is_floating_point() else x, cells),
+            opts, t_mid, ffheating_norm.to(f64), dep_heating.to(f64))
+        cells = cells.replace(Te=t_e.to(cells.Te.dtype))
+        # thick cells take the grey / LTE T_J path in non-LTE timesteps too
+        # (update_grid.cc:961-978)
+        t_j = radfield_mod.get_t_j_from_j(j_norm, opts.mintemp, opts.maxtemp)
+        thick_j = (cells.thick == 1) & torch.isfinite(t_j) & (j_norm > 0)
+        cells = cells.replace(TJ=torch.where(thick_j, t_j, cells.TJ),
+                              TR=torch.where(thick_j, t_j, cells.TR),
+                              Te=torch.where(thick_j, t_j, cells.Te),
+                              W=torch.where(cells.thick == 1, torch.ones_like(t_j), cells.W))
     elif mode != "first":
-        raise NotImplementedError(f"plasma update mode {mode!r} (only 'first'/'lte' are ported)")
-    cells = ltepop_mod.calculate_ion_balance_nne(dad, cells, opts)
+        raise NotImplementedError(f"plasma update mode {mode!r}")
+    # LUT gamma estimators -> per-ion Gamma and corrphotoionrenorm
+    # (update_grid.cc:765-830)
+    gamma_ion = corrphotoionrenorm = None
+    if (mode == "nlte" and gammaest_norm is not None and opts.use_lut_photoion
+            and dad.nbfcontinua_ground > 0):
+        gest = gammaest_norm[:, :dad.nbfcontinua_ground]
+        corr_lut = ratecoeff_mod.interpolate_lut(
+            rc.corrphotoion, rc, dad.groundcont_contindex[None, :],
+            torch.clamp(cells.TR, min=rc.mintemp)[:, None]).to(gest.dtype)
+        corr_ana = cells.W[:, None] * corr_lut
+        corrphotoionrenorm = torch.where(corr_ana > 0, gest / torch.clamp(corr_ana, min=1e-300),
+                                         torch.ones_like(gest))
+        gamma_ion = torch.zeros((gest.shape[0], dad.nions_total), dtype=gest.dtype,
+                                device=gest.device).index_add(1, dad.groundcont_uniqueion, gest)
+    cells = ltepop_mod.calculate_ion_balance_nne(dad, cells, opts, gamma_ion=gamma_ion, rc=rc)
     levelpops = ltepop_mod.calculate_levelpops(dad, cells, opts)
     nnion = ltepop_mod.get_nnion(dad, cells)
     chi_ff_part = opacity_mod.chi_ff_nnionpart_cells(dad, nnion, cells.Te)
@@ -119,10 +166,10 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid,
     # underflow float32 to zero, which would send every k-packet there to
     # free-free emission; the k-packet and macro-atom selections run in the
     # tables' dtype
-    f64 = torch.float64
     rates = transitionrates_mod.compute_process_rates(
         dad, rc, levelpops.to(f64), nnion.to(f64), cells.Te.to(f64), cells.TR.to(f64),
-        cells.W.to(f64), cells.nne.to(f64), t_mid)
+        cells.W.to(f64), cells.nne.to(f64), t_mid,
+        corrphotoionrenorm=None if corrphotoionrenorm is None else corrphotoionrenorm.to(f64))
     cells = cells.replace(totalcooling=rates.totalcooling.to(cells.Te.dtype),
                           ion_cooling_contribs=rates.ion_cooling.to(cells.Te.dtype))
     tau_sob = linewalk_mod.build_tau_factor(dad, levelpops)
@@ -400,6 +447,7 @@ class Simulation:
         prev_est = self.prev_est
         first_ts = prev_est is None
         zeros = torch.zeros(ncells, dtype=self.fdtype, device=self.device)
+        gammaest_norm = None
         if first_ts:
             j_norm = nuj_norm = ffheating_norm = dep_heating = zeros
             mode = "first"
@@ -419,15 +467,16 @@ class Simulation:
                 # bfrate_raw * estimator_normfactor / H (radfield.cc:946;
                 # artis_tpu/driver.py:1305-1316), for the NLTE solve
                 self.prev_bfrate_normed = prev_est.bfrate * self._t(norm4pi * FOURPI / H)[:, None]
+            if self.opts.use_lut_photoion:
+                # photoionisation rate estimator * normfactor / H
+                # (artis_tpu/driver.py:1296-1304)
+                gammaest_norm = prev_est.gammaestimator * self._t(norm4pi * FOURPI / H)[:, None]
             lte_mode = nts < p.num_lte_timesteps
-            if not (lte_mode or bool(np.all(_np(self.cells.thick) == 1))):
-                raise NotImplementedError(
-                    f"timestep {nts} needs the non-LTE grid update (num_lte_timesteps="
-                    f"{p.num_lte_timesteps}), which is not ported")
-            mode = "lte"
+            mode = "lte" if lte_mode or bool(np.all(_np(self.cells.thick) == 1)) else "nlte"
         results = _plasma_update_device(
             self.dad, self.rc, self.cells, self.opts, j_norm, nuj_norm,
-            float(self.ts.mid[nts]), ffheating_norm, dep_heating, mode=mode)
+            float(self.ts.mid[nts]), ffheating_norm, dep_heating, mode=mode,
+            gammaest_norm=gammaest_norm)
         return mode, results
 
     def update_grid(self, nts: int):
@@ -452,6 +501,7 @@ class Simulation:
             self.cells = self.cells.replace(kappagrey=self._t(kgrey6))
 
         mode, results = self._plasma_call(nts)
+        self.plasma_mode = mode
         (self.cells, levelpops, nnion, chi_ff_part, self.rates, tau_sob, bf_a,
          bf_dep, expo) = results
 
@@ -509,7 +559,8 @@ class Simulation:
         t0 = _time.time()
         ctx = self.update_grid(nts)
         self._sync()
-        self.log(f"timestep {nts}: grid update took {_time.time() - t0:.1f}s")
+        dt_grid = _time.time() - t0
+        self.log(f"timestep {nts}: grid update ({self.plasma_mode}) took {dt_grid}s")
         self.est = self._zero_est()
         t0 = _time.time()
         n_act0 = int((self.state.ptype != TYPE_ESCAPE).sum())
@@ -531,7 +582,8 @@ class Simulation:
         self.total_transport_seconds += dt_transport
         self.transport_log.append(dict(nts=nts, steps=nsteps, seconds=dt_transport,
                                        iters=iters, active_start=n_act0,
-                                       completed=completed))
+                                       completed=completed, grid_mode=self.plasma_mode,
+                                       grid_seconds=dt_grid))
         self.prev_est = self.est
         e = self.est
         self.gamma_dep_ts[nts] = float(e.dep_gamma.sum()) * self._e0

@@ -1,7 +1,9 @@
 """Vector / relativistic-frame math, batched over packet tensors.
 
-Port of the JAX package's geometry module (reference: vectors.h:18-385):
-every function works on tensors whose last axis is the 3-vector axis.
+Port of the JAX package's geometry module (reference: vectors.h:18-385),
+the Stokes-vector frame machinery of polarised electron scattering
+included: every function works on tensors whose last axis is the 3-vector
+axis.
 """
 
 from __future__ import annotations
@@ -106,3 +108,79 @@ def get_escapedirectionbin(dir_in, ncosthetabins: int, nphibins: int):
     phi = torch.where(testphi >= 0, torch.arccos(cosphi), torch.arccos(cosphi) + PI)
     phibin = torch.clamp((phi / 2.0 / PI * nphibins).long(), max=nphibins - 1)
     return costhetabin * nphibins + phibin
+
+
+# --- Stokes-vector frame machinery (polarisation) -------------------------
+# Directions on the polar axis have no meridian frame (a 0/0 in ``meridian``)
+# and a scattering by angle 0 has no scattering plane (a zero vector in
+# ``get_rot_angle``): both give NaN, which the caller turns into an
+# unpolarised packet (engine.electron_scatter_lanes), as the JAX package does.
+
+
+def meridian(n):
+    """Meridian-frame axes ref1, ref2 for direction n (reference: vectors.h:252-262)."""
+    n_xylen = torch.sqrt(n[..., 0] ** 2 + n[..., 1] ** 2)
+    ref1 = torch.stack([-n[..., 0] * n[..., 2] / n_xylen,
+                        -n[..., 1] * n[..., 2] / n_xylen,
+                        (1.0 - n[..., 2] ** 2) / n_xylen], dim=-1)
+    return ref1, cross(ref1, n)
+
+
+def get_rot_angle(n1, n2, ref1, ref2):
+    """Rotation angle from the scattering plane (reference: vectors.h:216-249)."""
+    ref1_sc = vec_norm(n1 * dot(n1, n2)[..., None] - n2)
+    c1 = torch.clamp(dot(ref1_sc, ref1), -1.0, 1.0)
+    c2 = dot(ref1_sc, ref2)
+    base = torch.arccos(torch.abs(c1))
+    i = torch.where((c1 > 0) & (c2 > 0), base,
+                    torch.where((c1 < 0) & (c2 > 0), PI - base,
+                                torch.where((c1 > 0) & (c2 < 0), 2.0 * PI - base, PI + base)))
+    i = torch.where(c1 == 0, torch.full_like(i, PI / 2.0), i)
+    return torch.where(c2 == 0, torch.zeros_like(i), i)
+
+
+def lorentz(e_rf, n_rf, v):
+    """Lorentz transform of the electric-field unit vector
+    (reference: vectors.h:264-294)."""
+    beta = v / CLIGHT
+    vsqr = dot(beta, beta)
+    gamma_rel = 1.0 / torch.sqrt(1.0 - vsqr)
+    e_par = beta * (dot(e_rf, beta) / vsqr)[..., None]
+    e_perp = e_rf - e_par
+    v_cr_b = cross(beta, cross(n_rf, e_rf))
+    return vec_norm(e_par + gamma_rel[..., None] * (e_perp + v_cr_b))
+
+
+def frame_transform(n_rf, q, u, v):
+    """Transform Stokes Q, U from the rest frame to the comoving frame of
+    velocity v; returns (n_cmf, Q', U') (reference: vectors.h:297-385)."""
+    ref1_rf, ref2_rf = meridian(n_rf)
+    p = torch.sqrt(q * q + u * u)
+    safe_p = torch.where(p > 0, p, torch.ones_like(p))
+    cos2, sin2 = q / safe_p, u / safe_p
+    half = torch.arccos(torch.clamp(torch.abs(cos2), 0.0, 1.0))
+    rot2 = torch.where((cos2 > 0) & (sin2 > 0), half,
+                       torch.where((cos2 < 0) & (sin2 > 0), PI - half,
+                                   torch.where((cos2 < 0) & (sin2 < 0), PI + half,
+                                               2.0 * PI - half)))
+    rot2 = torch.where(cos2 == 0, torch.where(u < 0, 1.5 * PI, 0.5 * PI * torch.ones_like(u)),
+                       rot2)
+    rot2 = torch.where(sin2 == 0, torch.where(q < 0, PI, torch.zeros_like(q)), rot2)
+    rot_angle = torch.where(p > 0, rot2 / 2.0, torch.zeros_like(rot2))
+    ca, sa = torch.cos(rot_angle)[..., None], torch.sin(rot_angle)[..., None]
+    elec_rf = ca * ref1_rf - sa * ref2_rf
+    n_cmf = angle_ab(n_rf, v)
+    elec_cmf = lorentz(elec_rf, n_rf, v)
+    ref1_cmf, ref2_cmf = meridian(n_cmf)
+    c1 = dot(elec_cmf, ref1_cmf)
+    c2 = dot(elec_cmf, ref2_cmf)
+    base = torch.arccos(torch.clamp(torch.abs(c1), 0.0, 1.0))
+    theta = torch.where((c1 > 0) & (c2 < 0), base,
+                        torch.where((c1 < 0) & (c2 > 0), PI + base,
+                                    torch.where((c1 < 0) & (c2 < 0), PI - base,
+                                                2.0 * PI - base)))
+    theta = torch.where(c1 == 0, torch.full_like(theta, PI / 2.0), theta)
+    theta = torch.where(c2 == 0, torch.zeros_like(theta), theta)
+    theta = torch.where(c1 > 1, torch.zeros_like(theta), theta)
+    theta = torch.where(c1 < -1, torch.full_like(theta, PI), theta)
+    return n_cmf, torch.cos(2.0 * theta) * p, torch.sin(2.0 * theta) * p

@@ -325,6 +325,26 @@ def write_packets_text(filename: str, st: PacketState, e_scale: float = 1.0) -> 
             ) + "\n")
 
 
+def read_packets_text(filename: str) -> dict:
+    """Read packets*.out (reference: packet.cc:235-301). Returns a numpy dict."""
+    data = np.loadtxt(filename, ndmin=2)
+    return dict(
+        number=data[:, 0].astype(np.int64), where=data[:, 1].astype(np.int64),
+        ptype=data[:, 2].astype(np.int64), pos=data[:, 3:6], dir=data[:, 6:9],
+        tdecay=data[:, 9], e_cmf=data[:, 10], e_rf=data[:, 11],
+        nu_cmf=data[:, 12], nu_rf=data[:, 13],
+        escape_type=data[:, 14].astype(np.int64), escape_time=data[:, 15],
+        emissiontype=data[:, 16].astype(np.int64),
+        trueemissiontype=data[:, 17].astype(np.int64),
+        em_pos=data[:, 18:21], absorptiontype=data[:, 21].astype(np.int64),
+        absorptionfreq=data[:, 22], nscatterings=data[:, 23].astype(np.int64),
+        em_time=data[:, 24], stokes=data[:, 25:28],
+        originated_from_particlenotgamma=data[:, 28].astype(bool),
+        trueemissionvelocity=data[:, 29], trueem_time=data[:, 30],
+        pellet_nucindex=data[:, 31].astype(np.int64),
+    )
+
+
 def save_packets_npz(filename: str, st: PacketState) -> None:
     """Binary checkpoint of the full packet state (same file format as the
     JAX package: one array per field)."""

@@ -18,6 +18,7 @@ from ..constants import KB, MH, SAHACONST
 from ..devutil import assert_testmodeonly
 from ..options import Options
 from .cellstate import CellState
+from .ratecoeff import interpolate_lut
 
 LOG_DBL_MAX = 709.782712893384
 
@@ -126,15 +127,30 @@ def set_groundlevelpops(dad: DeviceAtomicData, partfuncts, logphi, nnelement,
 def calculate_ion_balance_nne(dad: DeviceAtomicData, cells: CellState, opts: Options,
                               gamma_ion=None, nt_ion_rate=None, rc=None) -> CellState:
     """LTE/Saha nne + ground-pop solve for all cells at once
-    (reference: ltepop.cc:607-640). The nebular rate-balance phi
-    (gamma_ion with force_saha off) belongs to the NLTE mode, which is not
+    (reference: ltepop.cc:607-640).
+
+    When ``gamma_ion`` (the photoionisation rate per ground-level
+    population, from the LUT gamma estimators) and ``rc`` are given and
+    ``force_saha_ion_balance`` is off, non-thick cells with a positive rate
+    use the nebular rate balance phi = alpha_sp / Gamma_ion (reference:
+    ltepop.cc:64-120 phi_rate_balance). The non-thermal ionisation rate
+    (``nt_ion_rate``) belongs to the non-thermal solver, which is not
     ported."""
-    if gamma_ion is not None and not opts.force_saha_ion_balance:
-        raise NotImplementedError("rate-balance ionisation (force_saha_ion_balance=False)")
+    if nt_ion_rate is not None:
+        raise NotImplementedError("non-thermal ionisation rates (nt_ion_rate)")
     dt = cells.Te.dtype
     t_exc = cells.TJ if opts.ltepop_excitation_use_tj else cells.Te
     partfuncts = calculate_partfuncts(dad, t_exc)
     logphi = log_phi_saha(dad, partfuncts, cells.Te)
+    if gamma_ion is not None and not opts.force_saha_ion_balance and rc is not None:
+        ionidx = torch.arange(dad.nions_total, device=logphi.device)
+        alpha_sp = interpolate_lut(rc.ion_alpha_sp, rc, ionidx[None, :],
+                                   cells.Te[:, None]).to(dt)  # (ncells, nions)
+        gtot = gamma_ion * dad.ion_g0.to(dt)[None, :] / torch.clamp(partfuncts, min=1e-300)
+        logphi_rate = (torch.log(torch.clamp(alpha_sp, min=1e-300))
+                       - torch.log(torch.clamp(gtot, min=1e-300)))
+        use_rate = (gtot > 0) & (cells.thick[:, None] != 1)
+        logphi = torch.where(use_rate, logphi_rate, logphi)
     nne_hi = cells.rho / MH
     nnelement = cells.elem_numberdens()
     uppermost = find_uppermost_ion(dad, logphi, nne_hi)

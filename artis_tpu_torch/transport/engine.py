@@ -10,8 +10,13 @@ update_packets.cc:30-211 pellet/nonthermal handling).
 Every iteration advances every active packet by one action: pellet decay,
 non-thermal deposition, k-packet destruction, a gamma flight step, an
 r-packet propagation through up to ``rpkt_crossings_per_dispatch`` crossings
-(the crossing kernel, ``rpkt_kernel.propagate``), and macro-atom resolution.
-Phases with no packet to act on are skipped on the host.
+(the crossing kernel, ``rpkt_kernel.propagate``), the event pass, and
+macro-atom resolution. Phases with no packet to act on are skipped on the
+host. With ``dipole`` (the classic preset) the kernel hands every event,
+electron scattering included, to the event pass, which scatters by the
+dipole phase function and carries the Stokes vector
+(``electron_scatter_batch``); otherwise electron scattering is an isotropic
+redirect inside the kernel.
 """
 
 from __future__ import annotations
@@ -87,9 +92,12 @@ class StepContext:
 
 def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     """Raise NotImplementedError naming the first option off the ported
-    slice: kilonova_lte-style LTE transport on a SPHERICAL1D, CYLINDRICAL2D
-    or CARTESIAN3D grid, optionally with detailed bf-rate estimators and
-    with binned expansion opacities; particles thermalise by the INSTANT,
+    slice: transport on a SPHERICAL1D, CYLINDRICAL2D or CARTESIAN3D grid
+    without NLTE populations or the non-thermal solver (the kilonova_lte
+    and classic presets), optionally with detailed bf-rate estimators,
+    binned expansion opacities, dipole / polarised electron scattering
+    (``dipole``, ``pol_on``) and rate-balance ionisation
+    (``force_saha_ion_balance=False``); particles thermalise by the INSTANT,
     DETAILED, BARNES or WOLLAEGER scheme, gammas by detailed transport or
     the BARNES, WOLLAEGER or GUTTMAN scheme."""
     off = [
@@ -97,7 +105,7 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
                                              GridType.CARTESIAN3D)),
         ("nlte_enabled", opts.nlte_enabled), ("nt_on", opts.nt_on),
         ("nt_solve_spencerfano", opts.nt_solve_spencerfano),
-        ("vpkt_on", opts.vpkt_on), ("dipole", opts.dipole),
+        ("vpkt_on", opts.vpkt_on),
         ("multibin_radfield", opts.multibin_radfield),
         ("detailed_line_estimators_on", opts.detailed_line_estimators_on),
         ("use_xcom_gammaphotoion", opts.use_xcom_gammaphotoion),
@@ -106,7 +114,6 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
         ("log_macroatom", opts.log_macroatom),
         ("use_lut_photoion=False", not opts.use_lut_photoion),
         ("use_lut_bfheating=False", not opts.use_lut_bfheating),
-        ("force_saha_ion_balance=False", not opts.force_saha_ion_balance),
         # the JAX package has no GUTTMAN particle scheme either
         ("particle_thermalisation_scheme=GUTTMAN",
          opts.particle_thermalisation_scheme == ThermalisationScheme.GUTTMAN),
@@ -173,15 +180,110 @@ def emit_rpkt_batch(key, tag, st: PacketState, mask, opts: Options) -> PacketSta
         stokes=_w3(mask, _stokes_reset(st), st.stokes))
 
 
+DIPOLE_TRIALS = 48  # rejection-sampling trials of the dipole phase function
+
+
+def electron_scatter_lanes(pos, dir_rf, prop_time, stokes, u0, u_trials, dipole: bool,
+                           relativistic: bool):
+    """Thomson scattering of k lanes with optional dipole angular sampling
+    and Stokes transport (reference: rpkt.cc:292-409): the rest-frame to
+    comoving transform, the scattering angles drawn in the comoving frame,
+    the rotation of the old direction by them, the rotation of Q, U into the
+    scattering plane (i1), the Rayleigh matrix, the rotation back to the new
+    direction's meridian frame (i2) and the transform back to the rest
+    frame. u0 (2, k) are the isotropic (cos theta, phi) uniforms;
+    u_trials (DIPOLE_TRIALS, 3, k) the dipole trials (cos theta, phi,
+    acceptance), unused when ``dipole`` is off. Returns (new rest-frame
+    direction, its Doppler factor nu_cmf/nu_rf, Q, U)."""
+    vel = pos / prop_time[:, None]
+    old_dir_cmf, qi, ui = geometry.frame_transform(dir_rf, stokes[:, 1], stokes[:, 2], vel)
+    m_ang = 2.0 * u0[0] - 1.0
+    phisc = 2.0 * PI * u0[1]
+    if dipole:
+        # rejection sampling of p(mu, phi) = (mu^2+1) + (mu^2-1)(Q cos2phi +
+        # U sin2phi), max 2 (Code & Whitney 1995): the first accepted trial
+        # wins; the mean acceptance is 2/3, so a lane that accepts none of
+        # the 48 (< 1e-8 of them) keeps its u0 draw, as in the JAX package
+        m_try = 2.0 * u_trials[:, 0] - 1.0
+        mu2 = m_try * m_try
+        ph_try = 2.0 * PI * u_trials[:, 1]
+        p = (mu2 + 1.0) + (mu2 - 1.0) * (torch.cos(2.0 * ph_try) * qi + torch.sin(2.0 * ph_try) * ui)
+        acc = 2.0 * u_trials[:, 2] <= p
+        first = torch.argmax(acc.to(torch.int8), dim=0)[None]
+        any_acc = acc.any(dim=0)
+        m_ang = torch.where(any_acc, m_try.gather(0, first)[0], m_ang)
+        phisc = torch.where(any_acc, ph_try.gather(0, first)[0], phisc)
+
+    # rotate old_dir_cmf by (theta_sc, phi_sc) (rpkt.cc:343-357)
+    cos_t = m_ang
+    sin_t = torch.sqrt(torch.clamp(1.0 - m_ang * m_ang, min=0.0))
+    odx, ody, odz = old_dir_cmf[:, 0], old_dir_cmf[:, 1], old_dir_cmf[:, 2]
+    general = torch.abs(odz) < 0.99999
+    root = torch.sqrt(torch.clamp(1.0 - odz * odz, min=1e-30))
+    cphi, sphi = torch.cos(phisc), torch.sin(phisc)
+    gdir = torch.stack([sin_t / root * (ody * sphi - odx * odz * cphi) + odx * cos_t,
+                        sin_t / root * (-odx * sphi - ody * odz * cphi) + ody * cos_t,
+                        sin_t * cphi * root + odz * cos_t], dim=-1)
+    pdir = torch.stack([sin_t * cphi, sin_t * sphi, torch.where(odz > 0, cos_t, -cos_t)], dim=-1)
+    new_dir_cmf = _w3(general, gdir, pdir)
+
+    # rotate Stokes into the scattering plane (angle i1, Bulla+2015)
+    ref1_o, ref2_o = geometry.meridian(old_dir_cmf)
+    i1 = geometry.get_rot_angle(old_dir_cmf, new_dir_cmf, ref1_o, ref2_o)
+    cos2i1, sin2i1 = torch.cos(2.0 * i1), torch.sin(2.0 * i1)
+    q_old = qi * cos2i1 - ui * sin2i1
+    u_old = qi * sin2i1 + ui * cos2i1
+    # Rayleigh scattering matrix
+    mu = geometry.dot(old_dir_cmf, new_dir_cmf)
+    i_new = 0.75 * ((mu * mu + 1.0) + q_old * (mu * mu - 1.0))
+    q_new = 0.75 * ((mu * mu - 1.0) + q_old * (mu * mu + 1.0)) / i_new
+    u_new = 1.5 * mu * u_old / i_new
+    # rotate back to the meridian frame of the new direction (angle i2)
+    ref1_n, ref2_n = geometry.meridian(new_dir_cmf)
+    i2 = PI + geometry.get_rot_angle(new_dir_cmf, old_dir_cmf, ref1_n, ref2_n)
+    cos2i2, sin2i2 = torch.cos(2.0 * i2), torch.sin(2.0 * i2)
+    q_f = q_new * cos2i2 + u_new * sin2i2
+    u_f = -q_new * sin2i2 + u_new * cos2i2
+
+    new_dir_rf, q_f, u_f = geometry.frame_transform(new_dir_cmf, q_f, u_f, -vel)
+    # a direction on the polar axis or a zero scattering plane makes the
+    # rotation angles NaN: such a packet leaves unpolarised (engine.py:232-236
+    # of the JAX package); the direction never depends on those angles
+    bad = ~(torch.isfinite(q_f) & torch.isfinite(u_f))
+    q_f = torch.where(bad, torch.zeros_like(q_f), q_f)
+    u_f = torch.where(bad, torch.zeros_like(u_f), u_f)
+    doppler = geometry.doppler_nucmf_on_nurf(pos, new_dir_rf, prop_time, relativistic)
+    return new_dir_rf, doppler, q_f, u_f
+
+
 def electron_scatter_batch(key, tag, st: PacketState, mask, opts: Options) -> PacketState:
-    """Thomson scattering with Stokes transport (reference: rpkt.cc:292-409).
-    On the ported path every electron scattering is an isotropic in-kernel
-    redirect, so this pass never has a lane to act on; polarised / dipole
-    scattering is not ported."""
-    if bool(mask.any()):
-        raise NotImplementedError("electron scattering outside the crossing kernel "
-                                  "(dipole / polarisation)")
-    return st
+    """Thomson scattering with optional dipole angular sampling and full
+    Stokes-vector transport (reference: rpkt.cc:292-409
+    electron_scatter_rpkt) for the lanes of ``mask``: they are gathered
+    (``nonzero`` / index), scattered by ``electron_scatter_lanes`` and
+    written back, so the draws cover only the scattering lanes."""
+    idx = torch.nonzero(mask)[:, 0]
+    k = idx.numel()
+    if k == 0:
+        return st
+    dev, dt = st.pos.device, st.pos.dtype
+    kk = rng.fold_in(key, tag)
+    u0 = rng.uniform(kk, 0, (2, k), dt, dev)
+    u_trials = rng.uniform(kk, 1, (DIPOLE_TRIALS, 3, k), dt, dev) if opts.dipole else None
+    new_dir, doppler, q_f, u_f = electron_scatter_lanes(
+        st.pos[idx], st.dir[idx], st.prop_time[idx], st.stokes[idx], u0, u_trials,
+        opts.dipole, opts.use_relativistic_doppler_shift)
+
+    def put(full, part):
+        r = full.clone()
+        r[idx] = part.to(full.dtype)
+        return r
+
+    stokes = torch.stack([torch.ones_like(q_f), q_f, u_f], dim=-1)
+    return st.replace(ptype=put(st.ptype, torch.full_like(st.ptype[idx], TYPE_RPKT)),
+                      dir=put(st.dir, new_dir), nu_rf=put(st.nu_rf, st.nu_cmf[idx] / doppler),
+                      e_rf=put(st.e_rf, st.e_cmf[idx] / doppler),
+                      stokes=put(st.stokes, stokes))
 
 
 # ---------------------------------------------------------------------------
@@ -654,6 +756,11 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
     n = st.npkts
     dev = st.pos.device
     dtype = st.pos.dtype
+    # dipole scattering needs the event pass's full machinery: the kernel
+    # then defers every event, electron and thick-cell grey scattering
+    # included, instead of redirecting isotropically in-kernel (K6; the JAX
+    # package's inkernel_scatter=False)
+    defer = bool(opts.dipole or opts.vpkt_on)
     idx, lanes = rpkt_lanes(st, ctx.t2)
     none = (torch.zeros(n, dtype=torch.bool, device=dev), torch.zeros_like(st.ptype),
             torch.full_like(st.ptype, -99))
@@ -677,7 +784,7 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
         phixs_dnu=float(dad.nphixsnuincrement),
         last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
         want_bfrate=want_bfrate(opts, dad), expansion=opts.expansionopacities_on,
-        **rpkt_kernel.kernel_geometry(grid))
+        defer_scatter=defer, **rpkt_kernel.kernel_geometry(grid))
 
     def put(full, part):
         r = full.clone()
@@ -744,17 +851,20 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
         full(out["chi_escat"], 0.0, dtype), full(out["chi_ff"], 0.0, dtype),
         full(out["chi_bf"], 0.0, dtype), full(out["chi_cont"], 0.0, dtype),
         full(out["bf_idx"], 0, torch.int64), full(out["act_line"], -99, torch.int64),
-        full(out["mgi"], 0, torch.int64))
+        full(out["mgi"], 0, torch.int64), no_escat=not defer)
     return res + (nadv,)
 
 
 def _rpkt_apply_events(key, st, est, ctx, grid, dad, cells, opts, opacity_case,
                        take_event, thick, is_bb, chi_escat, chi_ff, chi_bf, chi_cont_cmf,
-                       bf_contindex, ev_act_line, nonemptymgi):
+                       bf_contindex, ev_act_line, nonemptymgi, no_escat: bool = True):
     """Apply the physical-event outcomes of the lanes that had one
-    (reference: rpkt.cc:411-557 rpkt_event_*). Electron scattering was
-    already handled inside the kernel, so the continuum split is drawn from
-    the conditional distribution over [chi_es, chi_tot]. In expansion-opacity
+    (reference: rpkt.cc:411-557 rpkt_event_*). With ``no_escat`` the kernel
+    already handled electron scattering, so the continuum split is drawn
+    from the conditional distribution over [chi_es, chi_tot]; without it
+    (the deferred mode of dipole scattering) the split is drawn over the
+    whole continuum and electron scattering is decided here, by
+    ``electron_scatter_batch``. In expansion-opacity
     mode a bound-bound event has no line yet: with
     ``rpkt_boundbound_thermalisation_probability`` >= 0 it scatters
     coherently, re-emitted from Planck x kappa with that probability; below
@@ -765,7 +875,10 @@ def _rpkt_apply_events(key, st, est, ctx, grid, dad, cells, opts, opacity_case,
     ev_bb = take_event & ~thick & is_bb
     ev_cont = take_event & ~thick & ~is_bb
     u52 = _uniform(key, 52, n, st.pos)
-    chi_rnd = chi_escat + u52 * torch.clamp(chi_cont_cmf - chi_escat, min=0.0)
+    if no_escat:
+        chi_rnd = chi_escat + u52 * torch.clamp(chi_cont_cmf - chi_escat, min=0.0)
+    else:
+        chi_rnd = u52 * chi_cont_cmf
     ev_escat = ev_cont & (chi_rnd < chi_escat)
     ev_ff = ev_cont & ~ev_escat & (chi_rnd < chi_escat + chi_ff)
     ev_bf = ev_cont & ~ev_escat & ~ev_ff

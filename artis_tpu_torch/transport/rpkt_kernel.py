@@ -7,17 +7,18 @@ frequency, continuum opacity (electron scattering + free-free + bound-free
 with phixs interpolation and log departure), continuum selection, the
 Sobolev line walk from each packet's cursor (or, in expansion-opacity mode,
 the walk over wavelength bins of binned line opacity), in-kernel isotropic
-electron /
-thick-grey scattering, two half-moves with midpoint J, nuJ, ffheating, LUT
+electron / thick-grey scattering (or, in the deferred mode, every event
+handed to the event pass), two half-moves with midpoint J, nuJ, ffheating, LUT
 photoionisation / bf-heating and (optionally) detailed per-continuum
 bf-rate estimators, a Kahan-summed time and the boundary overshoot guard
 (reference: rpkt.cc:604-737 do_rpkt_step without the event application).
 
 It replaces the Pallas kernel ``propagate_blocked``
 (artis_tpu/transport/pallas_rpkt.py:1837, body ``_kernel`` :314-1822) in its
-resident-table, in-kernel-scatter configurations: 1D spherical (:863-942),
-``cart3d`` (:588-631, :712-750), ``cyl2d`` (:751-862), ``want_bfrate``
-(:1515-1532) and ``expansion_mode`` (:1136-1200). The cylindrical distance
+resident-table configurations: 1D spherical (:863-942), ``cart3d``
+(:588-631, :712-750), ``cyl2d`` (:751-862), ``want_bfrate`` (:1515-1532),
+``expansion_mode`` (:1136-1200) and ``inkernel_scatter=False`` (:1416-1435,
+the deferred events of dipole scattering). The cylindrical distance
 scales the rcyl bounds to the step's start time as the XLA path does
 (artis_tpu/grid.py:372-390); the Pallas branch passes them at tmin. For CUDA
 tensors it launches ``csrc/rpkt_crossing.cu`` (built by ``build()``); for
@@ -144,8 +145,8 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
                         relativistic: bool, phixs_dnu: float,
                         last_nuovernuedge: float, test_mode: bool,
                         geom: int = GEOM_SPH, ncoord=None, want_bfrate: bool = False,
-                        expansion: bool = False, line_chunk: int = 128,
-                        walk_log: list | None = None) -> dict:
+                        expansion: bool = False, defer_scatter: bool = False,
+                        line_chunk: int = 128, walk_log: list | None = None) -> dict:
     """The crossing kernel as a per-crossing loop over (N,) float32 tensors.
     Same signature and outputs as ``propagate``. ``walk_log``, where given,
     gets one (model cell, first entry, end entry) triple of tensors per
@@ -298,9 +299,14 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         dist = torch.clamp(dist, min=0.0)
 
         crossing_pre = take_boundary & (snext >= 0)
-        ev_cont_any = take_event & ~thick & ~is_bb & nonempty
-        is_escat = ev_cont_any & (u_split * chi_cont_cmf < chi_escat)
-        ev_thick_k = take_event & thick
+        if defer_scatter:
+            # K6: every event, electron and thick-cell grey scattering
+            # included, leaves for the event pass (pallas_rpkt.py:1429-1433)
+            is_escat = ev_thick_k = zb
+        else:
+            ev_cont_any = take_event & ~thick & ~is_bb & nonempty
+            is_escat = ev_cont_any & (u_split * chi_cont_cmf < chi_escat)
+            ev_thick_k = take_event & thick
         scat = is_escat | ev_thick_k
         take_event = take_event & ~scat
 
@@ -469,7 +475,7 @@ class _Params(ctypes.Structure):
         ("geom", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
         ("nz", ctypes.c_int), ("want_bfrate", ctypes.c_int), ("shared_rows", ctypes.c_int),
         ("expansion", ctypes.c_int), ("nbins", ctypes.c_int),
-        ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
+        ("defer_scatter", ctypes.c_int), ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
         ("t2", ctypes.c_float), ("tmin", ctypes.c_float),
         ("max_path_step", ctypes.c_float), ("phixs_dnu", ctypes.c_float),
         ("last_nuovernuedge", ctypes.c_float), ("pad0", ctypes.c_float),
@@ -509,7 +515,7 @@ def pick_shared_rows(ncells: int, ngc: int, nbfr: int) -> bool:
 def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *, nlines,
             ncells, ngc, nphixs, max_inner, relativistic, phixs_dnu, last_nuovernuedge,
             test_mode, geom=GEOM_SPH, ncoord=None, want_bfrate=False, expansion=False,
-            shared_rows=None):
+            defer_scatter=False, shared_rows=None):
     lib = build()
     dev = lanes["posx"].device
     n = lanes["posx"].shape[0]
@@ -560,7 +566,8 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
                   ncont=ncont, ngc=ngc, nphixs=nphixs, max_inner=max_inner,
                   relativistic=int(relativistic), test_mode=int(test_mode), geom=geom,
                   nx=nx, ny=ny, nz=nz, want_bfrate=int(nbfr > 0), shared_rows=int(shared_rows),
-                  expansion=int(expansion), nbins=NBINS, seed_lo=seed & 0xFFFFFFFF,
+                  expansion=int(expansion), nbins=NBINS,
+                  defer_scatter=int(defer_scatter), seed_lo=seed & 0xFFFFFFFF,
                   seed_hi=(seed >> 32) & 0xFFFFFFFF,
                   t2=t2, tmin=tmin, max_path_step=max_path_step, phixs_dnu=phixs_dnu,
                   last_nuovernuedge=last_nuovernuedge, pad0=0.0)
@@ -579,6 +586,8 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
             propagate.launches[CONFIG_BFRATE] += 1
         if expansion:
             propagate.launches[CONFIG_EXPANSION] += 1
+        if defer_scatter:
+            propagate.launches[CONFIG_DEFERRED] += 1
     return out
 
 
@@ -598,7 +607,9 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
     TABLES_F32 float32 / TABLES_I32 int32 tensors (see ``kernel_tables``);
     ``geom`` / ``ncoord`` the grid (``kernel_geometry``; 1D shells by
     default, as many as ``mgi_of_cell`` has cells); ``want_bfrate``
-    turns on the detailed bf-rate estimators.
+    turns on the detailed bf-rate estimators; ``defer_scatter`` (K6, the
+    dipole mode) hands electron and thick-cell grey scattering events to
+    the event pass instead of redirecting them in the kernel.
     Returns OUT_F32/OUT_I32 lane tensors plus est (ncells, 4: J, nuJ,
     ffheating, boundary crossings out of the cell), gamma and bfheat
     (ncells, ngc), bfrate (ncells, ncont, or ncells x 0 when off) and misc
@@ -613,14 +624,15 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
 
 # kernel launches since the last reset, per kernel configuration: plain
 # integers that a run resets and reads to show that its main path went
-# through the kernel (a bf-rate or expansion launch counts for its geometry
-# too)
+# through the kernel (a bf-rate, expansion or deferred-scatter launch counts
+# for its geometry too)
 CONFIG_OF_GEOM = {GEOM_SPH: "rpkt_crossing_sph1d", GEOM_CYL: "rpkt_crossing_cyl2d",
                   GEOM_CART: "rpkt_crossing_cart3d"}
 CONFIG_BFRATE = "rpkt_crossing_bfrate"
 CONFIG_EXPANSION = "rpkt_crossing_expansion"
+CONFIG_DEFERRED = "rpkt_crossing_deferred"
 propagate.launches = dict.fromkeys((*CONFIG_OF_GEOM.values(), CONFIG_BFRATE,
-                                    CONFIG_EXPANSION), 0)
+                                    CONFIG_EXPANSION, CONFIG_DEFERRED), 0)
 
 
 def reset_launches() -> None:

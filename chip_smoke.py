@@ -25,6 +25,12 @@ line is printed):
        1, 4, 64), the 25 x 50 cylinder with the 101k-line Fe atom and the
        big scene's 16^3 model with its own opacity bins; bound-bound bin
        events must occur;
+     - the deferred events of dipole scattering (K6): the classic scene's
+       16^3 model with its own timestep-0 tables, then ionised and denser,
+       without and with grey cells (max_inner 1, 4, 64); in each of the
+       latter cases bound-bound, electron-scattering, free-free, bound-free
+       and (with grey cells) thick events must all leave the kernel, and
+       none scatters inside it;
      then the time of each kernel configuration against its plain version
      at N=65536, max_inner=64 (plain, kernel, kernel, plain), the kernel in
      both estimator-row modes (shared memory, global atomics) where the
@@ -38,8 +44,13 @@ line is printed):
      Fe atom (2^18 packets, timesteps 0-2; macro-atom bound-bound
      activations must occur) and the default scene with Barnes particle
      and Guttman gamma thermalisation (gamma lines written for Ni56 and
-     Co56; gamma packets must be emitted); every timestep completes, every
-     output is finite and packets escape;
+     Co56; gamma packets must be emitted) and classic_3d, the classic
+     preset on the big scene's 16^3 model and Fe atom (2^20 packets,
+     timesteps 0-2, the last two with the non-LTE grid update; the event
+     pass must count electron scatterings, T_e must leave T_J in some cell,
+     escaped packets must carry Q or U, and the port's exspec must write a
+     finite specpol.out whose Stokes I is spec.out); every timestep
+     completes, every output is finite and packets escape;
   5. prints the kernel records, the card and, last, the device record.
 
     python3 chip_smoke.py --rows-sweep
@@ -77,6 +88,7 @@ CONFIGS = {
     "rpkt_crossing_cyl2d": ("K3", f"{PALLAS}:751"),
     "rpkt_crossing_bfrate": ("K5-bfrate", f"{PALLAS}:1515"),
     "rpkt_crossing_expansion": ("K4", f"{PALLAS}:1136"),
+    "rpkt_crossing_deferred": ("K6", f"{PALLAS}:1426"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12
@@ -110,6 +122,18 @@ def big_scene(d):
 
     make_run(d, ncells=16, ntimesteps=4, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
              model_dim=3, logrho0=-9.0, logrho_slope=-0.15)
+    write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
+
+
+def classic_scene(d):
+    """The big scene's 16^3 model and Fe atom for the classic preset, run as
+    tests/test_configmatrix.py runs the classic configurations: no grey
+    timestep, and ``num_lte_timesteps=1`` so timesteps 1-2 take the
+    non-LTE grid update."""
+    from artis_tpu_torch.synthdata import make_run, write_synthetic_atomicdata
+
+    make_run(d, ncells=16, ntimesteps=4, tmin_days=5.0, tmax_days=9.0, ngreyts=0,
+             model_dim=3, logrho0=-9.0, logrho_slope=-0.15, num_lte_timesteps=1)
     write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
 
 
@@ -171,8 +195,8 @@ OPTS = dict(transport_dtype="float32", mintemp=1000.0, maxtemp=20000.0, tablesiz
             rpkt_crossings_per_dispatch=64)
 
 
-def cli_args(d, npkts, grid_type, **extra):
-    args = ["--rundir", d, "--device", "cuda", "--set", f"npkts={npkts}",
+def cli_args(d, npkts, grid_type, preset="kilonova_lte", **extra):
+    args = ["--rundir", d, "--device", "cuda", "--preset", preset, "--set", f"npkts={npkts}",
             "--set", f"grid_type={grid_type}"]
     for k, v in dict(OPTS, **extra).items():
         args += ["--set", f"{k}={v!r}"]
@@ -201,6 +225,12 @@ def phase_build():
     rpkt_kernel.build()
     secs = time.time() - t0
     log(f"build: rpkt_crossing.cu built and loaded in {secs:.2f} s")
+    # registers and spills of each instantiation (nvcc -Xptxas -v)
+    for path in glob.glob(os.path.join(os.path.dirname(rpkt_kernel.__file__), os.pardir,
+                                       "_build", "ptxas_*.log")):
+        for line in open(path):
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                log(f"ptxas: {line.strip()}")
     return secs
 
 
@@ -256,7 +286,21 @@ def ionised_tables(tables):
                 chiffpart=nne * 3.69255e8 / torch.sqrt(te))
 
 
-def _kernel_kw(sim, want_bfrate, expansion=False):
+def dense_tables(tables):
+    """``ionised_tables`` at 1e2, 1e4 and 1e6 times the electron and ion
+    densities, cell by cell in turn: in the Fe-atom models electron
+    scattering (linear in nne) and free-free (quadratic) then take a share
+    of the continuum events beside bound-free in some cells, while lines
+    still catch packets in the thinner ones."""
+    import torch
+
+    t = ionised_tables(tables)
+    cell = torch.arange(t["nne"].numel(), device=t["nne"].device)
+    factor = 10.0 ** (2.0 * (1 + cell % 3)).to(t["nne"].dtype)
+    return dict(t, nne=t["nne"] * factor, chiffpart=t["chiffpart"] * factor)
+
+
+def _kernel_kw(sim, want_bfrate, expansion=False, defer=False):
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
@@ -265,7 +309,7 @@ def _kernel_kw(sim, want_bfrate, expansion=False):
                 relativistic=sim.opts.use_relativistic_doppler_shift,
                 phixs_dnu=float(dad.nphixsnuincrement),
                 last_nuovernuedge=float(dad.last_phixs_nuovernuedge),
-                want_bfrate=want_bfrate, expansion=expansion,
+                want_bfrate=want_bfrate, expansion=expansion, defer_scatter=defer,
                 **rpkt_kernel.kernel_geometry(sim.grid))
 
 
@@ -291,17 +335,39 @@ def _captured_case(sim, seed):
     return (f"captured(N={ncap}) max_inner=64", cap, tables, tau, sel, float(ctx1.t2), 64)
 
 
-def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False):
+def _event_kinds(p, sel):
+    """Counts of the kinds of event the plain version's lanes took: bound-
+    bound, thick-cell grey, and the continuum events split as the event
+    pass splits them (a uniform ``sel`` times the continuum opacity against
+    electron scattering, then free-free, then bound-free)."""
+    ev = p["evented"] > 0
+    bb = ev & (p["is_bb"] > 0)
+    thick = ev & (p["thick"] > 0)
+    cont = ev & ~bb & ~thick
+    x = sel * p["chi_cont"]
+    escat = cont & (x < p["chi_escat"])
+    ff = cont & ~escat & (x < p["chi_escat"] + p["chi_ff"])
+    return dict(bb=int(bb.sum()), thick=int(thick.sum()), escat=int(escat.sum()),
+                ff=int(ff.sum()), bf=int((cont & ~escat & ~ff).sum()))
+
+
+def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=False,
+                 every_kind=False):
     """Kernel against plain version on each case, injected and Philox draws
     (rpkt_kernel.compare_outputs); raises on any disagreement. Marks in
     ``nonzero`` each estimator the plain version accumulated (and, for the
-    expansion mode, whether a bound-bound bin event occurred). Returns the
-    prop_time max_abs_err of each."""
+    expansion mode, whether a bound-bound bin event occurred). In the
+    deferred mode (K6) each case's event kinds are logged and the kernel's
+    in-kernel scatter counters must stay 0; with ``every_kind`` each case
+    must send events of every kind to the pass: bound-bound,
+    electron-scattering, free-free, bound-free and, where its tables have
+    thick cells, thick-cell grey. Returns the prop_time max_abs_err of
+    each."""
     import torch
 
     from artis_tpu_torch.transport import rpkt_kernel
 
-    kw = _kernel_kw(sim, want_bfrate, expansion)
+    kw = _kernel_kw(sim, want_bfrate, expansion, defer)
     tmin, mps = float(sim.grid.tmin), float(sim.grid.max_path_step)
     before = dict(rpkt_kernel.propagate.launches)
     ok_all, errs = True, []
@@ -324,6 +390,16 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False):
                 log(f"compare[{tag}]: {nbb} bound-bound bin events")
                 nonzero["expansion_bb_events"] = nonzero.get("expansion_bb_events",
                                                              False) or nbb > 0
+            if defer:
+                kinds = _event_kinds(p, se)
+                scat = [float(k["misc"][3]), float(k["misc"][4])]
+                log(f"compare[{tag}]: deferred events {kinds}, in-kernel scatters {scat}")
+                if any(scat):
+                    raise RuntimeError(f"{tag}: the deferred mode scattered in the kernel")
+                missing = [kind for kind, count in kinds.items() if count == 0
+                           and (kind != "thick" or bool((tb["thick"] != 0).any()))]
+                if every_kind and missing:
+                    raise RuntimeError(f"{tag}: no {missing} event left the kernel")
             ok_all &= ok
             errs.append(err)
     # comparison launches (and the timesteps run to capture lanes) are not
@@ -334,14 +410,16 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False):
     return errs
 
 
-def _phase3_sim(workdir, name, make_scene, npkts, grid_type="SPHERICAL1D", **extra):
+def _phase3_sim(workdir, name, make_scene, npkts, grid_type="SPHERICAL1D",
+                preset="kilonova_lte", **extra):
+    from artis_tpu_torch import options
     from artis_tpu_torch.driver import Simulation
-    from artis_tpu_torch.options import GridType, kilonova_lte
 
     d = os.path.join(workdir, name)
     os.makedirs(d)
     make_scene(d)
-    opts = kilonova_lte(npkts=npkts, grid_type=GridType[grid_type], **OPTS, **extra)
+    opts = getattr(options, preset)(npkts=npkts, grid_type=options.GridType[grid_type],
+                                    **dict(OPTS, **extra))
     return Simulation(d, opts, device="cuda")
 
 
@@ -437,11 +515,12 @@ def _bound_ms(out, walk_log, tables, kw, test_mode):
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (nbytes,)
 
 
-def _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion=False):
+def _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion=False, defer=False):
     lanes, tau, sel = forced_lanes(sim, t0, NPKTS_DEFAULT, seed)
     args = (12345, lanes, tables, tau, sel, t2, float(sim.grid.tmin),
             float(sim.grid.max_path_step))
-    return args, dict(_kernel_kw(sim, want_bfrate, expansion), max_inner=64, test_mode=False)
+    return args, dict(_kernel_kw(sim, want_bfrate, expansion, defer), max_inner=64,
+                      test_mode=False)
 
 
 def _time_modes(args, kw, modes):
@@ -460,14 +539,15 @@ def _time_modes(args, kw, modes):
 ROW_MODE = {True: "shared", False: "global"}
 
 
-def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7, expansion=False):
+def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7, expansion=False,
+                 defer=False):
     """Kernel against plain version at N=65536, max_inner=64, Philox draws:
     CUDA-event means in turns, plain, each estimator-row mode the rows
     allow (shared, global), the same in reverse, plain. ``ms`` is the mode
     the wrapper picks."""
     from artis_tpu_torch.transport import rpkt_kernel
 
-    args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion)
+    args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion, defer)
     ncont = sim.dad.nbfcontinua if want_bfrate else 0
     rows = rpkt_kernel.row_bytes(kw["ncells"], kw["ngc"], ncont)
     modes = [True, False] if rows <= rpkt_kernel.SMEM_LIMIT else [False]
@@ -648,6 +728,37 @@ def phase_kernel_vs_plain(workdir):
     del cylfe
     gc.collect()
 
+    # --- K6: the deferred events of the classic preset, on its 16^3 model ---
+    k6 = "rpkt_crossing_deferred"
+    cls = _phase3_sim(workdir, "phase3_classic", classic_scene, NPKTS_REAL, "CARTESIAN3D",
+                      preset="classic")
+    ctx = cls.update_grid(0)
+    tb = _nongrey_tables(cls, ctx)[1]
+    t0, t2 = float(ctx.ts), float(ctx.t2)
+    # the model's own timestep-0 tables (this cold model has almost no free
+    # electrons), then the same cells ionised and denser (dense_tables),
+    # and the same with every other cell grey at a grey opacity equal to
+    # its electron scattering
+    from artis_tpu_torch.constants import SIGMA_T
+
+    dense = dense_tables(tb)
+    half = torch.arange(tb["thick"].numel(), device=tb["thick"].device) % 2
+    halfgrey = dict(dense, thick=half.to(torch.int32),
+                    kappagrey=SIGMA_T * dense["nne"] / torch.clamp(dense["rho"], min=1e-30))
+    log(f"phase 3 classic: grid {cls.grid.ncoordgrid} ncells={cls.cells.Te.shape[0]} "
+        f"nlines={cls.dad.nlines} relativistic={cls.opts.use_relativistic_doppler_shift}")
+    lanes, tau, sel = forced_lanes(cls, t0, NPKTS_DEFAULT, seed=12)
+    cases = lambda table_sets: [(f"{name} max_inner={mi}", lanes, tables, tau, sel, t2, mi)
+                                for name, tables in table_sets for mi in (1, 4, 64)]
+    errs[k6] += _check_cases(cls, cases([("classic", tb)]), nonzero, defer=True)
+    errs[k6] += _check_cases(cls, cases([("classic_dense", dense),
+                                         ("classic_dense_halfgrey", halfgrey)]),
+                             nonzero, defer=True, every_kind=True)
+    rec[k6] = _time_config(cls, tb, t0, t2, False, "K6 deferred cart3d", defer=True)
+    cls.close()
+    del cls
+    gc.collect()
+
     # a comparison of estimators that stayed zero on both sides tests nothing
     if not all(nonzero.values()):
         raise RuntimeError(f"an estimator never accumulated in phase 3: {nonzero}")
@@ -660,7 +771,7 @@ def phase_kernel_vs_plain(workdir):
 def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     """One end-to-end run through the CLI with the launch counts reset just
     before it; fails unless every configuration in ``expect`` launched.
-    Returns its record."""
+    Returns its record (``dir``: the run directory)."""
     import torch
 
     from artis_tpu_torch.cli import main_sn3d
@@ -713,7 +824,8 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     secs = sum(r["seconds"] for r in tlog)
     for r in tlog:
         log(f"{name}: timestep {r['nts']}: {r['steps']} rpkt steps in {r['seconds']} s = "
-            f"{r['steps'] / max(r['seconds'], 1e-12)} rpkt steps/s ({r['iters']} iterations)")
+            f"{r['steps'] / max(r['seconds'], 1e-12)} rpkt steps/s ({r['iters']} iterations); "
+            f"grid update ({r['grid_mode']}) {r['grid_seconds']} s")
     # event counters summed over the timesteps, from the run's log
     counters = {}
     for line in open(os.path.join(d, "output_0-0.txt")):
@@ -721,7 +833,7 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
         if sep and key.isidentifier() and val.isdigit():
             counters[key] = counters.get(key, 0) + int(val)
     dep = np.loadtxt(os.path.join(d, "deposition.out"), ndmin=2)
-    rec = dict(npkts=npkts, launches=launches, wall_s=wall, steps=steps, transport_s=secs,
+    rec = dict(dir=d, npkts=npkts, launches=launches, wall_s=wall, steps=steps, transport_s=secs,
                steps_per_s=steps / max(secs, 1e-12),
                peak_mem_bytes=torch.cuda.max_memory_allocated(), timesteps=tlog,
                counters=counters, gamma_emission_lsun=float(dep[:, 14].sum()),
@@ -779,6 +891,52 @@ def rows_sweep(workdir):
     log(json.dumps({"rows_sweep": points}))
 
 
+def check_classic(rec):
+    """What the classic run must show beyond _run_scene's checks: the event
+    pass counted electron scatterings; timesteps 1-2 took the non-LTE grid
+    update and its thermal balance left T_e away from T_J in some cell; the
+    port's exspec wrote a finite specpol.out whose Stokes I is spec.out;
+    some escaped packet carries a nonzero Stokes Q or U."""
+    from artis_tpu_torch.cli import main_exspec
+    from artis_tpu_torch.packets import TYPE_ESCAPE, TYPE_RPKT, read_packets_text
+
+    d = rec["dir"]
+    n_es = rec["counters"].get("escounter", 0)
+    modes = [r["grid_mode"] for r in rec["timesteps"]]
+    log(f"classic_3d: {n_es} electron scatterings counted by the event pass; grid updates "
+        f"{modes}")
+    if n_es <= 0:
+        raise RuntimeError("classic_3d: the event pass counted no electron scattering")
+    if modes[1:] != ["nlte", "nlte"]:
+        raise RuntimeError(f"classic_3d: timesteps 1-2 did not take the nlte update: {modes}")
+    te_tj = []
+    for nts in (1, 2):
+        rows = [line.split() for line in open(os.path.join(d, f"estimators_{nts:04d}.out"))]
+        te = np.array([float(r[r.index("Te") + 1]) for r in rows])
+        tj = np.array([float(r[r.index("TJ") + 1]) for r in rows])
+        te_tj.append(float(np.max(np.abs(te / tj - 1.0))))
+    log(f"classic_3d: max |T_e / T_J - 1| over cells, timesteps 1-2: {te_tj}")
+    if max(te_tj) <= 0.0:
+        raise RuntimeError("classic_3d: T_e equals T_J in every cell (no thermal balance)")
+    t0 = time.time()
+    if main_exspec(["--rundir", d, "--preset", "classic"]) != 0:
+        raise RuntimeError("classic_3d: exspec failed")
+    spec = np.loadtxt(os.path.join(d, "spec.out"))
+    sp = np.loadtxt(os.path.join(d, "specpol.out"))
+    nts = spec.shape[1] - 1
+    if sp.shape != (spec.shape[0], 1 + 3 * nts) or not np.all(np.isfinite(sp)):
+        raise RuntimeError(f"classic_3d: specpol.out malformed or not finite {sp.shape}")
+    if not np.allclose(sp[1:, 1:1 + nts], spec[1:, 1:], rtol=1e-5, atol=1e-30):
+        raise RuntimeError("classic_3d: the Stokes I of specpol.out is not spec.out")
+    pk = read_packets_text(os.path.join(d, "packets00_0000.out"))
+    esc = (pk["ptype"] == TYPE_ESCAPE) & (pk["escape_type"] == TYPE_RPKT)
+    npol = int((np.abs(pk["stokes"][esc, 1:]) > 0).any(axis=1).sum())
+    log(f"classic_3d: exspec took {time.time() - t0:.1f} s; {int(esc.sum())} escaped r-packets, "
+        f"{npol} polarised; specpol Q/U flux sum {float(np.abs(sp[1:, 1 + nts:]).sum())}")
+    if npol <= 0:
+        raise RuntimeError("classic_3d: no escaped packet carries a nonzero Q or U")
+
+
 def main():
     if sys.argv[1:] not in ([], ["--rows-sweep"]):
         raise SystemExit("usage: python3 chip_smoke.py [--rows-sweep]")
@@ -818,7 +976,11 @@ def main():
                 workdir, "default_scene_barnes_guttman", default_gamma_scene, NPKTS_DEFAULT,
                 "SPHERICAL1D", ["rpkt_crossing_sph1d"], particle_thermalisation_scheme="BARNES",
                 gamma_thermalisation_scheme="GUTTMAN"),
+            "classic_3d": _run_scene(
+                workdir, "classic_3d", classic_scene, NPKTS_REAL, "CARTESIAN3D",
+                ["rpkt_crossing_cart3d", "rpkt_crossing_deferred"], preset="classic"),
         }
+        check_classic(runs["classic_3d"])
     # bin events activated the macro-atom on lines of their bins, and the
     # analytic schemes resolved gamma packets
     n_bb = runs["kilonova_2d_2dgrid_expansionopac"]["counters"].get("ma_stat_activation_bb", 0)
@@ -833,14 +995,16 @@ def main():
         raise RuntimeError("default_scene_barnes_guttman: no gamma packet was emitted")
     # each configuration's launches come from the run of the main path that
     # drives it
-    main_run = {"rpkt_crossing_sph1d": "default_scene", "rpkt_crossing_cart3d": "big_scene",
+    main_run = {"rpkt_crossing_sph1d": "default_scene", "rpkt_crossing_cart3d": "classic_3d",
                 "rpkt_crossing_bfrate": "big_scene", "rpkt_crossing_cyl2d": "kilonova_2d_2dgrid",
-                "rpkt_crossing_expansion": "kilonova_2d_2dgrid_expansionopac"}
-    # K2's time is the cart3d geometry without bf-rate estimators; the main
-    # path launches it only with them, so its launches are K5-bfrate's
-    rec["rpkt_crossing_cart3d"]["note"] = ("ms, plain_ms and bound_ms: the cart3d geometry "
-                                           "without bf-rate estimators; launches: the big "
-                                           "scene's, each also a K5-bfrate launch")
+                "rpkt_crossing_expansion": "kilonova_2d_2dgrid_expansionopac",
+                "rpkt_crossing_deferred": "classic_3d"}
+    # K2's launches come from the classic run, the main path that launches
+    # the cart3d geometry without bf-rate estimators (in the deferred mode);
+    # its time is the big scene's in-kernel-scatter mode
+    rec["rpkt_crossing_cart3d"]["note"] = ("ms, plain_ms and bound_ms: the big scene, in-kernel "
+                                           "scattering; launches: classic_3d's, each also a "
+                                           "K6 launch")
     kernels = []
     for key, (label, replaces) in CONFIGS.items():
         r = rec[key]

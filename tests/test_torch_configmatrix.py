@@ -1,15 +1,21 @@
-"""The kilonova configurations of the reference CI's matrix on the port, on
-the CPU (tests/test_configmatrix.py runs them on the JAX package):
-kilonova_1d_1dgrid, kilonova_1d_3dgrid, kilonova_2d_2dgrid (with Barnes
-particle thermalisation and with binned expansion opacities) and
-kilonova_2d_3dgrid, each miniaturised the same way (384 packets, 3
-timesteps, a few model cells) and run through the port's Simulation for two
-timesteps with the sanity checks of test_config: every packet accounted
-for, finite non-negative energies not above the injected total (+5 %),
-transport happened, finite temperatures, the output files written.
-kilonova_2d_2dgrid_xcomgammaphotoion waits for a synthetic
-xcom_photoion_data.txt. The table is the port's own copy; the JAX test
-module is not imported."""
+"""The classic and kilonova configurations of the reference CI's matrix on
+the port, on the CPU (tests/test_configmatrix.py runs them on the JAX
+package): classicmode_1d_3dgrid and classicmode_3d (the classic preset:
+dipole / polarised electron scattering through the deferred-event
+crossing, rate-balance ionisation), kilonova_1d_1dgrid, kilonova_1d_3dgrid,
+kilonova_2d_2dgrid (with Barnes particle thermalisation and with binned
+expansion opacities) and kilonova_2d_3dgrid, each miniaturised the same way
+(384 packets, 3 timesteps, a few model cells) and run through the port's
+Simulation for two timesteps with the sanity checks of test_config: every
+packet accounted for, finite non-negative energies not above the injected
+total (+5 %), transport happened, finite temperatures, the output files
+written. classicmode_1d_3dgrid_nlte is classicmode_1d_3dgrid with
+``num_lte_timesteps=1``, so its second timestep takes the non-LTE grid
+update (the T_R / W fit and the thermal-balance T_e solve) in a whole
+simulation. kilonova_2d_2dgrid_xcomgammaphotoion waits for a synthetic
+xcom_photoion_data.txt; the nebular configurations wait for the NLTE
+slice. The table is the port's own copy; the JAX test module is not
+imported."""
 
 import os
 
@@ -28,17 +34,22 @@ def _mini(**kw):
 
 
 GRID8 = dict(grid_type="CARTESIAN3D", ncoordgrid_x=8, ncoordgrid_y=8, ncoordgrid_z=8)
-# name -> (Options keywords of the kilonova_lte preset, model_dim, make_run keywords)
+# name -> (preset, Options keywords, model_dim, make_run keywords)
 CONFIGS = {
-    "kilonova_1d_1dgrid": (_mini(grid_type="SPHERICAL1D"), 1, {}),
-    "kilonova_1d_3dgrid": (_mini(**GRID8), 1, {}),
-    "kilonova_2d_2dgrid": (_mini(grid_type="CYLINDRICAL2D"), 2, dict(ncells=3)),
+    "classicmode_1d_3dgrid": ("classic", _mini(**GRID8), 1, {}),
+    "classicmode_1d_3dgrid_nlte": ("classic", _mini(**GRID8), 1, dict(num_lte_timesteps=1)),
+    "classicmode_3d": ("classic", _mini(grid_type="CARTESIAN3D"), 3, dict(ncells=4)),
+    "kilonova_1d_1dgrid": ("kilonova_lte", _mini(grid_type="SPHERICAL1D"), 1, {}),
+    "kilonova_1d_3dgrid": ("kilonova_lte", _mini(**GRID8), 1, {}),
+    "kilonova_2d_2dgrid": ("kilonova_lte", _mini(grid_type="CYLINDRICAL2D"), 2, dict(ncells=3)),
     "kilonova_2d_2dgrid_barnesthermalisation": (
+        "kilonova_lte",
         _mini(grid_type="CYLINDRICAL2D", particle_thermalisation_scheme="BARNES"), 2,
         dict(ncells=3)),
     "kilonova_2d_2dgrid_expansionopac": (
-        _mini(grid_type="CYLINDRICAL2D", expansionopacities_on=True), 2, dict(ncells=3)),
-    "kilonova_2d_3dgrid": (_mini(**GRID8), 2, dict(ncells=3)),
+        "kilonova_lte", _mini(grid_type="CYLINDRICAL2D", expansionopacities_on=True), 2,
+        dict(ncells=3)),
+    "kilonova_2d_3dgrid": ("kilonova_lte", _mini(**GRID8), 2, dict(ncells=3)),
 }
 
 
@@ -48,7 +59,7 @@ def test_config(name, tmp_path):
     from artis_tpu_torch.driver import Simulation
     from artis_tpu_torch.synthdata import make_run
 
-    okw, model_dim, make_kw = CONFIGS[name]
+    preset, okw, model_dim, make_kw = CONFIGS[name]
     okw = dict(okw, grid_type=to.GridType[okw["grid_type"]])
     if "particle_thermalisation_scheme" in okw:
         okw["particle_thermalisation_scheme"] = to.ThermalisationScheme[
@@ -58,12 +69,15 @@ def test_config(name, tmp_path):
               model_dim=model_dim)
     mk.update(make_kw)
     make_run(d, **mk)
-    opts = to.kilonova_lte(**okw)
+    opts = getattr(to, preset)(**okw)
     sim = Simulation(d, opts, datadir="/nonexistent", device="cpu")
+    modes = []
     for ts in range(mk["ntimesteps"] - 1):
         sim.do_timestep(ts)
+        modes.append(sim.plasma_mode)
     sim.finish()
     sim.close()
+    assert modes == ["first", "nlte" if make_kw.get("num_lte_timesteps") == 1 else "lte"]
 
     types = sim.state.ptype.numpy()
     assert len(types) == opts.npkts

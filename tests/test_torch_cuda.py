@@ -1,6 +1,7 @@
 """The CUDA r-packet crossing kernel on the card: against its plain version
-(every geometry, the bf-rate estimators, both estimator-row modes and the
-binned expansion-opacity walk K4), and on the main path through the CLI.
+(every geometry, the bf-rate estimators, both estimator-row modes, the
+binned expansion-opacity walk K4 and the deferred events of dipole
+scattering K6), and on the main path through the CLI.
 
 Every test here needs an NVIDIA GPU and skips where there is none. The file
 imports no jax, so it runs where only PyTorch is installed; the
@@ -99,7 +100,7 @@ def _forced_lanes(sim, ctx, seed):
 
 
 def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
-           expansion=False):
+           expansion=False, defer=False):
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
@@ -113,7 +114,7 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
               max_inner=max_inner, relativistic=sim.opts.use_relativistic_doppler_shift,
               phixs_dnu=float(dad.nphixsnuincrement),
               last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
-              want_bfrate=want_bfrate, expansion=expansion,
+              want_bfrate=want_bfrate, expansion=expansion, defer_scatter=defer,
               **rpkt_kernel.kernel_geometry(sim.grid))
     before = sum(rpkt_kernel.propagate.launches.values())
     ok, rep, _, plain = rpkt_kernel.check_kernel(
@@ -122,7 +123,7 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
     torch.cuda.synchronize()
     launches = 1 + (rep["diverged_lanes"] > 0)
     assert sum(rpkt_kernel.propagate.launches.values()) == (
-        before + launches * (1 + want_bfrate + expansion))
+        before + launches * (1 + want_bfrate + expansion + defer))
     assert ok, rep
     # the estimators accumulated, so their comparison tested something
     for name in ("j", "nuj", "ncross") + (("bfrate",) if want_bfrate else ()):
@@ -238,3 +239,63 @@ def test_main_path_launches_the_expansion_kernel(tmp_path):
     assert np.all(np.isfinite(lc)) and lc[:, 1].sum() > 0
     log = open(os.path.join(d, "output_0-0.txt")).read()
     assert stats.COUNTER_NAMES[stats.MA_STAT_ACTIVATION_BB] in log
+
+
+# the deferred-event scenes (K6): dense and hot enough for electron
+# scattering (tests/test_torch_deferred.py)
+DEFER_SCENES = {
+    "sph1d": (dict(ncells=8), dict(grid_type="SPHERICAL1D")),
+    "1dmodel_3dgrid": (dict(ncells=5), dict(grid_type="CARTESIAN3D", ncoordgrid_x=8,
+                                            ncoordgrid_y=8, ncoordgrid_z=8)),
+}
+
+
+@pytest.fixture(scope="module")
+def defer_scenes(tmp_path_factory):
+    _need_cuda()
+    from artis_tpu_torch.driver import Simulation
+
+    out = {}
+    for name, (mk, okw) in DEFER_SCENES.items():
+        d = str(tmp_path_factory.mktemp(f"cuda_defer_{name}"))
+        make_run(d, ntimesteps=4, tmin_days=1.0, tmax_days=2.0, ngreyts=0, logrho0=-6.0, **mk)
+        sim = Simulation(d, _opts(NPKTS, dipole=True, pol_on=True, **okw), device="cuda")
+        out[name] = (sim, sim.update_grid(0))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("max_inner", [1, 16])
+@pytest.mark.parametrize("name", list(DEFER_SCENES))
+def test_deferred_kernel_matches_plain_version(defer_scenes, name, max_inner, test_mode):
+    """K6: every event leaves the kernel for the event pass; electron
+    scattering events occur, and the in-kernel scatter counters stay 0."""
+    plain = _check(*defer_scenes[name], max_inner, test_mode, want_bfrate=False, defer=True)
+    ev = (plain["evented"] > 0) & (plain["is_bb"] == 0) & (plain["thick"] == 0)
+    assert int(ev.sum()) > 0
+    assert float(plain["misc"][3]) == 0 and float(plain["misc"][4]) == 0
+
+
+@pytest.mark.cuda
+def test_main_path_launches_the_deferred_kernel(tmp_path):
+    """The classic preset through the CLI: K6 launches, the event pass
+    counts electron scatterings, timestep 1 takes the non-LTE update."""
+    _need_cuda()
+    from artis_tpu_torch import stats
+    from artis_tpu_torch.cli import main_sn3d
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    d = str(tmp_path)
+    make_run(d, ntimesteps=3, tmin_days=1.0, tmax_days=2.0, ngreyts=0, ncells=8,
+             logrho0=-7.0, num_lte_timesteps=1)
+    rpkt_kernel.reset_launches()
+    assert main_sn3d(["--rundir", d, "--device", "cuda", "--preset", "classic",
+                      "--set", "npkts=20000", "--set", "transport_dtype=float32",
+                      "--set", "grid_type=SPHERICAL1D", "--set", "mintemp=1000.0",
+                      "--set", "maxtemp=20000.0", "--set", "tablesize=20"]) == 0
+    launched = rpkt_kernel.propagate.launches
+    assert launched["rpkt_crossing_sph1d"] > 0 and launched["rpkt_crossing_deferred"] > 0
+    log = open(os.path.join(d, "output_0-0.txt")).read()
+    assert "timestep 1: grid update (nlte)" in log
+    assert stats.COUNTER_NAMES[stats.ESCOUNTER] in log

@@ -22,9 +22,10 @@
   2000 packets against the JAX package within Monte Carlo noise: escaped
   luminosity, particle deposition and per-cell J by the 4/sqrt(n) rule of
   tests/test_torch_slice.py;
-- check_supported accepts the new grids, the detailed bf-rate estimators and
-  the expansion opacities, and still raises for every other option off the
-  ported slice.
+- check_supported accepts the new grids, the detailed bf-rate estimators,
+  the expansion opacities and the classic preset (dipole / polarised
+  scattering, rate-balance ionisation), and still raises for every other
+  option off the ported slice.
 """
 
 import dataclasses
@@ -459,10 +460,15 @@ def test_check_supported_takes_the_new_slice():
     for gt in to.GridType:
         check_supported(base.replace(grid_type=gt, detailed_bf_estimators_on=True,
                                      expansionopacities_on=True), 4)
+        # the classic preset: dipole / polarised scattering, rate-balance
+        # ionisation
+        check_supported(base.replace(grid_type=gt, dipole=True, pol_on=True,
+                                     force_saha_ion_balance=False), 4)
+        check_supported(to.classic(grid_type=gt), 4)
     with pytest.raises(NotImplementedError, match="grid_type"):
         check_supported(base.replace(grid_type="SPHERICAL3D"), 4)
-    for name, value in (("nlte_enabled", True), ("multibin_radfield", True),
+    for name, value in (("nlte_enabled", True), ("nt_on", True), ("multibin_radfield", True),
                         ("detailed_line_estimators_on", True),
-                        ("vpkt_on", True), ("dipole", True), ("use_lut_photoion", False)):
+                        ("vpkt_on", True), ("use_lut_photoion", False)):
         with pytest.raises(NotImplementedError, match=name):
             check_supported(base.replace(**{name: value}), 4)

@@ -169,9 +169,7 @@ def straight_and_resumed(tmp_path_factory):
     return sim_a, sim_b2
 
 
-@pytest.mark.parametrize("part", ["state", "cells", "est"])
-def test_checkpoint_resume_bitwise_identical(straight_and_resumed, part):
-    a, b = straight_and_resumed
+def _assert_bitwise(a, b, part):
     oa, ob = getattr(a, part), getattr(b, part)
     for f in dataclasses.fields(oa):
         torch.testing.assert_close(getattr(ob, f.name), getattr(oa, f.name), rtol=0, atol=0,
@@ -180,21 +178,73 @@ def test_checkpoint_resume_bitwise_identical(straight_and_resumed, part):
     np.testing.assert_array_equal(a.spec.flux, b.spec.flux)
 
 
+@pytest.mark.parametrize("part", ["state", "cells", "est"])
+def test_checkpoint_resume_bitwise_identical(straight_and_resumed, part):
+    _assert_bitwise(*straight_and_resumed, part)
+
+
+@pytest.fixture(scope="module")
+def straight_and_resumed_nlte(tmp_path_factory):
+    """The classic preset with num_lte_timesteps=1: the resumed timestep 2
+    takes the non-LTE grid update (T_R / W fit, thermal balance,
+    rate-balance ionisation from the checkpointed gamma estimators) and
+    the deferred-event crossing."""
+    import artis_tpu_torch.options as to
+    from artis_tpu_torch.driver import Simulation
+
+    opts = to.classic(grid_type=to.GridType.SPHERICAL1D, npkts=400, mintemp=1000.0,
+                      maxtemp=20000.0, tablesize=20, transport_dtype="float32")
+    d1 = str(tmp_path_factory.mktemp("tckpt_nlte_straight"))
+    d2 = str(tmp_path_factory.mktemp("tckpt_nlte_resumed"))
+    for d in (d1, d2):
+        make_run(d, ncells=6, ntimesteps=4, tmin_days=1.0, tmax_days=2.0, ngreyts=0,
+                 logrho0=-7.0, num_lte_timesteps=1)
+    sim_a = Simulation(d1, opts, device="cpu")
+    for ts in range(3):
+        sim_a.do_timestep(ts)
+    assert sim_a.plasma_mode == "nlte"
+    sim_b1 = Simulation(d2, opts, device="cpu")
+    for ts in range(2):
+        sim_b1.do_timestep(ts)
+    sim_b1.save_checkpoint(2)
+    del sim_b1
+    sim_b2 = Simulation(d2, opts, device="cpu")
+    assert sim_b2.params.timestep_start == 2
+    sim_b2.do_timestep(2)
+    assert sim_b2.plasma_mode == "nlte"
+    return sim_a, sim_b2
+
+
+@pytest.mark.parametrize("part", ["state", "cells", "est"])
+def test_checkpoint_resume_through_nlte_bitwise_identical(straight_and_resumed_nlte, part):
+    _assert_bitwise(*straight_and_resumed_nlte, part)
+
+
 def test_port_never_imports_jax(tmp_path):
-    """A fresh interpreter runs a CPU timestep of the slice; jax must not
-    be loaded."""
+    """A fresh interpreter runs CPU timesteps of the slice (a kilonova_lte
+    timestep, then a classic run through its non-LTE grid update and the
+    port's exspec); jax must not be loaded."""
     code = (
-        "import sys\n"
+        "import os, sys\n"
         "from artis_tpu_torch.synthdata import make_run\n"
         "from artis_tpu_torch.driver import Simulation\n"
-        "from artis_tpu_torch.options import GridType, kilonova_lte\n"
+        "from artis_tpu_torch.exspec import run_exspec\n"
+        "from artis_tpu_torch.options import GridType, classic, kilonova_lte\n"
         f"d = {str(tmp_path)!r}\n"
+        "kw = dict(grid_type=GridType.SPHERICAL1D, npkts=200, mintemp=1000.0, "
+        "maxtemp=20000.0, tablesize=20, transport_dtype='float32')\n"
         "make_run(d, ncells=4, ntimesteps=2, tmax_days=2.0, ngreyts=1)\n"
-        "s = Simulation(d, kilonova_lte(grid_type=GridType.SPHERICAL1D, npkts=200, "
-        "mintemp=1000.0, maxtemp=20000.0, tablesize=20, transport_dtype='float32'), "
-        "device='cpu')\n"
+        "s = Simulation(d, kilonova_lte(**kw), device='cpu')\n"
         "s.do_timestep(0)\n"
         "assert s.total_rpkt_steps > 0\n"
+        "d2 = os.path.join(d, 'classic')\n"
+        "os.makedirs(d2)\n"
+        "make_run(d2, ncells=4, ntimesteps=3, tmax_days=2.0, ngreyts=0, num_lte_timesteps=1)\n"
+        "s = Simulation(d2, classic(**kw), device='cpu')\n"
+        "s.run()\n"
+        "assert s.plasma_mode == 'nlte'\n"
+        "run_exspec(d2, classic(**kw))\n"
+        "assert os.path.exists(os.path.join(d2, 'specpol.out'))\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "print('NOJAX-OK')\n"
     )

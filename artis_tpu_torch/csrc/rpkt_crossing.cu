@@ -6,12 +6,14 @@
 // (the default branch, :863-942), the 3D Cartesian grid (`cart3d`,
 // :588-631 and :712-750), the 2D cylindrical grid (`cyl2d`, :751-862), the
 // detailed bf-rate estimators (`want_bfrate`, :1515-1532), the binned
-// expansion opacities (`expansion_mode`, :1136-1200) and the deferred events
+// expansion opacities (`expansion_mode`, :1136-1200), the deferred events
 // of dipole scattering (`inkernel_scatter=False`, :1416-1435, K6: a runtime
 // flag, under which electron and thick-cell grey scattering end the lane's
 // loop as events for the event pass instead of isotropic redirects; the
 // scatter-split uniform is still drawn, so the draw layout does not depend
-// on the mode). Each packet
+// on the mode), the multibin radiation-field estimators (`multibin`,
+// :1491-1514, K5-multibin) and the detailed J_b_lu line estimators
+// (`want_jblue`, :1254-1265, :1346-1363, :1392, K5-jblue). Each packet
 // advances through up to max_inner cell crossings (optical-depth draw, shell
 // boundary distance, Doppler and abort frequency, continuum opacity with bf
 // selection, Sobolev line walk from its cursor or the walk over wavelength
@@ -29,9 +31,12 @@
 // cellmax tables and the model cell of a propagation cell from the host-built
 // mgi_of_cell table, which is how the XLA path maps 1D, 2D and 3D models.
 // Expansion-opacity mode is a second template parameter, so the line-walk
-// instantiations keep their registers.
-// Per-cell estimators (ncells x (4 + 2 ngc + ncont if bf-rate) floats)
-// accumulate in one of two ways, which the wrapper picks by their size: for
+// instantiations keep their registers; the NLTE estimator fields (below)
+// are a third, so launches without them run the code they ran before those
+// fields existed, except the 3D line walk (launch_geom; 11 instantiations).
+// Per-cell estimators (ncells x (4 + ngc per LUT estimator + ncont if
+// bf-rate + 3 nradbins if multibin + 2 njblue if J_b_lu) floats) accumulate
+// in one of two ways, which the wrapper picks by their size: for
 // few cells in shared memory per block, flushed to global memory with one
 // atomicAdd per nonzero entry at block end; for many cells (2D and 3D
 // grids) every lane adds straight into the global rows, since a large
@@ -65,6 +70,23 @@
 // stands); a packet redder than the last bin has no path length in any bin
 // and so sees no event, not even a continuum one.
 //
+// K5-multibin and K5-jblue are runtime fields of the NLTE instantiations,
+// which the launch picks when either is on or a LUT estimator is off. Multibin:
+// at the segment midpoint, where J / nuJ are added, the bin of nu_cmf is
+// computed in float32 with the Pallas expression (the launch passes the
+// float32 edges and width) and J, nuJ and 1 go to the (mgi, bin) row;
+// thick cells count too. J_b_lu: inside each thread's line walk, every line
+// passed before the terminal line, and the activating line of a
+// bound-bound event, reads its column from the int32 jblue_of_line table
+// (the Pallas float32 one-hot map jb_map was an MXU workaround) and, for a
+// column below njblue, adds (tstart + D / c) * (c e_cmf / nu_cmf) and 1 to
+// the (mgi, column) row. Those are one pair of float atomics per swept
+// selected line, many lanes of a cell sweeping the same lines: at the chip
+// scene's sizes (128 cells, ~12k selected lines, 256 bins) the rows are
+// about 12.9 MB and go to global memory. With the LUT estimators off (the
+// LUT-off nebular presets) the gamma and bf-heating rows are neither
+// computed nor allocated (want_gamma / want_bfheat, pallas_rpkt.py:270-273).
+//
 // Random numbers: counter-based Philox4x32-10 keyed by (seed, lane id), with
 // (crossing index, sub-stream) as counter, so results depend neither on the
 // block size nor on lane order; the PyTorch plain version
@@ -86,8 +108,11 @@
 struct RpktParams {
   int n, ncells, nprop, nlines, ncont, ngc, nphixs, max_inner, relativistic, test_mode;
   int geom, nx, ny, nz, want_bfrate, shared_rows, expansion, nbins, defer_scatter;
+  int nradbins, njblue, want_gamma, want_bfheat;
+  int nrow;  // estimator floats per cell, as rpkt_kernel.row_floats counts them
   uint32_t seed_lo, seed_hi;
-  float t2, tmin, max_path_step, phixs_dnu, last_nuovernuedge, pad0;
+  float t2, tmin, max_path_step, phixs_dnu, last_nuovernuedge;
+  float rb_lo, rb_last, rb_super, rb_delta;  // multibin edges and width, float32
 };
 
 namespace {
@@ -118,7 +143,7 @@ struct Tables {
   const float *cellmin, *cellmax, *nne, *te, *kappagrey, *rho, *chiffpart, *line_nu,
       *tau_factor, *cont_nu_edge, *bf_a, *bf_dep, *cont_phixs, *cont_prob, *gc_nu_edge,
       *expo_kappa;
-  const int *mgi_of_cell, *thick, *cont_gidx;
+  const int *mgi_of_cell, *thick, *cont_gidx, *jblue_of_line;
 };
 
 struct Outs {
@@ -126,7 +151,7 @@ struct Outs {
       *chi_bf, *chi_cont, *em_x, *em_y, *em_z, *em_t;
   int *where, *next_trans, *evented, *escaped, *thick, *is_bb, *act_line, *bf_idx, *mgi, *nsc,
       *inkscat;
-  float *est, *gamma, *bfheat, *bfrate;
+  float *est, *gamma, *bfheat, *bfrate, *radbin, *jblue;
   double *misc;
 };
 
@@ -335,26 +360,34 @@ __device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, 
   }
 }
 
-template <int GEOM, bool EXPO>
+template <int GEOM, bool EXPO, bool NLTE>
 __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lanes in, Tables tb,
                                                               Outs out) {
   extern __shared__ double smem_d[];
   double* s_misc = smem_d;
   const int nbfr = p.want_bfrate ? p.ncont : 0;
+  // without NLTE the LUT estimators are on and the multibin and J_b_lu
+  // rows are off at compile time
+  const bool lut_g = !NLTE || p.want_gamma, lut_h = !NLTE || p.want_bfheat;
+  const int ngam = lut_g ? p.ngc : 0, nbfh = lut_h ? p.ngc : 0;
+  const int nrb = NLTE ? p.nradbins : 0, njb = (NLTE && !EXPO) ? p.njblue : 0;
   // estimator rows: this block's copy in shared memory, or the global rows
-  float *a_est, *a_gam, *a_bfh, *a_bfr;
+  float *a_est, *a_gam, *a_bfh, *a_bfr, *a_rb, *a_jb;
   if (p.shared_rows) {
     a_est = reinterpret_cast<float*>(smem_d + NMISC);
     a_gam = a_est + 4 * p.ncells;
-    a_bfh = a_gam + p.ncells * p.ngc;
-    a_bfr = a_bfh + p.ncells * p.ngc;
-    const int nsh = p.ncells * (4 + 2 * p.ngc + nbfr);
-    for (int i = threadIdx.x; i < nsh; i += blockDim.x) a_est[i] = 0.0f;
+    a_bfh = a_gam + p.ncells * ngam;
+    a_bfr = a_bfh + p.ncells * nbfh;
+    a_rb = a_bfr + p.ncells * nbfr;
+    a_jb = a_rb + p.ncells * 3 * nrb;
+    for (int i = threadIdx.x; i < p.ncells * p.nrow; i += blockDim.x) a_est[i] = 0.0f;
   } else {
     a_est = out.est;
     a_gam = out.gamma;
     a_bfh = out.bfheat;
     a_bfr = out.bfrate;
+    a_rb = out.radbin;
+    a_jb = out.jblue;
   }
   for (int i = threadIdx.x; i < NMISC; i += blockDim.x) s_misc[i] = 0.0;
   __syncthreads();
@@ -516,6 +549,10 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
             }
           } else {
             const float* __restrict__ taurow = tb.tau_factor + (size_t)smgi * nlines;
+            float* __restrict__ jbrow = a_jb + (size_t)smgi * 2 * njb;
+            // c e_cmf / nu_cmf is invariant along the free flight
+            // (pallas_rpkt.py:1255-1262)
+            const float e_over_nu = njb ? CLIGHT * ecmf / fmaxf(nu, 1.0f) : 0.0f;
             float tau_cum = 0.0f, prevD = 0.0f;
             for (int l = cursor0;; ++l) {
               if (l > nlines - 1) {  // past the end of the list
@@ -543,7 +580,16 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
                 ev_ntr = l;
                 break;
               }
-              if (tau_next - tau_cum <= safe_chi * relD + tau_line) {
+              const bool line_event = tau_next - tau_cum <= safe_chi * relD + tau_line;
+              if (njb) {  // a line passed, or the activating line (:1346-1363)
+                const int col = __ldg(tb.jblue_of_line + l);
+                if (col >= 0 && col < njb) {
+                  const float t_line = tstart + relD / CLIGHT_PROP;
+                  atomicAdd(jbrow + col, t_line * e_over_nu);
+                  atomicAdd(jbrow + njb + col, 1.0f);
+                }
+              }
+              if (line_event) {
                 ev_edist = relD;
                 ev_ntr = l + 1;
                 ev_bb = true;
@@ -602,6 +648,16 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
         atomicAdd(a_est + 4 * mgi + 1, contrib * nucmf1);
         if (!thick) atomicAdd(a_est + 4 * mgi + 2, contrib * chi_ff);
         if (crossing) atomicAdd(a_est + 4 * mgi + 3, 1.0f);
+        if (nrb && nucmf1 >= p.rb_lo && nucmf1 < p.rb_super) {
+          // multibin J / nuJ / count at the midpoint (pallas_rpkt.py:1491-1514)
+          float bsel = floorf((nucmf1 - p.rb_lo) / p.rb_delta);
+          if (nucmf1 >= p.rb_last) bsel = (float)(nrb - 1);
+          const int b = (int)fminf(fmaxf(bsel, 0.0f), (float)(nrb - 1));
+          float* rbrow = a_rb + (size_t)mgi * 3 * nrb;
+          atomicAdd(rbrow + b, contrib);
+          atomicAdd(rbrow + nrb + b, contrib * nucmf1);
+          atomicAdd(rbrow + 2 * nrb + b, 1.0f);
+        }
         if (!thick && bf_hi > bf_lo) {
           // per-ground-continuum sigma*prob*corr (rpkt.cc:870-880), the
           // detailed per-continuum bf-rate (radfield.cc:204-233, weight
@@ -620,12 +676,13 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
             const float corr = fmaxf(0.0f, 1.0f - expf(fminf(fmaxf(dep - hnu_kt, -80.0f), 80.0f)));
             cum += __ldg(tb.bf_a + (size_t)smgi * p.ncont + c) * sigma * corr;
             if (bf_idx < 0 && cum > target) bf_idx = c;
-            const int g = __ldg(tb.cont_gidx + c);
+            const int g = (lut_g || lut_h) ? __ldg(tb.cont_gidx + c) : -1;
             if (g >= 0) {
               const float de = contrib * sigma * corr * __ldg(tb.cont_prob + c);
-              atomicAdd(a_gam + mgi * p.ngc + g, de / nuc1);
-              atomicAdd(a_bfh + mgi * p.ngc + g,
-                        de * fmaxf(1.0f - __ldg(tb.gc_nu_edge + g) / nuc1, 0.0f));
+              if (lut_g) atomicAdd(a_gam + mgi * ngam + g, de / nuc1);
+              if (lut_h)
+                atomicAdd(a_bfh + mgi * nbfh + g,
+                          de * fmaxf(1.0f - __ldg(tb.gc_nu_edge + g) / nuc1, 0.0f));
             }
             if (nbfr) atomicAdd(a_bfr + (size_t)mgi * nbfr + c,
                                 sigma * corr * __ldg(tb.cont_prob + c) * w_bfr);
@@ -745,36 +802,61 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
   if (p.shared_rows) {
     for (int i = threadIdx.x; i < 4 * p.ncells; i += blockDim.x)
       if (a_est[i] != 0.0f) atomicAdd(out.est + i, a_est[i]);
-    for (int i = threadIdx.x; i < p.ncells * p.ngc; i += blockDim.x) {
+    for (int i = threadIdx.x; i < p.ncells * ngam; i += blockDim.x)
       if (a_gam[i] != 0.0f) atomicAdd(out.gamma + i, a_gam[i]);
+    for (int i = threadIdx.x; i < p.ncells * nbfh; i += blockDim.x)
       if (a_bfh[i] != 0.0f) atomicAdd(out.bfheat + i, a_bfh[i]);
-    }
     for (int i = threadIdx.x; i < p.ncells * nbfr; i += blockDim.x)
       if (a_bfr[i] != 0.0f) atomicAdd(out.bfrate + i, a_bfr[i]);
+    for (int i = threadIdx.x; i < p.ncells * 3 * nrb; i += blockDim.x)
+      if (a_rb[i] != 0.0f) atomicAdd(out.radbin + i, a_rb[i]);
+    for (int i = threadIdx.x; i < p.ncells * 2 * njb; i += blockDim.x)
+      if (a_jb[i] != 0.0f) atomicAdd(out.jblue + i, a_jb[i]);
   }
   for (int i = threadIdx.x; i < NMISC; i += blockDim.x)
     if (s_misc[i] != 0.0) atomicAdd(out.misc + i, s_misc[i]);
 }
 
-template <int GEOM, bool EXPO>
+template <int GEOM, bool EXPO, bool NLTE>
 cudaError_t launch(const RpktParams& p, const Lanes& in, const Tables& tb, const Outs& out,
                    cudaStream_t stream) {
-  const int nbfr = p.want_bfrate ? p.ncont : 0;
   const size_t smem = NMISC * sizeof(double) +
-      (p.shared_rows ? sizeof(float) * (size_t)p.ncells * (4 + 2 * p.ngc + nbfr) : 0);
-  cudaError_t err = cudaFuncSetAttribute(rpkt_crossing_kernel<GEOM, EXPO>,
+      (p.shared_rows ? sizeof(float) * (size_t)p.ncells * p.nrow : 0);
+  cudaError_t err = cudaFuncSetAttribute(rpkt_crossing_kernel<GEOM, EXPO, NLTE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int grid = (p.n + BLOCK - 1) / BLOCK;
-  rpkt_crossing_kernel<GEOM, EXPO><<<grid, BLOCK, smem, stream>>>(p, in, tb, out);
+  rpkt_crossing_kernel<GEOM, EXPO, NLTE><<<grid, BLOCK, smem, stream>>>(p, in, tb, out);
   return cudaGetLastError();
+}
+
+// the instantiation of a geometry: bin or line walk, with or without the
+// NLTE estimator fields. The 3D line walk always takes the one with them:
+// compiled so it ran 30 % faster than without them on the same work (an
+// H100 at N=65536, max_inner=64, the 16^3 model's tables, in-kernel and
+// deferred scattering; chip_smoke.py --kernel-ab), while the 1D and
+// cylindrical line walks ran 40-55 % slower with them.
+template <int GEOM>
+cudaError_t launch_geom(const RpktParams& p, const Lanes& in, const Tables& tb, const Outs& out,
+                        cudaStream_t st) {
+  const bool nlte = p.nradbins || p.njblue || !p.want_gamma || !p.want_bfheat;
+  if (p.expansion)
+    return nlte ? launch<GEOM, true, true>(p, in, tb, out, st)
+                : launch<GEOM, true, false>(p, in, tb, out, st);
+  if constexpr (GEOM == GEOM_CART) {
+    return launch<GEOM, false, true>(p, in, tb, out, st);
+  } else {
+    return nlte ? launch<GEOM, false, true>(p, in, tb, out, st)
+                : launch<GEOM, false, false>(p, in, tb, out, st);
+  }
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Pointer arrays follow the order of
 // LANE_F32 + LANE_I32 + (test_tau, test_sel), TABLES_F32 + TABLES_I32 and
-// OUT_F32 + OUT_I32 + (est, gamma, bfheat, bfrate, misc) in rpkt_kernel.py.
+// OUT_F32 + OUT_I32 + (est, gamma, bfheat, bfrate, radbin, jblue, misc) in
+// rpkt_kernel.py.
 // Launches on the given stream without synchronising; returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unknown geometry).
 extern "C" int rpkt_crossing_launch(const RpktParams* prm, void** lanes, void** tables,
@@ -788,7 +870,8 @@ extern "C" int rpkt_crossing_launch(const RpktParams* prm, void** lanes, void** 
   const float* const* tf = reinterpret_cast<const float* const*>(tables);
   Tables tb{tf[0], tf[1], tf[2], tf[3], tf[4], tf[5], tf[6], tf[7], tf[8], tf[9], tf[10], tf[11],
             tf[12], tf[13], tf[14], tf[15], reinterpret_cast<const int*>(tables[16]),
-            reinterpret_cast<const int*>(tables[17]), reinterpret_cast<const int*>(tables[18])};
+            reinterpret_cast<const int*>(tables[17]), reinterpret_cast<const int*>(tables[18]),
+            reinterpret_cast<const int*>(tables[19])};
   float* const* of = reinterpret_cast<float* const*>(outs);
   int* const* oi = reinterpret_cast<int* const*>(outs + 19);
   Outs out{of[0], of[1], of[2], of[3], of[4], of[5], of[6], of[7], of[8], of[9], of[10], of[11],
@@ -796,19 +879,13 @@ extern "C" int rpkt_crossing_launch(const RpktParams* prm, void** lanes, void** 
            oi[0], oi[1], oi[2], oi[3], oi[4], oi[5], oi[6], oi[7], oi[8], oi[9], oi[10],
            reinterpret_cast<float*>(outs[30]), reinterpret_cast<float*>(outs[31]),
            reinterpret_cast<float*>(outs[32]), reinterpret_cast<float*>(outs[33]),
-           reinterpret_cast<double*>(outs[34])};
+           reinterpret_cast<float*>(outs[34]), reinterpret_cast<float*>(outs[35]),
+           reinterpret_cast<double*>(outs[36])};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool ex = p.expansion != 0;
   switch (p.geom) {
-    case GEOM_SPH:
-      return (int)(ex ? launch<GEOM_SPH, true>(p, in, tb, out, st)
-                      : launch<GEOM_SPH, false>(p, in, tb, out, st));
-    case GEOM_CYL:
-      return (int)(ex ? launch<GEOM_CYL, true>(p, in, tb, out, st)
-                      : launch<GEOM_CYL, false>(p, in, tb, out, st));
-    case GEOM_CART:
-      return (int)(ex ? launch<GEOM_CART, true>(p, in, tb, out, st)
-                      : launch<GEOM_CART, false>(p, in, tb, out, st));
+    case GEOM_SPH: return (int)launch_geom<GEOM_SPH>(p, in, tb, out, st);
+    case GEOM_CYL: return (int)launch_geom<GEOM_CYL>(p, in, tb, out, st);
+    case GEOM_CART: return (int)launch_geom<GEOM_CART>(p, in, tb, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,17 +11,21 @@ tensor lives on the Simulation's ``device``; the r-packet crossing kernel
 runs as CUDA when that device is a GPU and as its plain version on the CPU.
 
 Ported slice: the ``first`` and ``lte`` grid updates, and the ``nlte``
-update without NLTE populations or the non-thermal solver (the timesteps
-from ``num_lte_timesteps`` on: the full-spectrum T_R / W fit, the
-thermal-balance T_e solve, the thick-cell T_J override and, with
-``force_saha_ion_balance`` off, the rate-balance ionisation from the LUT
-gamma estimators), so the kilonova_lte and classic presets run; on
+update without the non-thermal solver (the timesteps from
+``num_lte_timesteps`` on: the full-spectrum T_R / W fit, the multibin fits,
+the LUT-off photoionisation and bf-heating integrals, the thermal-balance
+T_e solve, the thick-cell T_J override, the rate-balance ionisation from
+the LUT gamma estimators with ``force_saha_ion_balance`` off, and, with
+``nlte_enabled``, the NLTE outer loop [T_e solve -> NLTE populations ->
+ion balance / nne] per cell to ``nlte_convergence_tol`` or
+``nlte_outer_iters``), so the kilonova_lte and classic presets run, and
+nltenebular with ``nt_on`` and ``nt_solve_spencerfano`` off; on
 SPHERICAL1D, CYLINDRICAL2D and CARTESIAN3D grids, optionally with the
-detailed bf-rate estimators, binned expansion opacities and dipole /
-polarised electron scattering; particle thermalisation INSTANT, DETAILED,
-BARNES or WOLLAEGER, gamma thermalisation by detailed transport or the
-BARNES, WOLLAEGER or GUTTMAN scheme. Other modes raise
-NotImplementedError.
+detailed bf-rate and J_b_lu line estimators, the multibin radiation field,
+binned expansion opacities and dipole / polarised electron scattering;
+particle thermalisation INSTANT, DETAILED, BARNES or WOLLAEGER, gamma
+thermalisation by detailed transport or the BARNES, WOLLAEGER or GUTTMAN
+scheme. Other modes raise NotImplementedError.
 
 With ``expansionopacities_on`` the grid update also builds the binned
 opacities and their Planck-weighted cumulative, and, for
@@ -30,11 +34,19 @@ line weights that resolve a bound-bound event's line. These tables are
 rebuilt every timestep from the level populations, so checkpoints carry
 none of them.
 
-The detailed bf-rate estimators (``detailed_bf_estimators_on``) are
-accumulated per (nonempty cell, bf continuum), carried through checkpoints
-and normalised into ``prev_bfrate_normed`` as the JAX driver does; their
-only consumer is the NLTE population solve, which is not ported, so nothing
-in the port reads them yet.
+The detailed bf-rate estimators (``detailed_bf_estimators_on``, per
+(nonempty cell, bf continuum)), the multibin J / nuJ / count (per (cell,
+bin)) and the detailed J_b_lu sums (per (cell, selected line)) are
+accumulated by the crossing kernel, carried through checkpoints and
+normalised into the next grid update as the JAX driver does: the bf-rates
+from ``detailed_bf_estimators_usefromtimestep`` on and the J_b_lu sums feed
+the NLTE populations (and the J_b_lu sums the macro-atom's upward rates),
+the bins the multibin fits, whose J_nu the LUT-off integrals use from
+``first_nlte_radfield_timestep`` on. The NLTE populations and the multibin
+fits are written to ``nlte_0000.out`` and ``radfield_0000.out``.
+
+The NLTE solve, like the thermal balance, runs in float64 whatever the
+transport dtype (the JAX package runs it in the cells' dtype).
 """
 
 from __future__ import annotations
@@ -63,6 +75,7 @@ from .options import Options, kilonova_lte
 from .packets import TYPE_ESCAPE, TYPE_RPKT
 from .plasma import cellstate as cellstate_mod
 from .plasma import ltepop as ltepop_mod
+from .plasma import nltepop as nltepop_mod
 from .plasma import radfield as radfield_mod
 from .plasma import ratecoeff as ratecoeff_mod
 from .plasma import thermalbalance as thermalbalance_mod
@@ -97,24 +110,46 @@ def _kappagrey_just2022(x_lan, t_r):
     return np.where(t_r < 2000.0, kappa * (t_r / 2000.0) ** 5, kappa)
 
 
-def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid,
-                          ffheating_norm, dep_heating, mode: str, gammaest_norm=None):
+def _cast(x, dtype):
+    """The float tensors of ``x`` (a dataclass of tensors) in ``dtype``."""
+    return map_tensors(lambda t: t.to(dtype) if t.is_floating_point() else t, x)
+
+
+def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid, ffheating_norm,
+                          dep_heating, mode: str, gammaest_norm=None, binj_norm=None,
+                          binnuj_norm=None, bincount=None, bfrate_normed=None,
+                          jblue_normed=None, radfield_use_bins: bool = False,
+                          nlte_indices=None):
     """All tensor work of one grid update: the temperatures, the Saha /
-    rate-balance nne solve, level populations, ff-opacity parts, macro-atom
-    / cooling rate tables, and the per-timestep transport tables
-    (reference: update_grid.cc:869-1072).
+    rate-balance nne solve or the NLTE populations, level populations,
+    ff-opacity parts, macro-atom / cooling rate tables, and the
+    per-timestep transport tables (reference: update_grid.cc:869-1072).
 
     mode: "first" (temperatures pre-assigned), "lte" (T_J from J, the LTE
-    branch 961-978) or "nlte" without NLTE populations (979-1002: the
-    full-spectrum T_R / W fit, the thermal-balance T_e solve, the T_J path
-    for thick cells, and the per-ion photoionisation rates and
-    ``corrphotoionrenorm`` from the normalised LUT gamma estimators
-    ``gammaest_norm`` (ncells, ngc), which feed the rate-balance ionisation
-    and the rate tables). Returns (cells, levelpops, nnion, chi_ff_part,
-    rates, tau_sob, bf_a, bf_dep, expo), expo the expansion-opacity tables
-    (kappa, planck_cum, wcum, binoffsets), None when that mode is off; wcum
-    and binoffsets are None unless
-    rpkt_boundbound_thermalisation_probability < 0."""
+    branch 961-978) or "nlte" (979-1002: the full-spectrum T_R / W fit, the
+    thermal-balance T_e solve, the T_J path for thick cells, and the per-ion
+    photoionisation rates and ``corrphotoionrenorm`` from the normalised
+    LUT gamma estimators ``gammaest_norm`` (ncells, ngc), which feed the
+    rate-balance ionisation and the rate tables). With ``multibin_radfield``
+    the normalised bin estimators (``binj_norm``, ``binnuj_norm``,
+    ``bincount``) are fitted first (radfield.cc:834-911); under LUT-off
+    photoionisation / bf heating the on-the-fly integrals against the
+    current field (the binned one when ``radfield_use_bins``) replace the
+    LUTs in the T_e solve, the NLTE populations and the rate tables. With
+    ``nlte_enabled`` and ``nlte_indices`` the NLTE outer loop (reference:
+    update_grid.cc:670-763 solve_Te_nltepops) iterates [T_e solve -> NLTE
+    populations (``nltepop.solve_all_elements``, with the normalised
+    bf-rate estimators ``bfrate_normed`` and J_b_lu estimators
+    ``jblue_normed`` = (jblue_of_line, (ncells, njblue))) -> ion balance /
+    nne] until the fractional changes of T_e and nne fall to
+    ``nlte_convergence_tol`` or ``nlte_outer_iters`` is reached; each cell
+    freezes once converged, grey cells are never solved. Returns (cells,
+    levelpops, nnion, chi_ff_part, rates, tau_sob, bf_a, bf_dep, expo,
+    extra), expo the expansion-opacity tables (kappa, planck_cum, wcum,
+    binoffsets), None when that mode is off (wcum and binoffsets None unless
+    rpkt_boundbound_thermalisation_probability < 0); extra a dict of the
+    multibin fits ``tr_bins`` / ``w_bins`` (None unless fitted) and the NLTE
+    loop's per-cell ``nlte_fracdiff`` and ``nlte_iters`` (None without it)."""
     f64 = torch.float64
     if mode == "lte":
         t_j = radfield_mod.get_t_j_from_j(j_norm, opts.mintemp, opts.maxtemp)
@@ -127,11 +162,37 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid,
         cells = cells.replace(TJ=torch.where(valid, t_j, cells.TJ),
                               TR=torch.where(valid, t_r, cells.TR),
                               W=torch.where(valid, w, cells.W))
+    elif mode != "first":
+        raise NotImplementedError(f"plasma update mode {mode!r}")
+    # multibin fits before the solvers, so that the LUT-off integrals can
+    # take J_nu from the binned model (update_grid_cell fits first too)
+    tr_bins = w_bins = None
+    if opts.multibin_radfield and mode != "first" and binj_norm is not None:
+        tr_bins, w_bins = radfield_mod.fit_bin_params(
+            binj_norm.to(f64), binnuj_norm.to(f64), bincount.to(f64), cells.Te.to(f64),
+            opts.radfieldbincount, opts.mintemp, opts.maxtemp)
+    # LUT-off photoionisation / bf-heating coefficients against the current
+    # field (ratecoeff.cc:685-817, thermalbalance.cc:43-106), in float64
+    corr_otf = bfh_otf = None
+    if (mode == "nlte" and dad.nbfcontinua > 0
+            and not (opts.use_lut_photoion and opts.use_lut_bfheating)):
+        c64 = _cast(cells, f64)
+        _, bf_dep0 = opacity_mod.build_bf_tables(
+            dad, ltepop_mod.calculate_levelpops(dad, c64, opts), ltepop_mod.get_nnion(dad, c64),
+            c64.nne, c64.nnetot, c64.Te)
+        use_bins = radfield_use_bins and tr_bins is not None
+        corr_all, bfh_all = ratecoeff_mod.radfield_bf_integrals_cells(
+            dad, c64.Te, c64.TR, c64.W, bf_dep0, tr_bins=tr_bins if use_bins else None,
+            w_bins=w_bins if use_bins else None,
+            nbins=opts.radfieldbincount if use_bins else 0)
+        corr_otf = None if opts.use_lut_photoion else corr_all
+        bfh_otf = None if opts.use_lut_bfheating else bfh_all
+    if mode == "nlte":
         # the thermal balance in float64 whatever the cells' dtype (see
         # plasma/thermalbalance.py); the populations are solved below
         t_e = thermalbalance_mod.call_t_e_finder(
-            dad, rc, map_tensors(lambda x: x.to(f64) if x.is_floating_point() else x, cells),
-            opts, t_mid, ffheating_norm.to(f64), dep_heating.to(f64))
+            dad, rc, _cast(cells, f64), opts, t_mid, ffheating_norm.to(f64), dep_heating.to(f64),
+            bfheating_cells=bfh_otf)
         cells = cells.replace(Te=t_e.to(cells.Te.dtype))
         # thick cells take the grey / LTE T_J path in non-LTE timesteps too
         # (update_grid.cc:961-978)
@@ -141,8 +202,6 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid,
                               TR=torch.where(thick_j, t_j, cells.TR),
                               Te=torch.where(thick_j, t_j, cells.Te),
                               W=torch.where(cells.thick == 1, torch.ones_like(t_j), cells.W))
-    elif mode != "first":
-        raise NotImplementedError(f"plasma update mode {mode!r}")
     # LUT gamma estimators -> per-ion Gamma and corrphotoionrenorm
     # (update_grid.cc:765-830)
     gamma_ion = corrphotoionrenorm = None
@@ -158,7 +217,13 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid,
         gamma_ion = torch.zeros((gest.shape[0], dad.nions_total), dtype=gest.dtype,
                                 device=gest.device).index_add(1, dad.groundcont_uniqueion, gest)
     cells = ltepop_mod.calculate_ion_balance_nne(dad, cells, opts, gamma_ion=gamma_ion, rc=rc)
-    levelpops = ltepop_mod.calculate_levelpops(dad, cells, opts)
+    extra = dict(tr_bins=tr_bins, w_bins=w_bins, nlte_fracdiff=None, nlte_iters=None)
+    if mode == "nlte" and opts.nlte_enabled and nlte_indices:
+        cells, levelpops, extra["nlte_fracdiff"], extra["nlte_iters"] = _nlte_outer_loop(
+            dad, rc, cells, opts, t_mid, ffheating_norm, dep_heating, nlte_indices,
+            bfrate_normed, jblue_normed, corr_otf, bfh_otf)
+    else:
+        levelpops = ltepop_mod.calculate_levelpops(dad, cells, opts)
     nnion = ltepop_mod.get_nnion(dad, cells)
     chi_ff_part = opacity_mod.chi_ff_nnionpart_cells(dad, nnion, cells.Te)
     # the rate tables are float64 whatever the transport dtype: in cold,
@@ -169,7 +234,10 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid,
     rates = transitionrates_mod.compute_process_rates(
         dad, rc, levelpops.to(f64), nnion.to(f64), cells.Te.to(f64), cells.TR.to(f64),
         cells.W.to(f64), cells.nne.to(f64), t_mid,
-        corrphotoionrenorm=None if corrphotoionrenorm is None else corrphotoionrenorm.to(f64))
+        corrphotoionrenorm=None if corrphotoionrenorm is None else corrphotoionrenorm.to(f64),
+        jblue_normed=(None if jblue_normed is None
+                      else (jblue_normed[0], jblue_normed[1].to(f64))),
+        corr_photoion_cells=corr_otf)
     cells = cells.replace(totalcooling=rates.totalcooling.to(cells.Te.dtype),
                           ion_cooling_contribs=rates.ion_cooling.to(cells.Te.dtype))
     tau_sob = linewalk_mod.build_tau_factor(dad, levelpops)
@@ -189,7 +257,58 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid,
             wcum, binoff = expo_mod.build_line_selection(tau_sob.to(torch.float64),
                                                          dad.line_nu, t_mid)
         expo = (kappa, pc, wcum, binoff)
-    return cells, levelpops, nnion, chi_ff_part, rates, tau_sob, bf_a, bf_dep, expo
+    return cells, levelpops, nnion, chi_ff_part, rates, tau_sob, bf_a, bf_dep, expo, extra
+
+
+def _nlte_outer_loop(dad, rc, cells, opts, t_mid, ffheating_norm, dep_heating, nlte_indices,
+                     bfrate_normed, jblue_normed, corr_otf, bfh_otf):
+    """The NLTE outer loop of an ``nlte`` grid update (reference:
+    update_grid.cc:670-763 solve_Te_nltepops without the non-thermal
+    solver): per iteration the T_e solve (each trial re-solving the Saha
+    balance), the Saha balance at the new T_e, the NLTE populations from
+    its Boltzmann populations, and the ion ground populations, partition
+    functions and nne from the NLTE populations. A cell freezes once the
+    larger of its fractional T_e and nne changes falls to
+    ``nlte_convergence_tol``; grey cells are never solved. In float64.
+    Returns (cells, levelpops, fracdiff, iterations) with the cells and
+    populations in the cells' dtype."""
+    f64 = torch.float64
+    dtype = cells.Te.dtype
+    c = _cast(cells, f64)
+    ffh, dep = ffheating_norm.to(f64), dep_heating.to(f64)
+    jbn = None if jblue_normed is None else (jblue_normed[0], jblue_normed[1].to(f64))
+    bfr = None if bfrate_normed is None else bfrate_normed.to(f64)
+    ncells = c.Te.shape[0]
+    converged = c.thick == 1
+    lp = ltepop_mod.calculate_levelpops(dad, c, opts)
+    fracdiff = torch.zeros(ncells, dtype=f64, device=c.Te.device)
+    iters = torch.zeros(ncells, dtype=torch.int64, device=c.Te.device)
+
+    def freeze(mask, new, old):
+        return dataclasses.replace(old, **{
+            f.name: torch.where(mask.view((-1,) + (1,) * (getattr(new, f.name).dim() - 1)),
+                                getattr(new, f.name), getattr(old, f.name))
+            for f in dataclasses.fields(old)})
+
+    for it in range(max(opts.nlte_outer_iters, 1)):
+        if bool(converged.all()):
+            break
+        active = ~converged
+        t_e = thermalbalance_mod.call_t_e_finder(dad, rc, c, opts, t_mid, ffh, dep,
+                                                 bfheating_cells=bfh_otf)
+        cn = ltepop_mod.calculate_ion_balance_nne(dad, c.replace(Te=t_e), opts)
+        fd_te = torch.abs(cn.Te / torch.clamp(c.Te, min=1e-300) - 1.0)
+        nne_saha = cn.nne
+        cn, lp_n = nltepop_mod.solve_all_elements(
+            nlte_indices, dad, rc, cn, opts, ltepop_mod.calculate_levelpops(dad, cn, opts), t_mid,
+            bfrate_normed=bfr, jblue_normed=jbn, corr_photoion_cells=corr_otf)
+        fd_new = torch.maximum(fd_te, torch.abs(cn.nne / torch.clamp(nne_saha, min=1e-300) - 1.0))
+        c = freeze(active, cn, c)
+        lp = torch.where(active[:, None], lp_n, lp)
+        fracdiff = torch.where(active, fd_new, fracdiff)
+        iters = torch.where(active, torch.full_like(iters, it + 1), iters)
+        converged = converged | (fd_new <= opts.nlte_convergence_tol)
+    return _cast(c, dtype), lp.to(dtype), fracdiff, iters
 
 
 def _np(x):
@@ -227,9 +346,17 @@ class Simulation:
             rundir, single_level_top_ion=self.opts.single_level_top_ion,
             single_ground_level=self.opts.single_ground_level)
         from .plasma import recombcalibration as _recomb
+        _sl_first = None
+        if self.opts.nlte_enabled and not self.opts.nlte_all_levels:
+            # the first superlevel member of an ion, as the JAX driver passes
+            # it (artis_tpu/driver.py:677-688: the nlte_maxlevel cap)
+            def _sl_first(element, ion, _ad=self.ad, _o=self.opts):
+                nlev = int(_ad.ion_nlevels[int(_ad.elem_ion_start[element] + ion)])
+                cap = min(_o.nlte_maxlevel, nlev)
+                return cap + 1 if cap + 1 < nlev else None
         _recomb.apply_recombrate_calibration(self.ad, rundir,
                                              t_elec=self.opts.recombcalibration_t_elec,
-                                             superlevel_first_level=None, log=self.log)
+                                             superlevel_first_level=_sl_first, log=self.log)
         self.dad = to_device(self.ad, dev)
         if self._f32:
             self.dad = demote_to_f32(self.dad)
@@ -323,6 +450,10 @@ class Simulation:
         if not p.simulation_continued_from_saved:
             self._write_listfiles()
 
+        self.nlte_indices = (nltepop_mod.build_indices(self.dad, self.opts)
+                             if self.opts.nlte_enabled else None)
+        self._select_jblue_lines()
+        self.radfieldbin_tr = self.radfieldbin_w = None
         self.est = self._zero_est()
         self.prev_est: Estimators | None = None
         self.prev_bfrate_normed = None
@@ -428,14 +559,44 @@ class Simulation:
         lan = (zarr >= 57) & (zarr <= 71)
         return np.asarray(elem_massfrac)[:, lan].sum(axis=1)
 
+    def _select_jblue_lines(self):
+        """The lines of the detailed J_b_lu estimators (radfield.cc:520-552;
+        artis_tpu/driver.py:904-926): lines with A > 0 out of lower levels up
+        to ``jblue_max_lowerlevel``, of element Z = ``jblue_elem_z`` (0: all).
+        Sets ``jblue_of_line`` (line -> column, -1 none) and ``_njblue``."""
+        ad = self.ad
+        if self.opts.detailed_line_estimators_on and ad.nlines > 0:
+            line_z = np.asarray(ad.elem_z)[np.asarray(ad.line_element)]
+            pick = ((np.asarray(ad.line_lower) <= self.opts.jblue_max_lowerlevel)
+                    & (np.asarray(ad.line_A) > 0))
+            if self.opts.jblue_elem_z > 0:
+                pick &= line_z == self.opts.jblue_elem_z
+            self.jblue_lineindices = np.nonzero(pick)[0]
+            jb = np.full(ad.nlines, -1, np.int64)
+            jb[self.jblue_lineindices] = np.arange(len(self.jblue_lineindices))
+            self._njblue = max(len(self.jblue_lineindices), 1)
+            self.log(f"detailed line estimators: {len(self.jblue_lineindices)} lines")
+        else:
+            self.jblue_lineindices = np.zeros(0, np.int64)
+            jb = np.full(1, -1, np.int64)
+            self._njblue = 1
+        self.jblue_of_line = torch.as_tensor(jb).to(self.device)
+
     def _zero_est(self):
         # detailed bf-rate estimators: one row per nonempty cell, one column
-        # per bf continuum (artis_tpu/driver.py:900-903)
-        bfr = self.opts.detailed_bf_estimators_on
-        return zero_estimators(self.grid.nonempty_npts, max(self.ad.nbfcontinua_ground, 1),
+        # per bf continuum; multibin rows per (cell, bin); J_b_lu rows per
+        # (cell, selected line) (artis_tpu/driver.py:893-926)
+        ncells = self.grid.nonempty_npts
+        o = self.opts
+        bfr = o.detailed_bf_estimators_on
+        jbl = o.detailed_line_estimators_on
+        return zero_estimators(ncells, max(self.ad.nbfcontinua_ground, 1),
                                dtype=self.fdtype, device=self.device,
+                               nradfieldbins=o.radfieldbincount if o.multibin_radfield else 1,
                                nbfrate=max(self.ad.nbfcontinua, 1) if bfr else 1,
-                               nbfrate_cells=self.grid.nonempty_npts if bfr else 1)
+                               nbfrate_cells=ncells if bfr else 1,
+                               njblue=self._njblue if jbl else 1,
+                               njblue_cells=ncells if jbl else 1)
 
     # ------------------------------------------------------------------
     def _plasma_call(self, nts: int):
@@ -447,7 +608,8 @@ class Simulation:
         prev_est = self.prev_est
         first_ts = prev_est is None
         zeros = torch.zeros(ncells, dtype=self.fdtype, device=self.device)
-        gammaest_norm = None
+        gammaest_norm = bfrate_normed = jblue_normed = None
+        binj_norm = binnuj_norm = bincount = None
         if first_ts:
             j_norm = nuj_norm = ffheating_norm = dep_heating = zeros
             mode = "first"
@@ -467,6 +629,17 @@ class Simulation:
                 # bfrate_raw * estimator_normfactor / H (radfield.cc:946;
                 # artis_tpu/driver.py:1305-1316), for the NLTE solve
                 self.prev_bfrate_normed = prev_est.bfrate * self._t(norm4pi * FOURPI / H)[:, None]
+                bfrate_normed = self.prev_bfrate_normed
+            if self.opts.multibin_radfield:
+                # J and nuJ per bin * estimator_normfactor_over4pi, raw counts
+                # (artis_tpu/driver.py:1286-1295)
+                binj_norm = prev_est.radfieldbin_j * n4[:, None]
+                binnuj_norm = prev_est.radfieldbin_nuj * n4[:, None]
+                bincount = prev_est.radfieldbin_count
+            if self.opts.detailed_line_estimators_on:
+                # prev_Jb_lu_normed = raw * estimator_normfactor_over4pi
+                # (radfield.cc:919; artis_tpu/driver.py:1319-1327)
+                jblue_normed = (self.jblue_of_line, prev_est.jblue_raw * n4[:, None])
             if self.opts.use_lut_photoion:
                 # photoionisation rate estimator * normfactor / H
                 # (artis_tpu/driver.py:1296-1304)
@@ -476,7 +649,10 @@ class Simulation:
         results = _plasma_update_device(
             self.dad, self.rc, self.cells, self.opts, j_norm, nuj_norm,
             float(self.ts.mid[nts]), ffheating_norm, dep_heating, mode=mode,
-            gammaest_norm=gammaest_norm)
+            gammaest_norm=gammaest_norm, binj_norm=binj_norm, binnuj_norm=binnuj_norm,
+            bincount=bincount, bfrate_normed=bfrate_normed, jblue_normed=jblue_normed,
+            radfield_use_bins=nts >= self.opts.first_nlte_radfield_timestep,
+            nlte_indices=self.nlte_indices)
         return mode, results
 
     def update_grid(self, nts: int):
@@ -503,7 +679,20 @@ class Simulation:
         mode, results = self._plasma_call(nts)
         self.plasma_mode = mode
         (self.cells, levelpops, nnion, chi_ff_part, self.rates, tau_sob, bf_a,
-         bf_dep, expo) = results
+         bf_dep, expo, extra) = results
+        if self.opts.multibin_radfield:
+            zb = torch.zeros((self.grid.nonempty_npts, self.opts.radfieldbincount),
+                             dtype=torch.float64, device=self.device)
+            self.radfieldbin_tr = zb if extra["tr_bins"] is None else extra["tr_bins"]
+            self.radfieldbin_w = zb if extra["w_bins"] is None else extra["w_bins"]
+        self.nlte_iters = None
+        if extra["nlte_fracdiff"] is not None:
+            fdmax = float(extra["nlte_fracdiff"].max())
+            self.nlte_iters = int(extra["nlte_iters"].max())
+            tol = self.opts.nlte_convergence_tol
+            self.log(f"timestep {nts}: NLTE outer loop max fracdiff {fdmax:.4g} after <= "
+                     f"{self.nlte_iters} iterations"
+                     + ("" if fdmax <= tol else f" (NOT converged to {tol})"))
 
         # grey optical depth and thick flags (update_grid.cc:1007-1035)
         assoc_cells = self.grid_host.numpropcells_mgi[mgi]
@@ -531,7 +720,7 @@ class Simulation:
             xcom_energy=one, xcom_sigma=one, vpkt_cum_tau=one, vpkt_cum_taunu=one,
             vpkt_cfg=None, nt_frac_ion_by_ion=one, nt_frac_ionization=one,
             nt_ionenfrac_auger=one, nt_frac_excitation=one, nt_exc_fracdep_cum=one,
-            nt_exc_upper=onei, jblue_of_line=onei - 1,
+            nt_exc_upper=onei, jblue_of_line=self.jblue_of_line,
             gammaline_energy=self.gammaline_energy, gammaline_cumfrac=self.gammaline_cumfrac,
             gammaline_nlines=self.gammaline_nlines,
             nuc_engamma=self._t(self.dec.nuc_endecay_gamma),
@@ -583,7 +772,7 @@ class Simulation:
         self.transport_log.append(dict(nts=nts, steps=nsteps, seconds=dt_transport,
                                        iters=iters, active_start=n_act0,
                                        completed=completed, grid_mode=self.plasma_mode,
-                                       grid_seconds=dt_grid))
+                                       grid_seconds=dt_grid, nlte_iters=self.nlte_iters))
         self.prev_est = self.est
         e = self.est
         self.gamma_dep_ts[nts] = float(e.dep_gamma.sum()) * self._e0
@@ -616,6 +805,10 @@ class Simulation:
             self._escaped_counted |= esc
         if self.opts.write_estimator_files:
             self.write_estimators(nts)
+            if self.opts.nlte_enabled:
+                self.write_nltepops(nts)
+            if self.opts.multibin_radfield:
+                self.write_radfield(nts)
         counter_txt = stats_mod.format_counters(self.est.counters)
         if counter_txt:
             self.log(f"timestep {nts} event counters:\n{counter_txt}")
@@ -766,6 +959,67 @@ class Simulation:
                         f"titeration 0 TR {tr[i]:g} Te {te[i]:g} W {w[i]:g} TJ {tj[i]:g} "
                         f"grey_depth {float(gd[i]):g} nne {nne[i]:g} rho {rho[i]:g} "
                         f"thick {int(thick[i])} totalcooling {cool[i]:g}\n")
+
+    def write_nltepops(self, nts: int):
+        """nlte_0000.out (reference: nltepop.cc:1076-1130): per cell, ion and
+        level the LTE (Boltzmann at the final ion populations) and the
+        solved populations and the ion's share of all ion populations, in
+        the JAX package's columns (artis_tpu/driver.py:2223-2251)."""
+        path = os.path.join(self.rundir, "nlte_0000.out")
+        if self._last_levelpops is None:
+            return
+        mode = "a" if nts > 0 and os.path.exists(path) else "w"
+        lp = _np(self._last_levelpops).astype(np.float64)
+        boltz = _np(ltepop_mod.calculate_levelpops(self.dad, self.cells, self.opts)).astype(
+            np.float64)
+        ad = self.ad
+        level_ion = _np(self.dad.level_ion)
+        z_of_ion = np.asarray(ad.elem_z)[_np(self.dad.ion_element)]
+        stage = _np(self.dad.ion_stage)
+        ionpop = np.zeros((lp.shape[0], ad.nions_total))
+        np.add.at(ionpop.T, level_ion, lp.T)
+        tot = ionpop.sum(axis=1)
+        level_in_ion = np.arange(ad.nlevels_total) - _np(self.dad.ion_level_start)[level_ion]
+        with open(path, mode) as f:
+            if mode == "w":
+                f.write("timestep modelgridindex Z ionstage level n_LTE n_NLTE ion_popfrac\n")
+            for i in range(lp.shape[0]):
+                mgi = int(self.mgi_of_nonempty[i])
+                frac = ionpop[i] / tot[i] if tot[i] > 0 else np.zeros(ad.nions_total)
+                f.write("".join(
+                    f"{nts} {mgi} {int(z_of_ion[u])} {int(stage[u])} {int(level_in_ion[g])} "
+                    f"{boltz[i, g]:.5e} {lp[i, g]:.5e} {frac[u]:.4e}\n"
+                    for g, u in enumerate(level_ion)))
+
+    def write_radfield(self, nts: int):
+        """radfield_0000.out (reference: radfield.cc:427-487): per cell the
+        full-spectrum fit (bin -1), then per bin its edges, nuJ, J, J per
+        unit frequency, contributions and fitted T_R and W
+        (artis_tpu/driver.py:2253-2284)."""
+        path = os.path.join(self.rundir, "radfield_0000.out")
+        if self.prev_est is None or self.radfieldbin_tr is None:
+            return
+        mode = "a" if nts > 0 and os.path.exists(path) else "w"
+        nb = self.opts.radfieldbincount
+        e = self.prev_est
+        jb, nujb, cb = (_np(x).astype(np.float64) for x in
+                        (e.radfieldbin_j, e.radfieldbin_nuj, e.radfieldbin_count))
+        trb, wb = _np(self.radfieldbin_tr), _np(self.radfieldbin_w)
+        lower = _np(radfield_mod.bin_nu_lower(nb))
+        upper = _np(radfield_mod.bin_nu_upper(nb))
+        dnu = np.maximum(upper - lower, 1e-30)
+        tr_full, w_full = _np(self.cells.TR), _np(self.cells.W)
+        with open(path, mode) as f:
+            if mode == "w":
+                f.write("timestep modelgridindex bin_num nu_lower nu_upper nuJ J J_nu_avg "
+                        "ncontrib T_R W\n")
+            for i in range(jb.shape[0]):
+                mgi = int(self.mgi_of_nonempty[i])
+                f.write(f"{nts} {mgi} -1 0 0 0 0 0 0 {tr_full[i]:.1f} {w_full[i]:.5e}\n")
+                f.write("".join(
+                    f"{nts} {mgi} {b} {lower[b]:.5e} {upper[b]:.5e} {nujb[i, b]:.3e} "
+                    f"{jb[i, b]:.3e} {jb[i, b] / dnu[b]:.3e} {int(cb[i, b])} {trb[i, b]:.1f} "
+                    f"{wb[i, b]:.5e}\n" for b in range(nb)))
 
     def write_outputs(self, partial: bool):
         import json

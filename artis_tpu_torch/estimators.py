@@ -1,9 +1,10 @@
 """Monte Carlo estimator accumulators (reference: globals.h:206-232
 J/nuJ/ffheating/deposition arrays, stats.h:47-82 event counters).
 
-Per-packet contributions are index-added into (ncells,) tensors. The
-optional estimators of modes that are not ported (multibin radfield, vpkt,
-detailed bf/line estimators, ion stats, linestat, macro-atom log) keep their
+Per-packet contributions are index-added into (ncells,) tensors; the
+crossing kernel adds its per-cell rows (J, nuJ, the LUT, detailed bf-rate,
+multibin and J_b_lu estimators). The optional estimators of modes that are
+not ported (vpkt, ion stats, linestat, macro-atom log) keep their
 placeholder shapes so the field set matches the JAX package's.
 """
 

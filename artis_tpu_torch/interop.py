@@ -4,9 +4,11 @@
 dataclasses (DeviceAtomicData, GridData, CellState, PacketState,
 Estimators, StepContext, RateCoeffTables, ProcessRates, MacroAtomAux,
 PelletTables) from a mapping of field name -> numpy array (or Python scalar
-for metadata such as ``nlines``); ``to_numpy(obj)`` goes the other way. The
-port never sees a jax array: callers turn the JAX package's structures into
-numpy themselves (``np.asarray`` on each field).
+for metadata such as ``nlines``); ``to_numpy(obj)`` goes the other way.
+``nlte_indices_from_numpy`` carries the NLTE solver's host-side index lists
+(``plasma.nltepop.ElementNlteIndex``, numpy by design). The port never sees
+a jax array: callers turn the JAX package's structures into numpy
+themselves (``np.asarray`` on each field).
 """
 
 from __future__ import annotations
@@ -66,4 +68,21 @@ def to_numpy(obj) -> dict:
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         out[f.name] = v.detach().cpu().numpy() if torch.is_tensor(v) else v
+    return out
+
+
+def nlte_indices_from_numpy(indices) -> list:
+    """The port's ``ElementNlteIndex`` list from mappings of field name ->
+    numpy array or Python scalar, one per element (the JAX package's
+    ``nltepop.build_indices`` output, field by field)."""
+    from .plasma.nltepop import ElementNlteIndex
+
+    out = []
+    for arrays in indices:
+        kw = {}
+        for f in dataclasses.fields(ElementNlteIndex):
+            v = arrays[f.name]
+            kw[f.name] = (np.array(v) if isinstance(v, (np.ndarray, np.generic)) and np.ndim(v)
+                          else (v.item() if isinstance(v, np.generic) else v))
+        out.append(ElementNlteIndex(**kw))
     return out

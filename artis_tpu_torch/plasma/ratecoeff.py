@@ -197,3 +197,74 @@ def select_continuum_nu_batch(key, dad: DeviceAtomicData, contindex, t_e, mask):
                           torch.zeros_like(c0))
     nu_lower = n0 + fracseg * (n1 - n0)
     return torch.where(mask, nu_lower, torch.zeros_like(nu_lower))
+
+
+# (cell, continuum, phixs point) elements per chunk of the LUT-off integrals
+OTF_CHUNK_ELEMENTS = 1 << 23
+
+
+def radfield_bf_integrals_cells(dad: DeviceAtomicData, t_e, t_r, w_full, bf_dep,
+                                tr_bins=None, w_bins=None, nbins: int = 0):
+    """LUT-off photoionisation and bf-heating coefficients against the
+    current radiation-field model, batched over cells and chunked over
+    continua (reference: ratecoeff.cc:731-817
+    calculate_corrphotoioncoeff_integral with J from radfield::radfield;
+    thermalbalance.cc:43-106 calculate_bfheatingcoeff). With ``tr_bins`` /
+    ``w_bins`` (the multibin fits) J_nu comes from the binned model (zero
+    outside the bins), else from the full-spectrum dilute blackbody
+    (T_R, W). ``bf_dep`` is the LOG stimulated-recombination departure of
+    ``opacity.build_bf_tables``. Returns (corrphotoion, bfheating), each
+    (ncells, ncont):
+
+        corr = 4 pi p INT sigma / (h nu) J_nu max(1 - dep e^{-h nu/k T_e}, 0) dnu
+        bfh  = 4 pi p INT sigma (1 - nu_edge / nu) J_nu (1 - e^{-h nu/k T_R}) dnu
+
+    by Simpson's rule on the uniform phixs grid."""
+    from .radfield import dbb, select_bin
+
+    ncont = dad.nbfcontinua
+    ncells = t_e.shape[0]
+    dtype, dev = t_e.dtype, t_e.device
+    corr = torch.zeros((ncells, ncont), dtype=dtype, device=dev)
+    bfh = torch.zeros_like(corr)
+    if ncont == 0:
+        return corr, bfh
+    npts = dad.nphixspoints
+    inc = dad.nphixsnuincrement
+    kgrid = 1.0 + inc * torch.arange(npts, dtype=dtype, device=dev)
+    wsimp = torch.as_tensor(_simpson_weights(npts), dtype=dtype, device=dev)
+    t_r_s = torch.clamp(t_r, min=1.0)
+    t_e_s = torch.clamp(t_e, min=1.0)
+    use_bins = tr_bins is not None and nbins > 0
+    chunk = max(1, min(256, OTF_CHUNK_ELEMENTS // max(ncells * npts, 1)))
+    for c0 in range(0, ncont, chunk):
+        ci = torch.arange(c0, min(c0 + chunk, ncont), device=dev)
+        nu_edge = dad.cont_nu_edge[ci].to(dtype)
+        sigma = dad.allphixs[dad.cont_phixsrow[ci]].to(dtype)  # (k, npts)
+        prob = dad.cont_probability[ci].to(dtype)
+        nu = nu_edge[:, None] * kgrid[None, :]  # (k, npts)
+        dnu = nu_edge * inc
+        if use_bins:
+            b = select_bin(nu, nbins)
+            bsafe = torch.clamp(b, 0, nbins - 1)
+            trb = tr_bins[:, bsafe]  # (ncells, k, npts)
+            wb = w_bins[:, bsafe]
+            bin_ok = (b >= 0)[None, :, :] & (wb >= 0) & (trb > 0)
+            j_nu = torch.where(bin_ok, dbb(nu[None, :, :], torch.clamp(trb, min=1.0),
+                                           torch.clamp(wb, min=0.0)),
+                               torch.zeros((), dtype=dtype, device=dev))
+        else:
+            j_nu = dbb(nu[None, :, :], t_r_s[:, None, None], w_full[:, None, None])
+        hnu_kte = HOVERKB * nu[None, :, :] / t_e_s[:, None, None]
+        corrfac = torch.clamp(1.0 - torch.exp(torch.clamp(bf_dep[:, ci, None].to(dtype) - hnu_kte,
+                                                          -80.0, 80.0)), min=0.0)
+        integ_c = torch.sum(wsimp[None, None, :] * sigma[None, :, :] * ONEOVERH
+                            / nu[None, :, :] * j_nu * corrfac, dim=2) * dnu[None, :]
+        corr[:, ci] = FOURPI * prob[None, :] * integ_c
+        stimfac = -torch.expm1(-torch.clamp(HOVERKB * nu[None, :, :] / t_r_s[:, None, None],
+                                            max=80.0))
+        integ_b = torch.sum(wsimp[None, None, :] * sigma[None, :, :]
+                            * (1.0 - nu_edge[None, :, None] / nu[None, :, :]) * j_nu * stimfac,
+                            dim=2) * dnu[None, :]
+        bfh[:, ci] = FOURPI * prob[None, :] * integ_b
+    return corr, bfh

@@ -93,13 +93,16 @@ def _collisional_sums(levelpops, t_e, nne, chunks):
 
 def compute_heating_cooling(dad: DeviceAtomicData, rc: RateCoeffTables, cells, opts: Options,
                             levelpops, nnion, t_current: float, ffheating_norm, dep_heating,
-                            chunks) -> HeatingCoolingRates:
+                            chunks, bfheating_cells=None) -> HeatingCoolingRates:
     """Heating and cooling rates of every cell at its T_e (reference:
     thermalbalance.cc:108-241, kpkt.cc:66-171): collisional de-excitation
     heating, bf heating n_level W LUT(T_R), the normalised ff-heating
     estimator and the deposition; free-free, free-bound, collisional
     (excitation and ionisation) and adiabatic cooling. ``chunks``: the
-    transitions from ``collisional_chunks``."""
+    transitions from ``collisional_chunks``. ``bfheating_cells`` (ncells,
+    ncont), the LUT-off bf-heating coefficients against the current
+    radiation field (``ratecoeff.radfield_bf_integrals_cells``), replaces
+    W LUT(T_R) (thermalbalance.cc:43-106)."""
     dt = levelpops.dtype
     t_e, nne = cells.Te, cells.nne
     t_r = torch.clamp(cells.TR, min=1.0)
@@ -123,9 +126,13 @@ def compute_heating_cooling(dad: DeviceAtomicData, rc: RateCoeffTables, cells, o
                           * dad.cont_probability.to(dt)[ci])
             n_ll = levelpops[:, ll]
             # bf heating: n_level * W * LUT(T_R) (thermalbalance.cc:246-289;
-            # the bf-heating renormalisation is 1 without the NLTE solve)
-            bfh = interpolate_lut(rc.bfheating, rc, ci[None, :], t_r[:, None]).to(dt)
-            heat_bf = heat_bf + torch.sum(n_ll * w[:, None] * bfh, dim=1)
+            # the bf-heating renormalisation is 1 as in the JAX package), or
+            # LUT-off n_level * the on-the-fly coefficient
+            if bfheating_cells is not None:
+                heat_bf = heat_bf + torch.sum(n_ll * bfheating_cells[:, ci].to(dt), dim=1)
+            else:
+                bfh = interpolate_lut(rc.bfheating, rc, ci[None, :], t_r[:, None]).to(dt)
+                heat_bf = heat_bf + torch.sum(n_ll * w[:, None] * bfh, dim=1)
             # fb cooling (kpkt.cc:147-171)
             bfcool = interpolate_lut(rc.bfcooling, rc, ci[None, :], t_e[:, None]).to(dt)
             nnupperion = nnion[:, torch.clamp(ion + 1, max=dad.nions_total - 1)]
@@ -151,12 +158,14 @@ def compute_heating_cooling(dad: DeviceAtomicData, rc: RateCoeffTables, cells, o
 
 
 def call_t_e_finder(dad: DeviceAtomicData, rc: RateCoeffTables, cells, opts: Options,
-                    t_current: float, ffheating_norm, dep_heating):
+                    t_current: float, ffheating_norm, dep_heating, bfheating_cells=None):
     """Batched bisection for T_e in [mintemp, maxtemp] with the reference's
     out-of-bracket pin and 2x / 0.5x damping (thermalbalance.cc:291-378).
     Each evaluation re-solves the Saha/nne balance at the trial T_e, as the
     reference's root-finder callback does (thermalbalance.cc:209-216).
-    Returns the new T_e; the caller solves the populations at it."""
+    ``bfheating_cells``: LUT-off bf-heating coefficients (see
+    ``compute_heating_cooling``). Returns the new T_e; the caller solves the
+    populations at it."""
     t_e_old = cells.Te
     chunks = collisional_chunks(dad, t_e_old.shape[0], t_e_old.dtype)
 
@@ -164,7 +173,8 @@ def call_t_e_finder(dad: DeviceAtomicData, rc: RateCoeffTables, cells, opts: Opt
         out = calculate_ion_balance_nne(dad, cells.replace(Te=t_e), opts)
         levelpops = calculate_levelpops(dad, out, opts)
         hc = compute_heating_cooling(dad, rc, out, opts, levelpops, get_nnion(dad, out),
-                                     t_current, ffheating_norm, dep_heating, chunks)
+                                     t_current, ffheating_norm, dep_heating, chunks,
+                                     bfheating_cells)
         return (hc.heating_ff + hc.heating_bf + hc.heating_collisional + hc.heating_dep
                 - hc.cooling_ff - hc.cooling_fb - hc.cooling_collisional
                 - hc.cooling_adiabatic)

@@ -50,8 +50,8 @@ class ProcessRates:
     cont_rad: torch.Tensor  # (ncells, ncont) R_rec*eps_trans
     cont_tot_down: torch.Tensor  # (ncells, ncont) (R+C)_rec*eps_lower
     cont_tot_up: torch.Tensor  # (ncells, ncont) (R+C)_ion*eps_owner
-    jb_line: torch.Tensor  # (1,) -1: detailed J_b_lu estimators are not ported
-    jb_arr: torch.Tensor  # (ncells, 1)
+    jb_line: torch.Tensor  # (nlines,) line -> J_b_lu column, -1 none ((1,) when off)
+    jb_arr: torch.Tensor  # (ncells, njblue) normalised J_b_lu ((ncells, 1) when off)
 
 
 def beta_sobolev(tau):
@@ -142,6 +142,23 @@ def _trans_geometry(dad: DeviceAtomicData, kidx, dtype):
                 osc=dad.trans_osc_strength.to(dtype)[kidx])
 
 
+def _j_nu(dad: DeviceAtomicData, g, kidx, tr, w, jb_line, jb_arr, rows=None):
+    """J_nu at each transition's frequency: the dilute blackbody (T_R, W)
+    of each row, replaced by the normalised detailed J_b_lu estimator for
+    the lines that have one (reference: macroatom.cc:713-720). ``rows``
+    picks the estimator row of each row of a (N, K) window; without it the
+    rows are the cells of a (ncells, K) chunk."""
+    j_nu = dbb(g["nu_trans"], torch.clamp(tr, min=1.0)[:, None], w[:, None])
+    if jb_line is None:
+        return j_nu
+    li = dad.trans_lineindex[kidx]
+    jb_idx = jb_line[torch.clamp(li, 0, jb_line.shape[0] - 1)]
+    has_jb = (li >= 0) & (jb_idx >= 0)
+    col = torch.clamp(jb_idx, min=0)
+    j_detail = jb_arr[:, col] if rows is None else jb_arr[rows[:, None], col]
+    return torch.where(has_jb, j_detail.to(j_nu.dtype), j_nu)
+
+
 def trans_values_at(dad: DeviceAtomicData, levelpops, rows, kidx, te, ne, tr, w,
                     t_mid: float, jb_line=None, jb_arr=None):
     """Per-(row, transition) selection values computed on the fly for the
@@ -152,6 +169,8 @@ def trans_values_at(dad: DeviceAtomicData, levelpops, rows, kidx, te, ne, tr, w,
       v_rad     down slots: R*eps_trans (0 on up slots)
       v_tot     down: (R+C)*eps_target; up: (R+C)*eps_owner
       v_coolexc up slots: n_l*C*eps_trans (0 on down slots)
+    ``jb_line`` / ``jb_arr``: the detailed J_b_lu estimators of
+    ``ProcessRates`` (None: the dilute blackbody for every line).
     """
     dtype = te.dtype
     kidx = torch.clamp(kidx, 0, max(dad.ntrans_total - 1, 0))
@@ -173,7 +192,7 @@ def trans_values_at(dad: DeviceAtomicData, levelpops, rows, kidx, te, ne, tr, w,
     r_over_j = torch.where(
         n_l > 0, (g["b_lu"] - g["b_ul"] * n_u / torch.clamp(n_l, min=1e-300)) * beta,
         g["b_lu"] * beta)
-    j_nu = dbb(g["nu_trans"], torch.clamp(tr, min=1.0)[:, None], w[:, None])
+    j_nu = _j_nu(dad, g, kidx, tr, w, jb_line, jb_arr, rows)
     r_up = torch.clamp(r_over_j * j_nu, min=0.0)
     c_up = col_excitation_ratecoeff(tec, nec, g["eps_trans"], g["coll_str"], g["forb"],
                                     g["osc"], g["g_u"], g["g_l"])
@@ -187,8 +206,14 @@ def compute_process_rates(dad: DeviceAtomicData, rc: RateCoeffTables, levelpops,
                           t_e, t_r, w, nne, t_mid: float, corrphotoionrenorm=None,
                           jblue_normed=None, corr_photoion_cells=None,
                           trans_chunk: int = 16384) -> ProcessRates:
-    if jblue_normed is not None or corr_photoion_cells is not None:
-        raise NotImplementedError("detailed line estimators / LUT-off photoionisation")
+    """The (cell, level) macro-atom action sums, the cooling channels and
+    the per-continuum recombination / ionisation selection values.
+    ``jblue_normed`` (jb_line (nlines,), jb_arr (ncells, njblue)): the
+    detailed J_b_lu estimators replace the dilute blackbody in the upward
+    radiative rates of their lines; ``corr_photoion_cells`` (ncells,
+    ncont): the LUT-off photoionisation coefficients replace
+    W LUT(T_R) corrphotoionrenorm (reference: ratecoeff.cc:731-817)."""
+    jb_line, jb_arr = jblue_normed if jblue_normed is not None else (None, None)
     dtype = t_e.dtype
     dev = t_e.device
     ncells = t_e.shape[0]
@@ -221,7 +246,8 @@ def compute_process_rates(dad: DeviceAtomicData, rc: RateCoeffTables, levelpops,
             n_l > 0,
             (g["b_lu"][None, :] - g["b_ul"][None, :] * n_u / torch.clamp(n_l, min=1e-300)) * beta,
             g["b_lu"][None, :] * beta)
-        j_nu = dbb(g["nu_trans"][None, :], torch.clamp(t_r, min=1.0)[:, None], w[:, None])
+        j_nu = _j_nu(dad, dict(g, nu_trans=g["nu_trans"][None, :]), kidx, t_r, w, jb_line,
+                     jb_arr)
         r_up = torch.clamp(r_over_j * j_nu, min=0.0)
         c_up = col_excitation_ratecoeff(te, ne, eps, g["coll_str"][None, :],
                                         g["forb"][None, :], g["osc"][None, :],
@@ -266,10 +292,13 @@ def compute_process_rates(dad: DeviceAtomicData, rc: RateCoeffTables, levelpops,
         ma[:, :, MA_ACTION_RADRECOMB].index_add_(1, ul, v_rec_rad)
         ma[:, :, MA_ACTION_COLRECOMB].index_add_(1, ul, c_rec * eps_trans)
         ma[:, :, MA_ACTION_INTERNALDOWNLOWER].index_add_(1, ul, v_rec_tot)
-        gamma_lut = interpolate_lut(rc.corrphotoion.to(dtype), rc, idx[None, :],
-                                    torch.clamp(t_r, min=rc.mintemp)[:, None])
-        gidx = torch.clamp(dad.cont_groundindex, 0, max(dad.nbfcontinua_ground - 1, 0))
-        r_ion = w[:, None] * gamma_lut * corrphotoionrenorm[:, gidx]
+        if corr_photoion_cells is not None:
+            r_ion = corr_photoion_cells.to(dtype)
+        else:
+            gamma_lut = interpolate_lut(rc.corrphotoion.to(dtype), rc, idx[None, :],
+                                        torch.clamp(t_r, min=rc.mintemp)[:, None])
+            gidx = torch.clamp(dad.cont_groundindex, 0, max(dad.nbfcontinua_ground - 1, 0))
+            r_ion = w[:, None] * gamma_lut * corrphotoionrenorm[:, gidx]
         c_ion = col_ionization_ratecoeff(te, ne, sigma_edge, eps_trans, lower_stage)
         v_ion_tot = (r_ion + c_ion) * level_energy[ll][None, :]
         ma[:, :, MA_ACTION_INTERNALUPHIGHER].index_add_(1, ll, v_ion_tot)
@@ -296,5 +325,7 @@ def compute_process_rates(dad: DeviceAtomicData, rc: RateCoeffTables, levelpops,
         totalcooling=torch.sum(ion_cooling, dim=1), cool_exc_ion=cool_exc_ion,
         cool_ion_ion=cool_ion_ion, cool_fb_ion=cool_fb_ion, cont_rad=cont_rad,
         cont_tot_down=cont_tot_down, cont_tot_up=cont_tot_up,
-        jb_line=torch.full((1,), -1, dtype=torch.int64, device=dev),
-        jb_arr=torch.zeros((ncells, 1), dtype=dtype, device=dev))
+        jb_line=(jb_line.long() if jb_line is not None
+                 else torch.full((1,), -1, dtype=torch.int64, device=dev)),
+        jb_arr=(jb_arr.to(dtype) if jb_arr is not None
+                else torch.zeros((ncells, 1), dtype=dtype, device=dev)))

@@ -47,9 +47,10 @@ from . import rpkt_kernel
 @dataclasses.dataclass(frozen=True)
 class StepContext:
     """Per-timestep data prepared by the driver before transport. Fields of
-    modes that are not ported (XCOM, vpkt, non-thermal solver, detailed line
-    estimators) hold (1,)-sized placeholders, and so do the expansion-opacity
-    tables when that mode is off."""
+    modes that are not ported (XCOM, vpkt, non-thermal solver) hold
+    (1,)-sized placeholders, and so do the expansion-opacity tables when
+    that mode is off and ``jblue_of_line`` (line -> J_b_lu column, -1 none)
+    without the detailed line estimators."""
 
     levelpops: torch.Tensor
     nnion: torch.Tensor
@@ -93,27 +94,24 @@ class StepContext:
 def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     """Raise NotImplementedError naming the first option off the ported
     slice: transport on a SPHERICAL1D, CYLINDRICAL2D or CARTESIAN3D grid
-    without NLTE populations or the non-thermal solver (the kilonova_lte
-    and classic presets), optionally with detailed bf-rate estimators,
-    binned expansion opacities, dipole / polarised electron scattering
-    (``dipole``, ``pol_on``) and rate-balance ionisation
+    without the non-thermal solver (the kilonova_lte, classic and, with
+    ``nt_on`` and ``nt_solve_spencerfano`` off, nltenebular presets),
+    optionally with NLTE populations, the multibin radiation field, the
+    detailed bf-rate and J_b_lu line estimators, LUT-off photoionisation
+    and bf heating, binned expansion opacities, dipole / polarised electron
+    scattering (``dipole``, ``pol_on``) and rate-balance ionisation
     (``force_saha_ion_balance=False``); particles thermalise by the INSTANT,
     DETAILED, BARNES or WOLLAEGER scheme, gammas by detailed transport or
     the BARNES, WOLLAEGER or GUTTMAN scheme."""
     off = [
         ("grid_type", opts.grid_type not in (GridType.SPHERICAL1D, GridType.CYLINDRICAL2D,
                                              GridType.CARTESIAN3D)),
-        ("nlte_enabled", opts.nlte_enabled), ("nt_on", opts.nt_on),
-        ("nt_solve_spencerfano", opts.nt_solve_spencerfano),
+        ("nt_on", opts.nt_on), ("nt_solve_spencerfano", opts.nt_solve_spencerfano),
         ("vpkt_on", opts.vpkt_on),
-        ("multibin_radfield", opts.multibin_radfield),
-        ("detailed_line_estimators_on", opts.detailed_line_estimators_on),
         ("use_xcom_gammaphotoion", opts.use_xcom_gammaphotoion),
         ("record_linestat", opts.record_linestat),
         ("track_ion_stats", opts.track_ion_stats),
         ("log_macroatom", opts.log_macroatom),
-        ("use_lut_photoion=False", not opts.use_lut_photoion),
-        ("use_lut_bfheating=False", not opts.use_lut_bfheating),
         # the JAX package has no GUTTMAN particle scheme either
         ("particle_thermalisation_scheme=GUTTMAN",
          opts.particle_thermalisation_scheme == ThermalisationScheme.GUTTMAN),
@@ -128,6 +126,18 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
 def want_bfrate(opts: Options, dad: DeviceAtomicData) -> bool:
     """Whether the crossing accumulates the detailed bf-rate estimators."""
     return bool(opts.detailed_bf_estimators_on and dad.nbfcontinua > 0)
+
+
+def crossing_estimators(opts: Options, est: Estimators) -> dict:
+    """The estimator keywords of ``rpkt_kernel.propagate`` for a run: the
+    multibin bins (K5-multibin), the J_b_lu columns (K5-jblue; not in
+    expansion-opacity mode, which has no line walk) and the LUT gamma /
+    bf-heating estimators, off under LUT-off photoionisation / bf heating
+    (the JAX package's want_gamma / want_bfheat)."""
+    return dict(nradbins=opts.radfieldbincount if opts.multibin_radfield else 0,
+                njblue=(est.jblue_raw.shape[1] if opts.detailed_line_estimators_on
+                        and not opts.expansionopacities_on else 0),
+                want_gamma=opts.use_lut_photoion, want_bfheat=opts.use_lut_bfheating)
 
 
 def check_crossing_dtype(opts: Options) -> None:
@@ -784,7 +794,8 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
         phixs_dnu=float(dad.nphixsnuincrement),
         last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
         want_bfrate=want_bfrate(opts, dad), expansion=opts.expansionopacities_on,
-        defer_scatter=defer, **rpkt_kernel.kernel_geometry(grid))
+        defer_scatter=defer, **crossing_estimators(opts, est),
+        **rpkt_kernel.kernel_geometry(grid))
 
     def put(full, part):
         r = full.clone()
@@ -829,13 +840,23 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
         j=est.j + est_k[:, 0].to(est.j.dtype), nuj=est.nuj + est_k[:, 1].to(est.j.dtype),
         ffheating=est.ffheating + est_k[:, 2].to(est.j.dtype),
         nesc=est.nesc + misc[1].to(est.nesc.dtype),
-        cmf_lum=est.cmf_lum + misc[2].to(est.cmf_lum.dtype), counters=cnt,
-        gammaestimator=est.gammaestimator
-        + out["gamma"][:, :ngc_real].to(est.gammaestimator.dtype),
-        bfheatingestimator=est.bfheatingestimator
-        + out["bfheat"][:, :ngc_real].to(est.bfheatingestimator.dtype))
+        cmf_lum=est.cmf_lum + misc[2].to(est.cmf_lum.dtype), counters=cnt)
+    if opts.use_lut_photoion:
+        est = est.replace(gammaestimator=est.gammaestimator
+                          + out["gamma"][:, :ngc_real].to(est.gammaestimator.dtype))
+    if opts.use_lut_bfheating:
+        est = est.replace(bfheatingestimator=est.bfheatingestimator
+                          + out["bfheat"][:, :ngc_real].to(est.bfheatingestimator.dtype))
     if want_bfrate(opts, dad):
         est = est.replace(bfrate=est.bfrate + out["bfrate"].to(est.bfrate.dtype))
+    if out["radbin"].shape[2]:
+        rb = out["radbin"].to(est.radfieldbin_j.dtype)
+        est = est.replace(radfieldbin_j=est.radfieldbin_j + rb[:, 0],
+                          radfieldbin_nuj=est.radfieldbin_nuj + rb[:, 1],
+                          radfieldbin_count=est.radfieldbin_count + rb[:, 2])
+    if out["jblue"].shape[2]:
+        jb = out["jblue"].to(est.jblue_raw.dtype)
+        est = est.replace(jblue_raw=est.jblue_raw + jb[:, 0], jblue_count=est.jblue_count + jb[:, 1])
     nadv = int(misc[0].item())
     if not bool(touched.any()):
         return (st, est) + none + (nadv,)

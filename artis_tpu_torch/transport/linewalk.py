@@ -54,7 +54,7 @@ def initial_cursor(line_nu, nu, next_trans, nlines: int):
 
 def get_event_batch(line_nu, tau_rows, nlines: int, nu, tstart, next_trans, chi_cont,
                     tau_next, abort_dist, nu_cmf_abort, dnudl, need, relativistic: bool,
-                    big: float, chunk: int = 128) -> EventResult:
+                    big: float, chunk: int = 128, jblue=None) -> EventResult:
     """Walk each packet's line window until its first terminal event.
 
     line_nu: (L,) descending; tau_rows: callable(lines (B, K)) -> (B, K)
@@ -63,6 +63,15 @@ def get_event_batch(line_nu, tau_rows, nlines: int, nu, tstart, next_trans, chi_
     depth reached between lines), an abort (frequency passes the abort
     point), a bound-bound event (the line's own tau reaches the target), or
     the end of the list.
+
+    ``jblue`` = (jblue_of_line (L,) int, e_over_nu (B,), cell (B,), acc
+    (ncells, 2, njblue)) turns on the detailed J_b_lu estimators (reference:
+    rpkt.cc:151-167, radfield.cc:761-771): every line a packet sweeps before
+    its terminal line, and the activating line of a bound-bound event, adds
+    (tstart + D / c) * e_over_nu to acc[cell, 0, column] and 1 to
+    acc[cell, 1, column] when its column (jblue_of_line) is below njblue.
+    ``e_over_nu`` is c e_cmf / nu_cmf at the walk's start, invariant along
+    the free flight. acc is added to in place.
     """
     dtype = nu.dtype
     dev = nu.device
@@ -131,6 +140,19 @@ def get_event_batch(line_nu, tau_rows, nlines: int, nu, tstart, next_trans, chi_
         ntr = torch.where(newly & j_noevent, lineindex_j, ntr)
         isbb = isbb | (newly & j_bb)
         act = torch.where(newly & j_bb, lineindex_j, act)
+        if jblue is not None:
+            jb_of_line, e_over_nu, cell, acc = jblue
+            kk = karange[None, :]
+            passed = validk & (~any_term[:, None] | (kk < jsel) | ((kk == jsel) & j_bb[:, None]))
+            col = jb_of_line[lsafe].long()
+            njb = acc.shape[2]
+            passed = passed & (col >= 0) & (col < njb)
+            t_line = tstart[:, None] + relD / CLIGHT_PROP
+            inc = t_line * e_over_nu[:, None]
+            flat = (cell[:, None] * (2 * njb) + col)[passed]
+            accf = acc.view(-1)
+            accf.index_add_(0, flat, inc[passed].to(acc.dtype))
+            accf.index_add_(0, flat + njb, torch.ones_like(flat, dtype=acc.dtype))
         not_term = ~any_term & ~done
         tau_cum = torch.where(not_term, tau_cum + tau_line.sum(dim=1), tau_cum)
         lastD = torch.where(not_term, torch.maximum(lastD, relD.max(dim=1).values), lastD)

@@ -189,7 +189,8 @@ def do_macroatom_batch(key, dad: DeviceAtomicData, aux: MacroAtomAux, rc: RateCo
             rows = cellidx[:, None]
             ltr = torch.where(idxv >= off_tot, idxv - off_tot, idxv)
             v_rad_k, v_tot_k, _ = trans_values_at(
-                dad, levelpops, cellidx, torch.clamp(ltr, 0, T - 1), t_e, nne, t_r, w, t_mid)
+                dad, levelpops, cellidx, torch.clamp(ltr, 0, T - 1), t_e, nne, t_r, w, t_mid,
+                rates.jb_line, rates.jb_arr)
             v = torch.where(idxv >= off_tot, v_tot_k, v_rad_k)
             v = torch.where(idxv >= off_crad,
                             cont_rad_u[rows, torch.clamp(idxv - off_crad, 0, C - 1)], v)

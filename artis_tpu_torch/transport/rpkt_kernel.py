@@ -8,17 +8,21 @@ with phixs interpolation and log departure), continuum selection, the
 Sobolev line walk from each packet's cursor (or, in expansion-opacity mode,
 the walk over wavelength bins of binned line opacity), in-kernel isotropic
 electron / thick-grey scattering (or, in the deferred mode, every event
-handed to the event pass), two half-moves with midpoint J, nuJ, ffheating, LUT
-photoionisation / bf-heating and (optionally) detailed per-continuum
-bf-rate estimators, a Kahan-summed time and the boundary overshoot guard
-(reference: rpkt.cc:604-737 do_rpkt_step without the event application).
+handed to the event pass), two half-moves with midpoint J, nuJ, ffheating,
+LUT photoionisation / bf-heating and, optionally, detailed per-continuum
+bf-rate estimators and the multibin J / nuJ / count per (cell,
+radiation-field bin), the detailed J_b_lu sums over the lines each walk
+sweeps (optional too), a Kahan-summed time and the boundary overshoot guard
+(reference: rpkt.cc:604-737 do_rpkt_step without the event application;
+radfield.cc:731-771).
 
 It replaces the Pallas kernel ``propagate_blocked``
 (artis_tpu/transport/pallas_rpkt.py:1837, body ``_kernel`` :314-1822) in its
 resident-table configurations: 1D spherical (:863-942), ``cart3d``
 (:588-631, :712-750), ``cyl2d`` (:751-862), ``want_bfrate`` (:1515-1532),
-``expansion_mode`` (:1136-1200) and ``inkernel_scatter=False`` (:1416-1435,
-the deferred events of dipole scattering). The cylindrical distance
+``expansion_mode`` (:1136-1200), ``inkernel_scatter=False`` (:1416-1435,
+the deferred events of dipole scattering), ``multibin`` (:1491-1514) and
+``want_jblue`` (:1254-1265, :1346-1363, :1392). The cylindrical distance
 scales the rcyl bounds to the step's start time as the XLA path does
 (artis_tpu/grid.py:372-390); the Pallas branch passes them at tmin. For CUDA
 tensors it launches ``csrc/rpkt_crossing.cu`` (built by ``build()``); for
@@ -48,6 +52,7 @@ import torch
 from .. import rng
 from ..constants import CLIGHT, CLIGHTSQUARED, CLIGHT_PROP, SIGMA_T
 from ..grid import BOUNDARY_ESCAPE, cell_boundary
+from ..plasma.radfield import NU_LOWER_FIRST, NU_UPPER_LAST, NU_UPPER_SUPERBIN
 from .expansionopacity import NBINS, bin_walk
 
 F32 = torch.float32
@@ -66,7 +71,7 @@ OUT_I32 = ("where", "next_trans", "evented", "escaped", "thick", "is_bb",
 TABLES_F32 = ("cellmin", "cellmax", "nne", "Te", "kappagrey", "rho",
               "chiffpart", "line_nu", "tau_factor", "cont_nu_edge", "bf_a",
               "bf_dep", "cont_phixs", "cont_prob", "gc_nu_edge", "expo_kappa")
-TABLES_I32 = ("mgi_of_cell", "thick", "cont_gidx")
+TABLES_I32 = ("mgi_of_cell", "thick", "cont_gidx", "jblue_of_line")
 # misc (float64): crossing steps, escapes, escaped cmf energy, in-kernel
 # electron scatters, thick-cell scatters, boundary crossings, lines read by
 # the walk (cursor advance; in expansion mode, wavelength bins read) and bf
@@ -77,6 +82,27 @@ NMISC = 8
 # once per geometry
 GEOM_SPH, GEOM_CYL, GEOM_CART = 1, 2, 3
 GEOM_NDIM = {GEOM_SPH: 1, GEOM_CYL: 2, GEOM_CART: 3}
+
+
+def radbin_edges(nradbins: int):
+    """The multibin layout as the kernel computes with it, in float32:
+    (first lower edge, NU_UPPER_LAST, superbin upper edge, bin width), each
+    rounded from the float64 constant (pallas_rpkt.py:1497-1503)."""
+    return tuple(float(np.float32(v)) for v in (
+        NU_LOWER_FIRST, NU_UPPER_LAST, NU_UPPER_SUPERBIN,
+        (NU_UPPER_LAST - NU_LOWER_FIRST) / max(nradbins - 1, 1)))
+
+
+def radbin_index(nu, nradbins: int):
+    """(bin, inside) of float32 frequencies with the kernel's float32
+    expression: floor((nu - lower) / width), nu >= NU_UPPER_LAST in the
+    last bin (the superbin), clipped; inside [lower, superbin upper)."""
+    lo, last, sup, delta = (torch.tensor(v, dtype=F32, device=nu.device)
+                            for v in radbin_edges(nradbins))
+    b = torch.floor((nu - lo) / delta)
+    b = torch.where(nu >= last, torch.full_like(b, nradbins - 1), b)
+    b = torch.clamp(b, 0.0, float(nradbins - 1)).long()
+    return b, (nu >= lo) & (nu < sup)
 
 
 # ---------------------------------------------------------------------------
@@ -146,7 +172,9 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
                         last_nuovernuedge: float, test_mode: bool,
                         geom: int = GEOM_SPH, ncoord=None, want_bfrate: bool = False,
                         expansion: bool = False, defer_scatter: bool = False,
-                        line_chunk: int = 128, walk_log: list | None = None) -> dict:
+                        nradbins: int = 0, njblue: int = 0, want_gamma: bool = True,
+                        want_bfheat: bool = True, line_chunk: int = 128,
+                        walk_log: list | None = None) -> dict:
     """The crossing kernel as a per-crossing loop over (N,) float32 tensors.
     Same signature and outputs as ``propagate``. ``walk_log``, where given,
     gets one (model cell, first entry, end entry) triple of tensors per
@@ -177,9 +205,12 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
     inkscat = zb.clone()
     ncont = tables["cont_nu_edge"].shape[0]
     est = torch.zeros((ncells, 4), dtype=F32, device=dev)
-    gam = torch.zeros((ncells, ngc), dtype=F32, device=dev)
-    bfh = torch.zeros((ncells, ngc), dtype=F32, device=dev)
+    gam = torch.zeros((ncells, ngc if want_gamma else 0), dtype=F32, device=dev)
+    bfh = torch.zeros((ncells, ngc if want_bfheat else 0), dtype=F32, device=dev)
     bfr = torch.zeros((ncells, ncont if want_bfrate else 0), dtype=F32, device=dev)
+    rb = torch.zeros((ncells, 3, nradbins), dtype=F32, device=dev)
+    jb = torch.zeros((ncells, 2, 0 if expansion else njblue), dtype=F32, device=dev)
+    jb_of_line = tables["jblue_of_line"]
     misc = torch.zeros(NMISC, dtype=torch.float64, device=dev)
 
     mgi_of_cell = tables["mgi_of_cell"].long()
@@ -270,10 +301,16 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
                 torch.clamp(chi_cont, min=1e-30), tau_next, abort_dist, dnudl, need_chi,
                 test_sel if test_mode else v[1], relativistic)
         else:
+            jblue = None
+            if jb.shape[2]:
+                # c e_cmf / nu_cmf, invariant along the free flight
+                # (pallas_rpkt.py:1255-1262)
+                e_over_nu = torch.where(need_chi, CLIGHT * ecmf / torch.clamp(nu, min=1.0), zf)
+                jblue = (jb_of_line, e_over_nu, safe_mgi, jb)
             ev = get_event_batch(
                 line_nu, lambda l: tau_factor[safe_mgi[:, None], l], nlines, nu, tstart, ntr,
                 chi_cont, tau_next, abort_dist, nu_cmf_abort, dnudl, need_chi, relativistic,
-                BIG, chunk=line_chunk)
+                BIG, chunk=line_chunk, jblue=jblue)
             # line-list cursor advance of the walk (the lines it read)
             first = initial_cursor(line_nu, nu, ntr, nlines)
             walked = torch.clamp(torch.clamp(ev.next_trans, max=nlines) - first, min=0)
@@ -326,8 +363,21 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         de = torch.where(seg_ok[:, None], contrib[:, None] * gamma_contr,
                          torch.zeros_like(gamma_contr))
         nuc1 = torch.clamp(nucmf1, min=1e-30)[:, None]
-        gam.index_add_(0, safe_mgi, de / nuc1)
-        bfh.index_add_(0, safe_mgi, de * torch.clamp(1.0 - gc_nu_edge[None, :] / nuc1, min=0.0))
+        if want_gamma:
+            gam.index_add_(0, safe_mgi, de / nuc1)
+        if want_bfheat:
+            bfh.index_add_(0, safe_mgi, de * torch.clamp(1.0 - gc_nu_edge[None, :] / nuc1,
+                                                         min=0.0))
+        if nradbins:
+            # J, nuJ and a count per (cell, bin) at the segment midpoint, thick
+            # cells included (pallas_rpkt.py:1491-1514)
+            b, inside = radbin_index(nucmf1, nradbins)
+            sel = seg & inside
+            flat = (safe_mgi * (3 * nradbins) + b)[sel]
+            rbf = rb.view(-1)
+            rbf.index_add_(0, flat, contrib[sel])
+            rbf.index_add_(0, flat + nradbins, (contrib * nucmf1)[sel])
+            rbf.index_add_(0, flat + 2 * nradbins, torch.ones_like(contrib[sel]))
         if want_bfrate and ncont > 0:
             # detailed photoionisation-rate estimators per (cell, continuum)
             # (radfield.cc:204-233): sigma * corr * probability at the
@@ -412,6 +462,8 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
     out["gamma"] = gam
     out["bfheat"] = bfh
     out["bfrate"] = bfr
+    out["radbin"] = rb
+    out["jblue"] = jb
     out["misc"] = misc
     return out
 
@@ -475,10 +527,13 @@ class _Params(ctypes.Structure):
         ("geom", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
         ("nz", ctypes.c_int), ("want_bfrate", ctypes.c_int), ("shared_rows", ctypes.c_int),
         ("expansion", ctypes.c_int), ("nbins", ctypes.c_int),
-        ("defer_scatter", ctypes.c_int), ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
+        ("defer_scatter", ctypes.c_int), ("nradbins", ctypes.c_int), ("njblue", ctypes.c_int),
+        ("want_gamma", ctypes.c_int), ("want_bfheat", ctypes.c_int), ("nrow", ctypes.c_int),
+        ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
         ("t2", ctypes.c_float), ("tmin", ctypes.c_float),
         ("max_path_step", ctypes.c_float), ("phixs_dnu", ctypes.c_float),
-        ("last_nuovernuedge", ctypes.c_float), ("pad0", ctypes.c_float),
+        ("last_nuovernuedge", ctypes.c_float), ("rb_lo", ctypes.c_float),
+        ("rb_last", ctypes.c_float), ("rb_super", ctypes.c_float), ("rb_delta", ctypes.c_float),
     ]
 
 
@@ -499,23 +554,35 @@ SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
 SHARED_ROWS_MAX = 25 * 1024
 
 
-def row_bytes(ncells: int, ngc: int, nbfr: int) -> int:
-    """Shared memory of one block's estimator rows (J, nuJ, ffheating,
-    crossings, gamma and bf-heat per ground continuum, bf-rate per continuum)
-    plus the eight double counters."""
-    return 8 * NMISC + 4 * ncells * (4 + 2 * ngc + nbfr)
+def row_floats(ngc: int, nbfr: int, nradbins: int = 0, njblue: int = 0,
+               want_gamma: bool = True, want_bfheat: bool = True) -> int:
+    """Estimator floats per cell, in the kernel's order: J, nuJ, ffheating,
+    crossings; gamma and bf-heat per ground continuum where on; bf-rate per
+    continuum; J, nuJ and count per radiation-field bin; J_b_lu sum and
+    count per selected line. The launch passes it to the kernel (``nrow``),
+    which sizes its shared rows by it."""
+    return (4 + ngc * (int(want_gamma) + int(want_bfheat)) + nbfr + 3 * nradbins
+            + 2 * njblue)
 
 
-def pick_shared_rows(ncells: int, ngc: int, nbfr: int) -> bool:
+def row_bytes(ncells: int, ngc: int, nbfr: int, **kw) -> int:
+    """Shared memory of one block's estimator rows plus the eight double
+    counters; ``kw`` as ``row_floats``."""
+    return 8 * NMISC + 4 * ncells * row_floats(ngc, nbfr, **kw)
+
+
+def pick_shared_rows(ncells: int, ngc: int, nbfr: int, **kw) -> bool:
     """Whether a launch keeps its estimator rows in shared memory (few
-    cells) rather than adding straight into the global rows (many cells)."""
-    return row_bytes(ncells, ngc, nbfr) <= SHARED_ROWS_MAX
+    cells) rather than adding straight into the global rows (many cells);
+    ``kw`` as ``row_floats``."""
+    return row_bytes(ncells, ngc, nbfr, **kw) <= SHARED_ROWS_MAX
 
 
 def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *, nlines,
             ncells, ngc, nphixs, max_inner, relativistic, phixs_dnu, last_nuovernuedge,
             test_mode, geom=GEOM_SPH, ncoord=None, want_bfrate=False, expansion=False,
-            defer_scatter=False, shared_rows=None):
+            defer_scatter=False, nradbins=0, njblue=0, want_gamma=True, want_bfheat=True,
+            shared_rows=None):
     lib = build()
     dev = lanes["posx"].device
     n = lanes["posx"].shape[0]
@@ -535,6 +602,11 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
         raise ValueError("tau_factor must be (ncells, nlines)")
     if expansion and tables["expo_kappa"].shape != (ncells, NBINS):
         raise ValueError(f"expo_kappa must be (ncells, {NBINS}) in expansion mode")
+    njblue = 0 if expansion else njblue  # no line walk in expansion mode
+    if njblue and tables["jblue_of_line"].shape != (nlines,):
+        raise ValueError("jblue_of_line must be (nlines,) with the J_b_lu estimators on")
+    if nradbins == 1:
+        raise ValueError("the multibin model needs at least 2 bins")
     if geom not in GEOM_NDIM:
         raise ValueError(f"geometry {geom} is not one the kernel takes")
     ndim = GEOM_NDIM[geom]
@@ -547,34 +619,43 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     if geom == GEOM_CART and not nx == ny == nz:
         raise ValueError(f"the 3D geometry needs a cubic grid, got {ncoord}")
     nbfr = ncont if want_bfrate else 0
+    rows_kw = dict(nradbins=nradbins, njblue=njblue, want_gamma=want_gamma,
+                   want_bfheat=want_bfheat)
     # estimator rows in shared memory (pick_shared_rows), else atomics
     # straight into the global rows; a caller may force either mode to
     # measure it
     if shared_rows is None:
-        shared_rows = pick_shared_rows(ncells, ngc, nbfr)
-    elif shared_rows and row_bytes(ncells, ngc, nbfr) > SMEM_LIMIT:
-        raise ValueError(f"estimator rows need {row_bytes(ncells, ngc, nbfr)} bytes of "
-                         "shared memory (> 227 KB)")
+        shared_rows = pick_shared_rows(ncells, ngc, nbfr, **rows_kw)
+    elif shared_rows and row_bytes(ncells, ngc, nbfr, **rows_kw) > SMEM_LIMIT:
+        raise ValueError(f"estimator rows need {row_bytes(ncells, ngc, nbfr, **rows_kw)} "
+                         "bytes of shared memory (> 227 KB)")
     out = {k: torch.empty(n, dtype=F32, device=dev) for k in OUT_F32}
     out.update({k: torch.empty(n, dtype=I32, device=dev) for k in OUT_I32})
     out["est"] = torch.zeros((ncells, 4), dtype=F32, device=dev)
-    out["gamma"] = torch.zeros((ncells, ngc), dtype=F32, device=dev)
-    out["bfheat"] = torch.zeros((ncells, ngc), dtype=F32, device=dev)
+    out["gamma"] = torch.zeros((ncells, ngc if want_gamma else 0), dtype=F32, device=dev)
+    out["bfheat"] = torch.zeros((ncells, ngc if want_bfheat else 0), dtype=F32, device=dev)
     out["bfrate"] = torch.zeros((ncells, nbfr), dtype=F32, device=dev)
+    out["radbin"] = torch.zeros((ncells, 3, nradbins), dtype=F32, device=dev)
+    out["jblue"] = torch.zeros((ncells, 2, njblue), dtype=F32, device=dev)
     out["misc"] = torch.zeros(NMISC, dtype=torch.float64, device=dev)
+    rb_lo, rb_last, rb_super, rb_delta = radbin_edges(max(nradbins, 2))
     prm = _Params(n=n, ncells=ncells, nprop=nprop, nlines=nlines,
                   ncont=ncont, ngc=ngc, nphixs=nphixs, max_inner=max_inner,
                   relativistic=int(relativistic), test_mode=int(test_mode), geom=geom,
                   nx=nx, ny=ny, nz=nz, want_bfrate=int(nbfr > 0), shared_rows=int(shared_rows),
                   expansion=int(expansion), nbins=NBINS,
-                  defer_scatter=int(defer_scatter), seed_lo=seed & 0xFFFFFFFF,
-                  seed_hi=(seed >> 32) & 0xFFFFFFFF,
+                  defer_scatter=int(defer_scatter), nradbins=nradbins, njblue=njblue,
+                  want_gamma=int(want_gamma), want_bfheat=int(want_bfheat),
+                  nrow=row_floats(ngc, nbfr, **rows_kw),
+                  seed_lo=seed & 0xFFFFFFFF, seed_hi=(seed >> 32) & 0xFFFFFFFF,
                   t2=t2, tmin=tmin, max_path_step=max_path_step, phixs_dnu=phixs_dnu,
-                  last_nuovernuedge=last_nuovernuedge, pad0=0.0)
+                  last_nuovernuedge=last_nuovernuedge, rb_lo=rb_lo, rb_last=rb_last,
+                  rb_super=rb_super, rb_delta=rb_delta)
     in_lanes = dict(lanes, test_tau=test_tau, test_sel=test_sel)
     lane_ptrs = _ptrs(LANE_F32 + LANE_I32 + ("test_tau", "test_sel"), in_lanes)
     table_ptrs = _ptrs(TABLES_F32 + TABLES_I32, tables)
-    out_ptrs = _ptrs(OUT_F32 + OUT_I32 + ("est", "gamma", "bfheat", "bfrate", "misc"), out)
+    out_ptrs = _ptrs(OUT_F32 + OUT_I32 + ("est", "gamma", "bfheat", "bfrate", "radbin", "jblue",
+                                          "misc"), out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if n > 0:
         err = lib.rpkt_crossing_launch(ctypes.byref(prm), lane_ptrs, table_ptrs, out_ptrs,
@@ -588,6 +669,10 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
             propagate.launches[CONFIG_EXPANSION] += 1
         if defer_scatter:
             propagate.launches[CONFIG_DEFERRED] += 1
+        if nradbins:
+            propagate.launches[CONFIG_MULTIBIN] += 1
+        if njblue:
+            propagate.launches[CONFIG_JBLUE] += 1
     return out
 
 
@@ -609,11 +694,16 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
     default, as many as ``mgi_of_cell`` has cells); ``want_bfrate``
     turns on the detailed bf-rate estimators; ``defer_scatter`` (K6, the
     dipole mode) hands electron and thick-cell grey scattering events to
-    the event pass instead of redirecting them in the kernel.
+    the event pass instead of redirecting them in the kernel; ``nradbins``
+    > 0 turns on the multibin estimators, ``njblue`` > 0 the J_b_lu
+    estimators of the lines whose ``jblue_of_line`` column is below it;
+    ``want_gamma`` / ``want_bfheat`` off skip the LUT estimators.
     Returns OUT_F32/OUT_I32 lane tensors plus est (ncells, 4: J, nuJ,
     ffheating, boundary crossings out of the cell), gamma and bfheat
-    (ncells, ngc), bfrate (ncells, ncont, or ncells x 0 when off) and misc
-    (MISC). ``expansion`` walks the (ncells, NBINS) ``expo_kappa`` table's
+    (ncells, ngc, or ncells x 0 when off), bfrate (ncells, ncont, or
+    ncells x 0 when off), radbin (ncells, 3, nradbins: J, nuJ, count),
+    jblue (ncells, 2, njblue: raw sum, count) and misc (MISC). ``expansion``
+    walks the (ncells, NBINS) ``expo_kappa`` table's
     wavelength bins in place of the line list. CUDA tensors launch the
     kernel; CPU tensors run the plain version."""
     if lanes["posx"].is_cuda:
@@ -631,8 +721,11 @@ CONFIG_OF_GEOM = {GEOM_SPH: "rpkt_crossing_sph1d", GEOM_CYL: "rpkt_crossing_cyl2
 CONFIG_BFRATE = "rpkt_crossing_bfrate"
 CONFIG_EXPANSION = "rpkt_crossing_expansion"
 CONFIG_DEFERRED = "rpkt_crossing_deferred"
+CONFIG_MULTIBIN = "rpkt_crossing_multibin"
+CONFIG_JBLUE = "rpkt_crossing_jblue"
 propagate.launches = dict.fromkeys((*CONFIG_OF_GEOM.values(), CONFIG_BFRATE,
-                                    CONFIG_EXPANSION, CONFIG_DEFERRED), 0)
+                                    CONFIG_EXPANSION, CONFIG_DEFERRED, CONFIG_MULTIBIN,
+                                    CONFIG_JBLUE), 0)
 
 
 def reset_launches() -> None:
@@ -659,21 +752,32 @@ FIELD_AGREE = 0.999  # every other integer output, and floats within FIELD_RTOL
 FIELD_RTOL = 1e-4  # float32 rounding differences are ~1e-6 relative
 STATE_RTOL = 2e-3  # max over lanes: prop_time, nu_cmf, e_cmf, position
 # per-cell estimator rows: float32 atomics add in an order that changes from
-# run to run; J / nuJ / ffheating / crossings to 5e-3, LUT gamma and
-# bf-heating to 1e-2 (the JAX package's sum tolerances), each cell plus a
-# 1e-6 share of its column's total for cells that hold almost nothing
+# run to run; J / nuJ / ffheating / crossings and the multibin and J_b_lu
+# sums to 5e-3, LUT gamma and bf-heating to 1e-2 (the JAX package's sum
+# tolerances), each cell plus a 1e-6 share of its column's total for cells
+# that hold almost nothing.
 EST_RTOL = {"j": 5e-3, "nuj": 5e-3, "ffheating": 5e-3, "ncross": 5e-3, "gamma": 1e-2,
-            "bfheat": 1e-2, "bfrate": 1e-2}
+            "bfheat": 1e-2, "bfrate": 1e-2, "radbin": 5e-3, "jblue": 5e-3}
+# The multibin and J_b_lu rows count whole events, and their counts are held
+# exactly, except for what a float32 near-tie moves in a lane whose outcome
+# agrees (the kernel's expf / logf against torch's move a distance by an
+# ulp): a segment midpoint within rounding of a bin edge lands its J, nuJ and
+# count in the neighbouring bin (a bin flip), and a line within rounding of
+# a crossing's abort frequency is passed in the crossing before or after
+# the boundary, so its J_b_lu pass lands in the neighbouring cell (a moved
+# pass). At most DIVERGED_MIN of each per comparison; the entries they touch
+# are held through their sums (over bins per cell, over cells per line).
 VECTORS = {"pos": ("posx", "posy", "posz"), "dir": ("dirx", "diry", "dirz"),
            "em": ("em_x", "em_y", "em_z")}
 
 
-def compare_outputs(k: dict, p: dict, est_k: dict | None = None,
-                    est_p: dict | None = None) -> tuple[bool, dict]:
+def compare_outputs(k: dict, p: dict, est: tuple | None = None,
+                    rows: tuple | None = None) -> tuple[bool, dict]:
     """Hold the kernel's outputs ``k`` to the plain version's ``p`` (same
     inputs, same draws): every lane output, every estimator cell and every
-    counter. The estimators are taken from ``est_k`` / ``est_p`` when given
-    (see ``check_kernel``). Returns (ok, report); ``report["nonzero"]`` says
+    counter. The estimators are taken from the (kernel, plain) outputs
+    ``est`` when given, the multibin and J_b_lu rows from ``rows`` (else
+    from ``est``; see ``check_kernel``). Returns (ok, report); ``report["nonzero"]`` says
     which plain estimator columns accumulated anything, so a caller can
     require each to be exercised by at least one case."""
     gk = {f: v.detach().cpu().numpy() for f, v in k.items()}
@@ -717,11 +821,13 @@ def compare_outputs(k: dict, p: dict, est_k: dict | None = None,
                 "ncross": g["est"][:, 3], "gamma": g["gamma"], "bfheat": g["bfheat"],
                 "bfrate": g["bfrate"]}
 
-    if est_k is not None:
-        cols = columns({f: v.detach().cpu().numpy() for f, v in est_p.items()})
-        colk = columns({f: v.detach().cpu().numpy() for f, v in est_k.items()})
-    else:
-        cols, colk = columns(gp), columns(gk)
+    def host(pair):
+        if pair is None:
+            return gp, gk
+        return tuple({f: v.detach().cpu().numpy() for f, v in d.items()} for d in pair[::-1])
+
+    ge_p, ge_k = host(est)
+    cols, colk = columns(ge_p), columns(ge_k)
     rep["nonzero"] = {}
     for name, a in cols.items():
         a = a.astype(np.float64)
@@ -734,6 +840,17 @@ def compare_outputs(k: dict, p: dict, est_k: dict | None = None,
                                      if a.size else 0.0)
         rep["nonzero"][name] = bool(total.sum() > 0)
         ok &= bool(np.all(excess <= 0))
+    gr_p, gr_k = host(est if rows is None else rows)
+    for name, fn in (("radbin", _compare_radbins), ("jblue", _compare_jblue)):
+        a = gr_p[name].astype(np.float64)
+        b = gr_k[name].astype(np.float64)
+        if a.shape != b.shape:
+            raise ValueError(f"{name}: kernel {b.shape} against plain {a.shape}")
+        rep["nonzero"][name] = bool(np.abs(a).sum() > 0)
+        if a.size:
+            ok_c, rep_c = fn(a, b)
+            rep.update(rep_c)
+            ok &= ok_c
     # counters within 2% + 3 packets (the JAX package's crossing-count
     # tolerance); the escaped energy within 2% + 3 packets' energy
     e_pkt = float(np.max(np.abs(gp["e_cmf"]))) if gp["e_cmf"].size else 0.0
@@ -742,6 +859,57 @@ def compare_outputs(k: dict, p: dict, est_k: dict | None = None,
         rep[f"{name}_plain"], rep[f"{name}_kernel"] = a, b
         ok &= abs(b - a) <= 0.02 * abs(a) + 3 * (e_pkt if name == "cmf_lum" else 1.0)
     return bool(ok), rep
+
+
+def _held_close(a, b, clean, axis, rtol):
+    """Sums ``a`` (plain) and ``b`` (kernel) of one estimator: every entry
+    where ``clean`` to ``rtol`` plus a 1e-6 share of its column's total,
+    and the sums over ``axis`` to ``rtol`` plus a 1e-6 share of their
+    total. Returns (ok, the largest relative difference of a clean entry)."""
+    ta, tb = a.sum(axis=axis), b.sum(axis=axis)
+    ok = bool(np.all(np.abs(tb - ta) <= rtol * np.abs(ta) + 1e-6 * np.abs(ta).sum()))
+    excess = np.abs(b - a) - rtol * np.abs(a) - 1e-6 * np.abs(a).sum(axis=0)[None, :]
+    ok &= bool(np.all(excess[clean] <= 0))
+    with np.errstate(over="ignore"):
+        rel = np.abs(b - a) / np.maximum(np.abs(a), 1e-300)
+    return ok, float(rel[clean].max()) if clean.any() else 0.0
+
+
+def _compare_radbins(a, b):
+    """The multibin rows (ncells, 3, nbins: J, nuJ, count) of the kernel
+    ``b`` against the plain version's ``a`` (see EST_RTOL): the running sum
+    over bins of a cell's count difference is nonzero exactly at its bin
+    flips; at most DIVERGED_MIN of them (with multiplicity), every cell's
+    count over bins exact, every (cell, bin) entry that no flip touches
+    exact in its count and within the rtol in J and nuJ, and every cell's J
+    and nuJ over bins within the rtol."""
+    rep = {}
+    cum = np.cumsum(b[:, 2] - a[:, 2], axis=1)  # (ncells, nbins)
+    rep["radbin_flips"] = int(np.abs(cum[:, :-1]).sum())
+    ok = rep["radbin_flips"] <= DIVERGED_MIN and bool(np.all(cum[:, -1] == 0))
+    prev = np.concatenate([np.zeros_like(cum[:, :1]), cum[:, :-1]], axis=1)
+    clean = (cum == 0) & (prev == 0)
+    for k, name in ((0, "radbin_j"), (1, "radbin_nuj")):
+        ok_k, rep[f"{name}_cellmaxrel"] = _held_close(a[:, k], b[:, k], clean, 1,
+                                                      EST_RTOL["radbin"])
+        ok &= ok_k
+    return bool(ok), rep
+
+
+def _compare_jblue(a, b):
+    """The J_b_lu rows (ncells, 2, njblue: sum, count) of the kernel ``b``
+    against the plain version's ``a`` (see EST_RTOL): every line's count
+    over cells exact, at most DIVERGED_MIN moved passes (half the summed
+    count differences), every (cell, line) entry that no moved pass
+    touches exact in its count and within the rtol in its sum, and every
+    line's sum over cells within the rtol."""
+    rep = {}
+    diff = b[:, 1] - a[:, 1]
+    rep["jblue_moved"] = int(np.abs(diff).sum()) // 2
+    ok = rep["jblue_moved"] <= DIVERGED_MIN and bool(np.all(diff.sum(axis=0) == 0))
+    ok_s, rep["jblue_cellmaxrel"] = _held_close(a[:, 0], b[:, 0], diff == 0, 0,
+                                                EST_RTOL["jblue"])
+    return bool(ok & ok_s), rep
 
 
 def check_kernel(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: float,
@@ -755,20 +923,32 @@ def check_kernel(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: f
     rounding tolerance. The diverged lanes are therefore held still
     (``moving`` = 0) in a second launch of both versions, whose estimators
     are compared cell by cell; lane outputs and counters come from the
-    first. Returns (ok, report, kernel outputs, plain outputs)."""
+    first. A lane that ends in the same cell with another line, continuum
+    or cursor changes whole events of the multibin and J_b_lu counts, so
+    those rows come from a third launch pair that holds still every lane
+    with any integer output of its own; the other estimators keep the
+    lanes that only a diverged cell or packet type holds still. Returns
+    (ok, report, kernel outputs, plain outputs)."""
     args = (seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step)
     k = _launch(*args, shared_rows=shared_rows, **kw)
     p = propagate_reference(*args, **kw)
-    diverged = ((k["where"] != p["where"]) | (k["escaped"] != p["escaped"])
-                | (k["evented"] != p["evented"]))
-    est_k = est_p = None
-    if bool(diverged.any()):
-        held = dict(lanes, moving=torch.where(diverged, torch.zeros_like(lanes["moving"]),
-                                              lanes["moving"]).contiguous())
-        args = (seed, held) + args[2:]
-        est_k = _launch(*args, shared_rows=shared_rows, **kw)
-        est_p = propagate_reference(*args, **kw)
-    ok, rep = compare_outputs(k, p, est_k, est_p)
+
+    def held(mask):
+        if not bool(mask.any()):
+            return None
+        still = dict(lanes, moving=torch.where(mask, torch.zeros_like(lanes["moving"]),
+                                               lanes["moving"]).contiguous())
+        a = (seed, still) + args[2:]
+        return _launch(*a, shared_rows=shared_rows, **kw), propagate_reference(*a, **kw)
+
+    diverged = (k["where"] != p["where"]) | (k["escaped"] != p["escaped"]) \
+        | (k["evented"] != p["evented"])
+    differs = diverged.clone()
+    for f in OUT_I32:
+        differs |= k[f] != p[f]
+    est = held(diverged)
+    rows = est if bool((differs == diverged).all()) else held(differs)
+    ok, rep = compare_outputs(k, p, est, rows)
     return ok, rep, k, p
 
 
@@ -812,4 +992,4 @@ def kernel_tables(dad, grid, cells, ctx) -> dict:
         nne=f(cells.nne), Te=f(cells.Te), kappagrey=f(cells.kappagrey), rho=f(cells.rho),
         thick=i(cells.thick), chiffpart=f(ctx.chi_ff_nnionpart), line_nu=f(dad.line_nu),
         tau_factor=f(ctx.tau_sob_factor), gc_nu_edge=f(dad.groundcont_nu_edge[:ngc]),
-        expo_kappa=f(ctx.expopac_kappa), **cont)
+        expo_kappa=f(ctx.expopac_kappa), jblue_of_line=i(ctx.jblue_of_line), **cont)

@@ -31,6 +31,13 @@ line is printed):
        latter cases bound-bound, electron-scattering, free-free, bound-free
        and (with grey cells) thick events must all leave the kernel, and
        none scatters inside it;
+     - the multibin and J_b_lu estimators (K5-multibin, K5-jblue): the
+       nebular scene (the 128-shell profile on the 50^3 grid, the Fe atom,
+       nltenebular without the non-thermal solver: LUT estimators off,
+       bf-rate estimators on) with its own timestep-0 tables (max_inner 1,
+       4, 64) and the lanes its timestep 0 leaves in flight, and the
+       default 16-shell scene with both estimators (and the LUT ones); a
+       bin row or J_b_lu row that stays zero in every case fails;
      then the time of each kernel configuration against its plain version
      at N=65536, max_inner=64 (plain, kernel, kernel, plain), the kernel in
      both estimator-row modes (shared memory, global atomics) where the
@@ -42,9 +49,14 @@ line is printed):
      timesteps 0-2), kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
      timesteps 0-1), kilonova_2d_2dgrid_expansionopac at 25 x 50 with the
      Fe atom (2^18 packets, timesteps 0-2; macro-atom bound-bound
-     activations must occur) and the default scene with Barnes particle
+     activations must occur), the default scene with Barnes particle
      and Guttman gamma thermalisation (gamma lines written for Ni56 and
-     Co56; gamma packets must be emitted) and classic_3d, the classic
+     Co56; gamma packets must be emitted), nebular_1d_3dgrid_nont (the
+     nebular scene, 2^20 packets, timesteps 0-3 with NLTE populations in
+     2-3: the log shows the NLTE outer loop, nlte_0000.out and
+     radfield_0000.out are finite, a population departs from its
+     Boltzmann value, the bin and J_b_lu estimators accumulated) and
+     classic_3d, the classic
      preset on the big scene's 16^3 model and Fe atom (2^20 packets,
      timesteps 0-2, the last two with the non-LTE grid update; the event
      pass must count electron scatterings, T_e must leave T_J in some cell,
@@ -58,6 +70,13 @@ line is printed):
 times the kernel's two estimator-row modes over growing cell counts
 (``rows_sweep``), the measurement behind rpkt_kernel.SHARED_ROWS_MAX, and
 prints no result line.
+
+    python3 chip_smoke.py --kernel-ab ROOT [ROOT...]
+
+times this checkout's kernel against the kernels of other checkouts of the
+port (e.g. a parent commit unpacked with ``git archive`` into a gitignored
+directory) on the same inputs, configuration by configuration, in
+alternating rounds (``kernel_ab``), and prints no result line.
 """
 
 from __future__ import annotations
@@ -89,6 +108,8 @@ CONFIGS = {
     "rpkt_crossing_bfrate": ("K5-bfrate", f"{PALLAS}:1515"),
     "rpkt_crossing_expansion": ("K4", f"{PALLAS}:1136"),
     "rpkt_crossing_deferred": ("K6", f"{PALLAS}:1426"),
+    "rpkt_crossing_multibin": ("K5-multibin", f"{PALLAS}:1491"),
+    "rpkt_crossing_jblue": ("K5-jblue", f"{PALLAS}:1254"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12
@@ -135,6 +156,25 @@ def classic_scene(d):
     make_run(d, ncells=16, ntimesteps=4, tmin_days=5.0, tmax_days=9.0, ngreyts=0,
              model_dim=3, logrho0=-9.0, logrho_slope=-0.15, num_lte_timesteps=1)
     write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
+
+
+def nebular_scene(d):
+    """nebular_1d_3dgrid (tests/test_configmatrix.py) at the realistic
+    scene's size: its 128-shell 1D profile, mapped onto the 50^3 Cartesian
+    grid, and the 101,010-line Fe atom; no grey timestep, LTE timesteps 0-1
+    and NLTE populations from timestep 2 (``NEBULAR`` cuts the rest)."""
+    from artis_tpu_torch.synthdata import make_run, write_synthetic_atomicdata
+
+    make_run(d, ncells=128, ntimesteps=5, tmin_days=5.0, tmax_days=9.0, ngreyts=0,
+             logrho0=-9.0, logrho_slope=-0.15 * 15 / 127, num_lte_timesteps=2)
+    write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
+
+
+# nltenebular without the non-thermal solver, cut in depth so that in four
+# timesteps every consumer runs: the bf-rate estimators from timestep 2 (the
+# CI's nebular entries use 1-2) and the binned field from timestep 3
+NEBULAR = dict(nt_on=False, nt_solve_spencerfano=False,
+               detailed_bf_estimators_usefromtimestep=2, first_nlte_radfield_timestep=3)
 
 
 def cyl_scene(d):
@@ -300,11 +340,14 @@ def dense_tables(tables):
     return dict(t, nne=t["nne"] * factor, chiffpart=t["chiffpart"] * factor)
 
 
-def _kernel_kw(sim, want_bfrate, expansion=False, defer=False):
+def _kernel_kw(sim, want_bfrate, expansion=False, defer=False, **extra):
+    """The crossing's keywords for a phase-3 simulation; ``extra`` (the
+    K5-multibin / K5-jblue ones: nradbins, njblue, want_gamma,
+    want_bfheat) on top."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
-    return dict(nlines=dad.nlines, ncells=sim.cells.Te.shape[0],
+    return dict(extra, nlines=dad.nlines, ncells=sim.cells.Te.shape[0],
                 ngc=max(dad.nbfcontinua_ground, 1), nphixs=dad.nphixspoints,
                 relativistic=sim.opts.use_relativistic_doppler_shift,
                 phixs_dnu=float(dad.nphixsnuincrement),
@@ -351,8 +394,18 @@ def _event_kinds(p, sel):
                 ff=int(ff.sum()), bf=int((cont & ~escat & ~ff).sum()))
 
 
+def _k5_kw(sim, multibin=True, jblue=True):
+    """The multibin and J_b_lu keywords of a simulation's main path (the
+    LUT estimators as its options have them)."""
+    from artis_tpu_torch.transport.engine import crossing_estimators
+
+    kw = crossing_estimators(sim.opts, sim.est)
+    return dict(kw, nradbins=kw["nradbins"] if multibin else 0,
+                njblue=kw["njblue"] if jblue else 0)
+
+
 def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=False,
-                 every_kind=False):
+                 every_kind=False, **extra):
     """Kernel against plain version on each case, injected and Philox draws
     (rpkt_kernel.compare_outputs); raises on any disagreement. Marks in
     ``nonzero`` each estimator the plain version accumulated (and, for the
@@ -367,7 +420,7 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=
 
     from artis_tpu_torch.transport import rpkt_kernel
 
-    kw = _kernel_kw(sim, want_bfrate, expansion, defer)
+    kw = _kernel_kw(sim, want_bfrate, expansion, defer, **extra)
     tmin, mps = float(sim.grid.tmin), float(sim.grid.max_path_step)
     before = dict(rpkt_kernel.propagate.launches)
     ok_all, errs = True, []
@@ -383,6 +436,10 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=
             rep["prop_time_max_abs_err_s"] = err
             log(f"compare[{tag} {'injected' if test_mode else 'philox'}] ok={ok}: "
                 f"{json.dumps(rep)}")
+            if extra:
+                log(f"compare[{tag}]: radbin count {float(p['radbin'][:, 2].sum())}, J_b_lu "
+                    f"count {float(p['jblue'][:, 1].sum())}, bin flips "
+                    f"{rep.get('radbin_flips')}, moved J_b_lu passes {rep.get('jblue_moved')}")
             for name, nz in rep["nonzero"].items():
                 nonzero[name] = nonzero.get(name, False) or nz
             if expansion:
@@ -484,17 +541,22 @@ def _bound_ms(out, walk_log, tables, kw, test_mode):
     distinct lines and (model cell, line) entries that the walks of this
     run read (``walk_log`` of a plain-version run on the same inputs; in
     expansion mode the distinct (model cell, bin) kappa entries, and no line
-    table); the estimator rows and counters out once. That over the HBM
+    table), and with the J_b_lu estimators the same distinct entries of
+    ``jblue_of_line``; every estimator row the launch allocates (multibin
+    and J_b_lu rows included) and the counters out once. That over the HBM
     rate, against an operation count (about 400 float32 operations per
     crossing, 20 per line read, 30 per bin read and 40 per bf continuum in
-    a window, counted from the source) over the float32 peak. Returns (ms,
-    'bytes' or 'operations', bytes)."""
+    a window, counted from the source; with the multibin estimators 2 more
+    per crossing for the range test and 12 per midpoint that lands in a
+    bin; with the J_b_lu estimators 2 more per line read for the column
+    test and 6 per pass that adds to a selected line's row, the passes
+    this run's data made) over the float32 peak. Returns (ms, 'bytes' or
+    'operations', bytes)."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     misc = out["misc"].double().cpu().numpy()
     nadv, nwalk, nbfwin = misc[0], misc[6], misc[7]
     n = out["posx"].shape[0]
-    ncells, ngc, nbfr = kw["ncells"], kw["ngc"], out["bfrate"].shape[1]
     size = lambda *names: sum(4 * tables[k].numel() for k in names)
     ndim = rpkt_kernel.GEOM_NDIM[kw["geom"]]
     cell_row = 4 * (1 + 6 + 2 * ndim)  # mgi, six cell values, the cell's bounds
@@ -507,19 +569,26 @@ def _bound_ms(out, walk_log, tables, kw, test_mode):
     lines, entries = _walk_entries(walk_log, rpkt_kernel.NBINS if expansion else kw["nlines"])
     if expansion:
         lines = 0  # the bin edges are computed, not read
+    njb, nrb = out["jblue"].shape[2], out["radbin"].shape[2]
+    rows = sum(out[k].numel() for k in ("est", "gamma", "bfheat", "bfrate", "radbin", "jblue"))
     nbytes = (n * 4 * ((17 if test_mode else 15) + 30) + min(nadv * cell_row, cell_tables)
-              + min(nbfwin * bf_row, bf_tables) + 4 * (lines + entries)
-              + 4 * ncells * (4 + 2 * ngc + nbfr) + 8 * len(misc))
-    ops = 400.0 * nadv + (30.0 if expansion else 20.0) * nwalk + 40.0 * nbfwin
+              + min(nbfwin * bf_row, bf_tables) + 4 * (lines * (1 + (njb > 0)) + entries)
+              + 4 * rows + 8 * len(misc))
+    bin_adds = float(out["radbin"][:, 2].sum()) if nrb else 0.0
+    jb_passes = float(out["jblue"][:, 1].sum()) if njb else 0.0
+    ops = (400.0 * nadv + (30.0 if expansion else 20.0) * nwalk + 40.0 * nbfwin
+           + (2.0 * nadv + 12.0 * bin_adds) * (nrb > 0)
+           + (2.0 * nwalk + 6.0 * jb_passes) * (njb > 0))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (nbytes,)
 
 
-def _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion=False, defer=False):
+def _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion=False, defer=False,
+                   **extra):
     lanes, tau, sel = forced_lanes(sim, t0, NPKTS_DEFAULT, seed)
     args = (12345, lanes, tables, tau, sel, t2, float(sim.grid.tmin),
             float(sim.grid.max_path_step))
-    return args, dict(_kernel_kw(sim, want_bfrate, expansion, defer), max_inner=64,
+    return args, dict(_kernel_kw(sim, want_bfrate, expansion, defer, **extra), max_inner=64,
                       test_mode=False)
 
 
@@ -540,18 +609,21 @@ ROW_MODE = {True: "shared", False: "global"}
 
 
 def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7, expansion=False,
-                 defer=False):
+                 defer=False, **extra):
     """Kernel against plain version at N=65536, max_inner=64, Philox draws:
     CUDA-event means in turns, plain, each estimator-row mode the rows
     allow (shared, global), the same in reverse, plain. ``ms`` is the mode
-    the wrapper picks."""
+    the wrapper picks; ``extra`` the K5-multibin / K5-jblue keywords."""
     from artis_tpu_torch.transport import rpkt_kernel
 
-    args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion, defer)
+    args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion, defer,
+                              **extra)
     ncont = sim.dad.nbfcontinua if want_bfrate else 0
-    rows = rpkt_kernel.row_bytes(kw["ncells"], kw["ngc"], ncont)
+    rows_kw = {k: extra[k] for k in ("nradbins", "njblue", "want_gamma", "want_bfheat")
+               if k in extra}
+    rows = rpkt_kernel.row_bytes(kw["ncells"], kw["ngc"], ncont, **rows_kw)
     modes = [True, False] if rows <= rpkt_kernel.SMEM_LIMIT else [False]
-    picked = rpkt_kernel.pick_shared_rows(kw["ncells"], kw["ngc"], ncont)
+    picked = rpkt_kernel.pick_shared_rows(kw["ncells"], kw["ngc"], ncont, **rows_kw)
     before = dict(rpkt_kernel.propagate.launches)
     run_p = lambda: rpkt_kernel.propagate_reference(*args, **kw)
     p1, _ = _timed(run_p, 1)
@@ -759,6 +831,51 @@ def phase_kernel_vs_plain(workdir):
     del cls
     gc.collect()
 
+    # --- K5-multibin and K5-jblue: the nebular scene's own tables and
+    # in-flight lanes, then the default scene with both estimators ---
+    k5 = ("rpkt_crossing_multibin", "rpkt_crossing_jblue")
+    neb = _phase3_sim(workdir, "phase3_nebular", nebular_scene, NPKTS_DEFAULT, "CARTESIAN3D",
+                      preset="nltenebular", **NEBULAR)
+    ctx = neb.update_grid(0)
+    tb = _nongrey_tables(neb, ctx)[1]
+    t0, t2 = float(ctx.ts), float(ctx.t2)
+    nkw = _k5_kw(neb)
+    rows = rpkt_kernel.row_bytes(neb.cells.Te.shape[0], max(neb.dad.nbfcontinua_ground, 1),
+                                 neb.dad.nbfcontinua, **nkw)
+    log(f"phase 3 nebular: grid {neb.grid.ncoordgrid} ncells={neb.cells.Te.shape[0]} "
+        f"nlines={neb.dad.nlines} radiation-field bins {nkw['nradbins']}, J_b_lu lines "
+        f"{nkw['njblue']}, LUT estimators {nkw['want_gamma']}, estimator rows {rows} bytes")
+    e = _check_cases(neb, _cases("nebular", neb, tb, t0, t2, (1, 4, 64), seed=13), nonzero,
+                     want_bfrate=True, **nkw)
+    e += _check_cases(neb, [_captured_case(neb, seed=14)], nonzero, want_bfrate=True, **nkw)
+    for k in k5 + cart:
+        errs[k] += e
+    # each estimator alone on the nebular tables (the geometry with bf-rate
+    # estimators and without the LUT ones, as the nebular main path), then
+    # all of it as the main path launches it
+    base = dict(nkw, nradbins=0, njblue=0)
+    _time_config(neb, tb, t0, t2, True, "nebular cart3d + bfrate, LUT off", **base)
+    rec["rpkt_crossing_multibin"] = _time_config(neb, tb, t0, t2, True, "K5-multibin nebular",
+                                                 **_k5_kw(neb, jblue=False))
+    rec["rpkt_crossing_jblue"] = _time_config(neb, tb, t0, t2, True, "K5-jblue nebular",
+                                              **_k5_kw(neb, multibin=False))
+    _time_config(neb, tb, t0, t2, True, "nebular main path (K5-multibin + K5-jblue)", **nkw)
+    neb.close()
+    del neb
+    gc.collect()
+    dflt = _phase3_sim(workdir, "phase3_k5_default", default_scene, NPKTS_DEFAULT,
+                       multibin_radfield=True, detailed_line_estimators_on=True, jblue_elem_z=0)
+    ctx = dflt.update_grid(0)
+    tb = _nongrey_tables(dflt, ctx)[1]
+    e = _check_cases(dflt, _cases("k5_default", dflt, tb, float(ctx.ts), float(ctx.t2),
+                                  (1, 4, 64), seed=15), nonzero, **_k5_kw(dflt))
+    errs["rpkt_crossing_sph1d"] += e
+    for k in k5:
+        errs[k] += e
+    dflt.close()
+    del dflt
+    gc.collect()
+
     # a comparison of estimators that stayed zero on both sides tests nothing
     if not all(nonzero.values()):
         raise RuntimeError(f"an estimator never accumulated in phase 3: {nonzero}")
@@ -891,6 +1008,138 @@ def rows_sweep(workdir):
     log(json.dumps({"rows_sweep": points}))
 
 
+AB_ROUNDS = 12
+
+
+def _load_wrapper(root):
+    """The crossing kernel's wrapper (transport/rpkt_kernel.py) of another
+    checkout of the port at ``root``, loaded beside this one's: it builds
+    its own csrc/ into its own _build/, and the helpers it imports are this
+    checkout's."""
+    import importlib.util
+
+    path = os.path.join(os.path.abspath(root), "artis_tpu_torch", "transport", "rpkt_kernel.py")
+    name = f"artis_tpu_torch.transport._ab{len(sys.modules)}"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def kernel_ab(workdir, roots):
+    """The kernel of this checkout against the kernels of the checkouts at
+    ``roots`` on the same inputs (N=65536, max_inner=64, Philox draws, each
+    wrapper's own row mode): for each configuration, AB_ROUNDS rounds of a
+    10-launch CUDA-event mean of every version, in turns, every other round
+    in reverse order. Logs every mean and, per version, the median and the
+    median ratio to this checkout's kernel within a round. A version whose
+    wrapper lacks a keyword a configuration needs is left out of it."""
+    import inspect
+
+    import torch
+
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    versions = [("this", rpkt_kernel)] + [(r, _load_wrapper(r)) for r in roots]
+    for tag, mod in versions:
+        t0 = time.time()
+        mod.build()
+        log(f"ab: built {tag} in {time.time() - t0:.2f} s")
+
+    def launcher(mod, args, kw):
+        accepted = inspect.signature(mod._launch).parameters
+        if any(v for k, v in kw.items() if k not in accepted):
+            return None
+        kw = {k: v for k, v in kw.items() if k in accepted}
+        return lambda: mod._launch(*args, **kw)
+
+    def time_config(label, sim, tables, t0, t2, want_bfrate, **extra):
+        args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed=7, **extra)
+        runs = [(tag, launcher(mod, args, kw)) for tag, mod in versions]
+        runs = [(tag, fn) for tag, fn in runs if fn is not None]
+        times = {tag: [] for tag, _ in runs}
+        for r in range(AB_ROUNDS):
+            for tag, fn in (runs if r % 2 == 0 else runs[::-1]):
+                times[tag].append(_timed(fn, 10)[0])
+        base = np.array(times["this"])
+        for tag, ts in times.items():
+            ratio = np.median(np.array(ts) / base)
+            log(f"ab[{label}] {tag}: median {np.median(ts):.4f} ms, per round "
+                f"{' '.join(f'{t:.4f}' for t in ts)} ms; median ratio to this {ratio:.4f}")
+        torch.cuda.synchronize()
+
+    scenes = [
+        ("K1 sph1d", dict(make_scene=default_scene, npkts=NPKTS_DEFAULT), [({}, False)]),
+        ("K3 cyl2d", dict(make_scene=cyl_scene, npkts=NPKTS_DEFAULT,
+                          grid_type="CYLINDRICAL2D"), [({}, False)]),
+        ("K4 expansion sph1d", dict(make_scene=expo_dense_scene, npkts=NPKTS_DEFAULT,
+                                    expansionopacities_on=True), [(dict(expansion=True), False)]),
+        ("K2 / K6 classic cart3d", dict(make_scene=classic_scene, npkts=NPKTS_REAL,
+                                        grid_type="CARTESIAN3D", preset="classic"),
+         [({}, False), (dict(defer=True), False)]),
+        ("K5 nebular cart3d", dict(make_scene=nebular_scene, npkts=NPKTS_DEFAULT,
+                                   grid_type="CARTESIAN3D", preset="nltenebular", **NEBULAR),
+         [(dict(nradbins=0, njblue=0, want_gamma=True, want_bfheat=True), True),
+          ("k5", True)]),
+    ]
+    for i, (label, sc, configs) in enumerate(scenes):
+        sim = _phase3_sim(workdir, f"ab{i}", **sc)
+        ctx = sim.update_grid(0)
+        tb = _nongrey_tables(sim, ctx)[1]
+        for extra, bfr in configs:
+            extra = _k5_kw(sim) if extra == "k5" else extra
+            name = f"{label} {' '.join(f'{k}={v}' for k, v in extra.items())}".strip()
+            time_config(name, sim, tb, float(ctx.ts), float(ctx.t2), bfr, **extra)
+        sim.close()
+        del sim
+        gc.collect()
+
+
+def check_nebular(rec):
+    """What the nebular run must show beyond _run_scene's checks:
+    timesteps 2-3 took the nlte update and the log shows the NLTE outer
+    loop's iterations and max fracdiff; nlte_0000.out and
+    radfield_0000.out are finite; some NLTE population departs from its
+    Boltzmann value by more than 1e-3; the bin and J_b_lu estimators
+    accumulated (the checkpoint of timestep 3 carries timestep 2's)."""
+    d = rec["dir"]
+    modes = [r["grid_mode"] for r in rec["timesteps"]]
+    for r in rec["timesteps"]:
+        log(f"nebular_1d_3dgrid_nont: timestep {r['nts']}: grid update ({r['grid_mode']}) "
+            f"{r['grid_seconds']} s, NLTE outer iterations {r['nlte_iters']}")
+    if modes != ["first", "lte", "nlte", "nlte"]:
+        raise RuntimeError(f"nebular_1d_3dgrid_nont: grid updates {modes}")
+    loop = [line.strip() for line in open(os.path.join(d, "output_0-0.txt"))
+            if "NLTE outer loop" in line]
+    for line in loop:
+        log(f"nebular_1d_3dgrid_nont: {line}")
+    if len(loop) != 2:
+        raise RuntimeError("nebular_1d_3dgrid_nont: the log does not show the NLTE outer loop "
+                           "of timesteps 2-3")
+    rows = {}
+    for fname in ("nlte_0000.out", "radfield_0000.out"):
+        with open(os.path.join(d, fname)) as f:
+            f.readline()
+            rows[fname] = np.loadtxt(f, ndmin=2)
+        if not np.all(np.isfinite(rows[fname])):
+            raise RuntimeError(f"nebular_1d_3dgrid_nont: non-finite values in {fname}")
+    nl = rows["nlte_0000.out"]
+    sel = (nl[:, 0] >= 2) & (nl[:, 5] > 1e-30)
+    dep = float(np.max(np.abs(nl[sel, 6] / nl[sel, 5] - 1.0))) if sel.any() else 0.0
+    rb = rows["radfield_0000.out"]
+    g = np.load(os.path.join(d, "gridsave_ts3.npz"))
+    sums = {k: float(g[f"est_{k}"].sum()) for k in ("radfieldbin_count", "radfieldbin_j",
+                                                    "jblue_count", "jblue_raw")}
+    log(f"nebular_1d_3dgrid_nont: max |n_NLTE / n_LTE - 1| in timesteps 2-3 {dep}; "
+        f"radfield_0000.out contributions {float(rb[rb[:, 2] >= 0, 8].sum())}; timestep-2 "
+        f"estimator sums {sums}")
+    if dep <= 1e-3:
+        raise RuntimeError("nebular_1d_3dgrid_nont: no NLTE population departs from LTE")
+    if min(sums.values()) <= 0:
+        raise RuntimeError(f"nebular_1d_3dgrid_nont: a bin or J_b_lu estimator is zero {sums}")
+
+
 def check_classic(rec):
     """What the classic run must show beyond _run_scene's checks: the event
     pass counted electron scatterings; timesteps 1-2 took the non-LTE grid
@@ -938,8 +1187,8 @@ def check_classic(rec):
 
 
 def main():
-    if sys.argv[1:] not in ([], ["--rows-sweep"]):
-        raise SystemExit("usage: python3 chip_smoke.py [--rows-sweep]")
+    if sys.argv[1:] not in ([], ["--rows-sweep"]) and sys.argv[1:2] != ["--kernel-ab"]:
+        raise SystemExit("usage: python3 chip_smoke.py [--rows-sweep | --kernel-ab ROOT...]")
     card = phase_device()
     import torch
 
@@ -949,7 +1198,10 @@ def main():
     if sys.argv[1:]:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
             phase_build()
-            rows_sweep(workdir)
+            if sys.argv[1] == "--rows-sweep":
+                rows_sweep(workdir)
+            else:
+                kernel_ab(workdir, sys.argv[2:])
         log(f"total {time.time() - t_start:.1f} s")
         log(f"card: {card}")
         return
@@ -976,10 +1228,15 @@ def main():
                 workdir, "default_scene_barnes_guttman", default_gamma_scene, NPKTS_DEFAULT,
                 "SPHERICAL1D", ["rpkt_crossing_sph1d"], particle_thermalisation_scheme="BARNES",
                 gamma_thermalisation_scheme="GUTTMAN"),
+            "nebular_1d_3dgrid_nont": _run_scene(
+                workdir, "nebular_1d_3dgrid_nont", nebular_scene, NPKTS_REAL, "CARTESIAN3D",
+                ["rpkt_crossing_cart3d", "rpkt_crossing_bfrate", "rpkt_crossing_multibin",
+                 "rpkt_crossing_jblue"], preset="nltenebular", **NEBULAR),
             "classic_3d": _run_scene(
                 workdir, "classic_3d", classic_scene, NPKTS_REAL, "CARTESIAN3D",
                 ["rpkt_crossing_cart3d", "rpkt_crossing_deferred"], preset="classic"),
         }
+        check_nebular(runs["nebular_1d_3dgrid_nont"])
         check_classic(runs["classic_3d"])
     # bin events activated the macro-atom on lines of their bins, and the
     # analytic schemes resolved gamma packets
@@ -998,7 +1255,9 @@ def main():
     main_run = {"rpkt_crossing_sph1d": "default_scene", "rpkt_crossing_cart3d": "classic_3d",
                 "rpkt_crossing_bfrate": "big_scene", "rpkt_crossing_cyl2d": "kilonova_2d_2dgrid",
                 "rpkt_crossing_expansion": "kilonova_2d_2dgrid_expansionopac",
-                "rpkt_crossing_deferred": "classic_3d"}
+                "rpkt_crossing_deferred": "classic_3d",
+                "rpkt_crossing_multibin": "nebular_1d_3dgrid_nont",
+                "rpkt_crossing_jblue": "nebular_1d_3dgrid_nont"}
     # K2's launches come from the classic run, the main path that launches
     # the cart3d geometry without bf-rate estimators (in the deferred mode);
     # its time is the big scene's in-kernel-scatter mode

@@ -12,10 +12,17 @@ total (+5 %), transport happened, finite temperatures, the output files
 written. classicmode_1d_3dgrid_nlte is classicmode_1d_3dgrid with
 ``num_lte_timesteps=1``, so its second timestep takes the non-LTE grid
 update (the T_R / W fit and the thermal-balance T_e solve) in a whole
-simulation. kilonova_2d_2dgrid_xcomgammaphotoion waits for a synthetic
-xcom_photoion_data.txt; the nebular configurations wait for the NLTE
-slice. The table is the port's own copy; the JAX test module is not
-imported."""
+simulation. nebular_1d_3dgrid_nont and nebular_1d_3dgrid_limitbfest_nont
+are the CI's two nebular configurations (the nltenebular preset: NLTE
+populations with superlevels, the multibin radiation field, the detailed
+bf-rate and J_b_lu estimators, LUT-off photoionisation and bf heating, one
+outer iteration) without the non-thermal solver, with
+``num_lte_timesteps=1`` so that their second timestep solves the NLTE
+populations; they also write nlte_0000.out and radfield_0000.out.
+kilonova_2d_2dgrid_xcomgammaphotoion waits for a synthetic
+xcom_photoion_data.txt, the nebular configurations with the non-thermal
+solver for synthetic collion.txt and binding-energy files. The table is
+the port's own copy; the JAX test module is not imported."""
 
 import os
 
@@ -34,6 +41,9 @@ def _mini(**kw):
 
 
 GRID8 = dict(grid_type="CARTESIAN3D", ncoordgrid_x=8, ncoordgrid_y=8, ncoordgrid_z=8)
+# the nebular configurations without the non-thermal solver, one NLTE
+# outer iteration as in the CI (tests/test_configmatrix.py)
+NONT = dict(nt_on=False, nt_solve_spencerfano=False, nlte_outer_iters=1)
 # name -> (preset, Options keywords, model_dim, make_run keywords)
 CONFIGS = {
     "classicmode_1d_3dgrid": ("classic", _mini(**GRID8), 1, {}),
@@ -50,6 +60,12 @@ CONFIGS = {
         "kilonova_lte", _mini(grid_type="CYLINDRICAL2D", expansionopacities_on=True), 2,
         dict(ncells=3)),
     "kilonova_2d_3dgrid": ("kilonova_lte", _mini(**GRID8), 2, dict(ncells=3)),
+    "nebular_1d_3dgrid_nont": (
+        "nltenebular", _mini(**GRID8, **NONT, detailed_bf_estimators_usefromtimestep=1), 1,
+        dict(num_lte_timesteps=1)),
+    "nebular_1d_3dgrid_limitbfest_nont": (
+        "nltenebular", _mini(**GRID8, **NONT, detailed_bf_estimators_usefromtimestep=2,
+                             sf_auger_contribution_on=False), 1, dict(num_lte_timesteps=1)),
 }
 
 
@@ -86,6 +102,9 @@ def test_config(name, tmp_path):
     assert e_cmf.sum() * sim.pellet_tables.e0 <= sim.pellet_tables.norm * 1.05
     assert int(sim.total_rpkt_steps) > 0
     assert np.all(np.isfinite(sim.cells.Te.numpy()))
-    for fn in ("light_curve.out", "spec.out", "deposition.out", "estimators_0000.out",
-               "timesteps.out"):
+    files = ["light_curve.out", "spec.out", "deposition.out", "estimators_0000.out",
+             "timesteps.out"]
+    if preset == "nltenebular":
+        files += ["nlte_0000.out", "radfield_0000.out"]
+    for fn in files:
         assert os.path.exists(os.path.join(d, fn)), fn

@@ -1,7 +1,9 @@
 """The CUDA r-packet crossing kernel on the card: against its plain version
 (every geometry, the bf-rate estimators, both estimator-row modes, the
-binned expansion-opacity walk K4 and the deferred events of dipole
-scattering K6), and on the main path through the CLI.
+binned expansion-opacity walk K4, the deferred events of dipole
+scattering K6, and the multibin and J_b_lu estimators K5-multibin and
+K5-jblue with the LUT estimators off), and on the main path through the
+CLI.
 
 Every test here needs an NVIDIA GPU and skips where there is none. The file
 imports no jax, so it runs where only PyTorch is installed; the
@@ -19,8 +21,10 @@ cursor, scatter counts) on >= 99.9% of the agreeing lanes, and every float
 output within rel 1e-4 there; prop_time, nu_cmf, e_cmf and position to
 rtol 2e-3 on every agreeing lane; J / nuJ / ffheating / crossings cell by
 cell to rel 5e-3 and LUT gamma / bf-heating / detailed bf-rate to rel 1e-2
-(float32 atomics add in an order that changes from run to run); counters
-within 2% + 3. Both sides draw the same Philox numbers, so what remains is
+(float32 atomics add in an order that changes from run to run); the
+multibin and J_b_lu sums to rel 5e-3 and their counts exactly, apart from
+at most 16 segments whose midpoint lies within rounding of a bin edge;
+counters within 2% + 3. Both sides draw the same Philox numbers, so what remains is
 float32 rounding (CUDA's math functions against torch's)."""
 
 import glob
@@ -100,7 +104,7 @@ def _forced_lanes(sim, ctx, seed):
 
 
 def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
-           expansion=False, defer=False):
+           expansion=False, defer=False, nradbins=0, njblue=0, lut=True):
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
@@ -109,12 +113,15 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
     # timestep 0 of these scenes is not grey; clear the flag regardless so
     # the continuum and the line walk run in every cell
     tables["thick"] = torch.zeros_like(tables["thick"])
+    if njblue:
+        tables["jblue_of_line"] = torch.arange(dad.nlines, dtype=torch.int32, device="cuda")
     kw = dict(nlines=dad.nlines, ncells=sim.cells.Te.shape[0],
               ngc=max(dad.nbfcontinua_ground, 1), nphixs=dad.nphixspoints,
               max_inner=max_inner, relativistic=sim.opts.use_relativistic_doppler_shift,
               phixs_dnu=float(dad.nphixsnuincrement),
               last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
               want_bfrate=want_bfrate, expansion=expansion, defer_scatter=defer,
+              nradbins=nradbins, njblue=njblue, want_gamma=lut, want_bfheat=lut,
               **rpkt_kernel.kernel_geometry(sim.grid))
     before = sum(rpkt_kernel.propagate.launches.values())
     ok, rep, _, plain = rpkt_kernel.check_kernel(
@@ -123,10 +130,13 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
     torch.cuda.synchronize()
     launches = 1 + (rep["diverged_lanes"] > 0)
     assert sum(rpkt_kernel.propagate.launches.values()) == (
-        before + launches * (1 + want_bfrate + expansion + defer))
+        before + launches * (1 + want_bfrate + expansion + defer + bool(nradbins)
+                             + bool(njblue)))
     assert ok, rep
     # the estimators accumulated, so their comparison tested something
-    for name in ("j", "nuj", "ncross") + (("bfrate",) if want_bfrate else ()):
+    names = (("j", "nuj", "ncross") + (("bfrate",) if want_bfrate else ())
+             + (("radbin",) if nradbins else ()) + (("jblue",) if njblue else ()))
+    for name in names:
         assert rep["nonzero"][name], (name, rep)
     return plain
 
@@ -299,3 +309,49 @@ def test_main_path_launches_the_deferred_kernel(tmp_path):
     log = open(os.path.join(d, "output_0-0.txt")).read()
     assert "timestep 1: grid update (nlte)" in log
     assert stats.COUNTER_NAMES[stats.ESCOUNTER] in log
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_rows", [True, False])
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("max_inner", [1, 16])
+@pytest.mark.parametrize("name", ["sph1d", "1dmodel_3dgrid"])
+def test_multibin_jblue_kernel_matches_plain_version(scenes, name, max_inner, test_mode,
+                                                     shared_rows):
+    """K5-multibin and K5-jblue (64 bins, every line a J_b_lu column) with
+    the LUT estimators off, as the nebular presets run them, in both
+    estimator-row modes; with the rows empty, the LUT ones stay empty."""
+    plain = _check(*scenes[name], max_inner, test_mode, shared_rows=shared_rows, nradbins=64,
+                   njblue=scenes[name][0].dad.nlines, lut=False)
+    assert plain["gamma"].numel() == 0 and plain["bfheat"].numel() == 0
+
+
+@pytest.mark.cuda
+def test_main_path_launches_the_nlte_kernels(tmp_path):
+    """nltenebular without the non-thermal solver through the CLI: the
+    multibin and J_b_lu configurations launch, timestep 1 solves the NLTE
+    populations and the run writes nlte_0000.out and radfield_0000.out."""
+    _need_cuda()
+    from artis_tpu_torch.cli import main_sn3d
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    d = str(tmp_path)
+    make_run(d, ntimesteps=3, tmin_days=1.0, tmax_days=2.0, ngreyts=0, ncells=5,
+             logrho0=-7.0, num_lte_timesteps=1)
+    rpkt_kernel.reset_launches()
+    assert main_sn3d(["--rundir", d, "--device", "cuda", "--preset", "nltenebular",
+                      "--set", "nt_on=False", "--set", "nt_solve_spencerfano=False",
+                      "--set", "npkts=20000", "--set", "transport_dtype='float32'",
+                      "--set", "ncoordgrid_x=8", "--set", "ncoordgrid_y=8",
+                      "--set", "ncoordgrid_z=8", "--set", "mintemp=1000.0",
+                      "--set", "maxtemp=20000.0", "--set", "tablesize=20",
+                      "--set", "detailed_bf_estimators_usefromtimestep=1",
+                      "--set", "first_nlte_radfield_timestep=1"]) == 0
+    launched = rpkt_kernel.propagate.launches
+    for k in ("rpkt_crossing_cart3d", "rpkt_crossing_bfrate", "rpkt_crossing_multibin",
+              "rpkt_crossing_jblue"):
+        assert launched[k] > 0, (k, launched)
+    log = open(os.path.join(d, "output_0-0.txt")).read()
+    assert "timestep 1: grid update (nlte)" in log and "NLTE outer loop" in log
+    for fn in ("nlte_0000.out", "radfield_0000.out"):
+        assert os.path.getsize(os.path.join(d, fn)) > 0

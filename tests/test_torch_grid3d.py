@@ -23,9 +23,10 @@
   luminosity, particle deposition and per-cell J by the 4/sqrt(n) rule of
   tests/test_torch_slice.py;
 - check_supported accepts the new grids, the detailed bf-rate estimators,
-  the expansion opacities and the classic preset (dipole / polarised
-  scattering, rate-balance ionisation), and still raises for every other
-  option off the ported slice.
+  the expansion opacities, the classic preset (dipole / polarised
+  scattering, rate-balance ionisation) and nltenebular without the
+  non-thermal solver, and still raises for the options off the ported
+  slice (the non-thermal solver, vpkt, XCOM, linestat).
 """
 
 import dataclasses
@@ -465,10 +466,13 @@ def test_check_supported_takes_the_new_slice():
         check_supported(base.replace(grid_type=gt, dipole=True, pol_on=True,
                                      force_saha_ion_balance=False), 4)
         check_supported(to.classic(grid_type=gt), 4)
+        # NLTE populations, the multibin field, the J_b_lu estimators and
+        # LUT-off rates: nltenebular without the non-thermal solver
+        check_supported(to.nltenebular(grid_type=gt, nt_on=False,
+                                       nt_solve_spencerfano=False), 4)
     with pytest.raises(NotImplementedError, match="grid_type"):
         check_supported(base.replace(grid_type="SPHERICAL3D"), 4)
-    for name, value in (("nlte_enabled", True), ("nt_on", True), ("multibin_radfield", True),
-                        ("detailed_line_estimators_on", True),
-                        ("vpkt_on", True), ("use_lut_photoion", False)):
+    for name, value in (("nt_on", True), ("nt_solve_spencerfano", True), ("vpkt_on", True),
+                        ("use_xcom_gammaphotoion", True), ("record_linestat", True)):
         with pytest.raises(NotImplementedError, match=name):
             check_supported(base.replace(**{name: value}), 4)

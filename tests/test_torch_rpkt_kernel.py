@@ -269,6 +269,13 @@ def _mutate(out, kind):
         o["misc"][1] += 10
     elif kind == "cell_1pct":  # every 100th lane sent on to the next cell
         o["where"][::100] += 1
+    elif kind == "radbin_shift":  # every bin's J, nuJ and count in the next bin
+        o["radbin"] = torch.roll(o["radbin"], 1, dims=2)
+    elif kind == "jblue_column":  # every line's J_b_lu in the next line's column
+        o["jblue"] = torch.roll(o["jblue"], 1, dims=2)
+    elif kind == "jblue_no_activating_line":  # bound-bound events miss their own line
+        ev = bb & (o["evented"] > 0)
+        o["jblue"][o["mgi"][ev].long(), 1, o["act_line"][ev].long()] -= 1.0
     return o
 
 
@@ -281,14 +288,34 @@ def _tiled(out, reps):
     return {f: (v.repeat(reps) if f in lane else v) for f, v in out.items()}
 
 
+def _faulty_launch(rpkt_kernel, bad_ids):
+    """A stand-in for the card's launch: the plain version, except that the
+    moving lanes whose lane_id is in ``bad_ids`` end one line further on
+    and count their cell's J 5 % high (a fault confined to lanes that still
+    end in the same cell as the same packet type)."""
+    def launch(seed, lanes, tables, *args, shared_rows=None, **kw):
+        o = rpkt_kernel.propagate_reference(seed, lanes, tables, *args, **kw)
+        bad = torch.nonzero((lanes["moving"] > 0) & torch.isin(lanes["lane_id"], bad_ids))[:, 0]
+        o["next_trans"][bad] += 1
+        mgi = tables["mgi_of_cell"][o["where"][bad].clamp(min=0).long()].long()
+        o["est"][mgi[mgi >= 0], 0] *= 1.05
+        return o
+    return launch
+
+
 @pytest.mark.parametrize("kind", [None, "act_line", "bf_idx", "chi_bf", "dir", "j_wrong_cell",
-                                  "gamma", "nesc", "cell_1pct"])
-def test_compare_outputs_rejects_each_fault(scene, kind):
+                                  "gamma", "nesc", "cell_1pct", "radbin_shift", "jblue_column",
+                                  "jblue_no_activating_line", "j_on_next_trans_lanes"])
+def test_compare_outputs_rejects_each_fault(scene, kind, monkeypatch):
     """The kernel-vs-plain check of the card (rpkt_kernel.compare_outputs)
     accepts identical outputs and rejects a wrong activating line, bf
     continuum, opacity, direction, per-cell J, gamma estimator or counter,
-    and 1% of 65536 lanes sent to a wrong cell (a geometry fault that a
-    97% cell agreement would let pass)."""
+    1% of 65536 lanes sent to a wrong cell (a geometry fault that a 97% cell
+    agreement would let pass), a wrong radiation-field bin, a wrong J_b_lu
+    column and J_b_lu sums that miss the activating line of bound-bound
+    events (every line is a J_b_lu column here); and check_kernel rejects a
+    J error confined to a few lanes that also end on another line (those
+    lanes are held still only for the multibin and J_b_lu rows)."""
     from artis_tpu_torch.transport import engine as teng
     from artis_tpu_torch.transport import rpkt_kernel
 
@@ -298,16 +325,34 @@ def test_compare_outputs_rejects_each_fault(scene, kind):
     _, lanes = teng.rpkt_lanes(p["st"], ctx.t2)
     n = lanes["posx"].shape[0]
     rng = np.random.default_rng(5)
-    out = rpkt_kernel.propagate_reference(
-        1, lanes, rpkt_kernel.kernel_tables(dad, p["grid"], p["cells"], ctx),
-        torch.as_tensor(-np.log(rng.uniform(0.05, 0.95, n)).astype(np.float32)),
-        torch.as_tensor(rng.uniform(0.0, 1.0, n).astype(np.float32)), float(ctx.t2),
-        float(ctx.tmin), float(p["grid"].max_path_step), nlines=dad.nlines,
-        ncells=p["cells"].Te.shape[0], ngc=max(dad.nbfcontinua_ground, 1),
-        nphixs=dad.nphixspoints, max_inner=4, relativistic=p["opts"].use_relativistic_doppler_shift,
-        phixs_dnu=float(dad.nphixsnuincrement),
-        last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=True)
+    tables = rpkt_kernel.kernel_tables(dad, p["grid"], p["cells"], ctx)
+    tables["jblue_of_line"] = torch.arange(dad.nlines, dtype=torch.int32)
+    args = (1, lanes, tables,
+            torch.as_tensor(-np.log(rng.uniform(0.05, 0.95, n)).astype(np.float32)),
+            torch.as_tensor(rng.uniform(0.0, 1.0, n).astype(np.float32)), float(ctx.t2),
+            float(ctx.tmin), float(p["grid"].max_path_step))
+    kw = dict(nlines=dad.nlines, ncells=p["cells"].Te.shape[0],
+              ngc=max(dad.nbfcontinua_ground, 1), nphixs=dad.nphixspoints, max_inner=4,
+              relativistic=p["opts"].use_relativistic_doppler_shift,
+              phixs_dnu=float(dad.nphixsnuincrement),
+              last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=True, nradbins=32,
+              njblue=dad.nlines)
+    if kind == "j_on_next_trans_lanes":
+        # 8 copies of every lane, so that 2 faulty lanes stay within the
+        # 0.1 % of lanes whose integer outputs may differ
+        big = {f: v.repeat(8) for f, v in lanes.items()}
+        big["lane_id"] = torch.arange(8 * n, dtype=torch.int32)
+        args = args[:1] + (big, tables, args[3].repeat(8), args[4].repeat(8)) + args[5:]
+        bad_ids = big["lane_id"][big["moving"] > 0][:2]
+        monkeypatch.setattr(rpkt_kernel, "_launch", _faulty_launch(rpkt_kernel, bad_ids))
+        ok, rep, k, out = rpkt_kernel.check_kernel(*args, **kw)
+        assert int((k["next_trans"] != out["next_trans"]).sum()) == 2
+        assert rep["diverged_lanes"] == 0 and rep["next_trans_agree"] >= 0.999
+        assert not ok, rep
+        return
+    out = rpkt_kernel.propagate_reference(*args, **kw)
     assert int((out["is_bb"] > 0).sum()) > 0 and float(out["gamma"].sum()) > 0
+    assert float(out["radbin"][:, 2].sum()) > 0 and float(out["jblue"][:, 1].sum()) > 0
     if kind == "cell_1pct":
         out = _tiled(out, 65536 // n)
     ok, rep = rpkt_kernel.compare_outputs(_mutate(out, kind), out)

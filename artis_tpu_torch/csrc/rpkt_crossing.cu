@@ -45,15 +45,27 @@
 // rpkt_kernel.SHARED_ROWS_MAX). The misc counters are reduced in shared
 // memory in double.
 //
-// What bounds it on the card: (1) the line walk is a chain of dependent
-// global loads (line_nu[l], tau_factor[mgi, l]) whose length depends on the
-// packet, mitigated only by L2 residency of the tables (the default scene's
-// tables are a few kB; 128 x 1e5 lines is 51 MB, about the H100's 50 MB
-// L2); (2) divergence: threads of a warp take different numbers of
-// crossings and walk different numbers of lines, so a warp runs as long as
-// its slowest lane. The caller compacts the moving lanes into one launch so
-// no warp carries finished packets from the start; sorting lanes by cell or
-// cursor, and a persistent-thread work queue, are later optimisations.
+// What bounds it on the card: latency, not bandwidth (every launch runs
+// 60-190x above the time its bytes need): (1) the line walk is a chain of
+// dependent global loads (line_nu[l], tau_factor[mgi, l]) whose length
+// depends on the packet, mitigated only by L2 residency of the tables (the
+// default scene's tables are a few kB; 128 x 1e5 lines is 51 MB, about the
+// H100's 50 MB L2); (2) divergence: threads of a warp take different
+// numbers of crossings and walk different numbers of lines, so a warp runs
+// as long as its slowest lane; (3) registers: the 3D line walk sits at
+// 128 a thread (4 blocks of 128 an SM), and code added to its loop spills
+// or, unbounded, takes 156-161 registers and runs 1.3-1.5x slower. The caller
+// compacts the moving lanes into one launch, in packet order. Measured on
+// an H100 against this code and dropped (chip_smoke.py --kernel-ab;
+// PERF.md section 6): lanes sorted by (model cell, cursor), 8 or 16 lines
+// read ahead as independent loads, warp sums of a cell's rows before the
+// atomics, int64 fixed-point rows (order-independent sums, 1.08x in K6
+// and 1.49x on the nebular main path), and J_b_lu sums as column ranges of
+// difference rows (0.97x in the forced nebular launch, but 1.04-1.06x in
+// the launches without J_b_lu, whose loop it lengthens, and 1.16x over
+// the nebular main path's launches, most of them small). The estimator
+// sums are float atomics, so they depend on the order of the adds, and
+// same-seed runs differ in their last bits.
 //
 // Expansion-opacity mode (port of expansionopacity.get_event_expansion_batch,
 // rpkt.cc:199-290). Where the Pallas branch computes all 970 bins of every

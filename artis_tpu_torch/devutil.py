@@ -45,6 +45,35 @@ def demote_to_f32(obj):
         lambda t: t.float() if t.dtype == torch.float64 else t, obj)
 
 
+def index_add_(x, dim: int, index, source):
+    """``x.index_add_(dim, index, source)`` whose sums repeat bit for bit:
+    on CUDA index_add_ adds with float atomics, in an order that changes
+    from call to call, so same-seed runs differ; index_put_ with accumulate
+    sorts the indices and adds each one's values in a fixed order. The CPU
+    keeps index_add_. Returns ``x``."""
+    if not x.is_cuda:
+        return x.index_add_(dim, index, source)
+    return sorted_index_add_(x, dim, index, source)
+
+
+def sorted_index_add_(x, dim: int, index, source):
+    """``index_add_``'s CUDA formulation on any device: ``source`` added
+    into ``x`` along ``dim`` by index_put_ with accumulate (the aten op,
+    whose index list takes None for the whole of a leading dimension)."""
+    c = x if x.is_contiguous() else x.contiguous()
+    torch.ops.aten.index_put_(c, [None] * dim + [index.long()], source, True)
+    if c is not x:
+        x.copy_(c)
+    return x
+
+
+def index_add(x, dim: int, index, source):
+    """``x.index_add(dim, index, source)`` as ``index_add_`` sums it."""
+    if not x.is_cuda:
+        return x.index_add(dim, index, source)
+    return index_add_(x.clone(), dim, index, source)
+
+
 def exp_clipped(x):
     """exp with a dtype-aware overflow clip (float64: 709, float32: 87)."""
     limit = 709.0 if x.dtype == torch.float64 else 87.0

@@ -65,7 +65,7 @@ from . import spectrum as spectrum_mod
 from . import stats as stats_mod
 from .atomic import to_device
 from .constants import DAY, FOURPI, H, LSUN, MEV, ONEOVER4PI
-from .devutil import demote_to_f32, map_tensors
+from .devutil import demote_to_f32, index_add, map_tensors
 from .estimators import Estimators, zero_estimators
 from .io import atomicdata as atomicdata_io
 from .io import gammadata as gammadata_io
@@ -214,8 +214,8 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid, ffheati
         corr_ana = cells.W[:, None] * corr_lut
         corrphotoionrenorm = torch.where(corr_ana > 0, gest / torch.clamp(corr_ana, min=1e-300),
                                          torch.ones_like(gest))
-        gamma_ion = torch.zeros((gest.shape[0], dad.nions_total), dtype=gest.dtype,
-                                device=gest.device).index_add(1, dad.groundcont_uniqueion, gest)
+        gamma_ion = index_add(torch.zeros((gest.shape[0], dad.nions_total), dtype=gest.dtype,
+                                          device=gest.device), 1, dad.groundcont_uniqueion, gest)
     cells = ltepop_mod.calculate_ion_balance_nne(dad, cells, opts, gamma_ion=gamma_ion, rc=rc)
     extra = dict(tr_bins=tr_bins, w_bins=w_bins, nlte_fracdiff=None, nlte_iters=None)
     if mode == "nlte" and opts.nlte_enabled and nlte_indices:

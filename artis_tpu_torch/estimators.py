@@ -14,6 +14,8 @@ import dataclasses
 
 import torch
 
+from .devutil import index_add
+
 
 @dataclasses.dataclass(frozen=True)
 class Estimators:
@@ -95,4 +97,4 @@ def cell_add(array, nonemptymgi, contrib, active):
     ok = active & (nonemptymgi >= 0)
     safe_idx = torch.where(ok, nonemptymgi, torch.zeros_like(nonemptymgi))
     vals = torch.where(ok, contrib, torch.zeros_like(contrib)).to(array.dtype)
-    return array.index_add(0, safe_idx, vals)
+    return index_add(array, 0, safe_idx, vals)

@@ -15,7 +15,7 @@ import torch
 
 from ..atomic import DeviceAtomicData
 from ..constants import KB, MH, SAHACONST
-from ..devutil import assert_testmodeonly
+from ..devutil import assert_testmodeonly, index_add
 from ..options import Options
 from .cellstate import CellState
 from .ratecoeff import interpolate_lut
@@ -30,7 +30,7 @@ def calculate_partfuncts(dad: DeviceAtomicData, t_exc):
     boltz = dad.level_g.to(dt)[None, :] * torch.exp(
         -dad.level_e_aboveground.to(dt)[None, :] / (KB * t_exc[:, None]))
     out = torch.zeros((t_exc.shape[0], dad.nions_total), dtype=dt, device=t_exc.device)
-    return out.index_add(1, dad.level_ion, boltz)
+    return index_add(out, 1, dad.level_ion, boltz)
 
 
 def log_phi_saha(dad: DeviceAtomicData, partfuncts, t_e):
@@ -121,7 +121,7 @@ def set_groundlevelpops(dad: DeviceAtomicData, partfuncts, logphi, nnelement,
     vals = torch.where(valid.reshape(-1)[None, :], groundpop_grid.reshape(ncells, -1),
                        torch.zeros((), dtype=frac.dtype, device=frac.device))
     out = torch.zeros((ncells, dad.nions_total), dtype=frac.dtype, device=frac.device)
-    return out.index_add(1, ionidx.reshape(-1), vals)
+    return index_add(out, 1, ionidx.reshape(-1), vals)
 
 
 def calculate_ion_balance_nne(dad: DeviceAtomicData, cells: CellState, opts: Options,

@@ -39,6 +39,7 @@ import torch
 
 from ..atomic import DeviceAtomicData
 from ..constants import CLIGHTSQUARED, H, HCLIGHTOVERFOURPI, KB, MH
+from ..devutil import index_add_
 from ..options import Options
 from .ltepop import (
     calculate_ionfractions_log, calculate_partfuncts, find_uppermost_ion, log_phi_saha,
@@ -163,7 +164,7 @@ def build_indices(dad: DeviceAtomicData, opts=None) -> list[ElementNlteIndex]:
 
 def _add(m, dimr, rows, cols, vals):
     """m[:, rows, cols] += vals with repeated (row, col) pairs summed."""
-    m.view(m.shape[0], dimr * dimr).index_add_(1, rows * dimr + cols, vals)
+    index_add_(m.view(m.shape[0], dimr * dimr), 1, rows * dimr + cols, vals)
 
 
 def solve_element(idx: ElementNlteIndex, dad: DeviceAtomicData, rc: RateCoeffTables, cells,
@@ -198,7 +199,7 @@ def solve_element(idx: ElementNlteIndex, dad: DeviceAtomicData, rc: RateCoeffTab
         boltz = torch.where(member[None, :], level_g[lstart:lstart + dim][None, :] * torch.exp(
             -torch.clamp(e_lvl - t(idx.e_slref, dt), min=0.0)[None, :]
             / (KB * torch.clamp(t_exc, min=1.0))[:, None]), torch.zeros((), dtype=dt, device=dev))
-        sl_partfunc = torch.zeros((ncells, dimr), dtype=dt, device=dev).index_add_(1, cm, boltz)
+        sl_partfunc = index_add_(torch.zeros((ncells, dimr), dtype=dt, device=dev), 1, cm, boltz)
         s_renorm = torch.where(member[None, :],
                                boltz / torch.clamp(sl_partfunc[:, cm], min=1e-300), s_renorm)
 
@@ -287,7 +288,7 @@ def solve_element(idx: ElementNlteIndex, dad: DeviceAtomicData, rc: RateCoeffTab
     # populations; a superlevel column's norm is the sum of its members'
     # LTE populations (nltepop.cc:568-577)
     lpc = torch.clamp(lp, min=opts.minpop)
-    norm = torch.zeros((ncells, dimr), dtype=dt, device=dev).index_add_(1, cm, lpc)
+    norm = index_add_(torch.zeros((ncells, dimr), dtype=dt, device=dev), 1, cm, lpc)
     m = m * norm[:, None, :]
     balance = torch.zeros((ncells, dimr), dtype=dt, device=dev)
     balance[:, 0] = nnelement.to(dt)
@@ -353,8 +354,8 @@ def solve_all_elements(indices, dad: DeviceAtomicData, rc: RateCoeffTables, cell
             corr_photoion_cells=corr_photoion_cells)
     dt = levelpops.dtype
     ncells = levelpops.shape[0]
-    ionpop = torch.zeros((ncells, dad.nions_total), dtype=dt,
-                         device=levelpops.device).index_add_(1, dad.level_ion, levelpops)
+    ionpop = index_add_(torch.zeros((ncells, dad.nions_total), dtype=dt,
+                                    device=levelpops.device), 1, dad.level_ion, levelpops)
     groundpops = levelpops[:, dad.ion_level_start]
     g0 = dad.ion_g0.to(dt)[None, :]
     partfuncts = torch.where(groundpops > 0, ionpop / torch.clamp(groundpops, min=1e-300) * g0,

@@ -18,7 +18,7 @@ from ..atomic import DeviceAtomicData
 from ..constants import (
     C_0, CLIGHTSQUARED, EULERGAMMA, H, H_IONPOT, HCLIGHTOVERFOURPI, KB,
 )
-from ..devutil import exp_clipped
+from ..devutil import exp_clipped, index_add, index_add_
 from .radfield import dbb
 from .ratecoeff import RateCoeffTables, interpolate_lut
 
@@ -253,13 +253,13 @@ def compute_process_rates(dad: DeviceAtomicData, rc: RateCoeffTables, levelpops,
                                         g["forb"][None, :], g["osc"][None, :],
                                         g["g_u"][None, :], g["g_l"][None, :])
         owner = g["owner"]
-        ma[:, :, MA_ACTION_RADDEEXC].index_add_(1, owner, wdown * r_down * eps)
-        ma[:, :, MA_ACTION_COLDEEXC].index_add_(1, owner, wdown * c_down * eps)
-        ma[:, :, MA_ACTION_INTERNALDOWNSAME].index_add_(
-            1, owner, wdown * (r_down + c_down) * g["e_target"][None, :])
-        ma[:, :, MA_ACTION_INTERNALUPSAME].index_add_(
-            1, owner, wup * (r_up + c_up) * g["e_owner"][None, :])
-        cool_exc_level.index_add_(1, owner, wup * n_l * c_up * eps)
+        index_add_(ma[:, :, MA_ACTION_RADDEEXC], 1, owner, wdown * r_down * eps)
+        index_add_(ma[:, :, MA_ACTION_COLDEEXC], 1, owner, wdown * c_down * eps)
+        index_add_(ma[:, :, MA_ACTION_INTERNALDOWNSAME], 1, owner,
+                   wdown * (r_down + c_down) * g["e_target"][None, :])
+        index_add_(ma[:, :, MA_ACTION_INTERNALUPSAME], 1, owner,
+                   wup * (r_up + c_up) * g["e_owner"][None, :])
+        index_add_(cool_exc_level, 1, owner, wup * n_l * c_up * eps)
 
     ncont = dad.nbfcontinua
     ncw = max(ncont, 1)
@@ -289,9 +289,9 @@ def compute_process_rates(dad: DeviceAtomicData, rc: RateCoeffTables, levelpops,
         c_rec = col_recombination_ratecoeff(te, ne, sigma_edge, eps_trans, upper_stage, g_l, g_u)
         v_rec_rad = r_rec * eps_trans
         v_rec_tot = (r_rec + c_rec) * level_energy[ll][None, :]
-        ma[:, :, MA_ACTION_RADRECOMB].index_add_(1, ul, v_rec_rad)
-        ma[:, :, MA_ACTION_COLRECOMB].index_add_(1, ul, c_rec * eps_trans)
-        ma[:, :, MA_ACTION_INTERNALDOWNLOWER].index_add_(1, ul, v_rec_tot)
+        index_add_(ma[:, :, MA_ACTION_RADRECOMB], 1, ul, v_rec_rad)
+        index_add_(ma[:, :, MA_ACTION_COLRECOMB], 1, ul, c_rec * eps_trans)
+        index_add_(ma[:, :, MA_ACTION_INTERNALDOWNLOWER], 1, ul, v_rec_tot)
         if corr_photoion_cells is not None:
             r_ion = corr_photoion_cells.to(dtype)
         else:
@@ -301,7 +301,7 @@ def compute_process_rates(dad: DeviceAtomicData, rc: RateCoeffTables, levelpops,
             r_ion = w[:, None] * gamma_lut * corrphotoionrenorm[:, gidx]
         c_ion = col_ionization_ratecoeff(te, ne, sigma_edge, eps_trans, lower_stage)
         v_ion_tot = (r_ion + c_ion) * level_energy[ll][None, :]
-        ma[:, :, MA_ACTION_INTERNALUPHIGHER].index_add_(1, ll, v_ion_tot)
+        index_add_(ma[:, :, MA_ACTION_INTERNALUPHIGHER], 1, ll, v_ion_tot)
         cool_ion_cont = lp[:, ll] * c_ion * eps_trans
         bfcool = interpolate_lut(rc.bfcooling.to(dtype), rc, idx[None, :], te)
         nnupperion = nnion[:, torch.clamp(ion + 1, max=nions - 1)].to(dtype)
@@ -314,10 +314,10 @@ def compute_process_rates(dad: DeviceAtomicData, rc: RateCoeffTables, levelpops,
         1.426e-27 * torch.sqrt(t_e)[:, None] * charge[None, :] ** 2 * nnion.to(dtype) * ne,
         torch.zeros((), dtype=dtype, device=dev))
     zi = torch.zeros((ncells, nions), dtype=dtype, device=dev)
-    cool_exc_ion = zi.index_add(1, dad.level_ion, cool_exc_level)
+    cool_exc_ion = index_add(zi, 1, dad.level_ion, cool_exc_level)
     cont_ion_idx = dad.cont_ion if ncont else torch.zeros(1, dtype=torch.int64, device=dev)
-    cool_ion_ion = zi.index_add(1, cont_ion_idx, cool_ion_cont)
-    cool_fb_ion = zi.index_add(1, cont_ion_idx, cool_fb_cont)
+    cool_ion_ion = index_add(zi, 1, cont_ion_idx, cool_ion_cont)
+    cool_fb_ion = index_add(zi, 1, cont_ion_idx, cool_fb_cont)
     ion_cooling = cool_ff_ion + cool_exc_ion + cool_ion_ion + cool_fb_ion
     return ProcessRates(
         ma_rates=ma, cool_exc_level=cool_exc_level, cool_ion_cont=cool_ion_cont,

@@ -78,6 +78,12 @@ TABLES_I32 = ("mgi_of_cell", "thick", "cont_gidx", "jblue_of_line")
 # continua in the opacity windows
 MISC = ("nadv", "nesc", "cmf_lum", "n_escat", "n_thickscat", "ncross", "nwalk", "nbfwin")
 NMISC = 8
+# the Estimators fields the kernel's rows (and misc) feed through float
+# atomics, whose order changes from launch to launch: same-seed runs on the
+# card differ in these in their last bits from timestep 0 on (counts are
+# exact)
+ATOMIC_SUMS = ("j", "nuj", "ffheating", "gammaestimator", "bfheatingestimator", "bfrate",
+               "radfieldbin_j", "radfieldbin_nuj", "jblue_raw", "cmf_lum")
 # grid geometry of a launch (the GridType values): the kernel is compiled
 # once per geometry
 GEOM_SPH, GEOM_CYL, GEOM_CART = 1, 2, 3
@@ -629,6 +635,10 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     elif shared_rows and row_bytes(ncells, ngc, nbfr, **rows_kw) > SMEM_LIMIT:
         raise ValueError(f"estimator rows need {row_bytes(ncells, ngc, nbfr, **rows_kw)} "
                          "bytes of shared memory (> 227 KB)")
+    timing = propagate.timing
+    if timing is not None and n > 0:
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
     out = {k: torch.empty(n, dtype=F32, device=dev) for k in OUT_F32}
     out.update({k: torch.empty(n, dtype=I32, device=dev) for k in OUT_I32})
     out["est"] = torch.zeros((ncells, 4), dtype=F32, device=dev)
@@ -662,17 +672,15 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
                                        ctypes.c_void_p(stream))
         if err != 0:
             raise RuntimeError(f"rpkt_crossing launch failed: cudaError {err}")
-        propagate.launches[CONFIG_OF_GEOM[geom]] += 1
-        if nbfr:
-            propagate.launches[CONFIG_BFRATE] += 1
-        if expansion:
-            propagate.launches[CONFIG_EXPANSION] += 1
-        if defer_scatter:
-            propagate.launches[CONFIG_DEFERRED] += 1
-        if nradbins:
-            propagate.launches[CONFIG_MULTIBIN] += 1
-        if njblue:
-            propagate.launches[CONFIG_JBLUE] += 1
+        configs = [CONFIG_OF_GEOM[geom]] + [c for c, on in (
+            (CONFIG_BFRATE, nbfr), (CONFIG_EXPANSION, expansion),
+            (CONFIG_DEFERRED, defer_scatter), (CONFIG_MULTIBIN, nradbins),
+            (CONFIG_JBLUE, njblue)) if on]
+        for c in configs:
+            propagate.launches[c] += 1
+        if timing is not None:
+            ev[1].record()
+            timing.append(dict(configs=configs, n=n, events=ev))
     return out
 
 
@@ -715,7 +723,9 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
 # kernel launches since the last reset, per kernel configuration: plain
 # integers that a run resets and reads to show that its main path went
 # through the kernel (a bf-rate, expansion or deferred-scatter launch counts
-# for its geometry too)
+# for its geometry too). ``propagate.timing``, off (None) unless a caller
+# sets a list, gets one record per launch: its configurations, its lanes
+# and the CUDA events around its device work (rows and kernel).
 CONFIG_OF_GEOM = {GEOM_SPH: "rpkt_crossing_sph1d", GEOM_CYL: "rpkt_crossing_cyl2d",
                   GEOM_CART: "rpkt_crossing_cart3d"}
 CONFIG_BFRATE = "rpkt_crossing_bfrate"
@@ -726,6 +736,7 @@ CONFIG_JBLUE = "rpkt_crossing_jblue"
 propagate.launches = dict.fromkeys((*CONFIG_OF_GEOM.values(), CONFIG_BFRATE,
                                     CONFIG_EXPANSION, CONFIG_DEFERRED, CONFIG_MULTIBIN,
                                     CONFIG_JBLUE), 0)
+propagate.timing = None
 
 
 def reset_launches() -> None:

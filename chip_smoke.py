@@ -60,9 +60,17 @@ line is printed):
      preset on the big scene's 16^3 model and Fe atom (2^20 packets,
      timesteps 0-2, the last two with the non-LTE grid update; the event
      pass must count electron scatterings, T_e must leave T_J in some cell,
-     escaped packets must carry Q or U, and the port's exspec must write a
-     finite specpol.out whose Stokes I is spec.out); every timestep
-     completes, every output is finite and packets escape;
+     an escaped packet must carry Q or U exactly when it was
+     electron-scattered since its emission, and the port's exspec must write a
+     finite specpol.out whose Stokes I is spec.out) and classic_dense, the
+     classic preset on a dense, hot 8-shell model on an 8^3 grid (8192
+     packets, timesteps 0-1; some escaped packet must have been
+     electron-scattered since its emission, and every escaped packet
+     carries Q or U exactly when it was); every timestep
+     completes, every output is finite and packets escape; each run also
+     logs its kernel launches, their summed CUDA-event ms (the wrapper's
+     ``propagate.timing``), the lane-count range and their share of the
+     run's transport seconds;
   5. prints the kernel records, the card and, last, the device record.
 
     python3 chip_smoke.py --rows-sweep
@@ -71,12 +79,30 @@ times the kernel's two estimator-row modes over growing cell counts
 (``rows_sweep``), the measurement behind rpkt_kernel.SHARED_ROWS_MAX, and
 prints no result line.
 
+    python3 chip_smoke.py --repeat
+
+runs same-seed pairs of the nebular, default, kilonova_2d_2dgrid and
+expansion-opacity scenes in lockstep (``repeat_runs``): whether a
+scattered host sum gives two results on the same inputs, whether timestep
+0 repeats bit for bit but for the sums the kernel adds with float atomics,
+and how far those sums and the later timesteps differ; prints no result
+line.
+
+    python3 chip_smoke.py --scenes NAME [NAME...]
+
+runs the named main-path scenes of phase 4 alone and logs their records
+(per-timestep grid-update seconds, wall, peak device memory, kernel
+share); prints no result line.
+
     python3 chip_smoke.py --kernel-ab ROOT [ROOT...]
 
 times this checkout's kernel against the kernels of other checkouts of the
 port (e.g. a parent commit unpacked with ``git archive`` into a gitignored
-directory) on the same inputs, configuration by configuration, in
-alternating rounds (``kernel_ab``), and prints no result line.
+directory) on the same inputs, configuration by configuration, with the
+lanes in packet order (the main path's) and sorted by (model cell,
+cursor), in alternating rounds (``kernel_ab``), then the launches of the
+nebular and classic_3d main paths (timesteps 0-1) replayed through each
+kernel in both orders; prints no result line.
 """
 
 from __future__ import annotations
@@ -98,6 +124,7 @@ sys.path.insert(0, REPO)
 NPKTS_DEFAULT = 65536
 NPKTS_REAL = 1 << 20
 NPKTS_2D = 1 << 18
+NPKTS_DENSE = 8192
 KERNEL_SOURCE = "artis_tpu_torch/csrc/rpkt_crossing.cu"
 PALLAS = "artis_tpu/transport/pallas_rpkt.py"
 # kernel configuration -> (record name, the Pallas branch it replaces)
@@ -156,6 +183,18 @@ def classic_scene(d):
     make_run(d, ncells=16, ntimesteps=4, tmin_days=5.0, tmax_days=9.0, ngreyts=0,
              model_dim=3, logrho0=-9.0, logrho_slope=-0.15, num_lte_timesteps=1)
     write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
+
+
+def classic_dense_scene(d):
+    """A dense, hot classic scene in which electron scattering is common
+    (the 8 shells, 1-2 days and logrho0 -6 of tests/test_torch_deferred.py):
+    escaped packets that were electron-scattered since their emission, so
+    that the Stokes vectors of dipole scattering reach the packet output.
+    The classic_3d model is cold (a few scatterings in 2^20 packets)."""
+    from artis_tpu_torch.synthdata import make_run
+
+    make_run(d, ncells=8, ntimesteps=3, tmin_days=1.0, tmax_days=2.0, ngreyts=0,
+             logrho0=-6.0, num_lte_timesteps=1)
 
 
 def nebular_scene(d):
@@ -902,9 +941,13 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     rpkt_kernel.reset_launches()
+    rpkt_kernel.propagate.timing = []
     t0 = time.time()
-    rc = main_sn3d(cli_args(d, npkts, grid_type, **extra))
-    torch.cuda.synchronize()
+    try:
+        rc = main_sn3d(cli_args(d, npkts, grid_type, **extra))
+        torch.cuda.synchronize()
+    finally:
+        timing, rpkt_kernel.propagate.timing = rpkt_kernel.propagate.timing, None
     wall = time.time() - t0
     launches = dict(rpkt_kernel.propagate.launches)
     if rc != 0:
@@ -958,7 +1001,33 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     log(f"{name}: {npkts} packets, {len(tlog)} timesteps, kernel launches {launches}, "
         f"work-weighted {rec['steps_per_s']} rpkt steps/s, wall {wall:.1f} s, peak memory "
         f"{rec['peak_mem_bytes']} bytes")
+    rec["kernel"] = _kernel_share(name, timing, secs)
     return rec
+
+
+def _kernel_share(name, timing, transport_s):
+    """Logs and returns what the main path's kernel launches cost
+    (``propagate.timing`` records, CUDA events): per configuration the
+    launches, summed ms and lane-count range, and the kernel's share of
+    the transport seconds."""
+    by = {}
+    for r in timing:
+        ms = r["events"][0].elapsed_time(r["events"][1])
+        for c in r["configs"]:
+            b = by.setdefault(c, dict(launches=0, ms=0.0, lanes_min=r["n"], lanes_max=r["n"]))
+            b["launches"] += 1
+            b["ms"] += ms
+            b["lanes_min"], b["lanes_max"] = min(b["lanes_min"], r["n"]), max(b["lanes_max"],
+                                                                             r["n"])
+    kernel_ms = sum(r["events"][0].elapsed_time(r["events"][1]) for r in timing)
+    out = dict(launches=len(timing), kernel_ms=kernel_ms,
+               lanes_min=min((r["n"] for r in timing), default=0),
+               lanes_max=max((r["n"] for r in timing), default=0),
+               share=kernel_ms / 1e3 / max(transport_s, 1e-12), configs=by)
+    log(f"{name}: kernel {out['launches']} launches, {kernel_ms:.3f} ms summed, lanes "
+        f"{out['lanes_min']}-{out['lanes_max']}, share of the {transport_s:.3f} transport s "
+        f"{out['share']:.5f}; per configuration {json.dumps(by)}")
+    return out
 
 
 # the estimator-row sweep: (geometry, make_run keywords, grid type) of
@@ -1056,18 +1125,22 @@ def kernel_ab(workdir, roots):
 
     def time_config(label, sim, tables, t0, t2, want_bfrate, **extra):
         args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed=7, **extra)
-        runs = [(tag, launcher(mod, args, kw)) for tag, mod in versions]
-        runs = [(tag, fn) for tag, fn in runs if fn is not None]
-        times = {tag: [] for tag, _ in runs}
-        for r in range(AB_ROUNDS):
-            for tag, fn in (runs if r % 2 == 0 else runs[::-1]):
-                times[tag].append(_timed(fn, 10)[0])
-        base = np.array(times["this"])
-        for tag, ts in times.items():
-            ratio = np.median(np.array(ts) / base)
-            log(f"ab[{label}] {tag}: median {np.median(ts):.4f} ms, per round "
-                f"{' '.join(f'{t:.4f}' for t in ts)} ms; median ratio to this {ratio:.4f}")
-        torch.cuda.synchronize()
+        # the forced lanes as drawn (packet order, the main path's) and
+        # sorted by (model cell, cursor)
+        for order, a in (("packet order", args),
+                         ("sorted", _sorted_args(args, sim.grid.nonemptymgi_of_cell))):
+            runs = [(tag, launcher(mod, a, kw)) for tag, mod in versions]
+            runs = [(tag, fn) for tag, fn in runs if fn is not None]
+            times = {tag: [] for tag, _ in runs}
+            for r in range(AB_ROUNDS):
+                for tag, fn in (runs if r % 2 == 0 else runs[::-1]):
+                    times[tag].append(_timed(fn, 10)[0])
+            base = np.array(times["this"])
+            for tag, ts in times.items():
+                ratio = np.median(np.array(ts) / base)
+                log(f"ab[{label}, {order}] {tag}: median {np.median(ts):.4f} ms, per round "
+                    f"{' '.join(f'{t:.4f}' for t in ts)} ms; median ratio to this {ratio:.4f}")
+            torch.cuda.synchronize()
 
     scenes = [
         ("K1 sph1d", dict(make_scene=default_scene, npkts=NPKTS_DEFAULT), [({}, False)]),
@@ -1094,6 +1167,239 @@ def kernel_ab(workdir, roots):
         sim.close()
         del sim
         gc.collect()
+    # the launches of the nebular and classic_3d main paths (timesteps 0-1,
+    # 2^20 packets), replayed through every version in both lane orders
+    for name, sc in (("nebular_1d_3dgrid_nont", dict(make_scene=nebular_scene,
+                                                     grid_type="CARTESIAN3D",
+                                                     preset="nltenebular", **NEBULAR)),
+                     ("classic_3d", dict(make_scene=classic_scene, grid_type="CARTESIAN3D",
+                                         preset="classic"))):
+        _replay_main_path(workdir, name, sc, versions, launcher)
+
+
+def _sorted_args(args, mgi_of_cell, sort=True):
+    """Launch arguments with the lanes (and their injected draws) sorted
+    by (model cell, cursor), the order measured against packet order
+    (``sort`` False: gathered in their own order, at the same cost but the
+    key and the sort)."""
+    import torch
+
+    seed, lanes, tables, tau, sel = args[:5]
+    if sort:
+        key = ((mgi_of_cell[lanes["where"].long()].long() + 1) * 2 ** 32
+               + (lanes["next_trans"].long() + 1))
+        order = torch.sort(key, stable=True).indices
+    else:
+        order = torch.arange(tau.numel(), device=tau.device)
+    lanes = {k: v[order].contiguous() for k, v in lanes.items()}
+    return (seed, lanes, tables, tau[order].contiguous(), sel[order].contiguous()) + args[5:]
+
+
+def _replay_main_path(workdir, name, scene_kw, versions, launcher):
+    """Runs timesteps 0-1 of a scene's main path (2^20 packets) recording
+    the arguments of every kernel launch, then replays those launches
+    through each version (``kernel_ab``) in AB_ROUNDS alternating rounds,
+    with the lanes in packet order (the main path's) and sorted by (model
+    cell, cursor) (the gather of the lanes, and the key and sort of the
+    sorted order, timed with the launches): CUDA-event ms of the whole
+    sequence. Logs per version and order the median, every round, the
+    launches and lane-count range, and the share of the recorded run's
+    transport seconds."""
+    import inspect
+
+    import torch
+
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    sim = _phase3_sim(workdir, f"ab_main_{name}", npkts=NPKTS_REAL, **scene_kw)
+    calls = []
+    propagate = rpkt_kernel.propagate
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return propagate(*args, **kw)
+
+    record.launches, record.timing = propagate.launches, propagate.timing
+    rpkt_kernel.propagate = record
+    try:
+        for nts in (0, 1):
+            sim.do_timestep(nts)
+    finally:
+        rpkt_kernel.propagate = propagate
+    transport_s = sum(r["seconds"] for r in sim.transport_log)
+    mgi_of_cell = sim.grid.nonemptymgi_of_cell
+    packet = calls
+    sim.close()
+    del sim, calls
+    gc.collect()
+    ns = [a[1]["posx"].shape[0] for a, _ in packet]
+
+    def sequence(mod, sort):
+        if any(launcher(mod, args, kw) is None for args, kw in packet):
+            return None
+        params = inspect.signature(mod._launch).parameters
+        seq = [(args, {k: v for k, v in kw.items() if k in params}) for args, kw in packet]
+
+        def run():
+            for args, kw in seq:
+                mod._launch(*_sorted_args(args, mgi_of_cell, sort), **kw)
+        return run
+
+    runs = [(f"{tag}, {'sorted' if sort else 'packet order'}", sequence(mod, sort))
+            for tag, mod in versions for sort in (True, False)]
+    runs = [(tag, fn) for tag, fn in runs if fn is not None]
+    times = {tag: [] for tag, _ in runs}
+    for r in range(AB_ROUNDS):
+        for tag, fn in (runs if r % 2 == 0 else runs[::-1]):
+            times[tag].append(_timed(fn, 1)[0])
+    base = np.array(times[runs[0][0]])
+    for tag, ts in times.items():
+        log(f"ab main path[{name}] {tag}: {len(ns)} launches of {min(ns)}-{max(ns)} lanes, "
+            f"median {np.median(ts):.3f} ms summed, share of the {transport_s:.3f} transport s "
+            f"{np.median(ts) / 1e3 / transport_s:.5f}; per round "
+            f"{' '.join(f'{t:.3f}' for t in ts)} ms; median ratio to {runs[0][0]} "
+            f"{np.median(np.array(ts) / base):.4f}")
+    del packet
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def _tensor_fields(obj):
+    import dataclasses
+
+    import torch
+
+    return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)}
+
+
+def _differing(a, b):
+    """{field: differing elements} of two dataclasses of tensors, bitwise
+    (NaN equal to NaN)."""
+    import torch
+
+    out = {}
+    for k, x in _tensor_fields(a).items():
+        y = getattr(b, k)
+        same = (x == y) | (torch.isnan(x) & torch.isnan(y)) if x.is_floating_point() \
+            else x == y
+        n = int((~same).sum())
+        if n:
+            out[k] = n
+    return out
+
+
+def _index_add_probe(fn):
+    """Runs ``fn`` with every Tensor.index_add / index_add_ and every
+    ``devutil.sorted_index_add_`` (the port's host sums on CUDA) computed
+    twice on the same inputs; returns {caller file:line: [calls, calls
+    whose two results differ]}, the caller being the first frame outside
+    devutil.py."""
+    import traceback
+
+    import torch
+
+    from artis_tpu_torch import devutil
+
+    sites = {}
+
+    def count(r1, r2):
+        fr = next(fr for fr in reversed(traceback.extract_stack()[:-2])
+                  if not fr.filename.endswith("devutil.py"))
+        site = sites.setdefault(f"{os.path.relpath(fr.filename, REPO)}:{fr.lineno}", [0, 0])
+        site[0] += 1
+        site[1] += int(not torch.equal(r1, r2))
+
+    orig = {m: getattr(torch.Tensor, m) for m in ("index_add", "index_add_")}
+    orig_sorted = devutil.sorted_index_add_
+
+    def wrap(m):
+        def f(self, *a, **k):
+            r1 = orig["index_add"](self, *a, **k)
+            count(r1, orig["index_add"](self, *a, **k))
+            return self.copy_(r1) if m == "index_add_" else r1
+        return f
+
+    def sorted_twice(x, *a):
+        r1 = orig_sorted(x.clone(), *a)
+        count(r1, orig_sorted(x.clone(), *a))
+        return x.copy_(r1)
+
+    for m in orig:
+        setattr(torch.Tensor, m, wrap(m))
+    devutil.sorted_index_add_ = sorted_twice
+    try:
+        fn()
+    finally:
+        for m, f in orig.items():
+            setattr(torch.Tensor, m, f)
+        devutil.sorted_index_add_ = orig_sorted
+    return sites
+
+
+# same-seed pairs: the nebular scene (the 3D line walk), and the 1D (K1),
+# cylindrical (K3) and expansion-opacity (K4) scenes; timesteps run
+REPEAT_SCENES = (("nebular_1d_3dgrid_nont", 4), ("default_scene", 5),
+                 ("kilonova_2d_2dgrid", 2), ("kilonova_2d_2dgrid_expansionopac", 3))
+
+
+def repeat_runs(workdir):
+    """Whether same-seed runs repeat on the card. (1) The nebular scene's
+    timesteps 0-2 with every scattered host sum computed twice on the same
+    inputs (``_index_add_probe``): raises if a site gives two results. (2)
+    For each of REPEAT_SCENES two simulations with the same seed, in
+    lockstep; after each timestep their rpkt steps, packet states,
+    estimators and cells are compared bitwise, and for each rpkt_kernel.ATOMIC_SUMS
+    field that differs its largest difference over its largest entry is
+    logged (two runs may differ in those from timestep 0 on, ROADMAP Queue
+    3, and in everything from timestep 1 on). Raises if timestep 0's
+    steps, packet state or cells differ, or an estimator outside
+    rpkt_kernel.ATOMIC_SUMS does."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    table = {sc[0]: sc for sc in SCENES}
+    _, make, npkts, grid, _, extra = table["nebular_1d_3dgrid_nont"]
+    sim = _phase3_sim(workdir, "repeat_probe", make, npkts, grid, **extra)
+    bad = {}
+    for nts in range(3):
+        sites = _index_add_probe(lambda: sim.do_timestep(nts))
+        log(f"repeat: nebular timestep {nts}: scattered-sum sites [calls, calls with two "
+            f"results] {json.dumps(sites)}")
+        bad.update({f"ts{nts} {k}": v for k, v in sites.items() if v[1]})
+    sim.close()
+    del sim
+    gc.collect()
+    if bad:
+        raise RuntimeError(f"scattered host sums give two results on the same inputs: {bad}")
+    differing = []
+    for name, nsteps in REPEAT_SCENES:
+        _, make, npkts, grid, _, extra = table[name]
+        sims = [_phase3_sim(workdir, f"repeat_{name}_{i}", make, npkts, grid, **extra)
+                for i in range(2)]
+        for nts in range(nsteps):
+            for sim in sims:
+                sim.do_timestep(nts)
+            a, b = sims
+            steps = [sim.transport_log[-1]["steps"] for sim in sims]
+            diff = {"state": _differing(a.state, b.state), "est": _differing(a.est, b.est),
+                    "cells": _differing(a.cells, b.cells)}
+            rel = {}
+            for k in diff["est"]:
+                x, y = getattr(a.est, k).double(), getattr(b.est, k).double()
+                rel[k] = float((x - y).abs().max() / x.abs().max().clamp(min=1e-300))
+            log(f"repeat[{name}]: timestep {nts} ({a.plasma_mode}): rpkt steps {steps[0]} / "
+                f"{steps[1]}, differing elements {json.dumps(diff)}; largest difference over "
+                f"largest entry {json.dumps(rel)}")
+            if nts == 0 and (steps[0] != steps[1] or diff["state"] or diff["cells"]
+                             or set(diff["est"]) - set(rpkt_kernel.ATOMIC_SUMS)):
+                differing.append(f"{name} timestep 0: steps {steps}, {diff}")
+        for sim in sims:
+            sim.close()
+        del sims
+        gc.collect()
+    if differing:
+        raise RuntimeError(f"same-seed runs differ beyond the kernel's sums: {differing}")
+    log("repeat: timestep 0 repeats bit for bit but for the kernel's sums in every scene")
 
 
 def check_nebular(rec):
@@ -1145,9 +1451,10 @@ def check_classic(rec):
     pass counted electron scatterings; timesteps 1-2 took the non-LTE grid
     update and its thermal balance left T_e away from T_J in some cell; the
     port's exspec wrote a finite specpol.out whose Stokes I is spec.out;
-    some escaped packet carries a nonzero Stokes Q or U."""
+    ``check_polarisation`` holds (the scene is cold: its escaped packets
+    may all be unscattered, which ``check_classic_dense`` does not allow).
+    Returns the escaped packets that were electron-scattered."""
     from artis_tpu_torch.cli import main_exspec
-    from artis_tpu_torch.packets import TYPE_ESCAPE, TYPE_RPKT, read_packets_text
 
     d = rec["dir"]
     n_es = rec["counters"].get("escounter", 0)
@@ -1177,18 +1484,89 @@ def check_classic(rec):
         raise RuntimeError(f"classic_3d: specpol.out malformed or not finite {sp.shape}")
     if not np.allclose(sp[1:, 1:1 + nts], spec[1:, 1:], rtol=1e-5, atol=1e-30):
         raise RuntimeError("classic_3d: the Stokes I of specpol.out is not spec.out")
+    npol = check_polarisation("classic_3d", d)
+    log(f"classic_3d: exspec took {time.time() - t0:.1f} s; specpol Q/U flux sum "
+        f"{float(np.abs(sp[1:, 1 + nts:]).sum())}")
+    return npol
+
+
+def check_polarisation(name, d):
+    """Every escaped r-packet of a run carries a nonzero Stokes Q or U
+    exactly when it was electron-scattered since its last emission (an
+    emission resets the Stokes vector and the scattering count, and these
+    scenes have no grey cells). Returns how many escaped packets were."""
+    from artis_tpu_torch.packets import TYPE_ESCAPE, TYPE_RPKT, read_packets_text
+
     pk = read_packets_text(os.path.join(d, "packets00_0000.out"))
     esc = (pk["ptype"] == TYPE_ESCAPE) & (pk["escape_type"] == TYPE_RPKT)
-    npol = int((np.abs(pk["stokes"][esc, 1:]) > 0).any(axis=1).sum())
-    log(f"classic_3d: exspec took {time.time() - t0:.1f} s; {int(esc.sum())} escaped r-packets, "
-        f"{npol} polarised; specpol Q/U flux sum {float(np.abs(sp[1:, 1 + nts:]).sum())}")
-    if npol <= 0:
-        raise RuntimeError("classic_3d: no escaped packet carries a nonzero Q or U")
+    pol = (np.abs(pk["stokes"][:, 1:]) > 0).any(axis=1)
+    scattered = pk["nscatterings"] > 0
+    log(f"{name}: {int(esc.sum())} escaped r-packets, {int((esc & scattered).sum())} scattered "
+        f"since their emission, {int((esc & pol).sum())} polarised")
+    if np.any(esc & (pol != scattered)):
+        raise RuntimeError(f"{name}: an escaped packet's polarisation does not match its "
+                           "electron scatterings")
+    return int((esc & scattered).sum())
+
+
+def check_classic_dense(rec):
+    """The dense classic run: the event pass counted electron scatterings,
+    and some escaped packet was electron-scattered since its emission and
+    carries the Q / U that dipole scattering gave it."""
+    n_es = rec["counters"].get("escounter", 0)
+    log(f"classic_dense: {n_es} electron scatterings counted by the event pass")
+    if n_es <= 0:
+        raise RuntimeError("classic_dense: the event pass counted no electron scattering")
+    if check_polarisation("classic_dense", rec["dir"]) <= 0:
+        raise RuntimeError("classic_dense: no escaped packet was electron-scattered since its "
+                           "emission (its Stokes vector is untested)")
+
+
+# the main-path runs of phase 4: name, scene, packets, grid, the kernel
+# configurations the run must launch, and its options
+CART = ["rpkt_crossing_cart3d"]
+SCENES = [
+    ("default_scene", default_scene, NPKTS_DEFAULT, "SPHERICAL1D", ["rpkt_crossing_sph1d"], {}),
+    ("realistic_scene", real_scene, NPKTS_REAL, "SPHERICAL1D", ["rpkt_crossing_sph1d"], {}),
+    ("big_scene", big_scene, NPKTS_REAL, "CARTESIAN3D", CART + ["rpkt_crossing_bfrate"],
+     dict(detailed_bf_estimators_on=True)),
+    ("kilonova_2d_2dgrid", cyl_scene, NPKTS_2D, "CYLINDRICAL2D", ["rpkt_crossing_cyl2d"], {}),
+    ("kilonova_2d_2dgrid_expansionopac", cyl_fe_scene, NPKTS_2D, "CYLINDRICAL2D",
+     ["rpkt_crossing_cyl2d", "rpkt_crossing_expansion"],
+     dict(expansionopacities_on=True, rpkt_boundbound_thermalisation_probability=-1.0)),
+    ("default_scene_barnes_guttman", default_gamma_scene, NPKTS_DEFAULT, "SPHERICAL1D",
+     ["rpkt_crossing_sph1d"],
+     dict(particle_thermalisation_scheme="BARNES", gamma_thermalisation_scheme="GUTTMAN")),
+    ("nebular_1d_3dgrid_nont", nebular_scene, NPKTS_REAL, "CARTESIAN3D",
+     CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin", "rpkt_crossing_jblue"],
+     dict(preset="nltenebular", **NEBULAR)),
+    ("classic_3d", classic_scene, NPKTS_REAL, "CARTESIAN3D", CART + ["rpkt_crossing_deferred"],
+     dict(preset="classic")),
+    # the dense classic scene on an 8^3 grid, at few packets: its k-packets
+    # and macro-atoms cycle for about 1300 iterations in timestep 0
+    ("classic_dense", classic_dense_scene, NPKTS_DENSE, "CARTESIAN3D",
+     CART + ["rpkt_crossing_deferred"],
+     dict(preset="classic", ncoordgrid_x=8, ncoordgrid_y=8, ncoordgrid_z=8)),
+]
+
+
+def scene_runs(workdir, names):
+    """Runs the named main-path scenes (SCENES) and logs their records
+    (``_run_scene``: per-timestep grid-update seconds, wall, peak device
+    memory, kernel share); raises on an unknown name."""
+    table = {sc[0]: sc for sc in SCENES}
+    for name in names:
+        if name not in table:
+            raise SystemExit(f"unknown scene {name}; scenes: {sorted(table)}")
+        _, make, npkts, grid, expect, extra = table[name]
+        _run_scene(workdir, name, make, npkts, grid, expect, **extra)
 
 
 def main():
-    if sys.argv[1:] not in ([], ["--rows-sweep"]) and sys.argv[1:2] != ["--kernel-ab"]:
-        raise SystemExit("usage: python3 chip_smoke.py [--rows-sweep | --kernel-ab ROOT...]")
+    if (sys.argv[1:] not in ([], ["--rows-sweep"], ["--repeat"])
+            and sys.argv[1:2] not in (["--kernel-ab"], ["--scenes"])):
+        raise SystemExit("usage: python3 chip_smoke.py [--rows-sweep | --repeat | "
+                         "--kernel-ab ROOT... | --scenes NAME...]")
     card = phase_device()
     import torch
 
@@ -1200,6 +1578,10 @@ def main():
             phase_build()
             if sys.argv[1] == "--rows-sweep":
                 rows_sweep(workdir)
+            elif sys.argv[1] == "--repeat":
+                repeat_runs(workdir)
+            elif sys.argv[1] == "--scenes":
+                scene_runs(workdir, sys.argv[2:])
             else:
                 kernel_ab(workdir, sys.argv[2:])
         log(f"total {time.time() - t_start:.1f} s")
@@ -1209,35 +1591,11 @@ def main():
         build_s = phase_build()
         rec = phase_kernel_vs_plain(workdir)
         log(f"phase 3 done at {time.time() - t_start:.1f} s")
-        runs = {
-            "default_scene": _run_scene(workdir, "default_scene", default_scene, NPKTS_DEFAULT,
-                                        "SPHERICAL1D", ["rpkt_crossing_sph1d"]),
-            "realistic_scene": _run_scene(workdir, "realistic_scene", real_scene, NPKTS_REAL,
-                                          "SPHERICAL1D", ["rpkt_crossing_sph1d"]),
-            "big_scene": _run_scene(workdir, "big_scene", big_scene, NPKTS_REAL, "CARTESIAN3D",
-                                    ["rpkt_crossing_cart3d", "rpkt_crossing_bfrate"],
-                                    detailed_bf_estimators_on=True),
-            "kilonova_2d_2dgrid": _run_scene(workdir, "kilonova_2d_2dgrid", cyl_scene,
-                                             NPKTS_2D, "CYLINDRICAL2D",
-                                             ["rpkt_crossing_cyl2d"]),
-            "kilonova_2d_2dgrid_expansionopac": _run_scene(
-                workdir, "kilonova_2d_2dgrid_expansionopac", cyl_fe_scene, NPKTS_2D,
-                "CYLINDRICAL2D", ["rpkt_crossing_cyl2d", "rpkt_crossing_expansion"],
-                expansionopacities_on=True, rpkt_boundbound_thermalisation_probability=-1.0),
-            "default_scene_barnes_guttman": _run_scene(
-                workdir, "default_scene_barnes_guttman", default_gamma_scene, NPKTS_DEFAULT,
-                "SPHERICAL1D", ["rpkt_crossing_sph1d"], particle_thermalisation_scheme="BARNES",
-                gamma_thermalisation_scheme="GUTTMAN"),
-            "nebular_1d_3dgrid_nont": _run_scene(
-                workdir, "nebular_1d_3dgrid_nont", nebular_scene, NPKTS_REAL, "CARTESIAN3D",
-                ["rpkt_crossing_cart3d", "rpkt_crossing_bfrate", "rpkt_crossing_multibin",
-                 "rpkt_crossing_jblue"], preset="nltenebular", **NEBULAR),
-            "classic_3d": _run_scene(
-                workdir, "classic_3d", classic_scene, NPKTS_REAL, "CARTESIAN3D",
-                ["rpkt_crossing_cart3d", "rpkt_crossing_deferred"], preset="classic"),
-        }
+        runs = {name: _run_scene(workdir, name, make, npkts, grid, expect, **extra)
+                for name, make, npkts, grid, expect, extra in SCENES}
         check_nebular(runs["nebular_1d_3dgrid_nont"])
         check_classic(runs["classic_3d"])
+        check_classic_dense(runs["classic_dense"])
     # bin events activated the macro-atom on lines of their bins, and the
     # analytic schemes resolved gamma packets
     n_bb = runs["kilonova_2d_2dgrid_expansionopac"]["counters"].get("ma_stat_activation_bb", 0)

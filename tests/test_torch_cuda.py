@@ -2,8 +2,11 @@
 (every geometry, the bf-rate estimators, both estimator-row modes, the
 binned expansion-opacity walk K4, the deferred events of dipole
 scattering K6, and the multibin and J_b_lu estimators K5-multibin and
-K5-jblue with the LUT estimators off), and on the main path through the
-CLI.
+K5-jblue with the LUT estimators off; the 3D line walk with the lanes in
+packet order and sorted by cell), on the main path through the CLI, two same-seed runs of a small nebular scene
+(timestep 0 bitwise identical but for the sums the kernel adds with float
+atomics) and the host sums' CUDA formulation (the same bits on every
+call).
 
 Every test here needs an NVIDIA GPU and skips where there is none. The file
 imports no jax, so it runs where only PyTorch is installed; the
@@ -104,11 +107,17 @@ def _forced_lanes(sim, ctx, seed):
 
 
 def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
-           expansion=False, defer=False, nradbins=0, njblue=0, lut=True):
+           expansion=False, defer=False, nradbins=0, njblue=0, lut=True, order="packet"):
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
     lanes, tau, sel = _forced_lanes(sim, ctx, seed=max_inner)
+    if order == "sorted":  # the main path's order (engine.rpkt_lanes)
+        key = ((sim.grid.nonemptymgi_of_cell[lanes["where"].long()].long() + 1) * 2 ** 32
+               + lanes["next_trans"].long() + 1)
+        perm = torch.sort(key, stable=True).indices
+        lanes = {k: v[perm].contiguous() for k, v in lanes.items()}
+        tau, sel = tau[perm].contiguous(), sel[perm].contiguous()
     tables = rpkt_kernel.kernel_tables(dad, sim.grid, sim.cells, ctx)
     # timestep 0 of these scenes is not grey; clear the flag regardless so
     # the continuum and the line walk run in every cell
@@ -355,3 +364,98 @@ def test_main_path_launches_the_nlte_kernels(tmp_path):
     assert "timestep 1: grid update (nlte)" in log and "NLTE outer loop" in log
     for fn in ("nlte_0000.out", "radfield_0000.out"):
         assert os.path.getsize(os.path.join(d, fn)) > 0
+
+
+# the 3D line walk: the nebular launch's fields and K6, lanes in packet
+# order and sorted by (model cell, cursor)
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["packet", "sorted"])
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("max_inner", [1, 16])
+@pytest.mark.parametrize("name", ["1dmodel_3dgrid", "3dmodel"])
+def test_3d_line_walk_nlte_lane_orders(scenes, name, max_inner, test_mode, order):
+    _check(*scenes[name], max_inner, test_mode, nradbins=64,
+           njblue=scenes[name][0].dad.nlines, lut=False, order=order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["packet", "sorted"])
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("max_inner", [1, 16])
+def test_3d_line_walk_deferred_lane_orders(defer_scenes, max_inner, test_mode, order):
+    plain = _check(*defer_scenes["1dmodel_3dgrid"], max_inner, test_mode, want_bfrate=False,
+                   defer=True, order=order)
+    assert int(((plain["evented"] > 0) & (plain["is_bb"] == 0)).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_same_seed_nebular_runs_repeat(tmp_path):
+    """Two runs of a small nebular scene (nltenebular without the
+    non-thermal solver, 8^3 grid, NLTE populations from timestep 1) with
+    the same seed: after timestep 0 the rpkt steps, packet state, cells and
+    every estimator but the kernel's float-atomic sums
+    (rpkt_kernel.ATOMIC_SUMS, exempt) bitwise identical, and those sums
+    within float32 rounding; timesteps 1-2 run."""
+    _need_cuda()
+    import dataclasses
+
+    from artis_tpu_torch import options
+    from artis_tpu_torch.driver import Simulation
+    from artis_tpu_torch.transport.rpkt_kernel import ATOMIC_SUMS
+
+    sims = []
+    for i in range(2):
+        d = tmp_path / f"run{i}"
+        d.mkdir()
+        make_run(str(d), ncells=5, ntimesteps=4, tmin_days=1.0, tmax_days=2.0, ngreyts=0,
+                 logrho0=-7.0, num_lte_timesteps=1)
+        sims.append(Simulation(str(d), options.nltenebular(
+            nt_on=False, nt_solve_spencerfano=False, npkts=20000,
+            grid_type=options.GridType.CARTESIAN3D, ncoordgrid_x=8, ncoordgrid_y=8,
+            ncoordgrid_z=8, mintemp=1000.0, maxtemp=20000.0, tablesize=20,
+            transport_dtype="float32", detailed_bf_estimators_usefromtimestep=1,
+            first_nlte_radfield_timestep=1), device="cuda"))
+    for nts in range(3):
+        for sim in sims:
+            sim.do_timestep(nts)
+        a, b = sims
+        assert a.transport_log[-1]["steps"] > 0 and b.transport_log[-1]["steps"] > 0
+        if nts:
+            continue
+        assert a.transport_log[-1]["steps"] == b.transport_log[-1]["steps"]
+        for what in ("state", "est", "cells"):
+            for f in dataclasses.fields(getattr(a, what)):
+                x = getattr(getattr(a, what), f.name)
+                if not isinstance(x, torch.Tensor):
+                    continue
+                y = getattr(getattr(b, what), f.name)
+                if what == "est" and f.name in ATOMIC_SUMS:
+                    torch.testing.assert_close(y, x, rtol=1e-4, atol=1e-6 * float(x.abs().max()),
+                                               msg=f"{what}.{f.name}")
+                else:
+                    torch.testing.assert_close(y, x, rtol=0, atol=0, equal_nan=True,
+                                               msg=f"{what}.{f.name}")
+    assert float(sims[0].est.jblue_count.sum()) > 0
+    for sim in sims:
+        sim.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_host_sums_repeat_on_card(dtype):
+    """devutil.index_add on the card: the same bits on every call (many
+    values per index, as the partition functions sum levels into ions), and
+    the CPU's index_add to the dtype's rounding."""
+    _need_cuda()
+    from artis_tpu_torch.devutil import index_add
+
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(rng.uniform(0.0, 1.0, (37, 50)), dtype=dtype)
+    index = torch.as_tensor(rng.integers(0, 50, 20000))
+    src = torch.as_tensor(rng.uniform(0.0, 1.0, (37, 20000)), dtype=dtype)
+    a = index_add(x.cuda(), 1, index.cuda(), src.cuda())
+    b = index_add(x.cuda(), 1, index.cuda(), src.cuda())
+    assert torch.equal(a, b)
+    ref = x.double().index_add(1, index, src.double())
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(a.cpu().double(), ref, rtol=tol, atol=tol * float(ref.max()))

@@ -23,9 +23,10 @@
 // boundary overshoot guard). Reference physics: rpkt.cc:604-737.
 //
 // Design. One thread per packet; the packet state stays in registers for
-// the whole crossing loop. Cell values are direct __ldg loads. The line
-// walk reads line_nu and the packet's tau_factor[mgi, :] row from global
-// memory, starting at the packet's cursor. The grid geometry is a template
+// the whole crossing loop. Cell values are direct __ldg loads (the 1D walk:
+// from shared memory, below). The line walk reads line_nu and the packet's
+// tau_factor[mgi, :] row from global memory, starting at the packet's
+// cursor. The grid geometry is a template
 // parameter (one instantiation per geometry, so the 1D kernel keeps its
 // registers); cell bounds at tmin come from the (ncells, ndim) cellmin /
 // cellmax tables and the model cell of a propagation cell from the host-built
@@ -46,32 +47,60 @@
 // memory in double.
 //
 // What bounds it on the card: latency, not bandwidth (every launch runs
-// 60-190x above the time its bytes need): (1) the line walk is a chain of
-// dependent global loads (line_nu[l], tau_factor[mgi, l]) whose length
-// depends on the packet, mitigated only by L2 residency of the tables (the
-// default scene's tables are a few kB; 128 x 1e5 lines is 51 MB, about the
-// H100's 50 MB L2); (2) divergence: threads of a warp take different
-// numbers of crossings and walk different numbers of lines, so a warp runs
-// as long as its slowest lane; (3) registers: the 3D line walk sits at
-// 128 a thread (4 blocks of 128 an SM), and code added to its loop spills
-// or, unbounded, takes 156-161 registers and runs 1.3-1.5x slower. The caller
-// compacts the moving lanes into one launch, in packet order. Measured on
-// an H100 against this code and dropped (chip_smoke.py --kernel-ab;
-// PERF.md section 6): lanes sorted by (model cell, cursor), 8 or 16 lines
-// read ahead as independent loads, warp sums of a cell's rows before the
-// atomics, int64 fixed-point rows (order-independent sums, 1.08x in K6
-// and 1.49x on the nebular main path), and J_b_lu sums as column ranges of
-// difference rows (0.97x in the forced nebular launch, but 1.04-1.06x in
-// the launches without J_b_lu, whose loop it lengthens, and 1.16x over
-// the nebular main path's launches, most of them small). The estimator
-// sums are float atomics, so they depend on the order of the adds, and
-// same-seed runs differ in their last bits.
+// 60-190x above the time its bytes need). Each lane runs a chain of
+// dependent crossings and a warp runs as long as its slowest lane, so a
+// launch lasts as long as its longest chains, with few warps left to hide
+// their latency. What makes a crossing long differs by walk (the kernel's
+// own counters, misc[6] and misc[7] over misc[0], on an H100):
+// - the 3D line walk (the nebular and classic launches, K2 / K5 / K6):
+//   41 lines a crossing on the classic tables, a chain of dependent global
+//   loads (line_nu[l], tau_factor[mgi, l]); it sits at 128 registers (4
+//   blocks of 128 an SM), and code added to its loop spills or, unbounded,
+//   takes 156-161 registers and runs 1.3-1.5x slower;
+// - the 1D line walk (K1) and the bin walks (K4): 0.1-0.3 lines or 1.4-2.1
+//   bins and 0.3-0.4 bf continua a crossing, so the crossing's own chain
+//   takes the time: the cell loads, two Philox draws, the shell distances,
+//   the Doppler factors, the estimator atomics.
+// The 1D walk and the bin walk of the 1D and cylindrical grids, without
+// the NLTE fields, are redesigned for that (k1_redesign, k4_redesign; the
+// other 9 instantiations keep their code):
+// (1) the 1D walk copies its tables into shared memory at block start with
+//     cp.async, as many groups as fit rpkt_kernel.STAGE_MAX (stage_plan):
+//     the default scene's cell, bf and line tables (16.5 KB), the 128-shell
+//     scene's cell and bf tables (its 101,010 lines stay in global memory),
+//     and reads them with generic loads; it is a kernel of its own bounded
+//     to K1_MIN_BLOCKS blocks an SM (118 registers);
+// (2) it sums its cell rows across the warp before the atomics
+//     (est_add_warp): the lanes of a 1D warp mostly share a shell;
+// (3) the bin walk reads its edges from a float32 table in shared memory,
+//     the plain version's values (rpkt_kernel.expo_edges), and finds its
+//     first bin on that table: no double divide is left in its loop.
+// Against the parent kernel on the replayed launches of the main paths
+// (chip_smoke.py --kernel-ab, kernel-only time, one call; PERF.md section
+// 6): the default scene 0.90x and the 128-shell scene 0.985x (K1), the
+// expansion-opacity cylinder 0.94x (K4), the 3D walks 0.99x. Measured and
+// dropped: the bf window computed once a crossing, its terms kept per
+// thread in shared memory (forced launches 5-8 % faster, the replays
+// unchanged: 0.3-0.4 continua a crossing), the kappa row read four bins a
+// load (2-4 % slower), and the staging without the register bound (160
+// registers, 3 blocks: 1.29x on the forced K1 launch, 1.07x on the
+// 128-shell replay). Measured on the 3D walk and dropped: lanes
+// sorted by (model cell, cursor), 8 or 16 lines read ahead as independent
+// loads, warp sums of a cell's rows, int64 fixed-point rows (order-
+// independent sums, 1.08x in K6 and 1.49x on the nebular main path), and
+// J_b_lu sums as column ranges of difference rows (1.16x over the nebular
+// main path's launches, most of them small). The caller compacts the moving
+// lanes into one launch, in packet order. The estimator sums are float
+// atomics, so they depend on the order of the adds, and same-seed runs
+// differ in their last bits.
 //
 // Expansion-opacity mode (port of expansionopacity.get_event_expansion_batch,
 // rpkt.cc:199-290). Where the Pallas branch computes all 970 bins of every
 // lane at every crossing (a one-hot MXU gather of the kappa rows and a
 // triangular-matmul cumsum), each thread here walks only the bins its path
-// crosses: from the bin of its comoving frequency toward the red, reading
+// crosses: from the bin of its comoving frequency toward the red (the
+// edges from the float32 table, above, in the 1D and cylindrical walks;
+// computed in double and rounded in the 3D one), reading
 // kappa[mgi, b] from the global (ncells, 970) table, adding
 // (chi_cont + kappa rho doppler) * (path length in the bin) until the
 // optical-depth target is reached. A bin is 35.5 A, about 0.7 % in
@@ -122,6 +151,7 @@ struct RpktParams {
   int geom, nx, ny, nz, want_bfrate, shared_rows, expansion, nbins, defer_scatter;
   int nradbins, njblue, want_gamma, want_bfheat;
   int nrow;  // estimator floats per cell, as rpkt_kernel.row_floats counts them
+  int stage;  // table groups the 1D line walk stages in shared memory (STAGE_*)
   uint32_t seed_lo, seed_hi;
   float t2, tmin, max_path_step, phixs_dnu, last_nuovernuedge;
   float rb_lo, rb_last, rb_super, rb_delta;  // multibin edges and width, float32
@@ -144,6 +174,14 @@ constexpr int GEOM_SPH = 1, GEOM_CYL = 2, GEOM_CART = 3;
 // and 1e8 c [A/s]; the bin edges are computed in double and rounded to
 // float, as the plain version computes them
 constexpr double LAMBDA_MIN_A = 534.5, DELTA_LAMBDA_A = 35.5, CLIGHT_ANGSTROM = 2.99792458e18;
+// table groups of the 1D line walk's shared-memory staging, in the order the
+// wrapper fills its budget (rpkt_kernel.stage_plan): the cell tables, the
+// per-continuum bf tables, the per-(cell, continuum) bf tables, the lines
+constexpr int STAGE_CELL = 1, STAGE_BF = 2, STAGE_BFCELL = 4, STAGE_LINES = 8;
+// blocks per SM the redesigned 1D walk's registers must allow (its own
+// __launch_bounds__; staged tables took it to 160 registers and 3 blocks in
+// a build without the bound)
+constexpr int K1_MIN_BLOCKS = 4;
 
 struct Lanes {
   const float *px, *py, *pz, *dx, *dy, *dz, *nurf, *nucmf, *erf, *ecmf, *t;
@@ -156,6 +194,7 @@ struct Tables {
       *tau_factor, *cont_nu_edge, *bf_a, *bf_dep, *cont_phixs, *cont_prob, *gc_nu_edge,
       *expo_kappa;
   const int *mgi_of_cell, *thick, *cont_gidx, *jblue_of_line;
+  const float* expo_nu_lo;  // the bins' lower edges, float32 (rpkt_kernel.expo_edges)
 };
 
 struct Outs {
@@ -166,6 +205,68 @@ struct Outs {
   float *est, *gamma, *bfheat, *bfrate, *radbin, *jblue;
   double *misc;
 };
+
+// a table load: through the read-only path, or (GEN, the 1D line walk whose
+// tables may lie in shared memory) a generic load
+template <bool GEN, typename T>
+__device__ __forceinline__ T ld(const T* p) {
+  if constexpr (GEN) return *p;
+  else return __ldg(p);
+}
+
+// asynchronous 4-byte copies of a table into shared memory (cp.async); the
+// block waits for all of them with cp_async_wait_all and a barrier
+template <typename T>
+__device__ __forceinline__ void stage_copy(T* dst, const T* src, int n) {
+  static_assert(sizeof(T) == 4, "4-byte elements");
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+#ifdef __CUDA_ARCH__
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst + i);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src + i) : "memory");
+#else
+    dst[i] = src[i];
+#endif
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// adds (v0, v1, v2, v3) to the 4-float row of this lane's cell: the lanes of
+// a warp on the same cell (key) sum their values by pointer jumping over
+// shuffles, and the lowest of them adds the sums with one atomic each
+__device__ __forceinline__ void est_add_warp(float* row, int key, float v0, float v1, float v2,
+                                             float v3) {
+  const unsigned m = __activemask();
+  const unsigned peers = __match_any_sync(m, key);
+  const int ln = threadIdx.x & 31;
+  const unsigned above = peers & (0xFFFFFFFEu << ln);
+  int nxt = above ? __ffs(above) - 1 : -1;
+  // after step s a lane holds its own value plus those of the next 2^s - 1
+  // peers above it; the lowest peer ends with the group's sum
+  while (__any_sync(m, nxt >= 0)) {
+    const int src = nxt >= 0 ? nxt : ln;
+    const float o0 = __shfl_sync(m, v0, src), o1 = __shfl_sync(m, v1, src);
+    const float o2 = __shfl_sync(m, v2, src), o3 = __shfl_sync(m, v3, src);
+    const int on = __shfl_sync(m, nxt, src);
+    if (nxt >= 0) {
+      v0 += o0;
+      v1 += o1;
+      v2 += o2;
+      v3 += o3;
+      nxt = on;
+    }
+  }
+  if ((peers & ((1u << ln) - 1u)) == 0u) {
+    atomicAdd(row + 0, v0);
+    atomicAdd(row + 1, v1);
+    if (v2 != 0.0f) atomicAdd(row + 2, v2);
+    if (v3 != 0.0f) atomicAdd(row + 3, v3);
+  }
+}
 
 __device__ __forceinline__ void philox4x32(uint32_t c[4], uint32_t k0, uint32_t k1) {
 #pragma unroll
@@ -241,6 +342,7 @@ __device__ float shell_distance(float px, float py, float pz, float dx, float dy
 
 // bf cross-section by linear phixs interpolation with the Kramers tail
 // (atomic.h:147-193)
+template <bool GEN = false>
 __device__ __forceinline__ float bf_sigma(const float* __restrict__ phixs, int nphixs,
                                           float nu, float edge, float dnu, float last) {
   const float ireal = (nu / edge - 1.0f) / dnu;
@@ -248,26 +350,27 @@ __device__ __forceinline__ float bf_sigma(const float* __restrict__ phixs, int n
   if (ireal < (float)(nphixs - 1)) {
     const int i0 = min(max((int)floorf(ireal), 0), nphixs - 2);
     const float frac = ireal - (float)i0;
-    return (1.0f - frac) * __ldg(phixs + i0) + frac * __ldg(phixs + i0 + 1);
+    return (1.0f - frac) * ld<GEN>(phixs + i0) + frac * ld<GEN>(phixs + i0 + 1);
   }
   const float r = edge * last / fmaxf(nu, 1e-30f);
-  return __ldg(phixs + nphixs - 1) * (r * r * r);
+  return ld<GEN>(phixs + nphixs - 1) * (r * r * r);
 }
 
 // window [lo, hi) of continua with edge <= nu <= edge * last (edges ascend)
+template <bool GEN = false>
 __device__ __forceinline__ void bf_window(const float* __restrict__ edges, int ncont, float nu,
                                           float last, int& lo, int& hi) {
   int a = 0, b = ncont;
   while (a < b) {  // first c with edge*last >= nu
     const int m = (a + b) >> 1;
-    if (__ldg(edges + m) * last >= nu) b = m; else a = m + 1;
+    if (ld<GEN>(edges + m) * last >= nu) b = m; else a = m + 1;
   }
   lo = a;
   a = lo;
   b = ncont;
   while (a < b) {  // first c with edge > nu
     const int m = (a + b) >> 1;
-    if (__ldg(edges + m) > nu) b = m; else a = m + 1;
+    if (ld<GEN>(edges + m) > nu) b = m; else a = m + 1;
   }
   hi = a;
 }
@@ -284,13 +387,13 @@ __device__ __forceinline__ float plane_distance(float posd, float veld, float ts
 
 // distance to the cell boundary and the next cell (-99: leaves the grid),
 // capped at max_path_step (grid.cc:2349-2597)
-template <int GEOM>
+template <int GEOM, bool GEN = false>
 __device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, int cell,
                                          float px, float py, float pz, float dx, float dy,
                                          float dz, float pos2, float pdotd, float tstart,
                                          float& sdist, int& snext) {
   if (GEOM == GEOM_SPH) {
-    const float coordmin0 = __ldg(tb.cellmin + cell), coordmax0 = __ldg(tb.cellmax + cell);
+    const float coordmin0 = ld<GEN>(tb.cellmin + cell), coordmax0 = ld<GEN>(tb.cellmax + cell);
     const float d_max = shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart,
                                        coordmax0 * tstart / p.tmin, false, CLIGHT_PROP);
     sdist = (d_max >= 0.0f && d_max < BIG) ? d_max : BIG;
@@ -372,9 +475,38 @@ __device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, 
   }
 }
 
+// the redesigned instantiations: the 1D line walk (K1) and the bin walk of
+// the 1D and cylindrical grids (K4), both without the NLTE fields
 template <int GEOM, bool EXPO, bool NLTE>
-__global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lanes in, Tables tb,
-                                                              Outs out) {
+__host__ __device__ constexpr bool k1_redesign() { return GEOM == GEOM_SPH && !EXPO && !NLTE; }
+template <int GEOM, bool EXPO, bool NLTE>
+__host__ __device__ constexpr bool k4_redesign() { return EXPO && !NLTE && GEOM != GEOM_CART; }
+
+// 4-byte words of the table groups in ``stage`` (the 1D grid: one bound per cell)
+__host__ __device__ inline int stage_words(const RpktParams& p) {
+  return ((p.stage & STAGE_CELL) ? 3 * p.nprop + 6 * p.ncells : 0) +
+         ((p.stage & STAGE_BF) ? p.ncont * (3 + p.nphixs) + p.ngc : 0) +
+         ((p.stage & STAGE_BFCELL) ? 2 * p.ncells * p.ncont : 0) +
+         ((p.stage & STAGE_LINES) ? p.nlines * (1 + p.ncells) : 0);
+}
+
+// dynamic shared memory of a launch: the counters, the estimator rows in
+// shared mode, and the staged tables of the redesigned 1D walk (K1) or the
+// bin edges of the redesigned bin walk (K4)
+template <int GEOM, bool EXPO, bool NLTE>
+size_t smem_bytes(const RpktParams& p) {
+  constexpr bool R1 = k1_redesign<GEOM, EXPO, NLTE>(), R4 = k4_redesign<GEOM, EXPO, NLTE>();
+  size_t b = NMISC * sizeof(double) + (p.shared_rows ? sizeof(float) * (size_t)p.ncells * p.nrow : 0);
+  if (R1) b += sizeof(float) * (size_t)stage_words(p);
+  if (R4) b += sizeof(float) * (size_t)p.nbins;
+  return b;
+}
+
+// the crossing loop of one block (the kernels below)
+template <int GEOM, bool EXPO, bool NLTE>
+__device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs out) {
+  constexpr bool R1 = k1_redesign<GEOM, EXPO, NLTE>(), R4 = k4_redesign<GEOM, EXPO, NLTE>();
+  constexpr bool GEN = R1;  // generic table loads: the tables may lie in shared memory
   extern __shared__ double smem_d[];
   double* s_misc = smem_d;
   const int nbfr = p.want_bfrate ? p.ncont : 0;
@@ -401,7 +533,72 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
     a_rb = out.radbin;
     a_jb = out.jblue;
   }
+  // past the rows: the K1 tables or the K4 edges
+  float* s_free = reinterpret_cast<float*>(smem_d + NMISC) +
+                  (p.shared_rows ? (size_t)p.ncells * p.nrow : 0);
+  if constexpr (GEN) {
+    // stage the groups the wrapper picked; the loads below are generic
+    if (p.stage & STAGE_CELL) {
+      int* s_mgi = reinterpret_cast<int*>(s_free);
+      stage_copy(s_mgi, tb.mgi_of_cell, p.nprop);
+      tb.mgi_of_cell = s_mgi;
+      float* s = s_free + p.nprop;
+      stage_copy(s, tb.cellmin, p.nprop);
+      tb.cellmin = s;
+      stage_copy(s + p.nprop, tb.cellmax, p.nprop);
+      tb.cellmax = s + p.nprop;
+      s += 2 * p.nprop;
+      stage_copy(s, tb.nne, p.ncells);
+      tb.nne = s;
+      stage_copy(s + p.ncells, tb.te, p.ncells);
+      tb.te = s + p.ncells;
+      stage_copy(s + 2 * p.ncells, tb.kappagrey, p.ncells);
+      tb.kappagrey = s + 2 * p.ncells;
+      stage_copy(s + 3 * p.ncells, tb.rho, p.ncells);
+      tb.rho = s + 3 * p.ncells;
+      stage_copy(s + 4 * p.ncells, tb.chiffpart, p.ncells);
+      tb.chiffpart = s + 4 * p.ncells;
+      int* s_thick = reinterpret_cast<int*>(s + 5 * p.ncells);
+      stage_copy(s_thick, tb.thick, p.ncells);
+      tb.thick = s_thick;
+      s_free = s + 6 * p.ncells;
+    }
+    if (p.stage & STAGE_BF) {
+      stage_copy(s_free, tb.cont_nu_edge, p.ncont);
+      tb.cont_nu_edge = s_free;
+      stage_copy(s_free + p.ncont, tb.cont_prob, p.ncont);
+      tb.cont_prob = s_free + p.ncont;
+      int* s_gidx = reinterpret_cast<int*>(s_free + 2 * p.ncont);
+      stage_copy(s_gidx, tb.cont_gidx, p.ncont);
+      tb.cont_gidx = s_gidx;
+      stage_copy(s_free + 3 * p.ncont, tb.cont_phixs, p.ncont * p.nphixs);
+      tb.cont_phixs = s_free + 3 * p.ncont;
+      s_free += p.ncont * (3 + p.nphixs);
+      stage_copy(s_free, tb.gc_nu_edge, p.ngc);
+      tb.gc_nu_edge = s_free;
+      s_free += p.ngc;
+    }
+    if (p.stage & STAGE_BFCELL) {
+      stage_copy(s_free, tb.bf_a, p.ncells * p.ncont);
+      tb.bf_a = s_free;
+      s_free += p.ncells * p.ncont;
+      stage_copy(s_free, tb.bf_dep, p.ncells * p.ncont);
+      tb.bf_dep = s_free;
+      s_free += p.ncells * p.ncont;
+    }
+    if (p.stage & STAGE_LINES) {
+      stage_copy(s_free, tb.line_nu, p.nlines);
+      tb.line_nu = s_free;
+      stage_copy(s_free + p.nlines, tb.tau_factor, p.ncells * p.nlines);
+      tb.tau_factor = s_free + p.nlines;
+    }
+  }
+  if constexpr (R4) {
+    stage_copy(s_free, tb.expo_nu_lo, p.nbins);
+    tb.expo_nu_lo = s_free;
+  }
   for (int i = threadIdx.x; i < NMISC; i += blockDim.x) s_misc[i] = 0.0;
+  if constexpr (GEN || R4) cp_async_wait_all();
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -422,17 +619,17 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
     int ev_act = -99, ev_bfidx = 0, ev_mgi = 0, nsc = 0;
     float ev_esc = 0.0f, ev_ff = 0.0f, ev_bf = 0.0f, ev_cont = 0.0f;
     float em_x = 0.0f, em_y = 0.0f, em_z = 0.0f, em_t = 0.0f;
-    const float nu_lastline = __ldg(tb.line_nu + nlines - 1);
+    const float nu_lastline = ld<GEN>(tb.line_nu + nlines - 1);
 
     for (int it = 0; it < p.max_inner && moving; ++it) {
       const float tstart = t;
-      const int mgi = __ldg(tb.mgi_of_cell + cell);
+      const int mgi = ld<GEN>(tb.mgi_of_cell + cell);
       const bool nonempty = mgi >= 0;
       const int smgi = nonempty ? mgi : 0;
-      const float nne_p = __ldg(tb.nne + smgi), te_p = __ldg(tb.te + smgi);
-      const float kgrey_p = __ldg(tb.kappagrey + smgi), rho_p = __ldg(tb.rho + smgi);
-      const float chiffpart_p = __ldg(tb.chiffpart + smgi);
-      const bool thick = nonempty && (__ldg(tb.thick + smgi) == 1);
+      const float nne_p = ld<GEN>(tb.nne + smgi), te_p = ld<GEN>(tb.te + smgi);
+      const float kgrey_p = ld<GEN>(tb.kappagrey + smgi), rho_p = ld<GEN>(tb.rho + smgi);
+      const float chiffpart_p = ld<GEN>(tb.chiffpart + smgi);
+      const bool thick = nonempty && (ld<GEN>(tb.thick + smgi) == 1);
 
       float tau_next, sel_u, u_split, u_bb, z1, z2;
       if (p.test_mode) {
@@ -459,7 +656,7 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
       const float pdotd = px * dx + py * dy + pz * dz;
       float sdist;
       int snext;
-      boundary<GEOM>(p, tb, cell, px, py, pz, dx, dy, dz, pos2, pdotd, tstart, sdist, snext);
+      boundary<GEOM, GEN>(p, tb, cell, px, py, pz, dx, dy, dz, pos2, pdotd, tstart, sdist, snext);
       const float tdist = fmaxf((p.t2 - tstart) * CLIGHT_PROP, 0.0f);
       const float abort_dist = fminf(sdist, tdist);
 
@@ -484,15 +681,15 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
       float chi_bf = 0.0f;
       int bf_lo = 0, bf_hi = 0;
       if (need_chi && p.ncont > 0) {
-        bf_window(tb.cont_nu_edge, p.ncont, nu, p.last_nuovernuedge, bf_lo, bf_hi);
+        bf_window<GEN>(tb.cont_nu_edge, p.ncont, nu, p.last_nuovernuedge, bf_lo, bf_hi);
         m_bfwin += bf_hi - bf_lo;
         for (int c = bf_lo; c < bf_hi; ++c) {
-          const float edge = __ldg(tb.cont_nu_edge + c);
-          const float sigma = bf_sigma(tb.cont_phixs + (size_t)c * p.nphixs, p.nphixs, nu, edge,
-                                       p.phixs_dnu, p.last_nuovernuedge);
-          const float dep = __ldg(tb.bf_dep + (size_t)smgi * p.ncont + c);
+          const float edge = ld<GEN>(tb.cont_nu_edge + c);
+          const float sigma = bf_sigma<GEN>(tb.cont_phixs + (size_t)c * p.nphixs, p.nphixs, nu,
+                                            edge, p.phixs_dnu, p.last_nuovernuedge);
+          const float dep = ld<GEN>(tb.bf_dep + (size_t)smgi * p.ncont + c);
           const float corr = fmaxf(0.0f, 1.0f - expf(fminf(fmaxf(dep - hnu_kt, -80.0f), 80.0f)));
-          chi_bf += __ldg(tb.bf_a + (size_t)smgi * p.ncont + c) * sigma * corr;
+          chi_bf += ld<GEN>(tb.bf_a + (size_t)smgi * p.ncont + c) * sigma * corr;
         }
       }
       const float chi_cont_cmf = chi_escat + chi_ff + chi_bf;
@@ -508,6 +705,39 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
           const float safe_chi = fmaxf(chi_cont, 1e-30f);
           const float rho_dop = rho_p * doppler;
           const float* __restrict__ krow = tb.expo_kappa + (size_t)smgi * p.nbins;
+          if constexpr (R4) {
+            // the edges from the staged table (the plain version's float32
+            // values); the walk starts at the first bin whose lower edge lies
+            // below nu, found from a float estimate and corrected on the table:
+            // the bins before it have no path length
+            const float* __restrict__ edge = tb.expo_nu_lo;
+            int b = (int)fminf(fmaxf(floorf((2.99792458e18f / nu - 534.5f) / 35.5f), 0.0f),
+                               (float)p.nbins);
+            while (b > 0 && edge[b - 1] < nu) --b;
+            while (b < p.nbins && edge[b] >= nu) ++b;
+            float cum = 0.0f, dprev = 0.0f;
+            for (; b < p.nbins; ++b) {
+              const float nu_lo = edge[b];
+              float de = rel ? (nu_lo - nu) / dnudl : CLIGHT_PROP * tstart * (nu / nu_lo - 1.0f);
+              de = fminf(fmaxf(de, 0.0f), 1e30f);
+              const float seg = fmaxf(de - dprev, 0.0f);
+              if (seg > 0.0f) {
+                ++m_walk;
+                const float kap = __ldg(krow + b);
+                const float chi_bb = kap * rho_dop;
+                const float chi_t = safe_chi + chi_bb;
+                const float dtau = chi_t * seg;
+                if (cum + dtau >= tau_next) {
+                  ev_edist = fmaxf(dprev + (tau_next - cum) / fmaxf(chi_t, 1e-30f), 0.0f);
+                  ev_bb = u_bb <= chi_bb / fmaxf(chi_t, 1e-30f);
+                  break;
+                }
+                cum += dtau;
+              }
+              dprev = de;
+              if (dprev > abort_dist) break;
+            }
+          } else {
           // start one bin bluer than the packet's own (a guard against the
           // rounding of the estimate): bins bluer than the packet have no path
           // length, so starting early changes nothing
@@ -537,6 +767,7 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
             // time limit and is never taken: the walk may stop here
             if (dprev > abort_dist) break;
           }
+          }
         } else {
           // --- Sobolev line walk from the packet's cursor (rpkt.cc:77-197) ---
           int cursor0;
@@ -548,7 +779,7 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
             int a = 0, b = nlines;
             while (a < b) {
               const int m = (a + b) >> 1;
-              if (__ldg(tb.line_nu + m) > nu) a = m + 1; else b = m;
+              if (ld<GEN>(tb.line_nu + m) > nu) a = m + 1; else b = m;
             }
             cursor0 = a;
           }
@@ -577,11 +808,11 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
                 }
                 break;
               }
-              const float nu_k = __ldg(tb.line_nu + l);
+              const float nu_k = ld<GEN>(tb.line_nu + l);
               float relD = rel ? (nu_k - nu) / dnudl : CLIGHT_PROP * tstart * (nu / nu_k - 1.0f);
               relD = fminf(fmaxf(relD, 0.0f), 1e30f);
               const float t_prev = tstart + prevD / CLIGHT_PROP;
-              const float tau_line = __ldg(taurow + l) * t_prev;
+              const float tau_line = ld<GEN>(taurow + l) * t_prev;
               const float contdist = fmaxf((tau_next - tau_cum) / safe_chi, 0.0f);
               if (contdist <= relD) {
                 ev_edist = contdist;
@@ -656,10 +887,15 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
       const bool crossing = take_boundary && snext >= 0;
       if (nonempty) {
         const float contrib = dist * ecmf1;
-        atomicAdd(a_est + 4 * mgi + 0, contrib);
-        atomicAdd(a_est + 4 * mgi + 1, contrib * nucmf1);
-        if (!thick) atomicAdd(a_est + 4 * mgi + 2, contrib * chi_ff);
-        if (crossing) atomicAdd(a_est + 4 * mgi + 3, 1.0f);
+        if constexpr (R1) {
+          est_add_warp(a_est + 4 * mgi, mgi, contrib, contrib * nucmf1,
+                       thick ? 0.0f : contrib * chi_ff, crossing ? 1.0f : 0.0f);
+        } else {
+          atomicAdd(a_est + 4 * mgi + 0, contrib);
+          atomicAdd(a_est + 4 * mgi + 1, contrib * nucmf1);
+          if (!thick) atomicAdd(a_est + 4 * mgi + 2, contrib * chi_ff);
+          if (crossing) atomicAdd(a_est + 4 * mgi + 3, 1.0f);
+        }
         if (nrb && nucmf1 >= p.rb_lo && nucmf1 < p.rb_super) {
           // multibin J / nuJ / count at the midpoint (pallas_rpkt.py:1491-1514)
           float bsel = floorf((nucmf1 - p.rb_lo) / p.rb_delta);
@@ -681,23 +917,23 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
           float cum = 0.0f;
           int bf_idx = -1;
           for (int c = bf_lo; c < bf_hi; ++c) {
-            const float edge = __ldg(tb.cont_nu_edge + c);
-            const float sigma = bf_sigma(tb.cont_phixs + (size_t)c * p.nphixs, p.nphixs, nu, edge,
-                                         p.phixs_dnu, p.last_nuovernuedge);
-            const float dep = __ldg(tb.bf_dep + (size_t)smgi * p.ncont + c);
+            const float edge = ld<GEN>(tb.cont_nu_edge + c);
+            const float sigma = bf_sigma<GEN>(tb.cont_phixs + (size_t)c * p.nphixs, p.nphixs, nu,
+                                              edge, p.phixs_dnu, p.last_nuovernuedge);
+            const float dep = ld<GEN>(tb.bf_dep + (size_t)smgi * p.ncont + c);
             const float corr = fmaxf(0.0f, 1.0f - expf(fminf(fmaxf(dep - hnu_kt, -80.0f), 80.0f)));
-            cum += __ldg(tb.bf_a + (size_t)smgi * p.ncont + c) * sigma * corr;
+            cum += ld<GEN>(tb.bf_a + (size_t)smgi * p.ncont + c) * sigma * corr;
             if (bf_idx < 0 && cum > target) bf_idx = c;
-            const int g = (lut_g || lut_h) ? __ldg(tb.cont_gidx + c) : -1;
+            const int g = (lut_g || lut_h) ? ld<GEN>(tb.cont_gidx + c) : -1;
             if (g >= 0) {
-              const float de = contrib * sigma * corr * __ldg(tb.cont_prob + c);
+              const float de = contrib * sigma * corr * ld<GEN>(tb.cont_prob + c);
               if (lut_g) atomicAdd(a_gam + mgi * ngam + g, de / nuc1);
               if (lut_h)
                 atomicAdd(a_bfh + mgi * nbfh + g,
-                          de * fmaxf(1.0f - __ldg(tb.gc_nu_edge + g) / nuc1, 0.0f));
+                          de * fmaxf(1.0f - ld<GEN>(tb.gc_nu_edge + g) / nuc1, 0.0f));
             }
             if (nbfr) atomicAdd(a_bfr + (size_t)mgi * nbfr + c,
-                                sigma * corr * __ldg(tb.cont_prob + c) * w_bfr);
+                                sigma * corr * ld<GEN>(tb.cont_prob + c) * w_bfr);
           }
           if (take_event) ev_bfidx = bf_idx < 0 ? 0 : bf_idx;
         } else if (take_event) {
@@ -830,15 +1066,35 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lane
 }
 
 template <int GEOM, bool EXPO, bool NLTE>
+__global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lanes in, Tables tb,
+                                                              Outs out) {
+  crossing<GEOM, EXPO, NLTE>(p, in, tb, out);
+}
+
+// the redesigned 1D line walk, with a register bound of its own
+__global__ void __launch_bounds__(BLOCK, K1_MIN_BLOCKS)
+    rpkt_crossing_kernel_1d(RpktParams p, Lanes in, Tables tb, Outs out) {
+  crossing<GEOM_SPH, false, false>(p, in, tb, out);
+}
+
+template <int GEOM, bool EXPO, bool NLTE>
 cudaError_t launch(const RpktParams& p, const Lanes& in, const Tables& tb, const Outs& out,
                    cudaStream_t stream) {
-  const size_t smem = NMISC * sizeof(double) +
-      (p.shared_rows ? sizeof(float) * (size_t)p.ncells * p.nrow : 0);
-  cudaError_t err = cudaFuncSetAttribute(rpkt_crossing_kernel<GEOM, EXPO, NLTE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  const size_t smem = smem_bytes<GEOM, EXPO, NLTE>(p);
+  // the largest dynamic shared memory this instantiation was allowed so far
+  // (48 KB without asking): raised only when a launch needs more
+  void (*kern)(RpktParams, Lanes, Tables, Outs);
+  if constexpr (k1_redesign<GEOM, EXPO, NLTE>()) kern = rpkt_crossing_kernel_1d;
+  else kern = rpkt_crossing_kernel<GEOM, EXPO, NLTE>;
+  static size_t allowed = 48 * 1024;
+  if (smem > allowed) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
   const int grid = (p.n + BLOCK - 1) / BLOCK;
-  rpkt_crossing_kernel<GEOM, EXPO, NLTE><<<grid, BLOCK, smem, stream>>>(p, in, tb, out);
+  kern<<<grid, BLOCK, smem, stream>>>(p, in, tb, out);
   return cudaGetLastError();
 }
 
@@ -866,7 +1122,7 @@ cudaError_t launch_geom(const RpktParams& p, const Lanes& in, const Tables& tb, 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. Pointer arrays follow the order of
-// LANE_F32 + LANE_I32 + (test_tau, test_sel), TABLES_F32 + TABLES_I32 and
+// LANE_F32 + LANE_I32 + (test_tau, test_sel), TABLES_F32 + TABLES_I32 + (the bin edges) and
 // OUT_F32 + OUT_I32 + (est, gamma, bfheat, bfrate, radbin, jblue, misc) in
 // rpkt_kernel.py.
 // Launches on the given stream without synchronising; returns
@@ -883,7 +1139,7 @@ extern "C" int rpkt_crossing_launch(const RpktParams* prm, void** lanes, void** 
   Tables tb{tf[0], tf[1], tf[2], tf[3], tf[4], tf[5], tf[6], tf[7], tf[8], tf[9], tf[10], tf[11],
             tf[12], tf[13], tf[14], tf[15], reinterpret_cast<const int*>(tables[16]),
             reinterpret_cast<const int*>(tables[17]), reinterpret_cast<const int*>(tables[18]),
-            reinterpret_cast<const int*>(tables[19])};
+            reinterpret_cast<const int*>(tables[19]), tf[20]};
   float* const* of = reinterpret_cast<float* const*>(outs);
   int* const* oi = reinterpret_cast<int* const*>(outs + 19);
   Outs out{of[0], of[1], of[2], of[3], of[4], of[5], of[6], of[7], of[8], of[9], of[10], of[11],

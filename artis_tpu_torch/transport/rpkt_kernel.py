@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 import time
@@ -53,7 +54,7 @@ from .. import rng
 from ..constants import CLIGHT, CLIGHTSQUARED, CLIGHT_PROP, SIGMA_T
 from ..grid import BOUNDARY_ESCAPE, cell_boundary
 from ..plasma.radfield import NU_LOWER_FIRST, NU_UPPER_LAST, NU_UPPER_SUPERBIN
-from .expansionopacity import NBINS, bin_walk
+from .expansionopacity import NBINS, bin_nu_lower, bin_walk
 
 F32 = torch.float32
 I32 = torch.int32
@@ -535,6 +536,7 @@ class _Params(ctypes.Structure):
         ("expansion", ctypes.c_int), ("nbins", ctypes.c_int),
         ("defer_scatter", ctypes.c_int), ("nradbins", ctypes.c_int), ("njblue", ctypes.c_int),
         ("want_gamma", ctypes.c_int), ("want_bfheat", ctypes.c_int), ("nrow", ctypes.c_int),
+        ("stage", ctypes.c_int),
         ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
         ("t2", ctypes.c_float), ("tmin", ctypes.c_float),
         ("max_path_step", ctypes.c_float), ("phixs_dnu", ctypes.c_float),
@@ -584,6 +586,91 @@ def pick_shared_rows(ncells: int, ngc: int, nbfr: int, **kw) -> bool:
     return row_bytes(ncells, ngc, nbfr, **kw) <= SHARED_ROWS_MAX
 
 
+def nlte_fields(nradbins: int = 0, njblue: int = 0, want_gamma: bool = True,
+                want_bfheat: bool = True) -> bool:
+    """Whether a launch takes the kernel's NLTE instantiation (launch_geom)."""
+    return bool(nradbins or njblue or not want_gamma or not want_bfheat)
+
+
+def redesigned(geom: int, expansion: bool, nlte: bool) -> tuple[bool, bool]:
+    """(K1, K4): whether a launch runs the redesigned 1D line walk or the
+    redesigned bin walk (1D and cylindrical grids), both without the NLTE
+    fields (k1_redesign / k4_redesign in the .cu)."""
+    return (geom == GEOM_SPH and not expansion and not nlte,
+            expansion and not nlte and geom != GEOM_CART)
+
+
+# Table groups the redesigned 1D line walk copies into shared memory at block
+# start, in the order they fill STAGE_MAX (STAGE_* in the .cu): the cell
+# tables, the per-continuum bf tables, the per-(cell, continuum) bf tables,
+# the line list with its tau_factor rows. The default scene's tables take
+# about 16.5 KB; the 101,010-line list does not fit, and that walk reads it from
+# global memory.
+STAGE_CELL, STAGE_BF, STAGE_BFCELL, STAGE_LINES = 1, 2, 4, 8
+STAGE_MAX = 32 * 1024
+
+
+def stage_words(nprop: int, ncells: int, ncont: int, nphixs: int, ngc: int,
+                nlines: int) -> dict:
+    """4-byte words of each staged table group of a 1D launch."""
+    return {STAGE_CELL: 3 * nprop + 6 * ncells, STAGE_BF: ncont * (3 + nphixs) + ngc,
+            STAGE_BFCELL: 2 * ncells * ncont, STAGE_LINES: nlines * (1 + ncells)}
+
+
+def stage_plan(nprop: int, ncells: int, ncont: int, nphixs: int, ngc: int, nlines: int,
+               budget: int = None) -> tuple[int, int]:
+    """(groups, bytes) a 1D launch stages: each group in order that still
+    fits ``budget`` (STAGE_MAX) bytes, the others read from global memory."""
+    budget = STAGE_MAX if budget is None else budget
+    mask, used = 0, 0
+    for g, words in stage_words(nprop, ncells, ncont, nphixs, ngc, nlines).items():
+        if used + 4 * words <= budget:
+            mask |= g
+            used += 4 * words
+    return mask, used
+
+
+def smem_bytes(ncells: int, ngc: int, nbfr: int, shared_rows: bool, k1: bool, k4: bool,
+               stage_bytes: int = 0, **kw) -> int:
+    """Dynamic shared memory of a launch (smem_bytes in the .cu): the
+    counters, the estimator rows in shared mode, and the staged tables of
+    the redesigned 1D walk (K1) or the bin edges of the redesigned bin walk
+    (K4); ``kw`` as ``row_floats``."""
+    rows = row_bytes(ncells, ngc, nbfr, **kw) if shared_rows else 8 * NMISC
+    return rows + (stage_bytes if k1 else 0) + (4 * NBINS if k4 else 0)
+
+
+_EDGES = {}
+
+
+def expo_edges(device) -> torch.Tensor:
+    """The lower frequency edges of the NBINS expansion-opacity bins as the
+    bin walk compares with them: computed in float64 and rounded to float32,
+    exactly as ``expansionopacity.bin_walk`` computes them (cached per
+    device). The kernel's bin walk reads them from this table."""
+    if device not in _EDGES:
+        b = torch.arange(NBINS, dtype=torch.float64)
+        _EDGES[device] = bin_nu_lower(b).to(F32).to(device).contiguous()
+    return _EDGES[device]
+
+
+def estimator_buffers(ncells: int, ngc: int, nbfr: int, nradbins: int = 0, njblue: int = 0,
+                      want_gamma: bool = True, want_bfheat: bool = True,
+                      device=None) -> dict:
+    """The zeroed outputs a launch accumulates into, as views of one buffer
+    filled by one zero fill: misc (NMISC float64 counters) and the est,
+    gamma, bfheat, bfrate, radbin and jblue rows (float32, shapes as
+    ``propagate`` returns them)."""
+    shapes = {"est": (ncells, 4), "gamma": (ncells, ngc if want_gamma else 0),
+              "bfheat": (ncells, ngc if want_bfheat else 0), "bfrate": (ncells, nbfr),
+              "radbin": (ncells, 3, nradbins), "jblue": (ncells, 2, njblue)}
+    sizes = [2 * NMISC] + [math.prod(v) for v in shapes.values()]
+    parts = torch.zeros(sum(sizes), dtype=F32, device=device).split(sizes)
+    out = {"misc": parts[0].view(torch.float64)}
+    out.update((k, part.view(shape)) for (k, shape), part in zip(shapes.items(), parts[1:]))
+    return out
+
+
 def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *, nlines,
             ncells, ngc, nphixs, max_inner, relativistic, phixs_dnu, last_nuovernuedge,
             test_mode, geom=GEOM_SPH, ncoord=None, want_bfrate=False, expansion=False,
@@ -627,27 +714,28 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     nbfr = ncont if want_bfrate else 0
     rows_kw = dict(nradbins=nradbins, njblue=njblue, want_gamma=want_gamma,
                    want_bfheat=want_bfheat)
+    k1, k4 = redesigned(geom, expansion, nlte_fields(**rows_kw))
+    stage, stage_bytes = (stage_plan(nprop, ncells, ncont, nphixs, ngc, nlines) if k1
+                          else (0, 0))
     # estimator rows in shared memory (pick_shared_rows), else atomics
     # straight into the global rows; a caller may force either mode to
     # measure it
     if shared_rows is None:
         shared_rows = pick_shared_rows(ncells, ngc, nbfr, **rows_kw)
-    elif shared_rows and row_bytes(ncells, ngc, nbfr, **rows_kw) > SMEM_LIMIT:
-        raise ValueError(f"estimator rows need {row_bytes(ncells, ngc, nbfr, **rows_kw)} "
-                         "bytes of shared memory (> 227 KB)")
+    smem = smem_bytes(ncells, ngc, nbfr, shared_rows, k1, k4, stage_bytes, **rows_kw)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"the launch needs {smem} bytes of shared memory (> 227 KB)")
     timing = propagate.timing
     if timing is not None and n > 0:
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-    out = {k: torch.empty(n, dtype=F32, device=dev) for k in OUT_F32}
-    out.update({k: torch.empty(n, dtype=I32, device=dev) for k in OUT_I32})
-    out["est"] = torch.zeros((ncells, 4), dtype=F32, device=dev)
-    out["gamma"] = torch.zeros((ncells, ngc if want_gamma else 0), dtype=F32, device=dev)
-    out["bfheat"] = torch.zeros((ncells, ngc if want_bfheat else 0), dtype=F32, device=dev)
-    out["bfrate"] = torch.zeros((ncells, nbfr), dtype=F32, device=dev)
-    out["radbin"] = torch.zeros((ncells, 3, nradbins), dtype=F32, device=dev)
-    out["jblue"] = torch.zeros((ncells, 2, njblue), dtype=F32, device=dev)
-    out["misc"] = torch.zeros(NMISC, dtype=torch.float64, device=dev)
+    # the lane outputs as rows of one float32 and one int32 buffer, and the
+    # accumulated outputs from one zero fill
+    fbuf = torch.empty((len(OUT_F32), n), dtype=F32, device=dev)
+    ibuf = torch.empty((len(OUT_I32), n), dtype=I32, device=dev)
+    out = dict(zip(OUT_F32, fbuf.unbind(0)))
+    out.update(zip(OUT_I32, ibuf.unbind(0)))
+    out.update(estimator_buffers(ncells, ngc, nbfr, device=dev, **rows_kw))
     rb_lo, rb_last, rb_super, rb_delta = radbin_edges(max(nradbins, 2))
     prm = _Params(n=n, ncells=ncells, nprop=nprop, nlines=nlines,
                   ncont=ncont, ngc=ngc, nphixs=nphixs, max_inner=max_inner,
@@ -656,20 +744,25 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
                   expansion=int(expansion), nbins=NBINS,
                   defer_scatter=int(defer_scatter), nradbins=nradbins, njblue=njblue,
                   want_gamma=int(want_gamma), want_bfheat=int(want_bfheat),
-                  nrow=row_floats(ngc, nbfr, **rows_kw),
+                  nrow=row_floats(ngc, nbfr, **rows_kw), stage=stage,
                   seed_lo=seed & 0xFFFFFFFF, seed_hi=(seed >> 32) & 0xFFFFFFFF,
                   t2=t2, tmin=tmin, max_path_step=max_path_step, phixs_dnu=phixs_dnu,
                   last_nuovernuedge=last_nuovernuedge, rb_lo=rb_lo, rb_last=rb_last,
                   rb_super=rb_super, rb_delta=rb_delta)
     in_lanes = dict(lanes, test_tau=test_tau, test_sel=test_sel)
     lane_ptrs = _ptrs(LANE_F32 + LANE_I32 + ("test_tau", "test_sel"), in_lanes)
-    table_ptrs = _ptrs(TABLES_F32 + TABLES_I32, tables)
+    table_ptrs = _ptrs(TABLES_F32 + TABLES_I32 + ("expo_nu_lo",),
+                       dict(tables, expo_nu_lo=expo_edges(dev)))
     out_ptrs = _ptrs(OUT_F32 + OUT_I32 + ("est", "gamma", "bfheat", "bfrate", "radbin", "jblue",
                                           "misc"), out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if n > 0:
+        if timing is not None:
+            ev[1].record()
         err = lib.rpkt_crossing_launch(ctypes.byref(prm), lane_ptrs, table_ptrs, out_ptrs,
                                        ctypes.c_void_p(stream))
+        if timing is not None:
+            ev[2].record()
         if err != 0:
             raise RuntimeError(f"rpkt_crossing launch failed: cudaError {err}")
         configs = [CONFIG_OF_GEOM[geom]] + [c for c, on in (
@@ -679,8 +772,9 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
         for c in configs:
             propagate.launches[c] += 1
         if timing is not None:
-            ev[1].record()
-            timing.append(dict(configs=configs, n=n, events=ev))
+            ev[3].record()
+            timing.append(dict(configs=configs, n=n, events=(ev[0], ev[3]),
+                               kernel_events=(ev[1], ev[2])))
     return out
 
 
@@ -724,8 +818,10 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
 # integers that a run resets and reads to show that its main path went
 # through the kernel (a bf-rate, expansion or deferred-scatter launch counts
 # for its geometry too). ``propagate.timing``, off (None) unless a caller
-# sets a list, gets one record per launch: its configurations, its lanes
-# and the CUDA events around its device work (rows and kernel).
+# sets a list, gets one record per launch: its configurations, its lanes,
+# the CUDA events around the whole wrapper call (``events``: allocations,
+# zero fill, host work and kernel) and those right around the ctypes call
+# (``kernel_events``: the kernel).
 CONFIG_OF_GEOM = {GEOM_SPH: "rpkt_crossing_sph1d", GEOM_CYL: "rpkt_crossing_cyl2d",
                   GEOM_CART: "rpkt_crossing_cart3d"}
 CONFIG_BFRATE = "rpkt_crossing_bfrate"

@@ -100,9 +100,11 @@ times this checkout's kernel against the kernels of other checkouts of the
 port (e.g. a parent commit unpacked with ``git archive`` into a gitignored
 directory) on the same inputs, configuration by configuration, with the
 lanes in packet order (the main path's) and sorted by (model cell,
-cursor), in alternating rounds (``kernel_ab``), then the launches of the
-nebular and classic_3d main paths (timesteps 0-1) replayed through each
-kernel in both orders; prints no result line.
+cursor), in alternating rounds (``kernel_ab``): wrapper-inclusive and
+kernel-only CUDA-event times, ptxas registers and the work per crossing;
+then the launches of the main paths in ``REPLAYS`` (the default and
+128-shell 1D scenes, the expansion-opacity cylinder, nebular, classic_3d)
+replayed through each kernel in both orders; prints no result line.
 """
 
 from __future__ import annotations
@@ -304,13 +306,17 @@ def phase_build():
     rpkt_kernel.build()
     secs = time.time() - t0
     log(f"build: rpkt_crossing.cu built and loaded in {secs:.2f} s")
-    # registers and spills of each instantiation (nvcc -Xptxas -v)
-    for path in glob.glob(os.path.join(os.path.dirname(rpkt_kernel.__file__), os.pardir,
-                                       "_build", "ptxas_*.log")):
+    _log_ptxas(rpkt_kernel, "this")
+    return secs
+
+
+def _log_ptxas(mod, tag):
+    """Registers and spills of each instantiation of a wrapper's kernel
+    (nvcc -Xptxas -v, the ptxas log its build wrote)."""
+    for path in glob.glob(os.path.join(mod._BUILD_DIR, "ptxas_*.log")):
         for line in open(path):
             if "Compiling entry" in line or "registers" in line or "spill" in line:
-                log(f"ptxas: {line.strip()}")
-    return secs
+                log(f"ptxas[{tag}]: {line.strip()}")
 
 
 def forced_lanes(sim, t0, n, seed):
@@ -1008,23 +1014,30 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
 def _kernel_share(name, timing, transport_s):
     """Logs and returns what the main path's kernel launches cost
     (``propagate.timing`` records, CUDA events): per configuration the
-    launches, summed ms and lane-count range, and the kernel's share of
+    launches, summed ms (wrapper-inclusive, and kernel-only: the events
+    around the ctypes call) and lane-count range, and the kernel's share of
     the transport seconds."""
     by = {}
     for r in timing:
         ms = r["events"][0].elapsed_time(r["events"][1])
+        kms = r["kernel_events"][0].elapsed_time(r["kernel_events"][1])
         for c in r["configs"]:
-            b = by.setdefault(c, dict(launches=0, ms=0.0, lanes_min=r["n"], lanes_max=r["n"]))
+            b = by.setdefault(c, dict(launches=0, ms=0.0, kernel_only_ms=0.0, lanes_min=r["n"],
+                                      lanes_max=r["n"]))
             b["launches"] += 1
             b["ms"] += ms
+            b["kernel_only_ms"] += kms
             b["lanes_min"], b["lanes_max"] = min(b["lanes_min"], r["n"]), max(b["lanes_max"],
                                                                              r["n"])
     kernel_ms = sum(r["events"][0].elapsed_time(r["events"][1]) for r in timing)
-    out = dict(launches=len(timing), kernel_ms=kernel_ms,
+    kernel_only_ms = sum(r["kernel_events"][0].elapsed_time(r["kernel_events"][1])
+                         for r in timing)
+    out = dict(launches=len(timing), kernel_ms=kernel_ms, kernel_only_ms=kernel_only_ms,
                lanes_min=min((r["n"] for r in timing), default=0),
                lanes_max=max((r["n"] for r in timing), default=0),
                share=kernel_ms / 1e3 / max(transport_s, 1e-12), configs=by)
-    log(f"{name}: kernel {out['launches']} launches, {kernel_ms:.3f} ms summed, lanes "
+    log(f"{name}: kernel {out['launches']} launches, {kernel_ms:.3f} ms summed "
+        f"(wrapper-inclusive; kernel-only {kernel_only_ms:.3f} ms), lanes "
         f"{out['lanes_min']}-{out['lanes_max']}, share of the {transport_s:.3f} transport s "
         f"{out['share']:.5f}; per configuration {json.dumps(by)}")
     return out
@@ -1096,14 +1109,62 @@ def _load_wrapper(root):
     return mod
 
 
+class _EventLib:
+    """A wrapper's kernel library whose launches, while ``events`` is a
+    list, record a pair of CUDA events right around the ctypes call: the
+    kernel's own time, without the wrapper's allocations, zero fill and
+    host work."""
+
+    def __init__(self, lib):
+        self.lib, self.events = lib, None
+
+    def rpkt_crossing_launch(self, *args):
+        if self.events is None:
+            return self.lib.rpkt_crossing_launch(*args)
+        import torch
+
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        err = self.lib.rpkt_crossing_launch(*args)
+        ev[1].record()
+        self.events.append(ev)
+        return err
+
+
+def _kernel_only(mod, fn):
+    """The summed kernel-only ms of the launches ``fn`` makes through the
+    wrapper ``mod`` (its library an ``_EventLib``)."""
+    import torch
+
+    mod._LIB.events = []
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in mod._LIB.events)
+    finally:
+        mod._LIB.events = None
+
+
+def _work_per_crossing(misc):
+    """Lines (bins) walked and bf continua in windows per crossing, from a
+    launch's counters."""
+    nadv = max(float(misc[0]), 1.0)
+    return float(misc[6]) / nadv, float(misc[7]) / nadv
+
+
 def kernel_ab(workdir, roots):
     """The kernel of this checkout against the kernels of the checkouts at
     ``roots`` on the same inputs (N=65536, max_inner=64, Philox draws, each
     wrapper's own row mode): for each configuration, AB_ROUNDS rounds of a
-    10-launch CUDA-event mean of every version, in turns, every other round
-    in reverse order. Logs every mean and, per version, the median and the
-    median ratio to this checkout's kernel within a round. A version whose
-    wrapper lacks a keyword a configuration needs is left out of it."""
+    10-launch CUDA-event mean of every version (wrapper-inclusive: the
+    events around the wrapper calls), in turns, every other round in
+    reverse order, then as many rounds of the kernel-only time (the events
+    around each ctypes call, ``_EventLib``). Logs every mean and, per
+    version, the median and the median ratio to this checkout's kernel
+    within a round, each version's ptxas registers and spills, and each
+    configuration's lines (bins) walked and bf continua per crossing. A
+    version whose wrapper lacks a keyword a configuration needs is left out
+    of it. Then the main paths' launches are replayed (``_replay_main_path``)."""
     import inspect
 
     import torch
@@ -1113,8 +1174,9 @@ def kernel_ab(workdir, roots):
     versions = [("this", rpkt_kernel)] + [(r, _load_wrapper(r)) for r in roots]
     for tag, mod in versions:
         t0 = time.time()
-        mod.build()
+        mod._LIB = _EventLib(mod.build())
         log(f"ab: built {tag} in {time.time() - t0:.2f} s")
+        _log_ptxas(mod, tag)
 
     def launcher(mod, args, kw):
         accepted = inspect.signature(mod._launch).parameters
@@ -1129,17 +1191,29 @@ def kernel_ab(workdir, roots):
         # sorted by (model cell, cursor)
         for order, a in (("packet order", args),
                          ("sorted", _sorted_args(args, sim.grid.nonemptymgi_of_cell))):
-            runs = [(tag, launcher(mod, a, kw)) for tag, mod in versions]
-            runs = [(tag, fn) for tag, fn in runs if fn is not None]
-            times = {tag: [] for tag, _ in runs}
+            runs = [(tag, mod, launcher(mod, a, kw)) for tag, mod in versions]
+            runs = [r for r in runs if r[2] is not None]
+            times = {tag: [] for tag, _, _ in runs}
+            konly = {tag: [] for tag, _, _ in runs}
             for r in range(AB_ROUNDS):
-                for tag, fn in (runs if r % 2 == 0 else runs[::-1]):
+                for tag, _, fn in (runs if r % 2 == 0 else runs[::-1]):
                     times[tag].append(_timed(fn, 10)[0])
-            base = np.array(times["this"])
+            for r in range(AB_ROUNDS):
+                for tag, mod, fn in (runs if r % 2 == 0 else runs[::-1]):
+                    konly[tag].append(_kernel_only(mod, lambda: [fn() for _ in range(10)]) / 10)
+            base, kbase = np.array(times["this"]), np.array(konly["this"])
             for tag, ts in times.items():
-                ratio = np.median(np.array(ts) / base)
                 log(f"ab[{label}, {order}] {tag}: median {np.median(ts):.4f} ms, per round "
-                    f"{' '.join(f'{t:.4f}' for t in ts)} ms; median ratio to this {ratio:.4f}")
+                    f"{' '.join(f'{t:.4f}' for t in ts)} ms; median ratio to this "
+                    f"{np.median(np.array(ts) / base):.4f}; kernel-only median "
+                    f"{np.median(konly[tag]):.4f} ms, ratio to this "
+                    f"{np.median(np.array(konly[tag]) / kbase):.4f}")
+            if order == "packet order":
+                out = runs[0][2]()
+                walk, bfw = _work_per_crossing(out["misc"].double().cpu().numpy())
+                log(f"ab[{label}] work: crossings {float(out['misc'][0]):.0f}, "
+                    f"{'bins' if extra.get('expansion') else 'lines'} walked per crossing "
+                    f"{walk:.4f}, bf continua per crossing {bfw:.4f}")
             torch.cuda.synchronize()
 
     scenes = [
@@ -1148,6 +1222,9 @@ def kernel_ab(workdir, roots):
                           grid_type="CYLINDRICAL2D"), [({}, False)]),
         ("K4 expansion sph1d", dict(make_scene=expo_dense_scene, npkts=NPKTS_DEFAULT,
                                     expansionopacities_on=True), [(dict(expansion=True), False)]),
+        ("K4 expansion cyl2d", dict(make_scene=cyl_fe_scene, npkts=NPKTS_DEFAULT,
+                                    grid_type="CYLINDRICAL2D", expansionopacities_on=True),
+         [(dict(expansion=True), False)]),
         ("K2 / K6 classic cart3d", dict(make_scene=classic_scene, npkts=NPKTS_REAL,
                                         grid_type="CARTESIAN3D", preset="classic"),
          [({}, False), (dict(defer=True), False)]),
@@ -1167,14 +1244,19 @@ def kernel_ab(workdir, roots):
         sim.close()
         del sim
         gc.collect()
-    # the launches of the nebular and classic_3d main paths (timesteps 0-1,
-    # 2^20 packets), replayed through every version in both lane orders
-    for name, sc in (("nebular_1d_3dgrid_nont", dict(make_scene=nebular_scene,
-                                                     grid_type="CARTESIAN3D",
-                                                     preset="nltenebular", **NEBULAR)),
-                     ("classic_3d", dict(make_scene=classic_scene, grid_type="CARTESIAN3D",
-                                         preset="classic"))):
-        _replay_main_path(workdir, name, sc, versions, launcher)
+    for name, npkts, timesteps in REPLAYS:
+        sc = {s[0]: s for s in SCENES}[name]
+        _replay_main_path(workdir, name, dict(make_scene=sc[1], grid_type=sc[3], **sc[5]),
+                          versions, launcher, npkts, timesteps)
+
+
+# the main paths whose kernel launches --kernel-ab replays: scene (SCENES),
+# packets and timesteps; K1's (the default and 128-shell 1D scenes), K4's
+# (the expansion-opacity cylinder) and the 3D line walk's (nebular,
+# classic_3d)
+REPLAYS = (("default_scene", NPKTS_DEFAULT, 5), ("realistic_scene", NPKTS_REAL, 2),
+           ("kilonova_2d_2dgrid_expansionopac", NPKTS_2D, 3),
+           ("nebular_1d_3dgrid_nont", NPKTS_REAL, 2), ("classic_3d", NPKTS_REAL, 2))
 
 
 def _sorted_args(args, mgi_of_cell, sort=True):
@@ -1195,34 +1277,51 @@ def _sorted_args(args, mgi_of_cell, sort=True):
     return (seed, lanes, tables, tau[order].contiguous(), sel[order].contiguous()) + args[5:]
 
 
-def _replay_main_path(workdir, name, scene_kw, versions, launcher):
-    """Runs timesteps 0-1 of a scene's main path (2^20 packets) recording
-    the arguments of every kernel launch, then replays those launches
-    through each version (``kernel_ab``) in AB_ROUNDS alternating rounds,
-    with the lanes in packet order (the main path's) and sorted by (model
-    cell, cursor) (the gather of the lanes, and the key and sort of the
-    sorted order, timed with the launches): CUDA-event ms of the whole
-    sequence. Logs per version and order the median, every round, the
-    launches and lane-count range, and the share of the recorded run's
-    transport seconds."""
+def _lane_histogram(ns):
+    """{"2^k-2^(k+1)-1": launches} of launch lane counts, by powers of two."""
+    hist = {}
+    for n in ns:
+        k = max(int(n), 1).bit_length() - 1
+        key = f"{2 ** k}-{2 ** (k + 1) - 1}"
+        hist[key] = hist.get(key, 0) + 1
+    return dict(sorted(hist.items(), key=lambda kv: int(kv[0].split("-")[0])))
+
+
+def _replay_main_path(workdir, name, scene_kw, versions, launcher, npkts=NPKTS_REAL,
+                      timesteps=2):
+    """Runs the first ``timesteps`` timesteps of a scene's main path
+    recording the arguments and counters of every kernel launch, then
+    replays those launches through each version (``kernel_ab``) in
+    AB_ROUNDS alternating rounds, with the lanes in packet order (the main
+    path's) and sorted by (model cell, cursor) (the gather of the lanes, and
+    the key and sort of the sorted order, timed with the launches):
+    CUDA-event ms of the whole sequence (wrapper-inclusive), then as many
+    rounds of the launches' summed kernel-only ms (``_EventLib``). Logs the
+    launches' lane-count range and histogram, the lines (bins) walked and bf
+    continua per crossing of each launch, and per version and order the
+    medians, every round, and the share of the recorded run's transport
+    seconds."""
     import inspect
 
     import torch
 
     from artis_tpu_torch.transport import rpkt_kernel
 
-    sim = _phase3_sim(workdir, f"ab_main_{name}", npkts=NPKTS_REAL, **scene_kw)
-    calls = []
+    sim = _phase3_sim(workdir, f"ab_main_{name}", npkts=npkts, **scene_kw)
+    calls, work = [], []
     propagate = rpkt_kernel.propagate
 
     def record(*args, **kw):
         calls.append((args, kw))
-        return propagate(*args, **kw)
+        out = propagate(*args, **kw)
+        work.append((args[1]["posx"].shape[0], float(out["misc"][0]))
+                    + _work_per_crossing(out["misc"].double().cpu().numpy()))
+        return out
 
     record.launches, record.timing = propagate.launches, propagate.timing
     rpkt_kernel.propagate = record
     try:
-        for nts in (0, 1):
+        for nts in range(timesteps):
             sim.do_timestep(nts)
     finally:
         rpkt_kernel.propagate = propagate
@@ -1233,6 +1332,11 @@ def _replay_main_path(workdir, name, scene_kw, versions, launcher):
     del sim, calls
     gc.collect()
     ns = [a[1]["posx"].shape[0] for a, _ in packet]
+    log(f"ab main path[{name}] timesteps 0-{timesteps - 1}: {len(ns)} launches of "
+        f"{min(ns)}-{max(ns)} lanes, lane-count histogram {json.dumps(_lane_histogram(ns))}")
+    log(f"ab main path[{name}] per launch (lanes, crossings, lines or bins walked per "
+        f"crossing, bf continua per crossing): "
+        + " ".join(f"({n}, {c:.0f}, {w:.3f}, {b:.3f})" for n, c, w, b in work))
 
     def sequence(mod, sort):
         if any(launcher(mod, args, kw) is None for args, kw in packet):
@@ -1245,20 +1349,26 @@ def _replay_main_path(workdir, name, scene_kw, versions, launcher):
                 mod._launch(*_sorted_args(args, mgi_of_cell, sort), **kw)
         return run
 
-    runs = [(f"{tag}, {'sorted' if sort else 'packet order'}", sequence(mod, sort))
+    runs = [(f"{tag}, {'sorted' if sort else 'packet order'}", mod, sequence(mod, sort))
             for tag, mod in versions for sort in (True, False)]
-    runs = [(tag, fn) for tag, fn in runs if fn is not None]
-    times = {tag: [] for tag, _ in runs}
+    runs = [r for r in runs if r[2] is not None]
+    times = {tag: [] for tag, _, _ in runs}
+    konly = {tag: [] for tag, _, _ in runs}
     for r in range(AB_ROUNDS):
-        for tag, fn in (runs if r % 2 == 0 else runs[::-1]):
+        for tag, _, fn in (runs if r % 2 == 0 else runs[::-1]):
             times[tag].append(_timed(fn, 1)[0])
-    base = np.array(times[runs[0][0]])
+    for r in range(AB_ROUNDS):
+        for tag, mod, fn in (runs if r % 2 == 0 else runs[::-1]):
+            konly[tag].append(_kernel_only(mod, fn))
+    base, kbase = np.array(times[runs[0][0]]), np.array(konly[runs[0][0]])
     for tag, ts in times.items():
-        log(f"ab main path[{name}] {tag}: {len(ns)} launches of {min(ns)}-{max(ns)} lanes, "
-            f"median {np.median(ts):.3f} ms summed, share of the {transport_s:.3f} transport s "
-            f"{np.median(ts) / 1e3 / transport_s:.5f}; per round "
+        log(f"ab main path[{name}] {tag}: median {np.median(ts):.3f} ms summed, share of the "
+            f"{transport_s:.3f} transport s {np.median(ts) / 1e3 / transport_s:.5f}; per round "
             f"{' '.join(f'{t:.3f}' for t in ts)} ms; median ratio to {runs[0][0]} "
-            f"{np.median(np.array(ts) / base):.4f}")
+            f"{np.median(np.array(ts) / base):.4f}; kernel-only median "
+            f"{np.median(konly[tag]):.3f} ms, per round "
+            f"{' '.join(f'{t:.3f}' for t in konly[tag])} ms, ratio "
+            f"{np.median(np.array(konly[tag]) / kbase):.4f}")
     del packet
     gc.collect()
     torch.cuda.synchronize()

@@ -107,11 +107,17 @@ def _forced_lanes(sim, ctx, seed):
 
 
 def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
-           expansion=False, defer=False, nradbins=0, njblue=0, lut=True, order="packet"):
+           expansion=False, defer=False, nradbins=0, njblue=0, lut=True, order="packet",
+           n=None):
+    """Kernel against plain version on the scene's forced lanes (the first
+    ``n`` of them where given)."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
     lanes, tau, sel = _forced_lanes(sim, ctx, seed=max_inner)
+    if n is not None:
+        lanes = {k: v[:n].contiguous() for k, v in lanes.items()}
+        tau, sel = tau[:n].contiguous(), sel[:n].contiguous()
     if order == "sorted":  # the main path's order (engine.rpkt_lanes)
         key = ((sim.grid.nonemptymgi_of_cell[lanes["where"].long()].long() + 1) * 2 ** 32
                + lanes["next_trans"].long() + 1)
@@ -142,11 +148,15 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
         before + launches * (1 + want_bfrate + expansion + defer + bool(nradbins)
                              + bool(njblue)))
     assert ok, rep
-    # the estimators accumulated, so their comparison tested something
+    # the estimators accumulated, so their comparison tested something (a
+    # launch of a few lanes: they moved)
     names = (("j", "nuj", "ncross") + (("bfrate",) if want_bfrate else ())
              + (("radbin",) if nradbins else ()) + (("jblue",) if njblue else ()))
-    for name in names:
-        assert rep["nonzero"][name], (name, rep)
+    if n is not None and n < 64:
+        assert rep["nadv_plain"] > 0, rep
+    else:
+        for name in names:
+            assert rep["nonzero"][name], (name, rep)
     return plain
 
 
@@ -258,6 +268,65 @@ def test_main_path_launches_the_expansion_kernel(tmp_path):
     assert np.all(np.isfinite(lc)) and lc[:, 1].sum() > 0
     log = open(os.path.join(d, "output_0-0.txt")).read()
     assert stats.COUNTER_NAMES[stats.MA_STAT_ACTIVATION_BB] in log
+
+
+# the redesigned walks: K1 (the 1D line walk) and K4 (the bin walk on the
+# 1D and cylindrical grids), each with its own fixture's scene
+def _redesigned_case(kernel, scenes, expo_scenes):
+    if kernel == "k1":
+        return scenes["sph1d"], dict(want_bfrate=False)
+    return expo_scenes[kernel.split("_")[1]], dict(want_bfrate=False, expansion=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 129])
+@pytest.mark.parametrize("kernel", ["k1", "k4_sph1d", "k4_cyl2d"])
+def test_redesigned_walks_partial_warps(scenes, expo_scenes, kernel, n):
+    """Launches of a partial warp, one lane past a warp and one past a
+    block: the warp-summed rows, the shared-memory staging and the bf
+    window kept per thread with lanes missing."""
+    sc, kw = _redesigned_case(kernel, scenes, expo_scenes)
+    _check(*sc, 16, False, n=n, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_rows", [True, False])
+@pytest.mark.parametrize("kernel", ["k1", "k4_sph1d", "k4_cyl2d"])
+def test_redesigned_walks_row_modes(scenes, expo_scenes, kernel, shared_rows):
+    """Both estimator-row modes of the redesigned walks."""
+    sc, kw = _redesigned_case(kernel, scenes, expo_scenes)
+    _check(*sc, 16, True, shared_rows=shared_rows, **kw)
+
+
+@pytest.fixture(scope="module")
+def long_list_scene(tmp_path_factory):
+    """The 1D scene with a 2340-line Fe atom: its line tables exceed the
+    staging budget, so K1 walks the lines in global memory."""
+    _need_cuda()
+    from artis_tpu_torch.driver import Simulation
+    from artis_tpu_torch.synthdata import write_synthetic_atomicdata
+
+    d = str(tmp_path_factory.mktemp("cuda_long_list"))
+    make_run(d, ntimesteps=4, tmin_days=2.0, tmax_days=4.0, ngreyts=0, logrho0=-8.0, ncells=8)
+    write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=40)
+    sim = Simulation(d, _opts(NPKTS, grid_type="SPHERICAL1D"), device="cuda")
+    return sim, sim.update_grid(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("max_inner", [1, 16])
+def test_k1_line_walk_beyond_the_staging(long_list_scene, max_inner, test_mode):
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    sim = long_list_scene[0]
+    dad = sim.dad
+    stage, _ = rpkt_kernel.stage_plan(sim.grid.nonemptymgi_of_cell.shape[0],
+                                      sim.cells.Te.shape[0], dad.nbfcontinua,
+                                      dad.nphixspoints, max(dad.nbfcontinua_ground, 1),
+                                      dad.nlines)
+    assert not stage & rpkt_kernel.STAGE_LINES and stage & rpkt_kernel.STAGE_CELL
+    _check(*long_list_scene, max_inner, test_mode, want_bfrate=False)
 
 
 # the deferred-event scenes (K6): dense and hot enough for electron

@@ -1,0 +1,162 @@
+"""The host helpers of the crossing kernel's wrapper, on the CPU: the bin
+edge table the redesigned bin walk (K4) reads, against the plain version's
+and the JAX package's edges bitwise; the packed estimator outputs of a
+launch, against the shapes the plain version returns; the shared-memory
+staging plan of the redesigned 1D line walk (K1) at the main path's sizes;
+and each launch's shared memory within the card's limit."""
+
+import numpy as np
+import pytest
+import torch
+
+from artis_tpu_torch.transport import rpkt_kernel as rk
+from artis_tpu_torch.transport.expansionopacity import NBINS, bin_walk
+
+
+def test_expo_edges_match_the_plain_and_jax_edges():
+    """The kernel's edge table is the float32 rounding of the float64 edges,
+    bit for bit the edges the plain version's bin walk and the JAX
+    package's compare with; strictly descending."""
+    from artis_tpu.transport import expansionopacity as jexpo
+
+    edges = rk.expo_edges(torch.device("cpu"))
+    assert edges.dtype == torch.float32 and edges.shape == (NBINS,) and edges.is_contiguous()
+    # the plain version's bin walk: a packet with nu just above edge b has
+    # its first path length in bin b (a zero optical-depth target takes the
+    # event there)
+    b = np.arange(NBINS, dtype=np.float64)
+    jax_edges = np.asarray(jexpo.bin_nu_lower(b)).astype(np.float32)
+    assert np.array_equal(edges.numpy().view(np.int32), jax_edges.view(np.int32))
+    assert bool((edges[1:] < edges[:-1]).all())
+    probe = torch.tensor([3, 250, 969])
+    nu = torch.nextafter(edges[probe], torch.tensor(np.inf, dtype=torch.float32))
+    n = nu.shape[0]
+    one = torch.ones(n, dtype=torch.float32)
+    w = bin_walk(torch.zeros((n, NBINS), dtype=torch.float32), nu, 1e5 * one, one,
+                 torch.full((n,), 1e-30, dtype=torch.float32), -one, torch.ones(n, dtype=bool),
+                 False, 3e38)
+    assert torch.equal(w["j"], probe) and bool(w["anyhit"].all())
+    # the same nu exactly on the edge has no path length in that bin (and,
+    # on the last edge, none in any: the packet is redder than every bin)
+    w = bin_walk(torch.zeros((n, NBINS), dtype=torch.float32), edges[probe], 1e5 * one, one,
+                 torch.full((n,), 1e-30, dtype=torch.float32), -one, torch.ones(n, dtype=bool),
+                 False, 3e38)
+    assert torch.equal(w["j"][:2], probe[:2] + 1)
+    assert w["anyhit"].tolist() == [True, True, False]
+
+
+# (ngc, nbfr, nradbins, njblue, LUT estimators) of the launches the main
+# paths make: the default scene, bf-rate estimators, the nebular fields
+ROWS = [(7, 0, 0, 0, True), (7, 12, 0, 0, True), (1, 12, 64, 196, False), (3, 0, 8, 0, True)]
+
+
+@pytest.mark.parametrize("ngc,nbfr,nradbins,njblue,lut", ROWS)
+def test_estimator_buffers_match_the_plain_outputs(ngc, nbfr, nradbins, njblue, lut):
+    """One zero fill holds every accumulated output: the shapes and dtypes
+    the plain version returns for the same keywords, zeros, contiguous and
+    disjoint views."""
+    ncells = 5
+    bufs = rk.estimator_buffers(ncells, ngc, nbfr, nradbins=nradbins, njblue=njblue,
+                                want_gamma=lut, want_bfheat=lut)
+    ref = {"est": (ncells, 4), "gamma": (ncells, ngc if lut else 0),
+           "bfheat": (ncells, ngc if lut else 0), "bfrate": (ncells, nbfr),
+           "radbin": (ncells, 3, nradbins), "jblue": (ncells, 2, njblue), "misc": (rk.NMISC,)}
+    assert set(bufs) == set(ref)
+    for k, shape in ref.items():
+        v = bufs[k]
+        assert tuple(v.shape) == shape and v.is_contiguous(), k
+        assert v.dtype == (torch.float64 if k == "misc" else torch.float32), k
+        assert bool((v == 0).all()), k
+    # writing each view leaves every other one as it was
+    for i, k in enumerate(sorted(ref)):
+        bufs[k].fill_(i + 1)
+    for i, k in enumerate(sorted(ref)):
+        assert bool((bufs[k] == i + 1).all()), k
+    assert bufs["misc"].data_ptr() % 8 == 0
+
+
+def test_estimator_buffers_shapes_are_the_plain_versions():
+    """The shapes the plain version itself returns, on a one-lane launch of
+    each row layout."""
+    ncells, nlines, ncont, nphixs, ngc = 3, 4, 2, 3, 2
+    f = lambda *s: torch.zeros(s, dtype=torch.float32)
+    i = lambda *s: torch.zeros(s, dtype=torch.int32)
+    lanes = {k: f(1) for k in rk.LANE_F32}
+    lanes.update({k: i(1) for k in rk.LANE_I32})
+    lanes.update(posx=torch.tensor([1e14]), prop_time=torch.tensor([1e6]),
+                 nu_rf=torch.tensor([1e15]), nu_cmf=torch.tensor([1e15]))
+    tables = dict(cellmin=torch.tensor([0.0, 1e14, 2e14]), cellmax=torch.tensor([1e14, 2e14, 3e14]),
+                  nne=f(ncells) + 1.0, Te=f(ncells) + 1e4, kappagrey=f(ncells),
+                  rho=f(ncells) + 1e-14, chiffpart=f(ncells),
+                  line_nu=torch.tensor([4e15, 3e15, 2e15, 1e15]), tau_factor=f(ncells, nlines),
+                  cont_nu_edge=torch.tensor([1e14, 2e14]), bf_a=f(ncells, ncont),
+                  bf_dep=f(ncells, ncont), cont_phixs=f(ncont, nphixs), cont_prob=f(ncont) + 1.0,
+                  gc_nu_edge=torch.tensor([1e14, 2e14]), expo_kappa=f(ncells, NBINS),
+                  mgi_of_cell=torch.arange(ncells, dtype=torch.int32), thick=i(ncells),
+                  cont_gidx=torch.arange(ncont, dtype=torch.int32),
+                  jblue_of_line=torch.arange(nlines, dtype=torch.int32))
+    for _, nbfr, nradbins, njblue, lut in ROWS:
+        p = rk.propagate_reference(
+            1, lanes, tables, f(1) + 1.0, f(1) + 0.5, 2e6, 1e6, 1e30, nlines=nlines,
+            ncells=ncells, ngc=ngc, nphixs=nphixs, max_inner=1, relativistic=True,
+            phixs_dnu=0.1, last_nuovernuedge=10.0, test_mode=True, want_bfrate=nbfr > 0,
+            nradbins=nradbins, njblue=njblue, want_gamma=lut, want_bfheat=lut)
+        bufs = rk.estimator_buffers(ncells, ngc, ncont if nbfr else 0, nradbins=nradbins,
+                                    njblue=njblue, want_gamma=lut, want_bfheat=lut)
+        for k, v in bufs.items():
+            assert v.shape == p[k].shape and v.dtype == p[k].dtype, k
+
+
+# (nprop, ncells, ncont, nphixs, ngc, nlines) of the 1D main paths: the
+# default scene (16 shells, 196 lines) and the 128-shell Fe-atom scene
+DEFAULT = (16, 16, 12, 20, 4, 196)
+REALISTIC = (128, 128, 6, 20, 2, 101010)
+
+
+def test_stage_plan_at_the_main_path_sizes():
+    """Every group of the default scene's tables fits the budget; of the
+    128-shell scene's all but the lines (its walk reads global memory); no
+    budget, no staging; the bytes are the groups' words."""
+    mask, used = rk.stage_plan(*DEFAULT)
+    words = rk.stage_words(*DEFAULT)
+    assert mask == (rk.STAGE_CELL | rk.STAGE_BF | rk.STAGE_BFCELL | rk.STAGE_LINES)
+    assert used == 4 * sum(words.values()) <= rk.STAGE_MAX
+    mask, used = rk.stage_plan(*REALISTIC)
+    rwords = rk.stage_words(*REALISTIC)
+    assert mask == rk.STAGE_CELL | rk.STAGE_BF | rk.STAGE_BFCELL
+    assert used == 4 * (sum(rwords.values()) - rwords[rk.STAGE_LINES])
+    assert rk.stage_plan(*DEFAULT, budget=0) == (0, 0)
+    # a group that does not fit is passed over, later ones that do are taken
+    dims = (4, 4, 10, 20, 2, 10)  # the bf tables larger than the rest together
+    w = rk.stage_words(*dims)
+    budget = 4 * (w[rk.STAGE_CELL] + w[rk.STAGE_BFCELL] + w[rk.STAGE_LINES])
+    assert w[rk.STAGE_BF] > w[rk.STAGE_BFCELL] + w[rk.STAGE_LINES]
+    assert rk.stage_plan(*dims, budget=budget) == (
+        rk.STAGE_CELL | rk.STAGE_BFCELL | rk.STAGE_LINES, budget)
+
+
+@pytest.mark.parametrize("geom,expansion,nlte,expect", [
+    (rk.GEOM_SPH, False, False, (True, False)), (rk.GEOM_SPH, False, True, (False, False)),
+    (rk.GEOM_SPH, True, False, (False, True)), (rk.GEOM_CYL, True, False, (False, True)),
+    (rk.GEOM_CART, True, False, (False, False)), (rk.GEOM_CYL, False, False, (False, False)),
+    (rk.GEOM_CART, False, True, (False, False))])
+def test_redesigned_instantiations(geom, expansion, nlte, expect):
+    """Only the 1D line walk and the 1D and cylindrical bin walks without
+    the NLTE fields run the redesigned code; the 3D walks and the
+    cylindrical line walk keep theirs."""
+    assert rk.redesigned(geom, expansion, nlte) == expect
+
+
+def test_shared_memory_of_the_main_path_launches():
+    """The default and 128-shell K1 launches, the expansion-opacity
+    cylinder's K4 launch and a forced shared-row launch fit the card's
+    shared memory; the rows of 6000 cells in shared memory do not."""
+    for dims in (DEFAULT, REALISTIC):
+        nprop, ncells, ncont, nphixs, ngc, nlines = dims
+        _, staged = rk.stage_plan(*dims)
+        shared = rk.pick_shared_rows(ncells, ngc, 0)
+        assert rk.smem_bytes(ncells, ngc, 0, shared, True, False, staged) <= rk.SMEM_LIMIT
+    assert rk.smem_bytes(1250, 3, 0, False, False, True) <= rk.SMEM_LIMIT
+    assert rk.smem_bytes(16, 7, 0, True, True, False, 4096) == rk.row_bytes(16, 7, 0) + 4096
+    assert rk.smem_bytes(16, 7, 0, False, False, True) == 8 * rk.NMISC + 4 * NBINS
+    assert rk.smem_bytes(6000, 3, 0, True, False, True) > rk.SMEM_LIMIT

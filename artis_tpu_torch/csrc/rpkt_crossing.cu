@@ -60,10 +60,21 @@
 // - the 1D line walk (K1) and the bin walks (K4): 0.1-0.3 lines or 1.4-2.1
 //   bins and 0.3-0.4 bf continua a crossing, so the crossing's own chain
 //   takes the time: the cell loads, two Philox draws, the shell distances,
-//   the Doppler factors, the estimator atomics.
-// The 1D walk and the bin walk of the 1D and cylindrical grids, without
-// the NLTE fields, are redesigned for that (k1_redesign, k4_redesign; the
-// other 9 instantiations keep their code):
+//   the Doppler factors, the estimator atomics;
+// - the cylindrical line walk (K3): its row atomics. On kilonova_2d_2dgrid's
+//   launches 28.8 advances and 27.8 boundary crossings a lane, 0.015 lines
+//   and no bf continuum an advance (with the 101,010-line Fe atom 22.2,
+//   21.2, 2.5 and 0). Its 1250 cells' rows (60 KB, 40 KB with the Fe atom)
+//   exceed SHARED_ROWS_MAX, so every crossing added 3-4 scalar float
+//   atomics to the global rows, and the active lanes of a warp add to as
+//   many cells as there are lanes (18.3 distinct cells among 18.9 lanes at
+//   a row add), which warp sums cannot merge. Without those atomics the
+//   parent took 0.75x on the replayed launches and 0.56x on a forced
+//   launch; with a constant boundary distance about 0.97x an advance.
+// The 1D walk, the cylindrical line walk and the bin walk of the 1D and
+// cylindrical grids, without the NLTE fields, are redesigned for that
+// (k1_redesign, k3_redesign, k4_redesign: 4 of the 11 instantiations; the
+// other 7 keep their registers and spills):
 // (1) the 1D walk copies its tables into shared memory at block start with
 //     cp.async, as many groups as fit rpkt_kernel.STAGE_MAX (stage_plan):
 //     the default scene's cell, bf and line tables (16.5 KB), the 128-shell
@@ -74,12 +85,27 @@
 //     (est_add_warp): the lanes of a 1D warp mostly share a shell;
 // (3) the bin walk reads its edges from a float32 table in shared memory,
 //     the plain version's values (rpkt_kernel.expo_edges), and finds its
-//     first bin on that table: no double divide is left in its loop.
+//     first bin on that table: no double divide is left in its loop;
+// (4) the cylindrical walk adds a cell's four J / nuJ / ffheating /
+//     crossing floats with one 16-byte vector reduction (red_add_v4, sm_90)
+//     in place of up to four scalar atomics: one memory transaction a
+//     crossing (the global rows are 16-byte aligned);
+// (5) it keeps the xy terms of its direction (XYDir: a square root and two
+//     divides) in registers and recomputes them only after a scatter turns
+//     the direction (122 registers, no spill).
 // Against the parent kernel on the replayed launches of the main paths
 // (chip_smoke.py --kernel-ab, kernel-only time, one call; PERF.md section
 // 6): the default scene 0.90x and the 128-shell scene 0.985x (K1), the
-// expansion-opacity cylinder 0.94x (K4), the 3D walks 0.99x. Measured and
-// dropped: the bf window computed once a crossing, its terms kept per
+// expansion-opacity cylinder 0.94x (K4), the 3D walks 0.99x; the
+// cylinder kilonova_2d_2dgrid 0.77x and its Fe-atom form 0.97x (K3, (4)
+// alone 0.80x and 0.99x). Measured on K3 and dropped: a persistent grid whose blocks
+// keep the rows in shared memory and flush them once (0.95x on the
+// synthetic replay but 1.10x on the Fe one and 1.05-1.07x forced: each
+// block's flush costs about as many atomics as the crossings it saves, and
+// 128 registers spill under its 2-block bound), a 5-block register bound
+// (96 registers, 122 bytes of spills, 1.05x on the Fe replay), and warp
+// sums (the lanes do not share cells). Measured and dropped on K1 and K4:
+// the bf window computed once a crossing, its terms kept per
 // thread in shared memory (forced launches 5-8 % faster, the replays
 // unchanged: 0.3-0.4 continua a crossing), the kappa row read four bins a
 // load (2-4 % slower), and the staging without the register bound (160
@@ -268,6 +294,22 @@ __device__ __forceinline__ void est_add_warp(float* row, int key, float v0, floa
   }
 }
 
+// adds (v0, v1, v2, v3) to four consecutive floats of global memory, 16-byte
+// aligned, with one vector reduction (red.global.add.v4.f32, sm_90): one
+// memory transaction where four scalar atomics took four
+__device__ __forceinline__ void red_add_v4(float* p, float v0, float v1, float v2, float v3) {
+#ifdef __CUDA_ARCH__
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p), "f"(v0), "f"(v1), "f"(v2),
+               "f"(v3)
+               : "memory");
+#else
+  atomicAdd(p + 0, v0);
+  atomicAdd(p + 1, v1);
+  atomicAdd(p + 2, v2);
+  atomicAdd(p + 3, v3);
+#endif
+}
+
 __device__ __forceinline__ void philox4x32(uint32_t c[4], uint32_t k0, uint32_t k1) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -385,13 +427,28 @@ __device__ __forceinline__ float plane_distance(float posd, float veld, float ts
   return CLIGHT_PROP * ((posd - veld * tstart) / denom * tmin - tstart);
 }
 
+// the xy terms of a direction that the cylindrical boundary distance uses:
+// the xy length floored at 1e-8, the unit xy direction, and whether the
+// direction moves in xy at all
+struct XYDir {
+  float sdl, dxn, dyn;
+  bool has_xy;
+};
+
+__device__ __forceinline__ XYDir xy_dir(float dx, float dy) {
+  const float dirxylen = sqrtf(dx * dx + dy * dy);
+  const float sdl = fmaxf(dirxylen, 1e-8f);
+  return {sdl, dx / sdl, dy / sdl, dirxylen > 1e-8f};
+}
+
 // distance to the cell boundary and the next cell (-99: leaves the grid),
-// capped at max_path_step (grid.cc:2349-2597)
-template <int GEOM, bool GEN = false>
+// capped at max_path_step (grid.cc:2349-2597); with XYC the cylindrical
+// distance takes the direction's xy terms from xyc, which the caller keeps
+template <int GEOM, bool GEN = false, bool XYC = false>
 __device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, int cell,
                                          float px, float py, float pz, float dx, float dy,
                                          float dz, float pos2, float pdotd, float tstart,
-                                         float& sdist, int& snext) {
+                                         float& sdist, int& snext, XYDir xyc = XYDir{}) {
   if (GEOM == GEOM_SPH) {
     const float coordmin0 = ld<GEN>(tb.cellmin + cell), coordmax0 = ld<GEN>(tb.cellmax + cell);
     const float d_max = shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart,
@@ -411,10 +468,9 @@ __device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, 
     // distance over the direction's xy length), homologous planes in z
     const int n0 = p.nx, n1 = p.ny;
     const int i_r = cell % n0, i_z = cell / n0;
-    const float dirxylen = sqrtf(dx * dx + dy * dy);
-    const bool has_xy = dirxylen > 1e-8f;
-    const float sdl = fmaxf(dirxylen, 1e-8f);
-    const float dxn = dx / sdl, dyn = dy / sdl;
+    const XYDir xd = XYC ? xyc : xy_dir(dx, dy);
+    const bool has_xy = xd.has_xy;
+    const float sdl = xd.sdl, dxn = xd.dxn, dyn = xd.dyn;
     const float xyspeed = sdl * CLIGHT_PROP;
     const float pos2xy = px * px + py * py;
     const float pdotdxy = px * dxn + py * dyn;
@@ -475,10 +531,13 @@ __device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, 
   }
 }
 
-// the redesigned instantiations: the 1D line walk (K1) and the bin walk of
-// the 1D and cylindrical grids (K4), both without the NLTE fields
+// the redesigned instantiations: the 1D line walk (K1), the cylindrical
+// line walk (K3) and the bin walk of the 1D and cylindrical grids (K4), each
+// without the NLTE fields
 template <int GEOM, bool EXPO, bool NLTE>
 __host__ __device__ constexpr bool k1_redesign() { return GEOM == GEOM_SPH && !EXPO && !NLTE; }
+template <int GEOM, bool EXPO, bool NLTE>
+__host__ __device__ constexpr bool k3_redesign() { return GEOM == GEOM_CYL && !EXPO && !NLTE; }
 template <int GEOM, bool EXPO, bool NLTE>
 __host__ __device__ constexpr bool k4_redesign() { return EXPO && !NLTE && GEOM != GEOM_CART; }
 
@@ -506,6 +565,7 @@ size_t smem_bytes(const RpktParams& p) {
 template <int GEOM, bool EXPO, bool NLTE>
 __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs out) {
   constexpr bool R1 = k1_redesign<GEOM, EXPO, NLTE>(), R4 = k4_redesign<GEOM, EXPO, NLTE>();
+  constexpr bool R3 = k3_redesign<GEOM, EXPO, NLTE>();
   constexpr bool GEN = R1;  // generic table loads: the tables may lie in shared memory
   extern __shared__ double smem_d[];
   double* s_misc = smem_d;
@@ -609,6 +669,9 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
     const int nlines = p.nlines;
     float px = in.px[lane], py = in.py[lane], pz = in.pz[lane];
     float dx = in.dx[lane], dy = in.dy[lane], dz = in.dz[lane];
+    // K3: the direction's xy terms, recomputed only where a scatter turns it
+    XYDir xyd{};
+    if constexpr (R3) xyd = xy_dir(dx, dy);
     float nurf = in.nurf[lane], nucmf = in.nucmf[lane], erf = in.erf[lane], ecmf = in.ecmf[lane];
     float t = in.t[lane], terr = 0.0f;
     int cell = in.where[lane], ntr = in.next_trans[lane];
@@ -656,7 +719,8 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
       const float pdotd = px * dx + py * dy + pz * dz;
       float sdist;
       int snext;
-      boundary<GEOM, GEN>(p, tb, cell, px, py, pz, dx, dy, dz, pos2, pdotd, tstart, sdist, snext);
+      boundary<GEOM, GEN, R3>(p, tb, cell, px, py, pz, dx, dy, dz, pos2, pdotd, tstart, sdist,
+                              snext, xyd);
       const float tdist = fmaxf((p.t2 - tstart) * CLIGHT_PROP, 0.0f);
       const float abort_dist = fminf(sdist, tdist);
 
@@ -890,6 +954,11 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
         if constexpr (R1) {
           est_add_warp(a_est + 4 * mgi, mgi, contrib, contrib * nucmf1,
                        thick ? 0.0f : contrib * chi_ff, crossing ? 1.0f : 0.0f);
+        } else if (R3 && !p.shared_rows) {
+          // K3: the cell's four floats in one vector reduction (the global
+          // rows are 16-byte aligned, rpkt_kernel.estimator_buffers)
+          red_add_v4(a_est + 4 * mgi, contrib, contrib * nucmf1, thick ? 0.0f : contrib * chi_ff,
+                     crossing ? 1.0f : 0.0f);
         } else {
           atomicAdd(a_est + 4 * mgi + 0, contrib);
           atomicAdd(a_est + 4 * mgi + 1, contrib * nucmf1);
@@ -992,6 +1061,7 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
         dx = ndx;
         dy = ndy;
         dz = ndz;
+        if constexpr (R3) xyd = xy_dir(dx, dy);
         nurf = nucmf / dop_sc;
         erf = ecmf / dop_sc;
         em_x = fx;

@@ -592,11 +592,13 @@ def nlte_fields(nradbins: int = 0, njblue: int = 0, want_gamma: bool = True,
     return bool(nradbins or njblue or not want_gamma or not want_bfheat)
 
 
-def redesigned(geom: int, expansion: bool, nlte: bool) -> tuple[bool, bool]:
-    """(K1, K4): whether a launch runs the redesigned 1D line walk or the
-    redesigned bin walk (1D and cylindrical grids), both without the NLTE
-    fields (k1_redesign / k4_redesign in the .cu)."""
+def redesigned(geom: int, expansion: bool, nlte: bool) -> tuple[bool, bool, bool]:
+    """(K1, K3, K4): whether a launch runs the redesigned 1D line walk, the
+    redesigned cylindrical line walk or the redesigned bin walk (1D and
+    cylindrical grids), each without the NLTE fields (k1_redesign /
+    k3_redesign / k4_redesign in the .cu)."""
     return (geom == GEOM_SPH and not expansion and not nlte,
+            geom == GEOM_CYL and not expansion and not nlte,
             expansion and not nlte and geom != GEOM_CART)
 
 
@@ -714,7 +716,7 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     nbfr = ncont if want_bfrate else 0
     rows_kw = dict(nradbins=nradbins, njblue=njblue, want_gamma=want_gamma,
                    want_bfheat=want_bfheat)
-    k1, k4 = redesigned(geom, expansion, nlte_fields(**rows_kw))
+    k1, _, k4 = redesigned(geom, expansion, nlte_fields(**rows_kw))
     stage, stage_bytes = (stage_plan(nprop, ncells, ncont, nphixs, ngc, nlines) if k1
                           else (0, 0))
     # estimator rows in shared memory (pick_shared_rows), else atomics
@@ -736,6 +738,8 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     out = dict(zip(OUT_F32, fbuf.unbind(0)))
     out.update(zip(OUT_I32, ibuf.unbind(0)))
     out.update(estimator_buffers(ncells, ngc, nbfr, device=dev, **rows_kw))
+    if out["est"].data_ptr() % 16:  # K3's vector reductions need aligned rows
+        raise RuntimeError("the estimator rows are not 16-byte aligned")
     rb_lo, rb_last, rb_super, rb_delta = radbin_edges(max(nradbins, 2))
     prm = _Params(n=n, ncells=ncells, nprop=nprop, nlines=nlines,
                   ncont=ncont, ngc=ngc, nphixs=nphixs, max_inner=max_inner,

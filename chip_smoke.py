@@ -20,7 +20,8 @@ line is printed):
        timestep-0 tables and the lanes its timestep 0 leaves in flight
        (timestep 1's non-grey tables), and a 32^3 model whose estimator
        rows exceed shared memory;
-     - 2D cylindrical: the 25 x 50 kilonova_2d_2dgrid model;
+     - 2D cylindrical (K3): the 25 x 50 kilonova_2d_2dgrid model, and the
+       same cylinder with the 101,010-line Fe atom;
      - binned expansion opacities (K4): a dense 8-shell 1D scene (max_inner
        1, 4, 64), the 25 x 50 cylinder with the 101k-line Fe atom and the
        big scene's 16^3 model with its own opacity bins; bound-bound bin
@@ -47,7 +48,9 @@ line is printed):
      1D scene (65536 packets), the 128-shell 1D scene (2^20 packets), the
      big 3D scene with detailed bf-rate estimators (2^20 packets,
      timesteps 0-2), kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
-     timesteps 0-1), kilonova_2d_2dgrid_expansionopac at 25 x 50 with the
+     timesteps 0-1), kilonova_2d_2dgrid_fe (the same cylinder with the
+     101,010-line Fe atom, lines walked, timesteps 0-2),
+     kilonova_2d_2dgrid_expansionopac at 25 x 50 with the
      Fe atom (2^18 packets, timesteps 0-2; macro-atom bound-bound
      activations must occur), the default scene with Barnes particle
      and Guttman gamma thermalisation (gamma lines written for Ni56 and
@@ -103,8 +106,11 @@ lanes in packet order (the main path's) and sorted by (model cell,
 cursor), in alternating rounds (``kernel_ab``): wrapper-inclusive and
 kernel-only CUDA-event times, ptxas registers and the work per crossing;
 then the launches of the main paths in ``REPLAYS`` (the default and
-128-shell 1D scenes, the expansion-opacity cylinder, nebular, classic_3d)
-replayed through each kernel in both orders; prints no result line.
+128-shell 1D scenes, the cylinder at the synthetic and at the Fe line
+list, the expansion-opacity cylinder, nebular, classic_3d) replayed through
+each kernel in both orders, with each version's counters (advances and
+boundary crossings per lane, lines or bins walked and bf continua per
+advance); prints no result line.
 """
 
 from __future__ import annotations
@@ -815,6 +821,19 @@ def phase_kernel_vs_plain(workdir):
     cyl.close()
     del cyl
     gc.collect()
+    # the same cylinder with the 101,010-line Fe atom (kilonova_2d_2dgrid_fe)
+    cylfe = _phase3_sim(workdir, "phase3_cyl_fe", cyl_fe_scene, NPKTS_DEFAULT, "CYLINDRICAL2D")
+    ctx = cylfe.update_grid(0)
+    _, tb = _nongrey_tables(cylfe, ctx)
+    log(f"phase 3 cylindrical, Fe atom: grid {cylfe.grid.ncoordgrid} "
+        f"ncells={cylfe.cells.Te.shape[0]} nlines={cylfe.dad.nlines}")
+    t0, t2 = float(ctx.ts), float(ctx.t2)
+    errs["rpkt_crossing_cyl2d"] += _check_cases(
+        cylfe, _cases("cyl2d_fe", cylfe, tb, t0, t2, (1, 64), seed=16), nonzero)
+    _time_config(cylfe, tb, t0, t2, False, "K3 cyl2d Fe")
+    cylfe.close()
+    del cylfe
+    gc.collect()
 
     # --- K4: binned expansion opacities ---
     k4 = "rpkt_crossing_expansion"
@@ -1152,6 +1171,23 @@ def _work_per_crossing(misc):
     return float(misc[6]) / nadv, float(misc[7]) / nadv
 
 
+def _counts(misc, lanes, walked="lines"):
+    """The work of one launch or of a sequence of launches on ``lanes``
+    lanes in all, from their summed counters: crossing-loop advances and
+    cell-boundary crossings per lane, lines (bins) walked and bf continua
+    per advance, and the counters past rpkt_kernel.MISC that a measurement
+    copy of the kernel may add."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    n = max(int(lanes), 1)
+    walk, bfw = _work_per_crossing(misc)
+    own = [float(v) for v in misc[len(rpkt_kernel.MISC):]]
+    return (f"lanes {lanes}, advances {float(misc[0]):.0f} ({float(misc[0]) / n:.4f} a lane), "
+            f"boundary crossings {float(misc[5]):.0f} ({float(misc[5]) / n:.4f} a lane), "
+            f"{walked} walked per advance {walk:.4f}, bf continua per advance {bfw:.4f}"
+            + (f", the copy's own counters {own}" if own else ""))
+
+
 def kernel_ab(workdir, roots):
     """The kernel of this checkout against the kernels of the checkouts at
     ``roots`` on the same inputs (N=65536, max_inner=64, Philox draws, each
@@ -1166,16 +1202,19 @@ def kernel_ab(workdir, roots):
     version whose wrapper lacks a keyword a configuration needs is left out
     of it. Then the main paths' launches are replayed (``_replay_main_path``)."""
     import inspect
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     from artis_tpu_torch.transport import rpkt_kernel
 
     versions = [("this", rpkt_kernel)] + [(r, _load_wrapper(r)) for r in roots]
-    for tag, mod in versions:
-        t0 = time.time()
-        mod._LIB = _EventLib(mod.build())
-        log(f"ab: built {tag} in {time.time() - t0:.2f} s")
+    t0 = time.time()
+    with ThreadPoolExecutor(len(versions)) as pool:  # one nvcc per version at once
+        libs = list(pool.map(lambda v: v[1].build(), versions))
+    log(f"ab: built {len(versions)} versions in {time.time() - t0:.2f} s")
+    for (tag, mod), lib in zip(versions, libs):
+        mod._LIB = _EventLib(lib)
         _log_ptxas(mod, tag)
 
     def launcher(mod, args, kw):
@@ -1209,17 +1248,19 @@ def kernel_ab(workdir, roots):
                     f"{np.median(konly[tag]):.4f} ms, ratio to this "
                     f"{np.median(np.array(konly[tag]) / kbase):.4f}")
             if order == "packet order":
-                out = runs[0][2]()
-                walk, bfw = _work_per_crossing(out["misc"].double().cpu().numpy())
-                log(f"ab[{label}] work: crossings {float(out['misc'][0]):.0f}, "
-                    f"{'bins' if extra.get('expansion') else 'lines'} walked per crossing "
-                    f"{walk:.4f}, bf continua per crossing {bfw:.4f}")
+                for tag, _, fn in runs:
+                    out = fn()
+                    log(f"ab[{label}] work[{tag}]: "
+                        + _counts(out["misc"].double().cpu().numpy(), out["posx"].shape[0],
+                                  "bins" if extra.get("expansion") else "lines"))
             torch.cuda.synchronize()
 
     scenes = [
         ("K1 sph1d", dict(make_scene=default_scene, npkts=NPKTS_DEFAULT), [({}, False)]),
         ("K3 cyl2d", dict(make_scene=cyl_scene, npkts=NPKTS_DEFAULT,
                           grid_type="CYLINDRICAL2D"), [({}, False)]),
+        ("K3 cyl2d Fe", dict(make_scene=cyl_fe_scene, npkts=NPKTS_DEFAULT,
+                             grid_type="CYLINDRICAL2D"), [({}, False)]),
         ("K4 expansion sph1d", dict(make_scene=expo_dense_scene, npkts=NPKTS_DEFAULT,
                                     expansionopacities_on=True), [(dict(expansion=True), False)]),
         ("K4 expansion cyl2d", dict(make_scene=cyl_fe_scene, npkts=NPKTS_DEFAULT,
@@ -1251,10 +1292,11 @@ def kernel_ab(workdir, roots):
 
 
 # the main paths whose kernel launches --kernel-ab replays: scene (SCENES),
-# packets and timesteps; K1's (the default and 128-shell 1D scenes), K4's
-# (the expansion-opacity cylinder) and the 3D line walk's (nebular,
-# classic_3d)
+# packets and timesteps; K1's (the default and 128-shell 1D scenes), K3's
+# (the cylinder at the synthetic and at the Fe line list), K4's (the
+# expansion-opacity cylinder) and the 3D line walk's (nebular, classic_3d)
 REPLAYS = (("default_scene", NPKTS_DEFAULT, 5), ("realistic_scene", NPKTS_REAL, 2),
+           ("kilonova_2d_2dgrid", NPKTS_2D, 2), ("kilonova_2d_2dgrid_fe", NPKTS_2D, 3),
            ("kilonova_2d_2dgrid_expansionopac", NPKTS_2D, 3),
            ("nebular_1d_3dgrid_nont", NPKTS_REAL, 2), ("classic_3d", NPKTS_REAL, 2))
 
@@ -1314,7 +1356,7 @@ def _replay_main_path(workdir, name, scene_kw, versions, launcher, npkts=NPKTS_R
     def record(*args, **kw):
         calls.append((args, kw))
         out = propagate(*args, **kw)
-        work.append((args[1]["posx"].shape[0], float(out["misc"][0]))
+        work.append((args[1]["posx"].shape[0], float(out["misc"][0]), float(out["misc"][5]))
                     + _work_per_crossing(out["misc"].double().cpu().numpy()))
         return out
 
@@ -1334,9 +1376,9 @@ def _replay_main_path(workdir, name, scene_kw, versions, launcher, npkts=NPKTS_R
     ns = [a[1]["posx"].shape[0] for a, _ in packet]
     log(f"ab main path[{name}] timesteps 0-{timesteps - 1}: {len(ns)} launches of "
         f"{min(ns)}-{max(ns)} lanes, lane-count histogram {json.dumps(_lane_histogram(ns))}")
-    log(f"ab main path[{name}] per launch (lanes, crossings, lines or bins walked per "
-        f"crossing, bf continua per crossing): "
-        + " ".join(f"({n}, {c:.0f}, {w:.3f}, {b:.3f})" for n, c, w, b in work))
+    log(f"ab main path[{name}] per launch (lanes, advances, boundary crossings, lines or bins "
+        f"walked per advance, bf continua per advance): "
+        + " ".join(f"({n}, {c:.0f}, {x:.0f}, {w:.3f}, {b:.3f})" for n, c, x, w, b in work))
 
     def sequence(mod, sort):
         if any(launcher(mod, args, kw) is None for args, kw in packet):
@@ -1369,6 +1411,18 @@ def _replay_main_path(workdir, name, scene_kw, versions, launcher, npkts=NPKTS_R
             f"{np.median(konly[tag]):.3f} ms, per round "
             f"{' '.join(f'{t:.3f}' for t in konly[tag])} ms, ratio "
             f"{np.median(np.array(konly[tag]) / kbase):.4f}")
+    # each version's counters over the whole sequence, packet order
+    walked = "bins" if scene_kw.get("expansionopacities_on") else "lines"
+    for tag, mod in versions:
+        if sequence(mod, False) is None:
+            continue
+        params = inspect.signature(mod._launch).parameters
+        misc = 0.0
+        for args, kw in packet:
+            out = mod._launch(*args, **{k: v for k, v in kw.items() if k in params})
+            misc = misc + out["misc"].double().cpu().numpy()
+        log(f"ab main path[{name}] work[{tag}], summed over the launches: "
+            f"{_counts(misc, sum(ns), walked)}")
     del packet
     gc.collect()
     torch.cuda.synchronize()
@@ -1641,6 +1695,10 @@ SCENES = [
     ("big_scene", big_scene, NPKTS_REAL, "CARTESIAN3D", CART + ["rpkt_crossing_bfrate"],
      dict(detailed_bf_estimators_on=True)),
     ("kilonova_2d_2dgrid", cyl_scene, NPKTS_2D, "CYLINDRICAL2D", ["rpkt_crossing_cyl2d"], {}),
+    # kilonova_2d_2dgrid at the production line list: the 25 x 50 cylinder
+    # with the 101,010-line Fe atom, lines walked (no expansion opacities)
+    ("kilonova_2d_2dgrid_fe", cyl_fe_scene, NPKTS_2D, "CYLINDRICAL2D", ["rpkt_crossing_cyl2d"],
+     {}),
     ("kilonova_2d_2dgrid_expansionopac", cyl_fe_scene, NPKTS_2D, "CYLINDRICAL2D",
      ["rpkt_crossing_cyl2d", "rpkt_crossing_expansion"],
      dict(expansionopacities_on=True, rpkt_boundbound_thermalisation_probability=-1.0)),
@@ -1732,6 +1790,10 @@ def main():
     rec["rpkt_crossing_cart3d"]["note"] = ("ms, plain_ms and bound_ms: the big scene, in-kernel "
                                            "scattering; launches: classic_3d's, each also a "
                                            "K6 launch")
+    # K3 at the production line list: its launches logged beside the main
+    # path's
+    rec["rpkt_crossing_cyl2d"]["launches_kilonova_2d_2dgrid_fe"] = \
+        runs["kilonova_2d_2dgrid_fe"]["launches"]["rpkt_crossing_cyl2d"]
     kernels = []
     for key, (label, replaces) in CONFIGS.items():
         r = rec[key]
@@ -1741,7 +1803,8 @@ def main():
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], build_s=build_s,
                             **{k: v for k, v in r.items()
-                               if k.endswith("rows_ms") or k == "note"}))
+                               if k.endswith("rows_ms") or k == "note"
+                               or k.startswith("launches_")}))
     log(f"total {time.time() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,9 @@
 binned expansion-opacity walk K4, the deferred events of dipole
 scattering K6, and the multibin and J_b_lu estimators K5-multibin and
 K5-jblue with the LUT estimators off; the 3D line walk with the lanes in
-packet order and sorted by cell), on the main path through the CLI, two same-seed runs of a small nebular scene
+packet order and sorted by cell; the redesigned cylindrical walk K3 on the
+25 x 50 cylinder with the synthetic and a Fe atom at lane counts up to
+2^18, in both row modes and with grey scatters), on the main path through the CLI, two same-seed runs of a small nebular scene
 (timestep 0 bitwise identical but for the sums the kernel adds with float
 atomics) and the host sums' CUDA formulation (the same bits on every
 call).
@@ -80,41 +82,43 @@ def scenes(tmp_path_factory):
     return out
 
 
-def _forced_lanes(sim, ctx, seed):
+def _forced_lanes(sim, ctx, seed, npkts=NPKTS):
     """In-flight r-packets spread over the grid, with numpy-made draws."""
     from artis_tpu_torch.grid import get_cellindex_from_pos
 
     rng = np.random.default_rng(seed)
     t0 = float(ctx.ts)
     rmax_t = sim.grid.rmax * t0 / sim.grid.tmin
-    u = rng.normal(size=(NPKTS, 3))
+    u = rng.normal(size=(npkts, 3))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
-    pos = u * (rmax_t * rng.uniform(0.05, 0.9, NPKTS) ** (1 / 3))[:, None]
+    pos = u * (rmax_t * rng.uniform(0.05, 0.9, npkts) ** (1 / 3))[:, None]
     cell = get_cellindex_from_pos(sim.grid, torch.as_tensor(pos, device="cuda"),
-                                  torch.full((NPKTS,), t0, dtype=torch.float64, device="cuda"))
-    dv = rng.normal(size=(NPKTS, 3))
+                                  torch.full((npkts,), t0, dtype=torch.float64, device="cuda"))
+    dv = rng.normal(size=(npkts, 3))
     dv /= np.linalg.norm(dv, axis=1, keepdims=True)
-    nu = 10 ** rng.uniform(14.2, 15.9, NPKTS)
+    nu = 10 ** rng.uniform(14.2, 15.9, npkts)
     f = lambda x: torch.as_tensor(np.asarray(x, np.float32), device="cuda")
     i = lambda x: torch.as_tensor(np.asarray(x, np.int32), device="cuda")
     lanes = dict(posx=f(pos[:, 0]), posy=f(pos[:, 1]), posz=f(pos[:, 2]),
                  dirx=f(dv[:, 0]), diry=f(dv[:, 1]), dirz=f(dv[:, 2]), nu_rf=f(nu),
-                 nu_cmf=f(nu * 0.98), e_rf=f(np.ones(NPKTS)), e_cmf=f(np.full(NPKTS, 0.98)),
-                 prop_time=f(np.full(NPKTS, t0)), where=cell.to(torch.int32).contiguous(),
-                 next_trans=i(np.zeros(NPKTS)), moving=i(np.ones(NPKTS)),
-                 lane_id=i(np.arange(NPKTS)))
-    return lanes, f(-np.log(rng.uniform(0.05, 0.95, NPKTS))), f(rng.uniform(0.0, 1.0, NPKTS))
+                 nu_cmf=f(nu * 0.98), e_rf=f(np.ones(npkts)), e_cmf=f(np.full(npkts, 0.98)),
+                 prop_time=f(np.full(npkts, t0)), where=cell.to(torch.int32).contiguous(),
+                 next_trans=i(np.zeros(npkts)), moving=i(np.ones(npkts)),
+                 lane_id=i(np.arange(npkts)))
+    return lanes, f(-np.log(rng.uniform(0.05, 0.95, npkts))), f(rng.uniform(0.0, 1.0, npkts))
 
 
 def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
            expansion=False, defer=False, nradbins=0, njblue=0, lut=True, order="packet",
-           n=None):
+           n=None, grey=False):
     """Kernel against plain version on the scene's forced lanes (the first
-    ``n`` of them where given)."""
+    ``n`` of them where given; more than NPKTS drawn where ``n`` asks for
+    them). ``grey``: every other cell thick, at a grey opacity that makes
+    thick-cell scatters in the kernel, which turn the lanes' directions."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
-    lanes, tau, sel = _forced_lanes(sim, ctx, seed=max_inner)
+    lanes, tau, sel = _forced_lanes(sim, ctx, seed=max_inner, npkts=max(n or 0, NPKTS))
     if n is not None:
         lanes = {k: v[:n].contiguous() for k, v in lanes.items()}
         tau, sel = tau[:n].contiguous(), sel[:n].contiguous()
@@ -128,6 +132,10 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
     # timestep 0 of these scenes is not grey; clear the flag regardless so
     # the continuum and the line walk run in every cell
     tables["thick"] = torch.zeros_like(tables["thick"])
+    if grey:
+        tables["thick"] = (torch.arange(tables["thick"].numel(), device="cuda") % 2).to(
+            torch.int32)
+        tables["kappagrey"] = 1e-14 / torch.clamp(tables["rho"], min=1e-30)
     if njblue:
         tables["jblue_of_line"] = torch.arange(dad.nlines, dtype=torch.int32, device="cuda")
     kw = dict(nlines=dad.nlines, ncells=sim.cells.Te.shape[0],
@@ -157,6 +165,8 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
     else:
         for name in names:
             assert rep["nonzero"][name], (name, rep)
+    if grey:
+        assert rep["n_thickscat_plain"] > 0, rep
     return plain
 
 
@@ -296,6 +306,66 @@ def test_redesigned_walks_row_modes(scenes, expo_scenes, kernel, shared_rows):
     """Both estimator-row modes of the redesigned walks."""
     sc, kw = _redesigned_case(kernel, scenes, expo_scenes)
     _check(*sc, 16, True, shared_rows=shared_rows, **kw)
+
+
+# K3, the redesigned cylindrical line walk, on both of its main paths'
+# cylinders: 25 x 50 cells with the synthetic atom (kilonova_2d_2dgrid) and
+# with a 2340-line Fe atom (kilonova_2d_2dgrid_fe at a test's list length)
+K3_CYLINDERS = {"synthetic": None, "fe": dict(elements=((26, 3),), nlevels_per_ion=40)}
+
+
+@pytest.fixture(scope="module")
+def k3_cylinders(tmp_path_factory):
+    _need_cuda()
+    from artis_tpu_torch.driver import Simulation
+    from artis_tpu_torch.synthdata import write_synthetic_atomicdata
+
+    out = {}
+    for name, atom in K3_CYLINDERS.items():
+        d = str(tmp_path_factory.mktemp(f"cuda_k3_{name}"))
+        make_run(d, ntimesteps=4, tmin_days=2.0, tmax_days=4.0, ngreyts=0, logrho0=-8.0,
+                 ncells=25, model_dim=2)
+        if atom is not None:
+            write_synthetic_atomicdata(d, **atom)
+        sim = Simulation(d, _opts(NPKTS, grid_type="CYLINDRICAL2D"), device="cuda")
+        out[name] = (sim, sim.update_grid(0))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("n", [1, 31, 4097, 1 << 18])
+@pytest.mark.parametrize("cylinder", list(K3_CYLINDERS))
+def test_k3_lane_counts(k3_cylinders, cylinder, n, test_mode):
+    """K3 at a partial warp, one lane past a warp, one past a block, and the
+    main path's 2^18 lanes."""
+    _check(*k3_cylinders[cylinder], 16, test_mode, want_bfrate=False, n=n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("shared_rows", [True, False])
+@pytest.mark.parametrize("cylinder", list(K3_CYLINDERS))
+def test_k3_row_modes(k3_cylinders, cylinder, shared_rows, test_mode):
+    """Both estimator-row modes of K3: the global rows (the wrapper's pick at
+    both cylinders' sizes, a cell's four floats in one vector reduction) and
+    shared memory."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    sim = k3_cylinders[cylinder][0]
+    assert not rpkt_kernel.pick_shared_rows(sim.cells.Te.shape[0],
+                                            max(sim.dad.nbfcontinua_ground, 1), 0)
+    _check(*k3_cylinders[cylinder], 16, test_mode, want_bfrate=False, shared_rows=shared_rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_rows", [True, False])
+@pytest.mark.parametrize("cylinder", list(K3_CYLINDERS))
+def test_k3_grey_scatters(k3_cylinders, cylinder, shared_rows):
+    """K3 with thick cells: grey scatters in the kernel turn the lanes'
+    directions, and the thick cells' rows take no free-free heating."""
+    _check(*k3_cylinders[cylinder], 16, False, want_bfrate=False, shared_rows=shared_rows,
+           grey=True)
 
 
 @pytest.fixture(scope="module")

@@ -72,6 +72,17 @@ def scene_cyl(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def scene_cyl_fe(tmp_path_factory):
+    """The 4 x 8 cylindrical model with a 570-line Fe atom (three ions of 20
+    levels): the line walk of kilonova_2d_2dgrid_fe, at a test's size."""
+    import artis_tpu.options as jo
+
+    return jax_scene(tmp_path_factory, "t2d_cyl_fe", dict(ncells=4, model_dim=2),
+                     dict(grid_type=jo.GridType.CYLINDRICAL2D),
+                     atom=dict(elements=((26, 3),), nlevels_per_ion=20))
+
+
+@pytest.fixture(scope="module")
 def scene_2d3d(tmp_path_factory):
     """2D model on a 12^3 grid (tests/test_pallas_rpkt.py::scene_2dmodel_3dgrid)."""
     import artis_tpu.options as jo
@@ -84,6 +95,14 @@ def scene_2d3d(tmp_path_factory):
 @pytest.mark.parametrize("max_inner", [1, 4])
 def test_rpkt_cylindrical_matches_jax(scene_cyl, max_inner):
     check_rpkt_parity(scene_cyl, seed=13, max_inner=max_inner)
+
+
+def test_rpkt_cylindrical_fe_matches_jax(scene_cyl_fe):
+    """The cylindrical line walk on the Fe-like list (K3's walk on
+    kilonova_2d_2dgrid_fe) against the XLA path and the Pallas ``cyl2d``
+    branch."""
+    assert scene_cyl_fe["sim"].dad.nlines > 500
+    check_rpkt_parity(scene_cyl_fe, seed=19, max_inner=4)
 
 
 def test_rpkt_cylindrical_later_time_matches_xla(scene_cyl):

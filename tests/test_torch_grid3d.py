@@ -137,15 +137,19 @@ def assert_geometry_matches(gj, gt, seed):
     assert (s >= 0).any() and (s == -99).any()
 
 
-def jax_scene(tmp_path_factory, name, make_kw, opts_kw):
+def jax_scene(tmp_path_factory, name, make_kw, opts_kw, atom=None):
     """A JAX Simulation after timestep 0's grid update (the capture scenes of
-    tests/test_pallas_rpkt.py)."""
+    tests/test_pallas_rpkt.py); ``atom``, where given, the keywords of a
+    synthetic atom written over the run's own (write_synthetic_atomicdata)."""
     import artis_tpu.driver as jd
     import artis_tpu.options as jo
+    from artis_tpu.synthdata import write_synthetic_atomicdata
 
     d = str(tmp_path_factory.mktemp(name))
     make_run(d, ntimesteps=4, tmin_days=2.0, tmax_days=4.0, ngreyts=0, logrho0=-8.0,
              **make_kw)
+    if atom is not None:
+        write_synthetic_atomicdata(d, **atom)
     opts = jo.kilonova_lte(**dict(OPT_KW, **opts_kw))
     sim = jd.Simulation(d, opts, datadir="/nonexistent")
     ctx = sim.update_grid(0)

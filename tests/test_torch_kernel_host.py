@@ -3,7 +3,9 @@ edge table the redesigned bin walk (K4) reads, against the plain version's
 and the JAX package's edges bitwise; the packed estimator outputs of a
 launch, against the shapes the plain version returns; the shared-memory
 staging plan of the redesigned 1D line walk (K1) at the main path's sizes;
-and each launch's shared memory within the card's limit."""
+the row mode of the redesigned cylindrical walk (K3) at both cylinders'
+sizes and the alignment its vector reductions need; and each launch's
+shared memory within the card's limit."""
 
 import numpy as np
 import pytest
@@ -136,14 +138,22 @@ def test_stage_plan_at_the_main_path_sizes():
 
 
 @pytest.mark.parametrize("geom,expansion,nlte,expect", [
-    (rk.GEOM_SPH, False, False, (True, False)), (rk.GEOM_SPH, False, True, (False, False)),
-    (rk.GEOM_SPH, True, False, (False, True)), (rk.GEOM_CYL, True, False, (False, True)),
-    (rk.GEOM_CART, True, False, (False, False)), (rk.GEOM_CYL, False, False, (False, False)),
-    (rk.GEOM_CART, False, True, (False, False))])
+    (rk.GEOM_SPH, False, False, (True, False, False)),
+    (rk.GEOM_SPH, False, True, (False, False, False)),
+    (rk.GEOM_SPH, True, False, (False, False, True)),
+    (rk.GEOM_CYL, True, False, (False, False, True)),
+    (rk.GEOM_CART, True, False, (False, False, False)),
+    (rk.GEOM_CYL, False, False, (False, True, False)),
+    (rk.GEOM_CART, False, True, (False, False, False)),
+    (rk.GEOM_CYL, False, True, (False, False, False)),
+    (rk.GEOM_CYL, True, True, (False, False, False)),
+    (rk.GEOM_SPH, True, True, (False, False, False)),
+    (rk.GEOM_CART, True, True, (False, False, False))])
 def test_redesigned_instantiations(geom, expansion, nlte, expect):
-    """Only the 1D line walk and the 1D and cylindrical bin walks without
-    the NLTE fields run the redesigned code; the 3D walks and the
-    cylindrical line walk keep theirs."""
+    """(K1, K3, K4): the 1D line walk, the cylindrical line walk and the 1D
+    and cylindrical bin walks without the NLTE fields run the redesigned
+    code; the 3D walks and every instantiation with the NLTE fields keep
+    theirs (11 instantiations, the 3D line walk only with the fields)."""
     assert rk.redesigned(geom, expansion, nlte) == expect
 
 
@@ -160,3 +170,45 @@ def test_shared_memory_of_the_main_path_launches():
     assert rk.smem_bytes(16, 7, 0, True, True, False, 4096) == rk.row_bytes(16, 7, 0) + 4096
     assert rk.smem_bytes(16, 7, 0, False, False, True) == 8 * rk.NMISC + 4 * NBINS
     assert rk.smem_bytes(6000, 3, 0, True, False, True) > rk.SMEM_LIMIT
+
+
+# (ncells, ngc) of the cylinders K3 walks on its main paths: 25 x 50 cells
+# with the synthetic atom (4 ground continua) and with the Fe atom (2)
+CYLINDERS = [(1250, 4), (1250, 2)]
+
+
+@pytest.mark.parametrize("ncells,ngc", CYLINDERS)
+def test_k3_row_mode_at_the_cylinders(ncells, ngc):
+    """Both cylinders' rows (60 KB and 40 KB) are above SHARED_ROWS_MAX, so
+    the wrapper adds them straight into the global rows, where K3 adds a
+    cell's four floats with one vector reduction; the rows in shared memory,
+    as a caller may force, fit the card's limit; a launch on global rows
+    takes only the counters' shared memory."""
+    rows = rk.row_bytes(ncells, ngc, 0)
+    assert rows == 8 * rk.NMISC + 4 * ncells * (4 + 2 * ngc)
+    assert not rk.pick_shared_rows(ncells, ngc, 0)
+    k1, k3, k4 = rk.redesigned(rk.GEOM_CYL, False, False)
+    assert k3 and not (k1 or k4)
+    assert rk.smem_bytes(ncells, ngc, 0, True, k1, k4) == rows <= rk.SMEM_LIMIT
+    assert rk.smem_bytes(ncells, ngc, 0, False, k1, k4) == 8 * rk.NMISC
+
+
+def test_k3_rows_beyond_shared_memory():
+    """A cylinder of 6000 cells with the synthetic atom's 4 ground continua
+    has rows beyond the card's shared memory: no row mode but the global
+    one can take it."""
+    assert rk.row_bytes(6000, 4, 0) > rk.SMEM_LIMIT
+    assert rk.smem_bytes(6000, 4, 0, True, False, False) > rk.SMEM_LIMIT
+    assert not rk.pick_shared_rows(6000, 4, 0)
+
+
+@pytest.mark.parametrize("ngc,nbfr,nradbins,njblue,lut", ROWS)
+def test_estimator_rows_are_16_byte_aligned(ngc, nbfr, nradbins, njblue, lut):
+    """The est rows start 16 bytes past a multiple of 16 from the packed
+    buffer's start (after the eight double counters), so a cell's four
+    floats are one aligned vector for K3's reduction."""
+    bufs = rk.estimator_buffers(1250, ngc, nbfr, nradbins=nradbins, njblue=njblue,
+                                want_gamma=lut, want_bfheat=lut)
+    offset = bufs["est"].data_ptr() - bufs["misc"].data_ptr()
+    assert offset == 8 * rk.NMISC and offset % 16 == 0
+    assert bufs["est"].stride() == (4, 1)

@@ -10,16 +10,19 @@ timestep, then the estimators come back for the next grid update. Every
 tensor lives on the Simulation's ``device``; the r-packet crossing kernel
 runs as CUDA when that device is a GPU and as its plain version on the CPU.
 
-Ported slice: the ``first`` and ``lte`` grid updates, and the ``nlte``
-update without the non-thermal solver (the timesteps from
-``num_lte_timesteps`` on: the full-spectrum T_R / W fit, the multibin fits,
-the LUT-off photoionisation and bf-heating integrals, the thermal-balance
-T_e solve, the thick-cell T_J override, the rate-balance ionisation from
-the LUT gamma estimators with ``force_saha_ion_balance`` off, and, with
-``nlte_enabled``, the NLTE outer loop [T_e solve -> NLTE populations ->
-ion balance / nne] per cell to ``nlte_convergence_tol`` or
-``nlte_outer_iters``), so the kilonova_lte and classic presets run, and
-nltenebular with ``nt_on`` and ``nt_solve_spencerfano`` off; on
+Ported slice: the ``first``, ``lte`` and ``nlte`` grid updates (the
+timesteps from ``num_lte_timesteps`` on: the full-spectrum T_R / W fit,
+the multibin fits, the LUT-off photoionisation and bf-heating integrals,
+the thermal-balance T_e solve, the thick-cell T_J override, the
+rate-balance ionisation from the LUT gamma estimators with
+``force_saha_ion_balance`` off, and, with ``nlte_enabled``, the NLTE outer
+loop [Spencer-Fano solve -> T_e solve -> NLTE populations -> ion balance /
+nne] per cell to ``nlte_convergence_tol`` or ``nlte_outer_iters``), with
+the non-thermal solver (``nt_on``: the Spencer-Fano solve of
+``plasma/nonthermal.py`` with ``nt_solve_spencerfano``, its solution kept
+across timesteps up to ``sf_max_ts_between_solutions``, or else the
+work-function approximation), so the kilonova_lte, classic and
+nltenebular presets run; on
 SPHERICAL1D, CYLINDRICAL2D and CARTESIAN3D grids, optionally with the
 detailed bf-rate and J_b_lu line estimators, the multibin radiation field,
 binned expansion opacities and dipole / polarised electron scattering;
@@ -45,8 +48,12 @@ the bins the multibin fits, whose J_nu the LUT-off integrals use from
 ``first_nlte_radfield_timestep`` on. The NLTE populations and the multibin
 fits are written to ``nlte_0000.out`` and ``radfield_0000.out``.
 
-The NLTE solve, like the thermal balance, runs in float64 whatever the
-transport dtype (the JAX package runs it in the cells' dtype).
+The NLTE solve, like the thermal balance and the Spencer-Fano solve, runs
+in float64 whatever the transport dtype (the JAX package runs it in the
+cells' dtype and demotes the Spencer-Fano tables to float32). The
+Spencer-Fano tables are built from the data directory's ``collion.txt``,
+binding energies and optional Auger table (``synthdata.
+write_synthetic_nonthermal_data`` writes synthetic ones).
 """
 
 from __future__ import annotations
@@ -64,7 +71,7 @@ from . import packets as packets_mod
 from . import spectrum as spectrum_mod
 from . import stats as stats_mod
 from .atomic import to_device
-from .constants import DAY, FOURPI, H, LSUN, MEV, ONEOVER4PI
+from .constants import DAY, EV, FOURPI, H, LSUN, MEV, ONEOVER4PI
 from .devutil import demote_to_f32, index_add, map_tensors
 from .estimators import Estimators, zero_estimators
 from .io import atomicdata as atomicdata_io
@@ -76,6 +83,7 @@ from .packets import TYPE_ESCAPE, TYPE_RPKT
 from .plasma import cellstate as cellstate_mod
 from .plasma import ltepop as ltepop_mod
 from .plasma import nltepop as nltepop_mod
+from .plasma import nonthermal as nonthermal_mod
 from .plasma import radfield as radfield_mod
 from .plasma import ratecoeff as ratecoeff_mod
 from .plasma import thermalbalance as thermalbalance_mod
@@ -119,7 +127,8 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid, ffheati
                           dep_heating, mode: str, gammaest_norm=None, binj_norm=None,
                           binnuj_norm=None, bincount=None, bfrate_normed=None,
                           jblue_normed=None, radfield_use_bins: bool = False,
-                          nlte_indices=None):
+                          nlte_indices=None, ntd=None, nt_wf=None, sf_carry=None, nts=None,
+                          nt_sf_skip: bool = False, num_lte_timesteps: int = 0):
     """All tensor work of one grid update: the temperatures, the Saha /
     rate-balance nne solve or the NLTE populations, level populations,
     ff-opacity parts, macro-atom / cooling rate tables, and the
@@ -149,7 +158,20 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid, ffheati
     binoffsets), None when that mode is off (wcum and binoffsets None unless
     rpkt_boundbound_thermalisation_probability < 0); extra a dict of the
     multibin fits ``tr_bins`` / ``w_bins`` (None unless fitted) and the NLTE
-    loop's per-cell ``nlte_fracdiff`` and ``nlte_iters`` (None without it)."""
+    loop's per-cell ``nlte_fracdiff`` and ``nlte_iters`` (None without it).
+
+    The non-thermal solver (``ntd``, the Spencer-Fano tables; ``nt_wf``, the
+    work-function (1/W factor per ion, Z per element)): in ``nlte`` updates
+    its ionisation rates enter the NLTE populations, and its heating
+    fraction scales the deposition that heats the gas (``_SFState``).
+    ``sf_carry`` is the solution carried from earlier timesteps (None: the
+    default state of ``sf_default_carry``), ``nts``
+    this timestep; ``nt_sf_skip`` keeps the carried solution (the first
+    non-LTE timestep, artis_tpu/driver.py:1338). ``extra`` then also holds
+    ``sf_carry`` (the carry to keep), ``nt`` (the fractions of the
+    deposition split for the transport: frac_ion_by_ion, frac_ionization,
+    frac_excitation, ionenfrac_num_auger, exc_fracdep_cum), ``sf_solves``
+    and ``sf_seconds``."""
     f64 = torch.float64
     if mode == "lte":
         t_j = radfield_mod.get_t_j_from_j(j_norm, opts.mintemp, opts.maxtemp)
@@ -217,13 +239,34 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid, ffheati
         gamma_ion = index_add(torch.zeros((gest.shape[0], dad.nions_total), dtype=gest.dtype,
                                           device=gest.device), 1, dad.groundcont_uniqueion, gest)
     cells = ltepop_mod.calculate_ion_balance_nne(dad, cells, opts, gamma_ion=gamma_ion, rc=rc)
-    extra = dict(tr_bins=tr_bins, w_bins=w_bins, nlte_fracdiff=None, nlte_iters=None)
+    extra = dict(tr_bins=tr_bins, w_bins=w_bins, nlte_fracdiff=None, nlte_iters=None,
+                 sf_carry=None, nt=None, sf_solves=0, sf_seconds=0.0)
+    sfs = _SFState(dad, cells, opts, ntd, nt_wf, sf_carry, nts, nt_sf_skip, num_lte_timesteps,
+                   dep_heating) if (ntd is not None or nt_wf is not None) else None
     if mode == "nlte" and opts.nlte_enabled and nlte_indices:
         cells, levelpops, extra["nlte_fracdiff"], extra["nlte_iters"] = _nlte_outer_loop(
             dad, rc, cells, opts, t_mid, ffheating_norm, dep_heating, nlte_indices,
-            bfrate_normed, jblue_normed, corr_otf, bfh_otf)
+            bfrate_normed, jblue_normed, corr_otf, bfh_otf, sfs=sfs)
     else:
+        if mode == "nlte" and sfs is not None:
+            # no NLTE levels: one Spencer-Fano, T_e and ion-balance pass
+            # (update_grid.cc:710-721; artis_tpu/driver.py:480-518)
+            c64 = _cast(cells, f64)
+            nnion0 = ltepop_mod.get_nnion(dad, c64)
+            nniontot = torch.clamp(nnion0.sum(dim=1), min=1e-300)
+            if sfs.skip:
+                sfs.sfst = {k: v for k, v in sfs.defaults.items() if k not in _SF_BOOKKEEPING}
+            else:
+                sfs.resolve(c64, nnion0, nniontot, torch.ones_like(c64.nne, dtype=torch.bool))
+                sfs.keep = True
+            t_e = thermalbalance_mod.call_t_e_finder(
+                dad, rc, c64, opts, t_mid, ffheating_norm.to(f64),
+                dep_heating.to(f64) * sfs.heatfrac(), bfheating_cells=bfh_otf)
+            cells = _cast(ltepop_mod.calculate_ion_balance_nne(dad, c64.replace(Te=t_e), opts),
+                          cells.Te.dtype)
         levelpops = ltepop_mod.calculate_levelpops(dad, cells, opts)
+    if sfs is not None:
+        extra.update(sfs.outputs(mode == "nlte"))
     nnion = ltepop_mod.get_nnion(dad, cells)
     chi_ff_part = opacity_mod.chi_ff_nnionpart_cells(dad, nnion, cells.Te)
     # the rate tables are float64 whatever the transport dtype: in cold,
@@ -260,18 +303,172 @@ def _plasma_update_device(dad, rc, cells, opts, j_norm, nuj_norm, t_mid, ffheati
     return cells, levelpops, nnion, chi_ff_part, rates, tau_sob, bf_a, bf_dep, expo, extra
 
 
+def sf_default_carry(ncells, nions, naug, nexc, device):
+    """The Spencer-Fano state before any solve, float64: the values of a
+    skipped solution (nonthermal.cc:2393-2419: the Axelrod heating fraction
+    0.97 and zero eff_ionpot, so the ionisation rates fall back to the
+    work function; frac_ionization 0 sends every deposit to heating), and
+    the reuse bookkeeping (x_e at the last solve, its timestep;
+    nonthermal.cc:2421-2442)."""
+    f64 = torch.float64
+    base = torch.zeros(naug, dtype=f64, device=device)
+    base[0] = 1.0
+    z = lambda *shape: torch.zeros(shape, dtype=f64, device=device)
+    return dict(eff_ionpot=z(ncells, nions), frac_heating=z(ncells) + 0.97,
+                frac_ionization=z(ncells), frac_excitation=z(ncells),
+                frac_ion_by_ion=z(ncells, nions),
+                prob_num_auger=base.expand(ncells, nions, naug).clone(),
+                ionenfrac_num_auger=base.expand(ncells, nions, naug).clone(),
+                exc_ratecoeff_perdep=z(ncells, max(nexc, 1)),
+                exc_fracdep_cum=z(ncells, max(nexc, 1)),
+                xe_when_solved=z(ncells) - 1.0,
+                ts_last_solved=torch.full((ncells,), -1, dtype=torch.int64, device=device))
+
+
+_SF_BOOKKEEPING = ("xe_when_solved", "ts_last_solved")
+
+
+def _freeze_dict(mask, new, old):
+    return {k: torch.where(mask.view((-1,) + (1,) * (new[k].dim() - 1)), new[k], old[k])
+            for k in old}
+
+
+class _SFState:
+    """The non-thermal solver's state through one grid update (reference:
+    nonthermal.cc:2391-2442; artis_tpu/driver.py:258-518): the solution in
+    force per cell (``sfst``), x_e at its solve, and the solve count and
+    seconds. In float64."""
+
+    def __init__(self, dad, cells, opts, ntd, nt_wf, sf_carry, nts, nt_sf_skip,
+                 num_lte_timesteps, dep_heating):
+        self.dad, self.opts, self.ntd, self.nt_wf = dad, opts, ntd, nt_wf
+        self.skip = nt_sf_skip
+        self.dep = dep_heating.to(torch.float64)
+        ncells, dev = cells.Te.shape[0], cells.Te.device
+        self.nexc = ntd.nexc if (ntd is not None and opts.nt_excitation_on) else 1
+        self.defaults = sf_default_carry(ncells, dad.nions_total, opts.nt_max_auger_electrons + 1,
+                                         self.nexc, dev)
+        self.solves, self.seconds = 0, 0.0
+        self.nts = nts
+        # the carried solution where still valid: a solution older than
+        # sf_max_ts_between_solutions timesteps, or solved in the LTE
+        # phase, gets x_e = -1, so that the x_e gate re-solves it
+        # (nonthermal.cc:2432-2442)
+        if sf_carry is None or ntd is None or nts is None:
+            sf_carry = self.defaults
+        self.sfst = {k: v for k, v in sf_carry.items() if k not in _SF_BOOKKEEPING}
+        self.ts_last = sf_carry["ts_last_solved"]
+        stale = ((nts - self.ts_last > opts.sf_max_ts_between_solutions)
+                 | (self.ts_last <= num_lte_timesteps)) if nts is not None else True
+        self.xe_last = torch.where(torch.as_tensor(stale, device=dev),
+                                   torch.full_like(sf_carry["xe_when_solved"], -1.0),
+                                   sf_carry["xe_when_solved"])
+        self.solved = torch.zeros(ncells, dtype=torch.bool, device=dev)
+        # whether the update returns a carry (the NLTE loop always does; the
+        # pass without NLTE levels only when it solved)
+        self.keep = False
+
+    def _solve(self, c, nnion0):
+        """A fresh Spencer-Fano solution of every cell of ``c``."""
+        ntd, opts = self.ntd, self.opts
+        boltz0 = ltepop_mod.calculate_levelpops(self.dad, c, opts)
+        sf = nonthermal_mod.solve_spencerfano_cells(
+            ntd, self.dad, boltz0, nnion0, c.nne,
+            sf_auger_contribution_on=opts.sf_auger_contribution_on,
+            nt_use_valence_ionpotential=opts.nt_use_valence_ionpotential)
+        out = {k: v for k, v in self.defaults.items() if k not in _SF_BOOKKEEPING}
+        for k in ("eff_ionpot", "frac_heating", "frac_ionization", "frac_excitation",
+                  "frac_ion_by_ion", "prob_num_auger", "ionenfrac_num_auger"):
+            out[k] = sf[k]
+        if opts.nt_excitation_on and ntd.nexc > 0:
+            out["exc_ratecoeff_perdep"] = sf["exc_ratecoeff_perdep"]
+            # cumulative per-transition deposition fractions for the NT
+            # excitation channel (nonthermal.cc:1608-1625 frac_deposition)
+            fracdep = (boltz0[:, ntd.exc_lower] * ntd.exc_eps_ev[None, :] * EV
+                       * out["exc_ratecoeff_perdep"])
+            out["exc_fracdep_cum"] = torch.cumsum(fracdep, dim=1)
+        return out
+
+    def resolve(self, c, nnion0, nniontot, active):
+        """Re-solve the active cells whose x_e moved by 5 % or more since
+        their last solution (the NT_MAX_FRACDIFF_NNEPERION gate,
+        nonthermal.cc:2426-2442), if any does."""
+        if self.ntd is None or self.skip:
+            return
+        xe = c.nne / nniontot
+        need = active & ((self.xe_last <= 0)
+                         | (torch.abs(self.xe_last / torch.clamp(xe, min=1e-300) - 1.0) >= 0.05))
+        if bool(need.any()):
+            sync = c.Te.is_cuda
+            if sync:
+                torch.cuda.synchronize(c.Te.device)
+            t0 = _time.time()
+            self.sfst = _freeze_dict(need, self._solve(c, nnion0), self.sfst)
+            if sync:
+                torch.cuda.synchronize(c.Te.device)
+            self.seconds += _time.time() - t0
+            self.solves += 1
+        self.xe_last = torch.where(need, xe, self.xe_last)
+        self.solved = self.solved | need
+
+    def _wf_rate(self, c, nniontot):
+        """The work-function rate, Gamma = deposition / nnion_tot / W
+        (nonthermal.cc:1172-1178, 2246-2269)."""
+        wf_factor, elem_z = self.nt_wf
+        zbar = torch.clamp((c.elem_massfrac.to(torch.float64) * elem_z[None, :]).sum(dim=1),
+                           min=1e-30)
+        r = (self.dep / nniontot / zbar)[:, None] * wf_factor[None, :]
+        return torch.where(self.dep[:, None] > 0, r, torch.zeros_like(r))
+
+    def ion_rate(self, c, nniontot):
+        """Gamma_NT per ion [1/s]: the Spencer-Fano rate, the work-function
+        one where that is not positive or not finite."""
+        wf = self._wf_rate(c, nniontot) if self.nt_wf is not None else None
+        if self.ntd is None:
+            return wf
+        rate = nonthermal_mod.nt_ionization_ratecoeff(self.dep, nniontot, self.sfst["eff_ionpot"])
+        if wf is not None:
+            rate = torch.where(torch.isfinite(rate) & (rate > 0), rate, wf)
+        return rate
+
+    def heatfrac(self):
+        """The share of the deposition that heats the gas
+        (thermalbalance.cc:135-241): the solution's, or 0.97 under the work
+        function."""
+        return self.sfst["frac_heating"] if self.ntd is not None else 0.97
+
+    def outputs(self, nlte_mode: bool):
+        """``extra`` entries of the update: the carry to keep, the split
+        fractions for the transport (the defaults outside ``nlte``
+        updates), the solve count and seconds."""
+        if self.ntd is None:
+            return {}
+        if self.keep and self.nts is not None:
+            ts_last = torch.where(self.solved, torch.full_like(self.ts_last, self.nts),
+                                  self.ts_last)
+            carry = dict(self.sfst, xe_when_solved=self.xe_last, ts_last_solved=ts_last)
+        else:
+            carry = None
+        src = self.sfst if nlte_mode else self.defaults
+        nt = {k: src[k] for k in ("frac_ion_by_ion", "frac_ionization", "frac_excitation",
+                                  "ionenfrac_num_auger", "exc_fracdep_cum")}
+        return dict(sf_carry=carry, nt=nt, sf_solves=self.solves, sf_seconds=self.seconds)
+
+
 def _nlte_outer_loop(dad, rc, cells, opts, t_mid, ffheating_norm, dep_heating, nlte_indices,
-                     bfrate_normed, jblue_normed, corr_otf, bfh_otf):
+                     bfrate_normed, jblue_normed, corr_otf, bfh_otf, sfs=None):
     """The NLTE outer loop of an ``nlte`` grid update (reference:
-    update_grid.cc:670-763 solve_Te_nltepops without the non-thermal
-    solver): per iteration the T_e solve (each trial re-solving the Saha
-    balance), the Saha balance at the new T_e, the NLTE populations from
-    its Boltzmann populations, and the ion ground populations, partition
-    functions and nne from the NLTE populations. A cell freezes once the
-    larger of its fractional T_e and nne changes falls to
-    ``nlte_convergence_tol``; grey cells are never solved. In float64.
-    Returns (cells, levelpops, fracdiff, iterations) with the cells and
-    populations in the cells' dtype."""
+    update_grid.cc:670-763 solve_Te_nltepops): per iteration, with the
+    non-thermal solver (``sfs``), the Spencer-Fano solve of the active cells
+    whose x_e moved, then the T_e solve with the heating share of the
+    deposition (each trial re-solving the Saha balance), the Saha balance
+    at the new T_e, the NLTE populations from its Boltzmann populations
+    (with the non-thermal ionisation and excitation rates), and the ion
+    ground populations, partition functions and nne from the NLTE
+    populations. A cell freezes once the larger of its fractional T_e and
+    nne changes falls to ``nlte_convergence_tol``; grey cells are never
+    solved. In float64. Returns (cells, levelpops, fracdiff, iterations)
+    with the cells and populations in the cells' dtype."""
     f64 = torch.float64
     dtype = cells.Te.dtype
     c = _cast(cells, f64)
@@ -290,18 +487,32 @@ def _nlte_outer_loop(dad, rc, cells, opts, t_mid, ffheating_norm, dep_heating, n
                                 getattr(new, f.name), getattr(old, f.name))
             for f in dataclasses.fields(old)})
 
+    if sfs is not None:
+        sfs.keep = True
     for it in range(max(opts.nlte_outer_iters, 1)):
         if bool(converged.all()):
             break
         active = ~converged
-        t_e = thermalbalance_mod.call_t_e_finder(dad, rc, c, opts, t_mid, ffh, dep,
+        nt = {}
+        heatfrac = 1.0
+        if sfs is not None:
+            nnion0 = ltepop_mod.get_nnion(dad, c)
+            nniontot = torch.clamp(nnion0.sum(dim=1), min=1e-300)
+            sfs.resolve(c, nnion0, nniontot, active)
+            heatfrac = sfs.heatfrac()
+            nt = dict(nt_ion_rate=sfs.ion_rate(c, nniontot), nt_dep_rate_density=dep)
+            if sfs.ntd is not None:
+                nt.update(nt_prob_auger=sfs.sfst["prob_num_auger"], ntd=sfs.ntd,
+                          nt_exc_perdep=(sfs.sfst["exc_ratecoeff_perdep"]
+                                         if opts.nt_excitation_on else None))
+        t_e = thermalbalance_mod.call_t_e_finder(dad, rc, c, opts, t_mid, ffh, dep * heatfrac,
                                                  bfheating_cells=bfh_otf)
         cn = ltepop_mod.calculate_ion_balance_nne(dad, c.replace(Te=t_e), opts)
         fd_te = torch.abs(cn.Te / torch.clamp(c.Te, min=1e-300) - 1.0)
         nne_saha = cn.nne
         cn, lp_n = nltepop_mod.solve_all_elements(
             nlte_indices, dad, rc, cn, opts, ltepop_mod.calculate_levelpops(dad, cn, opts), t_mid,
-            bfrate_normed=bfr, jblue_normed=jbn, corr_photoion_cells=corr_otf)
+            bfrate_normed=bfr, jblue_normed=jbn, corr_photoion_cells=corr_otf, **nt)
         fd_new = torch.maximum(fd_te, torch.abs(cn.nne / torch.clamp(nne_saha, min=1e-300) - 1.0))
         c = freeze(active, cn, c)
         lp = torch.where(active[:, None], lp_n, lp)
@@ -452,6 +663,24 @@ class Simulation:
 
         self.nlte_indices = (nltepop_mod.build_indices(self.dad, self.opts)
                              if self.opts.nlte_enabled else None)
+        # the non-thermal solver's tables from the data directory
+        # (artis_tpu/driver.py:1021-1040), float64 whatever the transport dtype
+        self.ntd = self.nt_wf = self._sf_carry = None
+        if self.opts.nt_on:
+            self.nt_wf = (self._t(nonthermal_mod.wf_oneoverw_factor(self.ad, self.dad, self.datadir),
+                                  torch.float64),
+                          self._t(self.ad.elem_z, torch.float64))
+        if self.opts.nt_on and self.opts.nt_solve_spencerfano:
+            t0 = _time.time()
+            o = self.opts
+            self.ntd = nonthermal_mod.build_nonthermal_data(
+                self.ad, self.dad, self.datadir, sf_points=o.sf_points, sf_emin=o.sf_emin,
+                sf_emax=o.sf_emax, nt_max_auger=o.nt_max_auger_electrons,
+                maxnlevels_lower=o.ntexcitation_maxnlevels_lower,
+                maxnlevels_upper=o.ntexcitation_maxnlevels_upper, device=dev)
+            self.log(f"non-thermal solver: {self.ntd.nshells} shells, {self.ntd.nexc} excitation "
+                     f"transitions, sf_points {o.sf_points}, tables built in "
+                     f"{_time.time() - t0:.3f}s")
         self._select_jblue_lines()
         self.radfieldbin_tr = self.radfieldbin_w = None
         self.est = self._zero_est()
@@ -652,7 +881,9 @@ class Simulation:
             gammaest_norm=gammaest_norm, binj_norm=binj_norm, binnuj_norm=binnuj_norm,
             bincount=bincount, bfrate_normed=bfrate_normed, jblue_normed=jblue_normed,
             radfield_use_bins=nts >= self.opts.first_nlte_radfield_timestep,
-            nlte_indices=self.nlte_indices)
+            nlte_indices=self.nlte_indices, ntd=self.ntd, nt_wf=self.nt_wf,
+            sf_carry=self._sf_carry, nts=nts, nt_sf_skip=nts == p.num_lte_timesteps,
+            num_lte_timesteps=int(p.num_lte_timesteps))
         return mode, results
 
     def update_grid(self, nts: int):
@@ -686,6 +917,12 @@ class Simulation:
             self.radfieldbin_tr = zb if extra["tr_bins"] is None else extra["tr_bins"]
             self.radfieldbin_w = zb if extra["w_bins"] is None else extra["w_bins"]
         self.nlte_iters = None
+        self.sf_solves, self.sf_seconds = extra["sf_solves"], extra["sf_seconds"]
+        if extra["sf_carry"] is not None:
+            self._sf_carry = extra["sf_carry"]
+        if self.ntd is not None and mode == "nlte":
+            self.log(f"timestep {nts}: Spencer-Fano {self.sf_solves} solves in "
+                     f"{self.sf_seconds:.4f}s")
         if extra["nlte_fracdiff"] is not None:
             fdmax = float(extra["nlte_fracdiff"].max())
             self.nlte_iters = int(extra["nlte_iters"].max())
@@ -710,6 +947,11 @@ class Simulation:
         ncells = self.grid.nonempty_npts
         rho_mgi = np.concatenate([self.model.rho_tmin, [0.0]])
         kappa, pc, wcum, binoff = expo if expo is not None else (one, one, None, None)
+        nt = extra["nt"] or dict(frac_ion_by_ion=one, frac_ionization=one,
+                                      frac_excitation=one, ionenfrac_num_auger=one,
+                                      exc_fracdep_cum=one)
+        nt_exc_upper = (self.ntd.exc_upper if self.ntd is not None and self.opts.nt_excitation_on
+                        else onei)
         return engine_mod.StepContext(
             levelpops=levelpops, nnion=nnion, chi_ff_nnionpart=chi_ff_part,
             tau_sob_factor=tau_sob, bf_a=bf_a, bf_dep=bf_dep,
@@ -718,9 +960,12 @@ class Simulation:
             expopac_binoffsets=onei if binoff is None else binoff,
             elem_numberdens=torch.zeros((ncells, 1), dtype=fd, device=dev),
             xcom_energy=one, xcom_sigma=one, vpkt_cum_tau=one, vpkt_cum_taunu=one,
-            vpkt_cfg=None, nt_frac_ion_by_ion=one, nt_frac_ionization=one,
-            nt_ionenfrac_auger=one, nt_frac_excitation=one, nt_exc_fracdep_cum=one,
-            nt_exc_upper=onei, jblue_of_line=self.jblue_of_line,
+            vpkt_cfg=None, nt_frac_ion_by_ion=nt["frac_ion_by_ion"],
+            nt_frac_ionization=nt["frac_ionization"], nt_ionenfrac_auger=nt["ionenfrac_num_auger"],
+            nt_frac_excitation=nt["frac_excitation"], nt_exc_fracdep_cum=nt["exc_fracdep_cum"],
+            nt_exc_upper=nt_exc_upper,
+            nt_ion_topion=self.ntd.ion_topion if self.ntd is not None else onei,
+            jblue_of_line=self.jblue_of_line,
             gammaline_energy=self.gammaline_energy, gammaline_cumfrac=self.gammaline_cumfrac,
             gammaline_nlines=self.gammaline_nlines,
             nuc_engamma=self._t(self.dec.nuc_endecay_gamma),
@@ -772,7 +1017,8 @@ class Simulation:
         self.transport_log.append(dict(nts=nts, steps=nsteps, seconds=dt_transport,
                                        iters=iters, active_start=n_act0,
                                        completed=completed, grid_mode=self.plasma_mode,
-                                       grid_seconds=dt_grid, nlte_iters=self.nlte_iters))
+                                       grid_seconds=dt_grid, nlte_iters=self.nlte_iters,
+                                       sf_solves=self.sf_solves, sf_seconds=self.sf_seconds))
         self.prev_est = self.est
         e = self.est
         self.gamma_dep_ts[nts] = float(e.dep_gamma.sum()) * self._e0
@@ -853,6 +1099,10 @@ class Simulation:
                 blob[f"est_{f.name}"] = _np(getattr(self.prev_est, f.name))
         for k, v in self.dep_ts.items():
             blob[f"dep_ts_{k}"] = v
+        # the carried Spencer-Fano solution, for a bit-exact resume
+        # (artis_tpu/driver.py:2034-2039)
+        for k, v in (self._sf_carry or {}).items():
+            blob[f"sfcarry_{k}"] = _np(v)
         np.savez_compressed(
             os.path.join(self.rundir, f"gridsave_ts{next_nts}.npz"),
             lc_lum=self.lc_lum, lc_lumcmf=self.lc_lumcmf, gamma_dep_ts=self.gamma_dep_ts,
@@ -893,6 +1143,9 @@ class Simulation:
         for k in self.dep_ts:
             if f"dep_ts_{k}" in g:
                 self.dep_ts[k] = g[f"dep_ts_{k}"]
+        sfkeys = [k for k in g.files if k.startswith("sfcarry_")]
+        if sfkeys:
+            self._sf_carry = {k[len("sfcarry_"):]: torch.as_tensor(g[k]).to(dev) for k in sfkeys}
 
     def finish(self):
         """Final outputs: packets file for exspec (reference: sn3d.cc:860-877)."""

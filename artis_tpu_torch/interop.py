@@ -6,7 +6,9 @@ Estimators, StepContext, RateCoeffTables, ProcessRates, MacroAtomAux,
 PelletTables) from a mapping of field name -> numpy array (or Python scalar
 for metadata such as ``nlines``); ``to_numpy(obj)`` goes the other way.
 ``nlte_indices_from_numpy`` carries the NLTE solver's host-side index lists
-(``plasma.nltepop.ElementNlteIndex``, numpy by design). The port never sees
+(``plasma.nltepop.ElementNlteIndex``, numpy by design), and
+``nonthermal_data_from_numpy`` the non-thermal solver's shell and
+excitation tables (``plasma.nonthermal.NonthermalData``). The port never sees
 a jax array: callers turn the JAX package's structures into numpy
 themselves (``np.asarray`` on each field).
 """
@@ -86,3 +88,15 @@ def nlte_indices_from_numpy(indices) -> list:
                           else (v.item() if isinstance(v, np.generic) else v))
         out.append(ElementNlteIndex(**kw))
     return out
+
+
+def nonthermal_data_from_numpy(arrays: Mapping[str, object], ion_element, device="cpu"):
+    """The port's ``NonthermalData`` from mappings of field name -> numpy
+    array or Python scalar (the JAX package's ``build_nonthermal_data``
+    output, field by field), floats in float64; ``ion_element`` (nions,)
+    gives the per-ion top-ion index the JAX table does not carry."""
+    from .plasma.nonthermal import NonthermalData, ion_topion
+
+    return from_numpy(NonthermalData,
+                      dict(arrays, ion_topion=ion_topion(np.asarray(ion_element))),
+                      device=device, dtype=torch.float64)

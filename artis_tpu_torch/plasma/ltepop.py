@@ -133,11 +133,9 @@ def calculate_ion_balance_nne(dad: DeviceAtomicData, cells: CellState, opts: Opt
     population, from the LUT gamma estimators) and ``rc`` are given and
     ``force_saha_ion_balance`` is off, non-thick cells with a positive rate
     use the nebular rate balance phi = alpha_sp / Gamma_ion (reference:
-    ltepop.cc:64-120 phi_rate_balance). The non-thermal ionisation rate
-    (``nt_ion_rate``) belongs to the non-thermal solver, which is not
-    ported."""
-    if nt_ion_rate is not None:
-        raise NotImplementedError("non-thermal ionisation rates (nt_ion_rate)")
+    ltepop.cc:64-120 phi_rate_balance), with the non-thermal ionisation
+    rate ``nt_ion_rate`` (ncells, nions_total) [1/s] added to the
+    photoionisation rate."""
     dt = cells.Te.dtype
     t_exc = cells.TJ if opts.ltepop_excitation_use_tj else cells.Te
     partfuncts = calculate_partfuncts(dad, t_exc)
@@ -147,6 +145,8 @@ def calculate_ion_balance_nne(dad: DeviceAtomicData, cells: CellState, opts: Opt
         alpha_sp = interpolate_lut(rc.ion_alpha_sp, rc, ionidx[None, :],
                                    cells.Te[:, None]).to(dt)  # (ncells, nions)
         gtot = gamma_ion * dad.ion_g0.to(dt)[None, :] / torch.clamp(partfuncts, min=1e-300)
+        if nt_ion_rate is not None:
+            gtot = gtot + nt_ion_rate.to(dt)
         logphi_rate = (torch.log(torch.clamp(alpha_sp, min=1e-300))
                        - torch.log(torch.clamp(gtot, min=1e-300)))
         use_rate = (gtot > 0) & (cells.thick[:, None] != 1)

@@ -23,8 +23,9 @@ dilute blackbody (T_R, W) or, for lines with one, the normalised detailed
 J_b_lu estimator; photoionisation uses W LUT(T_R), or the LUT-off
 coefficients against the current radiation field, and the detailed
 bf-rate estimators replace either where given (ratecoeff.cc:1218-1226).
-The non-thermal ionisation and excitation terms of the JAX solver belong
-to the non-thermal solver, which is not ported.
+The non-thermal solver adds its ionisation rates (to the ground state of
+the upper ion, with the Auger upper-ion probabilities) and its excitation
+rates per deposited energy (nltepop.cc:445-449, 525-554).
 
 The solve runs in the dtype of the populations it is given; the driver
 gives float64.
@@ -169,12 +170,20 @@ def _add(m, dimr, rows, cols, vals):
 
 def solve_element(idx: ElementNlteIndex, dad: DeviceAtomicData, rc: RateCoeffTables, cells,
                   opts: Options, levelpops_boltzmann, nnelement, t_mid: float,
-                  bfrate_normed=None, jblue_normed=None, corr_photoion_cells=None):
+                  nt_ion_rate=None, nt_prob_auger=None, ntd=None, nt_exc_perdep=None,
+                  nt_dep_rate_density=None, bfrate_normed=None, jblue_normed=None,
+                  corr_photoion_cells=None):
     """One element's statistical equilibrium in every cell. Returns the
-    (ncells, dim) level populations [1/cm3]. ``bfrate_normed`` (ncells,
-    ncont): detailed photoionisation rates; ``jblue_normed`` (jb_line
-    (nlines,), jb_arr (ncells, njblue)): detailed J_b_lu; ``corr_photoion_cells``
-    (ncells, ncont): LUT-off photoionisation coefficients."""
+    (ncells, dim) level populations [1/cm3]. ``nt_ion_rate`` (ncells,
+    nions_total): non-thermal ionisation rates [1/s], with
+    ``nt_prob_auger`` (ncells, nions_total, naug) the probabilities of
+    0, 1, ... Auger electrons (None: single ionisation); ``nt_exc_perdep``
+    (ncells, nexc): non-thermal excitation rate coefficients per deposited
+    energy of ``ntd``'s transitions, times ``nt_dep_rate_density``
+    (ncells,) [erg/cm3/s]; ``bfrate_normed`` (ncells, ncont): detailed
+    photoionisation rates; ``jblue_normed`` (jb_line (nlines,), jb_arr
+    (ncells, njblue)): detailed J_b_lu; ``corr_photoion_cells`` (ncells,
+    ncont): LUT-off photoionisation coefficients."""
     dt = levelpops_boltzmann.dtype
     dev = levelpops_boltzmann.device
     ncells = nnelement.shape[0]
@@ -283,6 +292,45 @@ def solve_element(idx: ElementNlteIndex, dad: DeviceAtomicData, rc: RateCoeffTab
         _add(m, dimr, cul, cul, -rec)
         _add(m, dimr, cll, cul, rec)
 
+    # --- non-thermal ionisation (nltepop.cc:525-554): one Gamma_NT for
+    # every level of an ion; the electron lands in the ground state of ion
+    # + 1 + a with the Auger-electron probability P(a), the last reachable
+    # ion taking what the lower ones leave (nonthermal.cc:2157-2203) ---
+    if nt_ion_rate is not None:
+        naug = nt_prob_auger.shape[2] if nt_prob_auger is not None else 1
+        for k in range(idx.nions - 1):
+            lsl = int(idx.ion_local_start[k])
+            gion = idx.first_global_ion + k
+            rate = nt_ion_rate[:, gion].to(dt)
+            lv = torch.arange(lsl, lsl + int(idx.ion_nlevels[k]), device=dev)
+            clv = cm[lv]
+            slv = s_renorm[:, lv]
+            _add(m, dimr, clv, clv, -rate[:, None] * slv)
+            maxa = min(naug, idx.nions - 1 - k)
+            for a in range(maxa):
+                gup = torch.full_like(clv, int(idx.colmap[idx.ion_local_start[k + 1 + a]]))
+                if nt_prob_auger is None:
+                    p = torch.ones_like(rate) if a == 0 else torch.zeros_like(rate)
+                elif a == maxa - 1:
+                    p = 1.0 - nt_prob_auger[:, gion, :a].to(dt).sum(dim=1)
+                else:
+                    p = nt_prob_auger[:, gion, a].to(dt)
+                _add(m, dimr, gup, clv, (rate * p)[:, None] * slv)
+
+    # --- non-thermal excitation (nltepop.cc:445-449; nonthermal.cc:2272-2297) ---
+    if nt_exc_perdep is not None and ntd is not None and nt_dep_rate_density is not None:
+        exc_lower = _np(ntd.exc_lower)
+        in_elem = (exc_lower >= lstart) & (exc_lower < lstart + dim)
+        if np.any(in_elem):
+            tsel = t(np.nonzero(in_elem)[0], torch.int64)
+            lo_l = t(exc_lower[in_elem] - lstart, torch.int64)
+            up_l = ntd.exc_upper[tsel] - lstart
+            ntc = (nt_exc_perdep[:, tsel].to(dt) * nt_dep_rate_density.to(dt)[:, None]
+                   * s_renorm[:, lo_l])
+            clo, cup = cm[lo_l], cm[up_l]
+            _add(m, dimr, clo, clo, -ntc)
+            _add(m, dimr, cup, clo, ntc)
+
     # --- normalisation row and column scaling (nltepop.cc:892-930): the
     # constraint rows hold the column norms, so they constrain the physical
     # populations; a superlevel column's norm is the sum of its members'
@@ -340,16 +388,21 @@ def solve_element(idx: ElementNlteIndex, dad: DeviceAtomicData, rc: RateCoeffTab
 
 
 def solve_all_elements(indices, dad: DeviceAtomicData, rc: RateCoeffTables, cells,
-                       opts: Options, levelpops_boltzmann, t_mid: float, bfrate_normed=None,
-                       jblue_normed=None, corr_photoion_cells=None):
-    """Solve every element; returns (cells with the ion ground populations,
-    partition functions and nne re-derived from the populations, the
-    (ncells, nlevels_total) populations)."""
+                       opts: Options, levelpops_boltzmann, t_mid: float, nt_ion_rate=None,
+                       nt_prob_auger=None, ntd=None, nt_exc_perdep=None,
+                       nt_dep_rate_density=None, bfrate_normed=None, jblue_normed=None,
+                       corr_photoion_cells=None):
+    """Solve every element (the sources as ``solve_element`` takes them);
+    returns (cells with the ion ground populations, partition functions and
+    nne re-derived from the populations, the (ncells, nlevels_total)
+    populations)."""
     nnelement = cells.elem_numberdens()
     levelpops = levelpops_boltzmann.clone()
     for idx in indices:
         levelpops[:, idx.lstart:idx.lstart + idx.dim] = solve_element(
             idx, dad, rc, cells, opts, levelpops_boltzmann, nnelement[:, idx.element], t_mid,
+            nt_ion_rate=nt_ion_rate, nt_prob_auger=nt_prob_auger, ntd=ntd,
+            nt_exc_perdep=nt_exc_perdep, nt_dep_rate_density=nt_dep_rate_density,
             bfrate_normed=bfrate_normed, jblue_normed=jblue_normed,
             corr_photoion_cells=corr_photoion_cells)
     dt = levelpops.dtype

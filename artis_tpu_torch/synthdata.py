@@ -9,6 +9,11 @@ zero-egress environment). File formats follow the reference parsers
 import numpy as np
 
 
+def _ionpot_ev(z, ionstage):
+    """The synthetic atom's ionisation potential [eV] of ion (Z, ionstage)."""
+    return 7.0 + 5.0 * ionstage + 0.1 * z
+
+
 def write_synthetic_atomicdata(
     folder,
     elements=((26, 3), (27, 2)),  # (Z, nions)
@@ -35,7 +40,7 @@ def write_synthetic_atomicdata(
         for z, nions in elements:
             for ionstage in range(1, nions + 2):  # one extra block to skip at end
                 nlev = nlevels_per_ion if ionstage <= nions else 2
-                ionpot_ev = 7.0 + 5.0 * ionstage + 0.1 * z
+                ionpot_ev = _ionpot_ev(z, ionstage)
                 f.write(f"{z} {ionstage} {nlev} {ionpot_ev:.4f}\n")
                 # random (but deterministic) level energies below the
                 # ionpot: regular ladder spacings make many transitions
@@ -82,6 +87,96 @@ def write_synthetic_atomicdata(
                     xs = sigma0 * (1.0 + np.arange(nphixspoints) * nphixsnuincrement) ** -3
                     f.write("\n".join(f"{x:.6e}" for x in xs) + "\n")
 
+    return folder
+
+
+# x-ray shells of the synthetic collion.txt rows: (n, l, binding energy of
+# neutral Fe [eV], the shell's index in the binding-energy table, whose
+# hydrogenic scaling moves it with Z), inner to outer; the valence shell
+# takes the synthetic atom's ionisation potential
+_COLLION_SHELLS = ((1, 0, 7112.0, 0), (2, 1, 721.0, 2), (3, 1, 56.0, 5), (3, 2, 9.0, 7))
+# Kaastra & Mewe 1993 table 2 style rows: x-ray shell number (1 = K,
+# 3 = L2, 4 = L3), mean Auger-electron energy as a fraction of the shell's
+# binding energy, and the probabilities of 0..9 Auger electrons in units of
+# 1e-4 (each row sums to 10000; the reader takes the first nine)
+_AUGER_ROWS = ((1, 0.85, (40, 1310, 7420, 1130, 100, 0, 0, 0, 0, 0)),
+               (3, 0.70, (120, 8650, 1180, 50, 0, 0, 0, 0, 0, 0)),
+               (4, 0.72, (150, 8710, 1100, 40, 0, 0, 0, 0, 0, 0)))
+_SHELL_N = (1, 2, 2, 2, 3, 3, 3, 3, 3, 4)  # K L1 L2 L3 M1-M5 N1
+_SHELL_CAP = (2, 2, 2, 4, 2, 2, 4, 4, 6, 2)
+
+
+def _binding_energy_ev(z, shellindex):
+    """Hydrogenic binding energy [eV] of x-ray shell ``shellindex`` (K L1
+    L2 L3 M1 M2 M3 M4 M5 N1) of element Z, screened by the electrons of
+    the shells inside it; 0 where the neutral atom has no electron in it."""
+    inner = sum(_SHELL_CAP[:shellindex])
+    if inner >= z:
+        return 0.0
+    zeff = z - inner
+    n = _SHELL_N[shellindex]
+    # split the sub-shells of one n a little, outer sub-shells less bound
+    return 13.6057 * zeff**2 / n**2 * (1.0 - 0.02 * shellindex)
+
+
+def write_synthetic_nonthermal_data(folder, elements=((26, 3), (27, 2))):
+    """Synthetic versions of the three data files the non-thermal solver
+    reads, for the atom ``write_synthetic_atomicdata(folder, elements)``
+    writes (reference formats: nonthermal.cc:598-660 collion.txt,
+    240-285 binding_energies.txt, 345-470 auger-km1993-table2.txt):
+
+    - ``collion.txt``: Younger-fit rows (K, L2/L3, M2/M3 and M4/M5 shells
+      scaled from neutral Fe, and the valence shell at the atom's
+      ionisation potential) for every ion of the first element and the
+      neutral of the last, so that the other ions take the Lotz rows the
+      solver synthesises; one row below ``sf_emin`` (dropped) and one for
+      an ion the atom lacks (skipped);
+    - ``binding_energies.txt`` (the old format: ``nshells n_z``, then one
+      row of 10 shells per Z up to 30), hydrogenic with inner-shell
+      screening;
+    - ``auger-km1993-table2.txt``: the fixed-width table with K, L2 and L3
+      rows for the ions with Younger rows.
+
+    The values are made up to exercise the readers and the solver; they
+    are not the ARTIS atomic tables. Returns ``folder``."""
+    folder = str(folder)
+    younger = [(elements[0][0], s) for s in range(1, elements[0][1] + 1)]
+    if len(elements) > 1:
+        younger.append((elements[-1][0], 1))
+    rows = []
+    for z, stage in younger:
+        scale = ((z - stage + 1) / 26.0) ** 2
+        valence = _ionpot_ev(z, stage)
+        for k, (n, l, e_fe, _) in enumerate(_COLLION_SHELLS):
+            ionpot = max(e_fe * scale, valence * (1.2 + 0.3 * k))
+            a, b, c, d = 2.2 + 0.3 * k, -1.0 - 0.1 * k, 1.6 + 0.2 * stage, -0.5
+            rows.append(f"{z} {stage} {n} {l} {ionpot:.4f} {a:.4f} {b:.4f} {c:.4f} {d:.4f}")
+        rows.append(f"{z} {stage} 4 0 {valence:.4f} 3.1 -1.2 1.9 -0.6")
+    z0, n0 = elements[0]
+    rows.append(f"{z0} 1 5 0 0.0500 1.0 0.0 1.0 0.0")  # below sf_emin: dropped
+    rows.append(f"{z0} {n0 + 2} 4 0 {_ionpot_ev(z0, n0 + 2):.4f} 1.0 0.0 1.0 0.0")  # no ion
+    with open(f"{folder}/collion.txt", "w") as f:
+        f.write(f"{len(rows)}\n")
+        f.write("# synthetic Younger-fit rows, not ARTIS data\n")
+        f.write("\n".join(rows) + "\n")
+
+    nz = max(30, max(z for z, _ in elements))
+    with open(f"{folder}/binding_energies.txt", "w") as f:
+        f.write("# synthetic hydrogenic binding energies [eV], not ARTIS data:\n")
+        f.write("# one row per Z = 1..n_z, shells K L1 L2 L3 M1 M2 M3 M4 M5 N1\n")
+        f.write(f"10 {nz}\n")
+        for z in range(1, nz + 1):
+            f.write(" ".join(f"{_binding_energy_ev(z, s):.3f}" for s in range(10)) + "\n")
+
+    with open(f"{folder}/auger-km1993-table2.txt", "w") as f:
+        f.write("# synthetic Auger probabilities, not Kaastra & Mewe 1993\n")
+        for z, stage in younger:
+            scale = ((z - stage + 1) / 26.0) ** 2
+            for shellnum, enfrac, probs in _AUGER_ROWS:
+                e_fe = 7112.0 if shellnum == 1 else 721.0
+                ionpot = e_fe * scale
+                f.write(f"{z:2d}{stage:3d}{shellnum:3d}{ionpot:7.1f}{enfrac * ionpot:7.1f}"
+                        f"{100:3d} " + "".join(f"{p:5d}" for p in probs) + "\n")
     return folder
 
 

@@ -47,10 +47,11 @@ from . import rpkt_kernel
 @dataclasses.dataclass(frozen=True)
 class StepContext:
     """Per-timestep data prepared by the driver before transport. Fields of
-    modes that are not ported (XCOM, vpkt, non-thermal solver) hold
-    (1,)-sized placeholders, and so do the expansion-opacity tables when
-    that mode is off and ``jblue_of_line`` (line -> J_b_lu column, -1 none)
-    without the detailed line estimators."""
+    modes that are not ported (XCOM, vpkt) hold (1,)-sized placeholders,
+    and so do the expansion-opacity tables when that mode is off,
+    ``jblue_of_line`` (line -> J_b_lu column, -1 none) without the detailed
+    line estimators and the ``nt_*`` fractions of the Spencer-Fano
+    deposition split without the non-thermal solver."""
 
     levelpops: torch.Tensor
     nnion: torch.Tensor
@@ -89,14 +90,16 @@ class StepContext:
     t2: float  # timestep end [s]
     t_mid: float
     is_first_timestep: bool
+    nt_ion_topion: torch.Tensor | None = None  # (nions,) top ion of each ion's element
 
 
 def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     """Raise NotImplementedError naming the first option off the ported
     slice: transport on a SPHERICAL1D, CYLINDRICAL2D or CARTESIAN3D grid
-    without the non-thermal solver (the kilonova_lte, classic and, with
-    ``nt_on`` and ``nt_solve_spencerfano`` off, nltenebular presets),
-    optionally with NLTE populations, the multibin radiation field, the
+    (the kilonova_lte, classic and nltenebular presets), optionally with
+    NLTE populations, the non-thermal solver (``nt_on``: the Spencer-Fano
+    solve with ``nt_solve_spencerfano``, else the work-function
+    approximation), the multibin radiation field, the
     detailed bf-rate and J_b_lu line estimators, LUT-off photoionisation
     and bf heating, binned expansion opacities, dipole / polarised electron
     scattering (``dipole``, ``pol_on``) and rate-balance ionisation
@@ -106,7 +109,6 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     off = [
         ("grid_type", opts.grid_type not in (GridType.SPHERICAL1D, GridType.CYLINDRICAL2D,
                                              GridType.CARTESIAN3D)),
-        ("nt_on", opts.nt_on), ("nt_solve_spencerfano", opts.nt_solve_spencerfano),
         ("vpkt_on", opts.vpkt_on),
         ("use_xcom_gammaphotoion", opts.use_xcom_gammaphotoion),
         ("record_linestat", opts.record_linestat),
@@ -998,6 +1000,67 @@ def apply_macroatom_results(key, tag, st: PacketState, ma_res, ma_mask, opts: Op
                                 st.trueemissionvelocity))
 
 
+def nt_deposit_split(key, st: PacketState, est: Estimators, nt_dep, ctx: StepContext,
+                     grid: GridData, dad: DeviceAtomicData, cells, opts: Options):
+    """The Spencer-Fano split of the deposited leptons (reference:
+    nonthermal.cc:2308-2387 do_ntlepton_deposit; artis_tpu engine.py:1892-1990):
+    with probability frac_ionization a macro-atom at the ground state of
+    the upper ion (the lower ion drawn by its share of the ionisation, the
+    Auger electrons by their energy-weighted probabilities, clamped to the
+    element's top ion); under ``nt_excitation_on``, with probability
+    frac_excitation a macro-atom at the upper level of a transition drawn
+    from the cumulative deposition fractions (a draw beyond the stored
+    list falls through); else, and always in thick cells, a k-packet. The
+    three uniforms are tags 121-123 of the iteration's key."""
+    n = st.npkts
+    u_all = _uniform(key, 121, n, st.pos)
+    u2_all = _uniform(key, 122, n, st.pos)
+    u3_all = _uniform(key, 123, n, st.pos)
+    idx = torch.nonzero(nt_dep)[:, 0]
+    if idx.numel() == 0:
+        return st, est
+    mgi = torch.clamp(grid.nonemptymgi_of_cell[st.where[idx]], min=0)
+    thick = cells.thick[mgi] == 1
+    u = u_all[idx]
+    frac_ion = ctx.nt_frac_ionization[mgi]
+    to_ion = ~thick & (u < frac_ion)
+    # the lower ion, by its share of the ionisation
+    cum = torch.cumsum(ctx.nt_frac_ion_by_ion[mgi], dim=1)
+    nions = cum.shape[1]
+    u2 = u2_all[idx] * torch.clamp(cum[:, -1], min=1e-300)
+    lowerion = torch.clamp((cum <= u2[:, None]).sum(dim=1), max=nions - 1)
+    # Auger electrons can skip ion stages (nonthermal.cc:2218-2243
+    # nt_random_upperion, energy-weighted)
+    cum_a = torch.cumsum(ctx.nt_ionenfrac_auger[mgi, lowerion], dim=1)
+    u3 = u3_all[idx] * torch.clamp(cum_a[:, -1], min=1e-300)
+    n_auger = torch.clamp((cum_a <= u3[:, None]).sum(dim=1), max=cum_a.shape[1] - 1)
+    upperion = torch.minimum(lowerion + 1 + n_auger, ctx.nt_ion_topion[lowerion])
+    level = dad.ion_level_start[upperion].to(st.ma_level.dtype)
+    to_exc = torch.zeros_like(to_ion)
+    if opts.nt_excitation_on:
+        rows_e = ctx.nt_exc_fracdep_cum[mgi]
+        u_rel = u - frac_ion
+        maybe = ~thick & ~to_ion & (u < frac_ion + ctx.nt_frac_excitation[mgi])
+        tsel = (rows_e <= u_rel[:, None]).sum(dim=1)
+        to_exc = maybe & (tsel < rows_e.shape[1]) & (u_rel < rows_e[:, -1])
+        exc_level = ctx.nt_exc_upper[torch.clamp(tsel, max=rows_e.shape[1] - 1)]
+        level = torch.where(to_exc, exc_level.to(level.dtype), level)
+    to_ma = to_ion | to_exc
+    ptype, ma_level, trueem = st.ptype.clone(), st.ma_level.clone(), st.trueemissiontype.clone()
+    ptype[idx] = torch.where(to_ma, TYPE_MA, TYPE_KPKT).to(ptype.dtype)
+    ma_level[idx] = torch.where(to_ma, level, ma_level[idx])
+    trueem[idx] = torch.where(to_ma, torch.full_like(trueem[idx], EMTYPE_NOTSET), trueem[idx])
+    cnt = est.counters.clone()
+    for stat, mask in ((stats.NT_STAT_TO_IONIZATION, to_ion),
+                       (stats.MA_STAT_ACTIVATION_NTCOLLION, to_ion),
+                       (stats.NT_STAT_TO_EXCITATION, to_exc),
+                       (stats.MA_STAT_ACTIVATION_NTCOLLEXC, to_exc),
+                       (stats.NT_STAT_TO_KPKT, ~to_ma)):
+        stats.bump(cnt, stat, mask)
+    return (st.replace(ptype=ptype, ma_level=ma_level, trueemissiontype=trueem),
+            est.replace(counters=cnt))
+
+
 def _select(st: PacketState, idx):
     return dataclasses.replace(st, **{f.name: getattr(st, f.name)[idx]
                                       for f in dataclasses.fields(st)})
@@ -1056,7 +1119,10 @@ def transport_timestep(key, st: PacketState, est: Estimators, grid: GridData,
                                                  cells.rho, opts)
             nt_dep = ((st.ptype == TYPE_NTLEPTON_DEPOSITED)
                       | (st.ptype == TYPE_NTALPHA_DEPOSITED)) & (st.prop_time < t2)
-            st = st.replace(ptype=_w(nt_dep, TYPE_KPKT, st.ptype))
+            if opts.nt_on and opts.nt_solve_spencerfano:
+                st, est = nt_deposit_split(k, st, est, nt_dep, ctx, grid, dad, cells, opts)
+            else:
+                st = st.replace(ptype=_w(nt_dep, TYPE_KPKT, st.ptype))
 
         # 4: k-packets
         nonemptymgi = grid.nonemptymgi_of_cell[st.where]

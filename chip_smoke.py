@@ -58,7 +58,17 @@ line is printed):
      nebular scene, 2^20 packets, timesteps 0-3 with NLTE populations in
      2-3: the log shows the NLTE outer loop, nlte_0000.out and
      radfield_0000.out are finite, a population departs from its
-     Boltzmann value, the bin and J_b_lu estimators accumulated) and
+     Boltzmann value, the bin and J_b_lu estimators accumulated),
+     nebular_1d_3dgrid (the same with the non-thermal solver: the
+     synthetic non-thermal files for the Fe atom, the Spencer-Fano solve
+     at 256 points with Auger electrons in timestep 3; the same checks,
+     and the NT outcome counters of every timestep sum to the leptons that
+     reached the deposition split, some go to ionisation, every solve's
+     frac_heating lies in (0, 1]; timesteps 2-3 stop at a wall budget,
+     leaving only macro-atoms active; each grid update's solves, seconds
+     and peak device memory are logged), then the scene's first
+     Spencer-Fano solve again on the CPU from its captured float64 inputs,
+     every output within rtol 1e-9 of the card's, and
      classic_3d, the classic
      preset on the big scene's 16^3 model and Fe atom (2^20 packets,
      timesteps 0-2, the last two with the non-LTE grid update; the event
@@ -217,11 +227,32 @@ def nebular_scene(d):
     write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
 
 
-# nltenebular without the non-thermal solver, cut in depth so that in four
-# timesteps every consumer runs: the bf-rate estimators from timestep 2 (the
-# CI's nebular entries use 1-2) and the binned field from timestep 3
+def nebular_nt_scene(d):
+    """The nebular scene with the synthetic non-thermal data files
+    (collion.txt, binding energies, Auger table) for its Fe atom in the run
+    directory, which the Spencer-Fano solver reads."""
+    from artis_tpu_torch.synthdata import write_synthetic_nonthermal_data
+
+    nebular_scene(d)
+    write_synthetic_nonthermal_data(d, elements=((26, 3),))
+
+
+# nltenebular cut in depth so that in four timesteps every consumer runs:
+# the bf-rate estimators from timestep 2 (the CI's nebular entries use 1-2)
+# and the binned field from timestep 3; with the non-thermal solver
+# (the preset's Spencer-Fano solve at sf_points 256, Auger electrons on:
+# timestep 2, the first non-LTE one, keeps the default solution, timestep 3
+# solves) and without it
 NEBULAR = dict(nt_on=False, nt_solve_spencerfano=False,
                detailed_bf_estimators_usefromtimestep=2, first_nlte_radfield_timestep=3)
+# with the solver the non-thermal ionisation keeps the Fe mostly in Fe III,
+# whose macro-atoms then take tens of thousands of jumps before they
+# deactivate: the transport of timestep 2 did not end within the smoke's
+# time limit (PERF.md, section 6). Timesteps 2-3 stop at a wall budget, and
+# the macro-atoms still active go on in the next timestep
+NT_WALL_BUDGET_S = 45.0
+NEBULAR_NT = dict(detailed_bf_estimators_usefromtimestep=2, first_nlte_radfield_timestep=3,
+                  transport_wall_budget=NT_WALL_BUDGET_S)
 
 
 def cyl_scene(d):
@@ -969,8 +1000,9 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     rpkt_kernel.propagate.timing = []
     t0 = time.time()
     try:
-        rc = main_sn3d(cli_args(d, npkts, grid_type, **extra))
-        torch.cuda.synchronize()
+        with _RunProbe() as probe:
+            rc = main_sn3d(cli_args(d, npkts, grid_type, **extra))
+            torch.cuda.synchronize()
     finally:
         timing, rpkt_kernel.propagate.timing = rpkt_kernel.propagate.timing, None
     wall = time.time() - t0
@@ -981,7 +1013,9 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
         if launches[k] <= 0:
             raise RuntimeError(f"{name}: the main path never launched {k}: {launches}")
     tlog = json.load(open(os.path.join(d, "transport_log.json")))
-    if not tlog or not all(r["completed"] for r in tlog):
+    # a timestep may stop short only at the run's wall budget
+    budget = extra.get("transport_wall_budget", -1.0)
+    if not tlog or not all(r["completed"] or 0 < budget <= r["seconds"] for r in tlog):
         raise RuntimeError(f"{name}: not every timestep ran to completion: {tlog}")
     files = ["light_curve.out", "spec.out", "deposition.out"] + sorted(
         glob.glob(os.path.join(d, "estimators_*.out")))
@@ -1010,7 +1044,9 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     for r in tlog:
         log(f"{name}: timestep {r['nts']}: {r['steps']} rpkt steps in {r['seconds']} s = "
             f"{r['steps'] / max(r['seconds'], 1e-12)} rpkt steps/s ({r['iters']} iterations); "
-            f"grid update ({r['grid_mode']}) {r['grid_seconds']} s")
+            f"grid update ({r['grid_mode']}) {r['grid_seconds']} s, Spencer-Fano "
+            f"{r['sf_solves']} solves in {r['sf_seconds']} s, grid-update peak memory "
+            f"{probe.update_peak.get(r['nts'])} bytes")
     # event counters summed over the timesteps, from the run's log
     counters = {}
     for line in open(os.path.join(d, "output_0-0.txt")):
@@ -1020,14 +1056,98 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     dep = np.loadtxt(os.path.join(d, "deposition.out"), ndmin=2)
     rec = dict(dir=d, npkts=npkts, launches=launches, wall_s=wall, steps=steps, transport_s=secs,
                steps_per_s=steps / max(secs, 1e-12),
-               peak_mem_bytes=torch.cuda.max_memory_allocated(), timesteps=tlog,
-               counters=counters, gamma_emission_lsun=float(dep[:, 14].sum()),
-               gamma_dep_lsun=float(dep[:, 5].sum()))
+               peak_mem_bytes=max([torch.cuda.max_memory_allocated()] + probe.earlier_peaks),
+               timesteps=tlog, counters=counters, gamma_emission_lsun=float(dep[:, 14].sum()),
+               gamma_dep_lsun=float(dep[:, 5].sum()), probe=probe)
     log(f"{name}: {npkts} packets, {len(tlog)} timesteps, kernel launches {launches}, "
         f"work-weighted {rec['steps_per_s']} rpkt steps/s, wall {wall:.1f} s, peak memory "
         f"{rec['peak_mem_bytes']} bytes")
     rec["kernel"] = _kernel_share(name, timing, secs)
     return rec
+
+
+class _RunProbe:
+    """What an end-to-end run does besides its outputs, recorded by wrapping
+    driver and engine functions for the run's length: each grid update's
+    peak device memory (the peak counter is reset at each update; the peaks
+    before the resets are kept for the run's own); per timestep the
+    leptons that reach the non-thermal deposition split and the NT outcome
+    counters it bumps, and whether a deposited lepton was left over; and
+    each Spencer-Fano solve's inputs and outputs, copied to the CPU (the
+    first solve's, for phase 5) and its frac_heating range."""
+
+    def __enter__(self):
+        import torch
+
+        from artis_tpu_torch import driver, stats
+        from artis_tpu_torch.packets import TYPE_ESCAPE, TYPE_KPKT, TYPE_MA
+        from artis_tpu_torch.plasma import nonthermal
+        from artis_tpu_torch.transport import engine
+
+        self.update_peak, self.earlier_peaks, self.left_active = {}, [], {}
+        self.deposits, self.nt_counts, self.left_over = {}, {}, 0
+        self.sf_first, self.sf_fh = None, []
+        self.nts = None
+        probe = self
+        nt_stats = (stats.NT_STAT_TO_IONIZATION, stats.NT_STAT_TO_EXCITATION,
+                    stats.NT_STAT_TO_KPKT)
+        self._orig = [(driver.Simulation, "update_grid", driver.Simulation.update_grid),
+                      (driver.Simulation, "do_timestep", driver.Simulation.do_timestep),
+                      (engine, "nt_deposit_split", engine.nt_deposit_split),
+                      (nonthermal, "solve_spencerfano_cells", nonthermal.solve_spencerfano_cells)]
+        upd, step, split, solve = (o[2] for o in self._orig)
+
+        def update_grid(sim, nts):
+            probe.nts = nts
+            probe.earlier_peaks.append(torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            out = upd(sim, nts)
+            torch.cuda.synchronize()
+            probe.update_peak[nts] = torch.cuda.max_memory_allocated()
+            return out
+
+        def do_timestep(sim, nts):
+            step(sim, nts)
+            st = sim.state
+            t2 = float(sim.ts.start[nts] + sim.ts.width[nts])
+            act = (st.prop_time < t2) & (st.ptype != TYPE_ESCAPE)
+            probe.left_active[nts] = {int(t): int((act & (st.ptype == t)).sum())
+                                      for t in torch.unique(st.ptype[act]).tolist()}
+
+        def nt_deposit_split(key, st, est, nt_dep, *a):
+            before = est.counters[list(nt_stats)].clone()
+            st2, est2 = split(key, st, est, nt_dep, *a)
+            n = int(nt_dep.sum())
+            after = est2.counters[list(nt_stats)]
+            ok = (st2.ptype[nt_dep] == TYPE_MA) | (st2.ptype[nt_dep] == TYPE_KPKT)
+            probe.left_over += int((~ok).sum())
+            probe.deposits[probe.nts] = probe.deposits.get(probe.nts, 0) + n
+            delta = (after - before).cpu().numpy().astype(np.int64)
+            probe.nt_counts[probe.nts] = probe.nt_counts.get(probe.nts, 0) + delta
+            return st2, est2
+
+        def solve_spencerfano_cells(ntd, dad, levelpops, nnion, nne, **kw):
+            out = solve(ntd, dad, levelpops, nnion, nne, **kw)
+            fh = out["frac_heating"]
+            probe.sf_fh.append((float(fh.min()), float(fh.max()),
+                                bool(torch.isfinite(fh).all())))
+            if probe.sf_first is None:
+                cpu = lambda x: x.detach().cpu().clone()
+                probe.sf_first = dict(ntd=ntd, nions=int(dad.nions_total), kw=kw,
+                                      args=tuple(cpu(x) for x in (levelpops, nnion, nne)),
+                                      out={k: cpu(v) for k, v in out.items()})
+            return out
+
+        driver.Simulation.update_grid = update_grid
+        driver.Simulation.do_timestep = do_timestep
+        engine.nt_deposit_split = nt_deposit_split
+        nonthermal.solve_spencerfano_cells = solve_spencerfano_cells
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._orig:
+            setattr(owner, name, fn)
+        return False
 
 
 def _kernel_share(name, timing, transport_s):
@@ -1566,8 +1686,8 @@ def repeat_runs(workdir):
     log("repeat: timestep 0 repeats bit for bit but for the kernel's sums in every scene")
 
 
-def check_nebular(rec):
-    """What the nebular run must show beyond _run_scene's checks:
+def check_nebular(rec, name="nebular_1d_3dgrid_nont"):
+    """What a nebular run must show beyond _run_scene's checks:
     timesteps 2-3 took the nlte update and the log shows the NLTE outer
     loop's iterations and max fracdiff; nlte_0000.out and
     radfield_0000.out are finite; some NLTE population departs from its
@@ -1576,24 +1696,23 @@ def check_nebular(rec):
     d = rec["dir"]
     modes = [r["grid_mode"] for r in rec["timesteps"]]
     for r in rec["timesteps"]:
-        log(f"nebular_1d_3dgrid_nont: timestep {r['nts']}: grid update ({r['grid_mode']}) "
+        log(f"{name}: timestep {r['nts']}: grid update ({r['grid_mode']}) "
             f"{r['grid_seconds']} s, NLTE outer iterations {r['nlte_iters']}")
     if modes != ["first", "lte", "nlte", "nlte"]:
-        raise RuntimeError(f"nebular_1d_3dgrid_nont: grid updates {modes}")
+        raise RuntimeError(f"{name}: grid updates {modes}")
     loop = [line.strip() for line in open(os.path.join(d, "output_0-0.txt"))
             if "NLTE outer loop" in line]
     for line in loop:
-        log(f"nebular_1d_3dgrid_nont: {line}")
+        log(f"{name}: {line}")
     if len(loop) != 2:
-        raise RuntimeError("nebular_1d_3dgrid_nont: the log does not show the NLTE outer loop "
-                           "of timesteps 2-3")
+        raise RuntimeError(f"{name}: the log does not show the NLTE outer loop of timesteps 2-3")
     rows = {}
     for fname in ("nlte_0000.out", "radfield_0000.out"):
         with open(os.path.join(d, fname)) as f:
             f.readline()
             rows[fname] = np.loadtxt(f, ndmin=2)
         if not np.all(np.isfinite(rows[fname])):
-            raise RuntimeError(f"nebular_1d_3dgrid_nont: non-finite values in {fname}")
+            raise RuntimeError(f"{name}: non-finite values in {fname}")
     nl = rows["nlte_0000.out"]
     sel = (nl[:, 0] >= 2) & (nl[:, 5] > 1e-30)
     dep = float(np.max(np.abs(nl[sel, 6] / nl[sel, 5] - 1.0))) if sel.any() else 0.0
@@ -1601,13 +1720,97 @@ def check_nebular(rec):
     g = np.load(os.path.join(d, "gridsave_ts3.npz"))
     sums = {k: float(g[f"est_{k}"].sum()) for k in ("radfieldbin_count", "radfieldbin_j",
                                                     "jblue_count", "jblue_raw")}
-    log(f"nebular_1d_3dgrid_nont: max |n_NLTE / n_LTE - 1| in timesteps 2-3 {dep}; "
+    log(f"{name}: max |n_NLTE / n_LTE - 1| in timesteps 2-3 {dep}; "
         f"radfield_0000.out contributions {float(rb[rb[:, 2] >= 0, 8].sum())}; timestep-2 "
         f"estimator sums {sums}")
     if dep <= 1e-3:
-        raise RuntimeError("nebular_1d_3dgrid_nont: no NLTE population departs from LTE")
+        raise RuntimeError(f"{name}: no NLTE population departs from LTE")
     if min(sums.values()) <= 0:
-        raise RuntimeError(f"nebular_1d_3dgrid_nont: a bin or J_b_lu estimator is zero {sums}")
+        raise RuntimeError(f"{name}: a bin or J_b_lu estimator is zero {sums}")
+
+
+def check_nebular_nt(rec):
+    """The nebular run with the non-thermal solver: ``check_nebular``, and
+    in every timestep the three NT outcome counters sum to the leptons that
+    reached the deposition split, none of which stays a deposited packet;
+    some lepton went to ionisation; timestep 3 solved Spencer-Fano, and
+    every solve's frac_heating is finite and in (0, 1] (the scene has no
+    grey cell); timesteps 0-1 completed, and a timestep stopped at the wall
+    budget left only macro-atoms and packets they made active. Logs each
+    update's solves, seconds and peak memory, and the packets each
+    timestep left active."""
+    name = "nebular_1d_3dgrid"
+    check_nebular(rec, name)
+    probe = rec["probe"]
+    for r in rec["timesteps"]:
+        left = probe.left_active.get(r["nts"], {})
+        log(f"{name}: timestep {r['nts']}: completed {r['completed']} in {r['iters']} iterations "
+            f"and {r['seconds']} s; packets still active by type {left}")
+    if not all(r["completed"] for r in rec["timesteps"][:2]):
+        raise RuntimeError(f"{name}: timesteps 0-1 did not complete")
+    from artis_tpu_torch.packets import TYPE_MA
+
+    for nts, left in probe.left_active.items():
+        if sum(left.values()) and left.get(TYPE_MA, 0) < 0.9 * sum(left.values()):
+            raise RuntimeError(f"{name}: timestep {nts} left other packets than macro-atoms "
+                               f"active: {left}")
+    for r in rec["timesteps"]:
+        nts = r["nts"]
+        counts = probe.nt_counts.get(nts, np.zeros(3, np.int64))
+        log(f"{name}: timestep {nts}: {probe.deposits.get(nts, 0)} deposited leptons, NT "
+            f"outcomes (ionisation, excitation, k-packet) {counts.tolist()}; grid update "
+            f"{r['grid_seconds']} s with {r['sf_solves']} Spencer-Fano solves in "
+            f"{r['sf_seconds']} s, peak memory {probe.update_peak.get(nts)} bytes")
+        if int(counts.sum()) != probe.deposits.get(nts, 0):
+            raise RuntimeError(f"{name}: timestep {nts}: NT outcomes {counts.tolist()} do not sum "
+                               f"to the {probe.deposits.get(nts, 0)} deposited leptons")
+    if probe.left_over:
+        raise RuntimeError(f"{name}: {probe.left_over} deposited leptons left the split as such")
+    n_ion = sum(int(c[0]) for c in probe.nt_counts.values())
+    solves = [r["sf_solves"] for r in rec["timesteps"]]
+    log(f"{name}: {n_ion} leptons to ionisation; Spencer-Fano solves per timestep {solves}; "
+        f"frac_heating (min, max, finite) per solve {probe.sf_fh}")
+    if n_ion <= 0:
+        raise RuntimeError(f"{name}: no deposited lepton went to ionisation")
+    if solves[3] <= 0 or not probe.sf_fh:
+        raise RuntimeError(f"{name}: timestep 3 solved no Spencer-Fano system: {solves}")
+    if not all(ok and lo > 0 and hi <= 1 for lo, hi, ok in probe.sf_fh):
+        raise RuntimeError(f"{name}: a frac_heating outside (0, 1]: {probe.sf_fh}")
+
+
+def phase_sf_card_vs_cpu(rec):
+    """The scene's first Spencer-Fano solve on the card (its captured
+    float64 inputs and outputs) against the same function on the CPU:
+    every output at rtol 1e-9. Returns the largest relative difference."""
+    import torch
+
+    from artis_tpu_torch.devutil import map_tensors
+    from artis_tpu_torch.plasma import nonthermal
+
+    first = rec["probe"].sf_first
+    ntd = map_tensors(lambda t: t.cpu(), first["ntd"])
+
+    class _Ions:
+        nions_total = first["nions"]
+
+    t0 = time.time()
+    out = nonthermal.solve_spencerfano_cells(ntd, _Ions, *first["args"], **first["kw"])
+    cpu_s = time.time() - t0
+    worst = 0.0
+    for k, card in first["out"].items():
+        cpu = out[k]
+        if card.shape != cpu.shape or card.dtype != torch.float64:
+            raise RuntimeError(f"Spencer-Fano card vs CPU: {k} {card.shape} {card.dtype}")
+        scale = torch.clamp(cpu.abs(), min=1e-300)
+        rel = float(((card - cpu).abs() / scale).max())
+        worst = max(worst, rel)
+        log(f"Spencer-Fano card vs CPU: {k} {tuple(cpu.shape)} max rel diff {rel}")
+        if not torch.allclose(card, cpu, rtol=1e-9, atol=0.0):
+            raise RuntimeError(f"Spencer-Fano card vs CPU: {k} differs beyond rtol 1e-9 ({rel})")
+    log(f"Spencer-Fano card vs CPU: {first['args'][0].shape[0]} cells, sf_points "
+        f"{ntd.sf_points}, {ntd.nshells} shells, {ntd.nexc} excitation transitions; CPU solve "
+        f"{cpu_s:.3f} s; worst rel diff {worst}")
+    return worst
 
 
 def check_classic(rec):
@@ -1708,6 +1911,10 @@ SCENES = [
     ("nebular_1d_3dgrid_nont", nebular_scene, NPKTS_REAL, "CARTESIAN3D",
      CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin", "rpkt_crossing_jblue"],
      dict(preset="nltenebular", **NEBULAR)),
+    # the same with the non-thermal solver (the CI's nebular_1d_3dgrid)
+    ("nebular_1d_3dgrid", nebular_nt_scene, NPKTS_REAL, "CARTESIAN3D",
+     CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin", "rpkt_crossing_jblue"],
+     dict(preset="nltenebular", **NEBULAR_NT)),
     ("classic_3d", classic_scene, NPKTS_REAL, "CARTESIAN3D", CART + ["rpkt_crossing_deferred"],
      dict(preset="classic")),
     # the dense classic scene on an 8^3 grid, at few packets: its k-packets
@@ -1727,7 +1934,10 @@ def scene_runs(workdir, names):
         if name not in table:
             raise SystemExit(f"unknown scene {name}; scenes: {sorted(table)}")
         _, make, npkts, grid, expect, extra = table[name]
-        _run_scene(workdir, name, make, npkts, grid, expect, **extra)
+        rec = _run_scene(workdir, name, make, npkts, grid, expect, **extra)
+        if name == "nebular_1d_3dgrid":
+            check_nebular_nt(rec)
+            phase_sf_card_vs_cpu(rec)
 
 
 def main():
@@ -1762,6 +1972,8 @@ def main():
         runs = {name: _run_scene(workdir, name, make, npkts, grid, expect, **extra)
                 for name, make, npkts, grid, expect, extra in SCENES}
         check_nebular(runs["nebular_1d_3dgrid_nont"])
+        check_nebular_nt(runs["nebular_1d_3dgrid"])
+        phase_sf_card_vs_cpu(runs["nebular_1d_3dgrid"])
         check_classic(runs["classic_3d"])
         check_classic_dense(runs["classic_dense"])
     # bin events activated the macro-atom on lines of their bins, and the
@@ -1794,6 +2006,11 @@ def main():
     # path's
     rec["rpkt_crossing_cyl2d"]["launches_kilonova_2d_2dgrid_fe"] = \
         runs["kilonova_2d_2dgrid_fe"]["launches"]["rpkt_crossing_cyl2d"]
+    # the nebular run with the non-thermal solver launches the NLTE 3D walk
+    # too: its counts beside the main path's
+    for key in ("rpkt_crossing_cart3d", "rpkt_crossing_bfrate", "rpkt_crossing_multibin",
+                "rpkt_crossing_jblue"):
+        rec[key]["launches_nebular_1d_3dgrid"] = runs["nebular_1d_3dgrid"]["launches"][key]
     kernels = []
     for key, (label, replaces) in CONFIGS.items():
         r = rec[key]

@@ -19,10 +19,15 @@ bf-rate and J_b_lu estimators, LUT-off photoionisation and bf heating, one
 outer iteration) without the non-thermal solver, with
 ``num_lte_timesteps=1`` so that their second timestep solves the NLTE
 populations; they also write nlte_0000.out and radfield_0000.out.
-kilonova_2d_2dgrid_xcomgammaphotoion waits for a synthetic
-xcom_photoion_data.txt, the nebular configurations with the non-thermal
-solver for synthetic collion.txt and binding-energy files. The table is
-the port's own copy; the JAX test module is not imported."""
+nebular_1d_3dgrid and nebular_1d_3dgrid_limitbfest are the same two with
+the non-thermal solver on (the Spencer-Fano solve at the preset's 256
+points, the synthetic non-thermal files of
+``synthdata.write_synthetic_nonthermal_data`` in the run directory), run
+for three timesteps: the second is the first non-LTE timestep, which keeps
+the default solution, the third solves Spencer-Fano and splits the
+deposited leptons. kilonova_2d_2dgrid_xcomgammaphotoion waits for a
+synthetic xcom_photoion_data.txt. The table is the port's own copy; the
+JAX test module is not imported."""
 
 import os
 
@@ -41,9 +46,10 @@ def _mini(**kw):
 
 
 GRID8 = dict(grid_type="CARTESIAN3D", ncoordgrid_x=8, ncoordgrid_y=8, ncoordgrid_z=8)
-# the nebular configurations without the non-thermal solver, one NLTE
-# outer iteration as in the CI (tests/test_configmatrix.py)
+# the nebular configurations, one NLTE outer iteration as in the CI
+# (tests/test_configmatrix.py), without and with the non-thermal solver
 NONT = dict(nt_on=False, nt_solve_spencerfano=False, nlte_outer_iters=1)
+NT = dict(nlte_outer_iters=1)
 # name -> (preset, Options keywords, model_dim, make_run keywords)
 CONFIGS = {
     "classicmode_1d_3dgrid": ("classic", _mini(**GRID8), 1, {}),
@@ -66,6 +72,13 @@ CONFIGS = {
     "nebular_1d_3dgrid_limitbfest_nont": (
         "nltenebular", _mini(**GRID8, **NONT, detailed_bf_estimators_usefromtimestep=2,
                              sf_auger_contribution_on=False), 1, dict(num_lte_timesteps=1)),
+    "nebular_1d_3dgrid": (
+        "nltenebular", _mini(**GRID8, **NT, detailed_bf_estimators_usefromtimestep=1), 1,
+        dict(num_lte_timesteps=1, ntimesteps=4)),
+    "nebular_1d_3dgrid_limitbfest": (
+        "nltenebular", _mini(**GRID8, **NT, detailed_bf_estimators_usefromtimestep=2,
+                             sf_auger_contribution_on=False), 1,
+        dict(num_lte_timesteps=1, ntimesteps=4)),
 }
 
 
@@ -73,7 +86,7 @@ CONFIGS = {
 def test_config(name, tmp_path):
     from artis_tpu_torch import options as to
     from artis_tpu_torch.driver import Simulation
-    from artis_tpu_torch.synthdata import make_run
+    from artis_tpu_torch.synthdata import make_run, write_synthetic_nonthermal_data
 
     preset, okw, model_dim, make_kw = CONFIGS[name]
     okw = dict(okw, grid_type=to.GridType[okw["grid_type"]])
@@ -86,6 +99,8 @@ def test_config(name, tmp_path):
     mk.update(make_kw)
     make_run(d, **mk)
     opts = getattr(to, preset)(**okw)
+    if opts.nt_on:
+        write_synthetic_nonthermal_data(d, ((26, 3), (27, 2), (28, 2)))
     sim = Simulation(d, opts, datadir="/nonexistent", device="cpu")
     modes = []
     for ts in range(mk["ntimesteps"] - 1):
@@ -93,7 +108,15 @@ def test_config(name, tmp_path):
         modes.append(sim.plasma_mode)
     sim.finish()
     sim.close()
-    assert modes == ["first", "nlte" if make_kw.get("num_lte_timesteps") == 1 else "lte"]
+    later = "nlte" if make_kw.get("num_lte_timesteps") == 1 else "lte"
+    assert modes == ["first"] + [later] * (mk["ntimesteps"] - 2)
+    if opts.nt_on:
+        # the last timestep solved Spencer-Fano and split the deposits
+        from artis_tpu_torch import stats
+
+        assert sim.sf_solves >= 1 and sim._sf_carry is not None
+        c = sim.est.counters.numpy()
+        assert c[stats.NT_STAT_TO_IONIZATION] + c[stats.NT_STAT_TO_KPKT] > 0
 
     types = sim.state.ptype.numpy()
     assert len(types) == opts.npkts

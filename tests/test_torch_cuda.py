@@ -8,7 +8,8 @@ packet order and sorted by cell; the redesigned cylindrical walk K3 on the
 2^18, in both row modes and with grey scatters), on the main path through the CLI, two same-seed runs of a small nebular scene
 (timestep 0 bitwise identical but for the sums the kernel adds with float
 atomics) and the host sums' CUDA formulation (the same bits on every
-call).
+call); and the Spencer-Fano solve on the card against the CPU in float64,
+and a nebular timestep with the non-thermal solver on the card.
 
 Every test here needs an NVIDIA GPU and skips where there is none. The file
 imports no jax, so it runs where only PyTorch is installed; the
@@ -598,3 +599,83 @@ def test_host_sums_repeat_on_card(dtype):
     ref = x.double().index_add(1, index, src.double())
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     torch.testing.assert_close(a.cpu().double(), ref, rtol=tol, atol=tol * float(ref.max()))
+
+
+def _nt_atom(folder):
+    """The 3-element synthetic atom and its synthetic non-thermal files,
+    read by the port (host tables)."""
+    from artis_tpu_torch.atomic import to_device
+    from artis_tpu_torch.io import atomicdata
+    from artis_tpu_torch.synthdata import (write_synthetic_atomicdata,
+                                           write_synthetic_nonthermal_data)
+
+    elements = ((26, 3), (27, 2), (28, 2))
+    write_synthetic_atomicdata(folder, elements=elements, nlevels_per_ion=7)
+    write_synthetic_nonthermal_data(folder, elements)
+    ad = atomicdata.read_atomicdata(folder)
+    return ad, to_device(ad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("auger", [True, False])
+def test_spencerfano_solve_on_card_matches_cpu(tmp_path, auger):
+    """The Spencer-Fano solve on the card against the same function on the
+    CPU, in float64, at rtol 1e-9: the scatter over several shells of an
+    ion and the batched triangular solve give the CPU's numbers."""
+    _need_cuda()
+    from artis_tpu_torch.devutil import map_tensors
+    from artis_tpu_torch.plasma import nonthermal
+
+    ad, dad = _nt_atom(str(tmp_path))
+    ntd = nonthermal.build_nonthermal_data(ad, dad, str(tmp_path), sf_points=128)
+    rng = np.random.default_rng(5)
+    ncells = 16
+    nnion = 10 ** rng.uniform(4.0, 8.0, (ncells, dad.nions_total))
+    lp = torch.as_tensor(10 ** rng.uniform(-2.0, 6.0, (ncells, dad.nlevels_total)))
+    nne = torch.as_tensor(nnion.sum(axis=1) * np.logspace(-3.0, 0.0, ncells))
+    nnion = torch.as_tensor(nnion)
+    cpu = nonthermal.solve_spencerfano_cells(ntd, dad, lp, nnion, nne,
+                                             sf_auger_contribution_on=auger)
+    card = nonthermal.solve_spencerfano_cells(
+        map_tensors(lambda t: t.cuda(), ntd), map_tensors(lambda t: t.cuda(), dad), lp.cuda(),
+        nnion.cuda(), nne.cuda(), sf_auger_contribution_on=auger)
+    for k, v in cpu.items():
+        assert card[k].is_cuda and card[k].dtype == torch.float64, k
+        torch.testing.assert_close(card[k].cpu(), v, rtol=1e-9, atol=0, msg=k)
+    assert float(cpu["frac_ionization"].min()) > 0
+
+
+@pytest.mark.cuda
+def test_nebular_timestep_with_the_solver_on_card(tmp_path):
+    """nltenebular with the Spencer-Fano solver on the card: timestep 1
+    solves it (the first non-LTE timestep here is 1, num_lte_timesteps 0),
+    its transport splits the deposited leptons (none left over, some to
+    ionisation), and the run stays finite."""
+    _need_cuda()
+    from artis_tpu_torch import options, stats
+    from artis_tpu_torch.driver import Simulation
+    from artis_tpu_torch.packets import TYPE_NTALPHA_DEPOSITED, TYPE_NTLEPTON_DEPOSITED
+    from artis_tpu_torch.synthdata import write_synthetic_nonthermal_data
+
+    d = str(tmp_path)
+    make_run(d, ntimesteps=3, tmin_days=1.0, tmax_days=2.0, ngreyts=0, ncells=5,
+             logrho0=-9.0, num_lte_timesteps=0)
+    write_synthetic_nonthermal_data(d, ((26, 3), (27, 2), (28, 2)))
+    sim = Simulation(d, options.nltenebular(
+        npkts=20000, grid_type=options.GridType.CARTESIAN3D, ncoordgrid_x=8, ncoordgrid_y=8,
+        ncoordgrid_z=8, mintemp=1000.0, maxtemp=20000.0, tablesize=20,
+        transport_dtype="float32", radfieldbincount=32, nlte_outer_iters=4,
+        detailed_bf_estimators_usefromtimestep=1, first_nlte_radfield_timestep=1),
+        device="cuda")
+    assert sim.ntd is not None and sim.ntd.shell_xs.is_cuda
+    for nts in range(2):
+        sim.do_timestep(nts)
+    sim.close()
+    assert sim.plasma_mode == "nlte" and sim.sf_solves >= 1
+    fh = sim._sf_carry["frac_heating"]
+    assert fh.is_cuda and bool(torch.all((fh > 0) & (fh <= 1)))
+    c = sim.est.counters.cpu().numpy()
+    assert c[stats.NT_STAT_TO_IONIZATION] > 0 and c[stats.NT_STAT_TO_KPKT] > 0
+    p = sim.state.ptype
+    assert not bool(((p == TYPE_NTLEPTON_DEPOSITED) | (p == TYPE_NTALPHA_DEPOSITED)).any())
+    assert bool(torch.isfinite(sim.cells.Te).all())

@@ -471,12 +471,17 @@ def test_check_supported_takes_the_new_slice():
                                      force_saha_ion_balance=False), 4)
         check_supported(to.classic(grid_type=gt), 4)
         # NLTE populations, the multibin field, the J_b_lu estimators and
-        # LUT-off rates: nltenebular without the non-thermal solver
+        # LUT-off rates: nltenebular, without and with the non-thermal
+        # solver (Spencer-Fano, or the work-function approximation)
         check_supported(to.nltenebular(grid_type=gt, nt_on=False,
                                        nt_solve_spencerfano=False), 4)
+        check_supported(to.nltenebular(grid_type=gt), 4)
+        check_supported(to.nltenebular(grid_type=gt, nt_solve_spencerfano=False), 4)
+        check_supported(base.replace(grid_type=gt, nt_on=True, nt_solve_spencerfano=True), 4)
     with pytest.raises(NotImplementedError, match="grid_type"):
         check_supported(base.replace(grid_type="SPHERICAL3D"), 4)
-    for name, value in (("nt_on", True), ("nt_solve_spencerfano", True), ("vpkt_on", True),
-                        ("use_xcom_gammaphotoion", True), ("record_linestat", True)):
+    for name, value in (("vpkt_on", True), ("use_xcom_gammaphotoion", True),
+                        ("record_linestat", True), ("track_ion_stats", True),
+                        ("log_macroatom", True)):
         with pytest.raises(NotImplementedError, match=name):
             check_supported(base.replace(**{name: value}), 4)

@@ -26,8 +26,9 @@ on, ROADMAP Queue 3); the port runs it in float32 from the same pellets.
   and columns, line for line;
 - a resumed run is bit-exact with the bin and J_b_lu estimators and the
   NLTE populations (tests/test_checkpoint.py contract);
-- ``check_supported`` takes nltenebular without the non-thermal solver and
-  still raises for ``nt_on``, ``nt_solve_spencerfano`` and ``vpkt_on``.
+- ``check_supported`` takes nltenebular without the non-thermal solver
+  (and, since the solver is ported, with it) and still raises for
+  ``vpkt_on``.
 """
 
 import dataclasses
@@ -270,7 +271,8 @@ def test_check_supported_takes_nebular_without_nonthermal():
 
     check_supported(to.nltenebular(nt_on=False, nt_solve_spencerfano=False))
     for kw in (dict(nt_on=True, nt_solve_spencerfano=False),
-               dict(nt_on=False, nt_solve_spencerfano=True),
-               dict(nt_on=False, nt_solve_spencerfano=False, vpkt_on=True)):
-        with pytest.raises(NotImplementedError):
+               dict(nt_on=False, nt_solve_spencerfano=True), {}):
+        check_supported(to.nltenebular(**kw))
+    for kw in (dict(nt_on=False, nt_solve_spencerfano=False, vpkt_on=True), dict(vpkt_on=True)):
+        with pytest.raises(NotImplementedError, match="vpkt_on"):
             check_supported(to.nltenebular(**kw))

@@ -94,6 +94,7 @@ from .transport import macroatom as macroatom_mod
 from .transport import expansionopacity as expo_mod
 from .transport import opacity as opacity_mod
 from .transport import thermalisation as therm_mod
+from .transport import vpkt as vpkt_mod
 
 GREY_OP = 0.1  # reference: globals.h:240
 
@@ -568,9 +569,13 @@ class Simulation:
         _recomb.apply_recombrate_calibration(self.ad, rundir,
                                              t_elec=self.opts.recombcalibration_t_elec,
                                              superlevel_first_level=_sl_first, log=self.log)
-        self.dad = to_device(self.ad, dev)
-        if self._f32:
-            self.dad = demote_to_f32(self.dad)
+        # the grid update takes the atomic data in float64 whatever the
+        # transport dtype: float32 level energies lose the small energy
+        # differences of close levels in a large atom (260 levels per ion),
+        # and the NLTE populations and T_e then go elsewhere than in float64
+        # (tests/test_torch_nt_chains.py)
+        self.dad_f64 = to_device(self.ad, dev)
+        self.dad = demote_to_f32(self.dad_f64) if self._f32 else self.dad_f64
         self.log(f"nelements {self.ad.nelements} ions {self.ad.nions_total} "
                  f"levels {self.ad.nlevels_total} nlines {self.ad.nlines} "
                  f"nbfcontinua {self.ad.nbfcontinua}")
@@ -661,7 +666,7 @@ class Simulation:
         if not p.simulation_continued_from_saved:
             self._write_listfiles()
 
-        self.nlte_indices = (nltepop_mod.build_indices(self.dad, self.opts)
+        self.nlte_indices = (nltepop_mod.build_indices(self.dad_f64, self.opts)
                              if self.opts.nlte_enabled else None)
         # the non-thermal solver's tables from the data directory
         # (artis_tpu/driver.py:1021-1040), float64 whatever the transport dtype
@@ -681,7 +686,43 @@ class Simulation:
             self.log(f"non-thermal solver: {self.ntd.nshells} shells, {self.ntd.nexc} excitation "
                      f"transitions, sf_points {o.sf_points}, tables built in "
                      f"{_time.time() - t0:.3f}s")
+        # XCOM gamma photoionisation tables (gammapkt.cc:209-256;
+        # artis_tpu/driver.py:971-980), float64 whatever the transport dtype,
+        # with each element's row count; at least two columns
+        self.xcom = None
+        if self.opts.use_xcom_gammaphotoion:
+            xe, xs, xl = gammadata_io.read_xcom_photoion(
+                os.path.join(self.datadir, "xcom_photoion_data.txt"), list(self.ad.elem_z))
+            if xe.shape[1] < 2:
+                xe = np.pad(xe, ((0, 0), (0, 1)), constant_values=1e99)
+                xs = np.pad(xs, ((0, 0), (0, 1)), constant_values=1e-99)
+            self.xcom = (self._t(xe, torch.float64), self._t(xs, torch.float64),
+                         torch.as_tensor(xl).long().to(dev))
+            self.log(f"XCOM photoionisation tables: rows per element {xl.tolist()}")
         self._select_jblue_lines()
+        # virtual packets: the configuration from vpkt.txt in the run
+        # directory, else the default, and the accumulators' shapes
+        # (artis_tpu/driver.py:1041-1084); the totals over the timesteps are
+        # float64 on the host
+        self.vpkt_cfg = None
+        self._vspec_shape = self._vgrid_shape = (1, 1, 1, 1, 3)
+        if self.opts.vpkt_on:
+            o = self.opts
+            path = os.path.join(rundir, "vpkt.txt")
+            self.vpkt_cfg = (
+                vpkt_mod.read_vpkt_config(path, p.tmin, p.tmax, o.vpkt_vmtbins, o.vpkt_vmnubins)
+                if os.path.exists(path) else
+                vpkt_mod.default_vpkt_config(p.tmin, p.tmax, o.vpkt_nobs, o.vpkt_vmtbins,
+                                             o.vpkt_vmnubins))
+            cfg = self.vpkt_cfg
+            self._vspec_shape = (cfg.nobs, cfg.nspectra, o.vpkt_vmtbins, o.vpkt_vmnubins, 3)
+            if cfg.vgrid_on:
+                self._vgrid_shape = (cfg.nobs, int(cfg.vgrid_numin.shape[0]), cfg.vgrid_ny,
+                                     cfg.vgrid_nz, 3)
+            self.log(f"vpkt: {cfg.nobs} observers, {cfg.nspectra} spectra each"
+                     + (f", velocity-grid maps {self._vgrid_shape}" if cfg.vgrid_on else ""))
+        self._vspec_total = np.zeros(self._vspec_shape)
+        self._vgrid_total = np.zeros(self._vgrid_shape)
         self.radfieldbin_tr = self.radfieldbin_w = None
         self.est = self._zero_est()
         self.prev_est: Estimators | None = None
@@ -825,7 +866,8 @@ class Simulation:
                                nbfrate=max(self.ad.nbfcontinua, 1) if bfr else 1,
                                nbfrate_cells=ncells if bfr else 1,
                                njblue=self._njblue if jbl else 1,
-                               njblue_cells=ncells if jbl else 1)
+                               njblue_cells=ncells if jbl else 1,
+                               vspec_shape=self._vspec_shape, vgrid_shape=self._vgrid_shape)
 
     # ------------------------------------------------------------------
     def _plasma_call(self, nts: int):
@@ -876,7 +918,7 @@ class Simulation:
             lte_mode = nts < p.num_lte_timesteps
             mode = "lte" if lte_mode or bool(np.all(_np(self.cells.thick) == 1)) else "nlte"
         results = _plasma_update_device(
-            self.dad, self.rc, self.cells, self.opts, j_norm, nuj_norm,
+            self.dad_f64, self.rc, self.cells, self.opts, j_norm, nuj_norm,
             float(self.ts.mid[nts]), ffheating_norm, dep_heating, mode=mode,
             gammaest_norm=gammaest_norm, binj_norm=binj_norm, binnuj_norm=binnuj_norm,
             bincount=bincount, bfrate_normed=bfrate_normed, jblue_normed=jblue_normed,
@@ -936,8 +978,14 @@ class Simulation:
         radial_pos = self.grid_host.initial_radial_pos_sum_mgi[mgi] * tratmid / assoc_cells
         dist_to_obs = np.maximum(0.0, self.grid.rmax * tratmid - radial_pos)
         grey_depth = self._kappagrey_np * rho * dist_to_obs
-        thick = ((grey_depth >= p.cell_is_optically_thick)
-                 & (nts < p.num_grey_timesteps)).astype(np.int64)
+        # 1: grey transport; 2: vpkt-only thick (virtual packets die there,
+        # real packets transport in full; artis_tpu/driver.py:1478-1489)
+        grey1 = (grey_depth >= p.cell_is_optically_thick) & (nts < p.num_grey_timesteps)
+        thick = grey1.astype(np.int64)
+        if self.vpkt_cfg is not None:
+            tv = (self.vpkt_cfg.thick_vpkt if self.vpkt_cfg.thick_vpkt >= 0
+                  else p.cell_is_optically_thick)
+            thick[~grey1 & (grey_depth > tv)] = 2
         self.cells = self.cells.replace(
             thick=torch.as_tensor(thick).to(self.device), grey_depth=self._t(grey_depth))
         self._last_levelpops = levelpops
@@ -952,15 +1000,27 @@ class Simulation:
                                       exc_fracdep_cum=one)
         nt_exc_upper = (self.ntd.exc_upper if self.ntd is not None and self.opts.nt_excitation_on
                         else onei)
+        vcum_tau = vcum_taunu = one
+        if self.vpkt_cfg is not None:
+            # the cumulative line tables of the vpkt segment tau, float64
+            # (vpkt.build_vpkt_tables; artis_tpu/driver.py:558-561)
+            vcum_tau, vcum_taunu = vpkt_mod.build_vpkt_tables(tau_sob, self.dad_f64,
+                                                              exclude=self.vpkt_cfg.exclude)
         return engine_mod.StepContext(
             levelpops=levelpops, nnion=nnion, chi_ff_nnionpart=chi_ff_part,
             tau_sob_factor=tau_sob, bf_a=bf_a, bf_dep=bf_dep,
             expopac_kappa=kappa, expopac_planck_cum=pc,
             expopac_wcum=one if wcum is None else wcum,
             expopac_binoffsets=onei if binoff is None else binoff,
-            elem_numberdens=torch.zeros((ncells, 1), dtype=fd, device=dev),
-            xcom_energy=one, xcom_sigma=one, vpkt_cum_tau=one, vpkt_cum_taunu=one,
-            vpkt_cfg=None, nt_frac_ion_by_ion=nt["frac_ion_by_ion"],
+            elem_numberdens=(self.cells.elem_massfrac.double() * self.cells.rho.double()[:, None]
+                             / self.cells.elem_meanweight.double()
+                             if self.xcom is not None
+                             else torch.zeros((ncells, 1), dtype=fd, device=dev)),
+            xcom_energy=self.xcom[0] if self.xcom is not None else one,
+            xcom_sigma=self.xcom[1] if self.xcom is not None else one,
+            xcom_nrows=self.xcom[2] if self.xcom is not None else None,
+            vpkt_cum_tau=vcum_tau, vpkt_cum_taunu=vcum_taunu, vpkt_cfg=self.vpkt_cfg,
+            nt_frac_ion_by_ion=nt["frac_ion_by_ion"],
             nt_frac_ionization=nt["frac_ionization"], nt_ionenfrac_auger=nt["ionenfrac_num_auger"],
             nt_frac_excitation=nt["frac_excitation"], nt_exc_fracdep_cum=nt["exc_fracdep_cum"],
             nt_exc_upper=nt_exc_upper,
@@ -1021,6 +1081,9 @@ class Simulation:
                                        sf_solves=self.sf_solves, sf_seconds=self.sf_seconds))
         self.prev_est = self.est
         e = self.est
+        if self.vpkt_cfg is not None:
+            self._vspec_total = self._vspec_total + _np(e.vspec).astype(np.float64)
+            self._vgrid_total = self._vgrid_total + _np(e.vgrid).astype(np.float64)
         self.gamma_dep_ts[nts] = float(e.dep_gamma.sum()) * self._e0
         self.cmf_lum_ts[nts] = float(e.cmf_lum) * self._e0
         for k, v in (("electron", e.dep_electron.sum()), ("positron", e.dep_positron.sum()),
@@ -1107,7 +1170,8 @@ class Simulation:
             os.path.join(self.rundir, f"gridsave_ts{next_nts}.npz"),
             lc_lum=self.lc_lum, lc_lumcmf=self.lc_lumcmf, gamma_dep_ts=self.gamma_dep_ts,
             cmf_lum_ts=self.cmf_lum_ts, escaped_counted=self._escaped_counted,
-            spec_flux=self.spec.flux, **blob)
+            spec_flux=self.spec.flux, vspec_total=self._vspec_total,
+            vgrid_total=self._vgrid_total, **blob)
         inputparams_io.update_parameterfile(os.path.join(self.rundir, "input.txt"), next_nts,
                                             self.params.timestep_finish, 1)
         for prefix in ("packets_0000_ts", "gridsave_ts"):
@@ -1143,6 +1207,9 @@ class Simulation:
         for k in self.dep_ts:
             if f"dep_ts_{k}" in g:
                 self.dep_ts[k] = g[f"dep_ts_{k}"]
+        if "vspec_total" in g:
+            self._vspec_total = np.asarray(g["vspec_total"], dtype=np.float64)
+            self._vgrid_total = np.asarray(g["vgrid_total"], dtype=np.float64)
         sfkeys = [k for k in g.files if k.startswith("sfcarry_")]
         if sfkeys:
             self._sf_carry = {k[len("sfcarry_"):]: torch.as_tensor(g[k]).to(dev) for k in sfkeys}
@@ -1151,6 +1218,13 @@ class Simulation:
         """Final outputs: packets file for exspec (reference: sn3d.cc:860-877)."""
         packets_mod.write_packets_text(os.path.join(self.rundir, "packets00_0000.out"),
                                        self.state, e_scale=self._e0)
+        if self.vpkt_cfg is not None:
+            vpkt_mod.write_vspecpol(os.path.join(self.rundir, "specpol_virtual.out"),
+                                    self.vpkt_cfg, self._vspec_total * self._e0)
+            if self.vpkt_cfg.vgrid_on:
+                vpkt_mod.write_vpkt_grid(os.path.join(self.rundir, "vpkt_grid.out"),
+                                         self.vpkt_cfg, self._vgrid_total * self._e0,
+                                         float(self.grid.vmax))
         self.write_outputs(partial=False)
 
     def write_deposition(self):

@@ -180,6 +180,47 @@ def write_synthetic_nonthermal_data(folder, elements=((26, 3), (27, 2))):
     return folder
 
 
+# a few of the strongest Ni56 and Co56 gamma lines (MeV, photons per decay)
+GAMMA_LINES = {"ni56": ((0.158, 0.988), (0.750, 0.495), (0.812, 0.860)),
+               "co56": ((0.847, 1.000), (1.238, 0.670), (2.598, 0.170))}
+
+
+def write_synthetic_gamma_lines(folder):
+    """``ni56_lines.txt`` and ``co56_lines.txt`` (``GAMMA_LINES``), so that
+    decays make gamma packets. Returns ``folder``."""
+    for nuc, lines in GAMMA_LINES.items():
+        with open(f"{folder}/{nuc}_lines.txt", "w") as f:
+            f.write(f"{len(lines)}\n" + "".join(f"{e} {p}\n" for e, p in lines))
+    return folder
+
+
+def write_synthetic_xcom_data(folder, elements=((26, 3), (27, 2), (28, 2))):
+    """A synthetic ``xcom_photoion_data.txt`` (reference format,
+    gammapkt.cc:209-256: rows ``Z  E[MeV]  sigma[barn]``) for the atom
+    ``write_synthetic_atomicdata(folder, elements)`` writes: photoelectric
+    cross-sections falling as E^-3.2 from 10 keV, scaled as Z^4.5 from
+    20 barn for Fe at 100 keV. The first element's table covers 0.01-10 MeV
+    in 41 rows; the second's ends at 1 MeV (21 rows), below the strongest
+    Co56 lines, so that the tables have different lengths; with more than
+    one element the last is left out (its table has no row), and one row
+    is for an element the atom lacks. The values are made up to exercise
+    the reader and the interpolation; they are not NIST XCOM data.
+    Returns ``folder``."""
+    folder = str(folder)
+    zs = [z for z, _ in elements]
+    written = zs[:-1] if len(zs) > 1 else zs
+    rows = ["# synthetic photoelectric cross-sections, not NIST XCOM data",
+            "# Z  E[MeV]  sigma[barn/atom]"]
+    for k, z in enumerate(written + [1]):
+        hi = 10.0 if k == 0 or z == 1 else 1.0
+        for e in np.logspace(-2.0, np.log10(hi), 41 if hi == 10.0 else 21):
+            sigma = 20.0 * (z / 26.0) ** 4.5 * (e / 0.1) ** -3.2
+            rows.append(f"{z} {e:.6e} {sigma:.6e}")
+    with open(f"{folder}/xcom_photoion_data.txt", "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return folder
+
+
 import numpy as np
 
 

@@ -42,13 +42,16 @@ from ..packets import (
 )
 from ..plasma.radfield import sample_planck_montecarlo
 from . import rpkt_kernel
+from . import vpkt as vpkt_mod
 
 
 @dataclasses.dataclass(frozen=True)
 class StepContext:
-    """Per-timestep data prepared by the driver before transport. Fields of
-    modes that are not ported (XCOM, vpkt) hold (1,)-sized placeholders,
-    and so do the expansion-opacity tables when that mode is off,
+    """Per-timestep data prepared by the driver before transport. The XCOM
+    tables (float64, each element's rows padded to the longest, with
+    ``xcom_nrows`` its own row count) and the vpkt tables hold (1,)-sized
+    placeholders when their mode is off, and so do the expansion-opacity
+    tables when that mode is off,
     ``jblue_of_line`` (line -> J_b_lu column, -1 none) without the detailed
     line estimators and the ``nt_*`` fractions of the Spencer-Fano
     deposition split without the non-thermal solver."""
@@ -91,6 +94,7 @@ class StepContext:
     t_mid: float
     is_first_timestep: bool
     nt_ion_topion: torch.Tensor | None = None  # (nions,) top ion of each ion's element
+    xcom_nrows: torch.Tensor | None = None  # (nelements,) rows of each XCOM table
 
 
 def check_supported(opts: Options, opacity_case: int | None = None) -> None:
@@ -99,7 +103,8 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     (the kilonova_lte, classic and nltenebular presets), optionally with
     NLTE populations, the non-thermal solver (``nt_on``: the Spencer-Fano
     solve with ``nt_solve_spencerfano``, else the work-function
-    approximation), the multibin radiation field, the
+    approximation), the multibin radiation field, virtual packets
+    (``vpkt_on``), XCOM gamma photoionisation, the
     detailed bf-rate and J_b_lu line estimators, LUT-off photoionisation
     and bf heating, binned expansion opacities, dipole / polarised electron
     scattering (``dipole``, ``pol_on``) and rate-balance ionisation
@@ -109,8 +114,6 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     off = [
         ("grid_type", opts.grid_type not in (GridType.SPHERICAL1D, GridType.CYLINDRICAL2D,
                                              GridType.CARTESIAN3D)),
-        ("vpkt_on", opts.vpkt_on),
-        ("use_xcom_gammaphotoion", opts.use_xcom_gammaphotoion),
         ("record_linestat", opts.record_linestat),
         ("track_ion_stats", opts.track_ion_stats),
         ("log_macroatom", opts.log_macroatom),
@@ -594,6 +597,34 @@ def gamma_analytic_step(key, st: PacketState, est: Estimators, ctx: StepContext,
     return st, est
 
 
+def xcom_photoion_chi(energy, sigma, nrows, numberdens, nu_cmf):
+    """(n,) XCOM photoelectric opacity [1/cm], float64 (reference:
+    gammapkt.cc:499-545; artis_tpu/transport/engine.py:631-660): per element
+    the cross-section interpolated log-log in its own table and clamped to
+    the table's first and last rows outside it, times the element's number
+    density (numberdens (n, nelements) [/cm3]). ``energy`` / ``sigma``
+    (nelements, L >= 2) [MeV] / [barn] hold each element's ``nrows`` rows
+    and padding after them; an element without rows adds nothing. The JAX
+    package interpolates into the padding above a short table's last row,
+    which is NaN in float32 (ROADMAP Queue 3)."""
+    f64 = torch.float64
+    e = nu_cmf.to(f64) / 2.41326e20
+    idx = torch.searchsorted(energy, e[None, :].expand(energy.shape[0], -1).contiguous())
+    nr = nrows.to(idx.dtype)[:, None]
+    last = torch.clamp(nr - 1, min=0)
+    hi = torch.minimum(torch.clamp(idx, min=1), torch.clamp(last, min=1))
+    lo = hi - 1
+    loge_tab, logsig_tab = torch.log10(energy), torch.log10(sigma)
+    x0, x1 = loge_tab.gather(1, lo), loge_tab.gather(1, hi)
+    y0, y1 = logsig_tab.gather(1, lo), logsig_tab.gather(1, hi)
+    loge = torch.log10(torch.clamp(e, min=1e-30))[None, :]
+    logsig = y0 + (y1 - y0) / torch.clamp(x1 - x0, min=1e-30) * (loge - x0)
+    logsig = torch.where(idx <= 0, logsig_tab[:, :1], logsig)
+    logsig = torch.where(idx >= nr, logsig_tab.gather(1, last.expand(-1, e.shape[0])), logsig)
+    sig = torch.where(nr > 0, 10.0 ** logsig * 1e-24, torch.zeros_like(logsig))
+    return (sig.T * numberdens.to(f64)).sum(dim=1)
+
+
 def gamma_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: GridData,
                cells_rho, cells_nnetot, cells_ffegrp, gamma_kappagrey: float, opts: Options):
     """One flight step of all gamma packets (reference: gammapkt.cc:719-817),
@@ -621,11 +652,16 @@ def gamma_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gr
         sigma_c = _w(xx < THOMSON_LIMIT, SIGMA_T,
                      _sigma_compton_partial(torch.clamp(xx, min=1e-10), 1 + 2 * xx))
         chi_compton = sigma_c * nnetot * doppler
-        hnu_over_100kev = st.nu_cmf / 2.41326e19
-        sigma_si = 1.16e-24 * hnu_over_100kev**-3.13
-        sigma_fe = 25.7e-24 * hnu_over_100kev**-3.0
-        chi_pe_cmf = (sigma_fe * (rho / (56 * 1.67352e-24)) * ffegrp
-                      + sigma_si * (rho / (28 * 1.67352e-24)) * (1.0 - ffegrp))
+        if opts.use_xcom_gammaphotoion:
+            chi_pe_cmf = _w(nonempty, xcom_photoion_chi(
+                ctx.xcom_energy, ctx.xcom_sigma, ctx.xcom_nrows, ctx.elem_numberdens[safe_mgi],
+                st.nu_cmf).to(dt), z)
+        else:
+            hnu_over_100kev = st.nu_cmf / 2.41326e19
+            sigma_si = 1.16e-24 * hnu_over_100kev**-3.13
+            sigma_fe = 25.7e-24 * hnu_over_100kev**-3.0
+            chi_pe_cmf = (sigma_fe * (rho / (56 * 1.67352e-24)) * ffegrp
+                          + sigma_si * (rho / (28 * 1.67352e-24)) * (1.0 - ffegrp))
         chi_pe = chi_pe_cmf * doppler
         hnu_over_mev = st.nu_cmf / 2.41326e20
         above_thresh = st.nu_cmf > 2.46636e20
@@ -905,6 +941,9 @@ def _rpkt_apply_events(key, st, est, ctx, grid, dad, cells, opts, opacity_case,
     ev_escat = ev_cont & (chi_rnd < chi_escat)
     ev_ff = ev_cont & ~ev_escat & (chi_rnd < chi_escat + chi_ff)
     ev_bf = ev_cont & ~ev_escat & ~ev_ff
+    if opts.vpkt_on:
+        est = vpkt_spawn(st, est, ctx, grid, dad, cells, opts, ev_escat, True, st.nu_cmf,
+                         opacity_case)
     counters = est.counters.clone()
     stats.bump(counters, stats.INTERACTIONS, take_event)
     stats.bump(counters, stats.ESCOUNTER, ev_escat)
@@ -976,6 +1015,25 @@ def _rpkt_apply_events(key, st, est, ctx, grid, dad, cells, opts, opacity_case,
 # ---------------------------------------------------------------------------
 # full-timestep wavefront (reference: update_packets.cc:361-437)
 # ---------------------------------------------------------------------------
+
+
+def vpkt_spawn(st: PacketState, est: Estimators, ctx: StepContext, grid: GridData,
+               dad: DeviceAtomicData, cells, opts: Options, mask, is_scatter: bool, nu_cmf,
+               opacity_case: int) -> Estimators:
+    """Launch virtual packets from the real packets in ``mask`` at their
+    interaction (reference: vpkt.cc:899-962 vpkt_call_estimators; the JAX
+    package's _vpkt_spawn): electron scatters (``is_scatter``, the dipole
+    phase matrix) or thermal emission at ``nu_cmf``. Draws no random
+    number and leaves the packets as they are; skipped when no packet
+    interacts."""
+    if not bool(mask.any()):
+        return est
+    cfg = ctx.vpkt_cfg
+    vspec, vgrid = vpkt_mod.trace_vpkts(
+        cfg, est.vspec, dad, grid, cells, ctx, ctx.vpkt_cum_tau, ctx.vpkt_cum_taunu, st.pos,
+        st.dir, st.prop_time, st.where, nu_cmf, st.e_cmf, st.stokes[:, 1:3], is_scatter, mask,
+        opacity_case, vgrid_acc=est.vgrid if cfg.vgrid_on else None)
+    return est.replace(vspec=vspec, vgrid=est.vgrid if vgrid is None else vgrid)
 
 
 def apply_macroatom_results(key, tag, st: PacketState, ma_res, ma_mask, opts: Options):
@@ -1149,6 +1207,9 @@ def transport_timestep(key, st: PacketState, est: Estimators, grid: GridData,
                 ma_mask_k[kidx] = ma_n
                 ma_level_k = torch.zeros_like(st.ptype)
                 ma_level_k[kidx] = lvl_n
+                if opts.vpkt_on:
+                    est = vpkt_spawn(st, est, ctx, grid, dad, cells, opts, kpkt_rad, False,
+                                     st.nu_cmf, opacity_case)
                 st = emit_rpkt_batch(rng.fold_in(k, 105), 0, st, kpkt_rad, opts)
                 st = st.replace(em_pos=_w3(kpkt_rad, st.pos, st.em_pos),
                                 em_time=_w(kpkt_rad, st.prop_time, st.em_time),
@@ -1195,6 +1256,17 @@ def transport_timestep(key, st: PacketState, est: Estimators, grid: GridData,
                           next_trans=expand(res["next_trans"], 0))
             st2 = apply_macroatom_results(rng.fold_in(k, 109), 110, st, ma_res, ma_mask, opts)
             kindf = _w(ma_mask, ma_res["kind"], torch.zeros_like(ma_res["kind"]))
+            if opts.vpkt_on:
+                # a bound-bound deactivation's virtual packet leaves at its
+                # line's frequency in the line list: there the JAX package's
+                # float64 (E_u - E_l)/h is the list's value bit for bit, so
+                # the segment sum counts the emitting line itself; a float32
+                # level-energy difference would miss it by rounding
+                line = torch.clamp(ma_res["emissiontype"], 0, dad.nlines - 1)
+                nu_v = torch.where(kindf == 1, dad.line_nu.to(st.nu_cmf.dtype)[line],
+                                   ma_res["nu_cmf"])
+                est = vpkt_spawn(st, est, ctx, grid, dad, cells, opts, (kindf == 1) | (kindf == 2),
+                                 False, nu_v, opacity_case)
             cnt = est.counters.clone()
             stats.bump(cnt, stats.MA_STAT_DEACTIVATION_BB, kindf == 1)
             stats.bump(cnt, stats.MA_STAT_DEACTIVATION_FB, kindf == 2)

@@ -56,14 +56,16 @@ line is printed):
      and Guttman gamma thermalisation (gamma lines written for Ni56 and
      Co56; gamma packets must be emitted), nebular_1d_3dgrid_nont (the
      nebular scene, 2^20 packets, timesteps 0-3 with NLTE populations in
-     2-3: the log shows the NLTE outer loop, nlte_0000.out and
-     radfield_0000.out are finite, a population departs from its
-     Boltzmann value, the bin and J_b_lu estimators accumulated),
+     2-3, which stop at a wall budget: the log shows the NLTE outer loop,
+     nlte_0000.out and radfield_0000.out are finite, a population
+     departs from its Boltzmann value, the bin and J_b_lu estimators
+     accumulated),
      nebular_1d_3dgrid (the same with the non-thermal solver: the
      synthetic non-thermal files for the Fe atom, the Spencer-Fano solve
      at 256 points with Auger electrons in timestep 3; the same checks,
      and the NT outcome counters of every timestep sum to the leptons that
-     reached the deposition split, some go to ionisation, every solve's
+     reached the deposition split, as many go to ionisation as the
+     split's fractions make likely, every solve's
      frac_heating lies in (0, 1]; timesteps 2-3 stop at a wall budget,
      leaving only macro-atoms active; each grid update's solves, seconds
      and peak device memory are logged), then the scene's first
@@ -79,7 +81,21 @@ line is printed):
      classic preset on a dense, hot 8-shell model on an 8^3 grid (8192
      packets, timesteps 0-1; some escaped packet must have been
      electron-scattered since its emission, and every escaped packet
-     carries Q or U exactly when it was); every timestep
+     carries Q or U exactly when it was), classic_3d_vpkt (classic_3d's
+     scene and timestep grid with virtual packets, timesteps 0-1:
+     ``VPKT_TXT``'s three observers, six exclusion channels, vpkt-thick
+     cells and velocity-grid maps; timestep 0's rpkt steps and packets are
+     classic_3d's bit for bit, the Stokes spectra and maps are finite,
+     every observer's I is non-zero, every channel's I is at least channel
+     0's in every bin, one spawn of timestep 1 traced again on the card and
+     on the CPU agrees, and the float32-table error of the closed-form
+     segment tau is measured; the trace's seconds per timestep, share of
+     transport, rays, crossings per ray and the run's peak memory are
+     logged) and kilonova_2d_2dgrid_xcomgammaphotoion (kilonova_2d_2dgrid
+     with XCOM gamma photoionisation on the synthetic table and gamma
+     lines, 2^18 packets, timesteps 0-1: every XCOM opacity finite, every
+     timestep's gamma deposition finite, one call's opacities on the card
+     and on the CPU within rtol 1e-12); every timestep
      completes, every output is finite and packets escape; each run also
      logs its kernel launches, their summed CUDA-event ms (the wrapper's
      ``propagate.timing``), the lane-count range and their share of the
@@ -203,6 +219,76 @@ def classic_scene(d):
     write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
 
 
+# vpkt.txt of classic_3d_vpkt (reference: vpkt.cc:611-790): three
+# observers at cos theta 1, 0 and -1 (clipped to +-0.9999) and phi 0, 90
+# and 0 degrees; six spectra: all opacity, no bound-bound, no bound-free,
+# no free-free, no electron scattering, no Fe (the second line table); the
+# run's time window and the default frequency window; cells deeper than the
+# grey depth {thick} become vpkt-thick (thick=2: virtual packets die there,
+# real ones transport in full); tau_max 10; the velocity-grid maps on for
+# the days {vg_t0}-{vg_t1} and one window of 600-30000 Angstrom (the
+# spectra's frequency window)
+VPKT_TXT = ("3\n1 0 -1\n0 90 0\n1\n6\n0 -1 -2 -3 -4 26\n0 0 0\n0\n1 {thick!r}\n10\n"
+            "1\n{vg_t0} {vg_t1}\n1\n600 30000\n")
+# the share of classic_3d_vpkt's nonempty cells made vpkt-thick in
+# timestep 0: the deepest tenth by grey depth
+VPKT_THICK_SHARE = 0.1
+
+
+def _grey_depth(d, grid_type, ncoord, nts):
+    """The grey depth of each nonempty cell at timestep ``nts``'s middle,
+    as ``Simulation.update_grid`` computes it for opacity case 4 (the
+    kappagrey of grid.cc:1722-1834 over the model's Fe-group mass), from
+    the run directory's model alone."""
+    from artis_tpu_torch import grid as grid_mod
+    from artis_tpu_torch.driver import GREY_OP
+    from artis_tpu_torch.io import inputparams as ip
+    from artis_tpu_torch.io import model as model_io
+    from artis_tpu_torch.options import GridType
+
+    p = ip.read_parameterfile(os.path.join(d, "input.txt"))
+    assert p.opacity_case == 4
+    model = model_io.read_model(os.path.join(d, "model.txt"), p.tmin)
+    grid, host = grid_mod.grid_init(model, p.tmin, GridType[grid_type], ncoord, with_host=True,
+                                    device="cpu")
+    mgi = host.mgi_of_cell[host.cell_of_nonemptymgi]
+    vol = model_io.model_cell_volume_at_tmin(model, p.tmin)
+    mtot = (model.rho_tmin * vol).sum()
+    mfegroup = (model.rho_tmin * vol * model.ffegrp).sum()
+    kappa = (0.9 * model.ffegrp[mgi] + 0.1) * GREY_OP / (0.9 * mfegroup / mtot + 0.1)
+    ts = ip.time_init(p.tmin, p.tmax, p.ntimesteps)
+    tratmid = float(ts.mid[nts]) / p.tmin
+    radial_pos = host.initial_radial_pos_sum_mgi[mgi] * tratmid / host.numpropcells_mgi[mgi]
+    dist = np.maximum(0.0, grid.rmax * tratmid - radial_pos)
+    return kappa * model.rho_tmin[mgi] / tratmid ** 3 * dist
+
+
+def classic_vpkt_scene(d):
+    """classic_3d's scene (the same timesteps; the run stops after timestep
+    1) with ``VPKT_TXT``: the deepest ``VPKT_THICK_SHARE`` of the cells by
+    timestep 0's grey depth are vpkt-thick."""
+    classic_scene(d)
+    path = os.path.join(d, "input.txt")
+    lines = open(path).read().splitlines(True)
+    i = next(k for k, line in enumerate(lines) if "timestep_start timestep_finish" in line)
+    lines[i] = "000 002                  # timestep_start timestep_finish\n"
+    open(path, "w").writelines(lines)
+    depth = _grey_depth(d, "CARTESIAN3D", (16, 16, 16), 0)
+    thick = float(np.quantile(depth[depth > 0], 1.0 - VPKT_THICK_SHARE))
+    with open(os.path.join(d, "vpkt.txt"), "w") as f:
+        f.write(VPKT_TXT.format(thick=thick, vg_t0=5.0, vg_t1=9.0))
+
+
+def xcom_scene(d):
+    """kilonova_2d_2dgrid (``cyl_scene``) with the synthetic XCOM table and
+    Ni56 / Co56 gamma lines (synthdata)."""
+    from artis_tpu_torch.synthdata import write_synthetic_gamma_lines, write_synthetic_xcom_data
+
+    cyl_scene(d)
+    write_synthetic_xcom_data(d)
+    write_synthetic_gamma_lines(d)
+
+
 def classic_dense_scene(d):
     """A dense, hot classic scene in which electron scattering is common
     (the 8 shells, 1-2 days and logrho0 -6 of tests/test_torch_deferred.py):
@@ -243,14 +329,17 @@ def nebular_nt_scene(d):
 # (the preset's Spencer-Fano solve at sf_points 256, Auger electrons on:
 # timestep 2, the first non-LTE one, keeps the default solution, timestep 3
 # solves) and without it
+#
+# In the NLTE timesteps the Fe leaves Fe I (with the solver mostly for
+# Fe III), and its macro-atoms then take thousands of jumps before they
+# deactivate, as the JAX package's do (tests/test_torch_nt_chains.py): the
+# transport of timestep 2 did not end within the smoke's time limit
+# (PERF.md, section 6). Timesteps 2-3 of both scenes stop at a wall budget,
+# and the macro-atoms still active go on in the next timestep
+NT_WALL_BUDGET_S = 30.0
 NEBULAR = dict(nt_on=False, nt_solve_spencerfano=False,
-               detailed_bf_estimators_usefromtimestep=2, first_nlte_radfield_timestep=3)
-# with the solver the non-thermal ionisation keeps the Fe mostly in Fe III,
-# whose macro-atoms then take tens of thousands of jumps before they
-# deactivate: the transport of timestep 2 did not end within the smoke's
-# time limit (PERF.md, section 6). Timesteps 2-3 stop at a wall budget, and
-# the macro-atoms still active go on in the next timestep
-NT_WALL_BUDGET_S = 45.0
+               detailed_bf_estimators_usefromtimestep=2, first_nlte_radfield_timestep=3,
+               transport_wall_budget=NT_WALL_BUDGET_S)
 NEBULAR_NT = dict(detailed_bf_estimators_usefromtimestep=2, first_nlte_radfield_timestep=3,
                   transport_wall_budget=NT_WALL_BUDGET_S)
 
@@ -1000,7 +1089,7 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     rpkt_kernel.propagate.timing = []
     t0 = time.time()
     try:
-        with _RunProbe() as probe:
+        with _RunProbe(keep_ts0=name in KEEP_TS0) as probe:
             rc = main_sn3d(cli_args(d, npkts, grid_type, **extra))
             torch.cuda.synchronize()
     finally:
@@ -1063,6 +1152,8 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
         f"work-weighted {rec['steps_per_s']} rpkt steps/s, wall {wall:.1f} s, peak memory "
         f"{rec['peak_mem_bytes']} bytes")
     rec["kernel"] = _kernel_share(name, timing, secs)
+    if name in POST_RUN:
+        rec.update(POST_RUN[name](rec))
     return rec
 
 
@@ -1072,9 +1163,17 @@ class _RunProbe:
     peak device memory (the peak counter is reset at each update; the peaks
     before the resets are kept for the run's own); per timestep the
     leptons that reach the non-thermal deposition split and the NT outcome
-    counters it bumps, and whether a deposited lepton was left over; and
-    each Spencer-Fano solve's inputs and outputs, copied to the CPU (the
-    first solve's, for phase 5) and its frac_heating range."""
+    counters it bumps, the ionisations its fractions make likely, and
+    whether a deposited lepton was left over; each Spencer-Fano solve's
+    inputs and outputs, copied to the CPU (the first solve's, for phase 5)
+    and its frac_heating range; with ``keep_ts0`` the packets after
+    timestep 0; the virtual packets' seconds per timestep (a synchronised
+    wall around each spawn), one spawn of timestep 1 and the trace's
+    ``STATS``, and the run's Stokes totals; the XCOM opacities' non-finite
+    count and first call."""
+
+    def __init__(self, keep_ts0=False):
+        self.keep_ts0 = keep_ts0
 
     def __enter__(self):
         import torch
@@ -1082,20 +1181,31 @@ class _RunProbe:
         from artis_tpu_torch import driver, stats
         from artis_tpu_torch.packets import TYPE_ESCAPE, TYPE_KPKT, TYPE_MA
         from artis_tpu_torch.plasma import nonthermal
-        from artis_tpu_torch.transport import engine
+        from artis_tpu_torch.transport import engine, vpkt
 
         self.update_peak, self.earlier_peaks, self.left_active = {}, [], {}
-        self.deposits, self.nt_counts, self.left_over = {}, {}, 0
+        self.deposits, self.nt_counts, self.left_over, self.ion_expected = {}, {}, 0, {}
         self.sf_first, self.sf_fh = None, []
         self.nts = None
+        # classic_3d / classic_3d_vpkt: the packets after timestep 0; the
+        # virtual packets' seconds per timestep, one spawn of timestep 1
+        # (its sites' inputs and the tables it read) and timestep 1's line
+        # opacity factors; XCOM: non-finite opacities and the first call
+        self.state_ts0, self.vpkt_s, self.vpkt_spawn, self.tau_sob_ts1 = None, {}, None, None
+        self.xcom_nonfinite, self.xcom_first = 0, None
+        vpkt.reset_stats()
         probe = self
         nt_stats = (stats.NT_STAT_TO_IONIZATION, stats.NT_STAT_TO_EXCITATION,
                     stats.NT_STAT_TO_KPKT)
         self._orig = [(driver.Simulation, "update_grid", driver.Simulation.update_grid),
                       (driver.Simulation, "do_timestep", driver.Simulation.do_timestep),
                       (engine, "nt_deposit_split", engine.nt_deposit_split),
-                      (nonthermal, "solve_spencerfano_cells", nonthermal.solve_spencerfano_cells)]
-        upd, step, split, solve = (o[2] for o in self._orig)
+                      (nonthermal, "solve_spencerfano_cells", nonthermal.solve_spencerfano_cells),
+                      (engine, "vpkt_spawn", engine.vpkt_spawn),
+                      (engine, "xcom_photoion_chi", engine.xcom_photoion_chi),
+                      (driver.Simulation, "finish", driver.Simulation.finish)]
+        upd, step, split, solve, spawn, xcom, fin = (o[2] for o in self._orig)
+        self.vspec_total = self.vgrid_total = None
 
         def update_grid(sim, nts):
             probe.nts = nts
@@ -1109,6 +1219,9 @@ class _RunProbe:
         def do_timestep(sim, nts):
             step(sim, nts)
             st = sim.state
+            if probe.keep_ts0 and nts == 0:
+                probe.state_ts0 = {f: getattr(st, f).cpu().clone()
+                                   for f in st.__dataclass_fields__}
             t2 = float(sim.ts.start[nts] + sim.ts.width[nts])
             act = (st.prop_time < t2) & (st.ptype != TYPE_ESCAPE)
             probe.left_active[nts] = {int(t): int((act & (st.ptype == t)).sum())
@@ -1124,6 +1237,13 @@ class _RunProbe:
             probe.deposits[probe.nts] = probe.deposits.get(probe.nts, 0) + n
             delta = (after - before).cpu().numpy().astype(np.int64)
             probe.nt_counts[probe.nts] = probe.nt_counts.get(probe.nts, 0) + delta
+            # the ionisations the split's fractions make likely: the sum of
+            # frac_ionization over the deposits outside thick cells
+            ctx, grid, cells = a[0], a[1], a[3]
+            mgi = torch.clamp(grid.nonemptymgi_of_cell[st.where[nt_dep]], min=0)
+            p_ion = torch.where(cells.thick[mgi] == 1, 0.0, ctx.nt_frac_ionization[mgi].double())
+            probe.ion_expected[probe.nts] = (probe.ion_expected.get(probe.nts, 0.0)
+                                             + float(p_ion.sum()))
             return st2, est2
 
         def solve_spencerfano_cells(ntd, dad, levelpops, nnion, nne, **kw):
@@ -1138,6 +1258,46 @@ class _RunProbe:
                                       out={k: cpu(v) for k, v in out.items()})
             return out
 
+        def vpkt_spawn(st, est, ctx, grid, dad, cells, opts, mask, is_scatter, nu_cmf,
+                       opacity_case):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = spawn(st, est, ctx, grid, dad, cells, opts, mask, is_scatter, nu_cmf,
+                        opacity_case)
+            torch.cuda.synchronize()
+            probe.vpkt_s[probe.nts] = probe.vpkt_s.get(probe.nts, 0.0) + time.time() - t0
+            if probe.nts == 1:
+                probe.tau_sob_ts1 = (ctx.tau_sob_factor, ctx.t_mid)
+            # one spawn of timestep 1, an electron-scattering one if any
+            first = probe.vpkt_spawn
+            if (probe.nts == 1 and bool(mask.any())
+                    and (first is None or (is_scatter and not first["is_scatter"]))):
+                idx = torch.nonzero(mask)[:, 0]
+                probe.vpkt_spawn = dict(
+                    is_scatter=bool(is_scatter), ctx=ctx, dad=dad, grid=grid, cells=cells,
+                    opacity_case=opacity_case, cfg=ctx.vpkt_cfg,
+                    sites={k: v[idx].clone() for k, v in (
+                        ("pos", st.pos), ("dir", st.dir), ("prop_time", st.prop_time),
+                        ("where", st.where), ("nu_cmf", nu_cmf), ("e_cmf", st.e_cmf),
+                        ("stokes_qu", st.stokes[:, 1:3]))})
+            return out
+
+        def xcom_photoion_chi(*a):
+            out = xcom(*a)
+            probe.xcom_nonfinite += int((~torch.isfinite(out)).sum())
+            if probe.xcom_first is None and out.numel():
+                probe.xcom_first = ([x.detach().cpu().clone() for x in a], out.cpu().clone())
+            return out
+
+        def finish(sim):
+            fin(sim)
+            if sim.vpkt_cfg is not None:
+                probe.vspec_total = sim._vspec_total.copy()
+                probe.vgrid_total = sim._vgrid_total.copy()
+
+        driver.Simulation.finish = finish
+        engine.vpkt_spawn = vpkt_spawn
+        engine.xcom_photoion_chi = xcom_photoion_chi
         driver.Simulation.update_grid = update_grid
         driver.Simulation.do_timestep = do_timestep
         engine.nt_deposit_split = nt_deposit_split
@@ -1145,8 +1305,11 @@ class _RunProbe:
         return self
 
     def __exit__(self, *exc):
+        from artis_tpu_torch.transport import vpkt
+
         for owner, name, fn in self._orig:
             setattr(owner, name, fn)
+        self.vpkt_stats = dict(vpkt.STATS)
         return False
 
 
@@ -1733,7 +1896,10 @@ def check_nebular_nt(rec):
     """The nebular run with the non-thermal solver: ``check_nebular``, and
     in every timestep the three NT outcome counters sum to the leptons that
     reached the deposition split, none of which stays a deposited packet;
-    some lepton went to ionisation; timestep 3 solved Spencer-Fano, and
+    the leptons that went to ionisation are as many as the split's
+    frac_ionization makes likely (within 4 sqrt(n) + 4: with the grid
+    update on float64 atomic data, frac_ionization is so small
+    here that none may go); timestep 3 solved Spencer-Fano, and
     every solve's frac_heating is finite and in (0, 1] (the scene has no
     grey cell); timesteps 0-1 completed, and a timestep stopped at the wall
     budget left only macro-atoms and packets they made active. Logs each
@@ -1767,11 +1933,13 @@ def check_nebular_nt(rec):
     if probe.left_over:
         raise RuntimeError(f"{name}: {probe.left_over} deposited leptons left the split as such")
     n_ion = sum(int(c[0]) for c in probe.nt_counts.values())
+    exp_ion = sum(probe.ion_expected.values())
     solves = [r["sf_solves"] for r in rec["timesteps"]]
-    log(f"{name}: {n_ion} leptons to ionisation; Spencer-Fano solves per timestep {solves}; "
-        f"frac_heating (min, max, finite) per solve {probe.sf_fh}")
-    if n_ion <= 0:
-        raise RuntimeError(f"{name}: no deposited lepton went to ionisation")
+    log(f"{name}: {n_ion} leptons to ionisation, {exp_ion} expected from the split's "
+        f"frac_ionization; Spencer-Fano solves per timestep {solves}; frac_heating (min, max, "
+        f"finite) per solve {probe.sf_fh}")
+    if abs(n_ion - exp_ion) > 4.0 * np.sqrt(exp_ion) + 4.0:
+        raise RuntimeError(f"{name}: {n_ion} leptons went to ionisation, {exp_ion} expected")
     if solves[3] <= 0 or not probe.sf_fh:
         raise RuntimeError(f"{name}: timestep 3 solved no Spencer-Fano system: {solves}")
     if not all(ok and lo > 0 and hi <= 1 for lo, hi, ok in probe.sf_fh):
@@ -1889,6 +2057,219 @@ def check_classic_dense(rec):
                            "emission (its Stokes vector is untested)")
 
 
+# classic_3d_vpkt: a channel's Stokes I bin may fall below channel 0's by
+# this share of it (the closed-form segment tau subtracts two cumulative
+# sums, each scaled by nu / (c dnu/dl); tests/test_torch_vpkt.py sees
+# 1.9e-8 in float64), and the card's trace of a captured spawn may differ
+# from the CPU's by this share of the largest bin (float32 rays)
+VPKT_CHANNEL_RTOL = 1e-5
+VPKT_CARD_CPU_TOL = 1e-3
+# the float32 cumulative line tables are kept if their segment sums stay
+# within this of a float64 per-line sum for segment taus in [0.01, 10]
+VPKT_F32_TABLE_TOL = 1e-3
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (NaN included)."""
+    import torch
+
+    if a.is_floating_point():
+        it = torch.int32 if a.element_size() == 4 else torch.int64
+        a, b = a.contiguous().view(it), b.contiguous().view(it)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _f32_table_error(tau_sob, t_mid, nsamples=4096, maxlen=2048, seed=5):
+    """Segment sums of a float32 cumulative line table (vpkt's closed form
+    with float32 tables: the difference of two running sums over the
+    nu-descending list) against float64 per-line sums, on the card, for
+    ``nsamples`` random (cell, first line, length <= maxlen) segments of
+    timestep 1's tau factors: returns (segments with tau in [0.01, 10],
+    their largest and median relative error, the share above
+    ``VPKT_F32_TABLE_TOL``)."""
+    import torch
+
+    g = torch.Generator(device=tau_sob.device).manual_seed(seed)
+    ncells, nlines = tau_sob.shape
+    maxlen = min(maxlen, nlines)
+    cell = torch.randint(0, ncells, (nsamples,), generator=g, device=tau_sob.device)
+    length = torch.randint(1, maxlen + 1, (nsamples,), generator=g, device=tau_sob.device)
+    j1 = (torch.rand(nsamples, generator=g, device=tau_sob.device)
+          * (nlines - length)).long()
+    cum32 = torch.cat([torch.zeros((ncells, 1), dtype=torch.float32, device=tau_sob.device),
+                       torch.cumsum(tau_sob.float(), dim=1)], dim=1)
+    seg32 = (cum32[cell, j1 + length] - cum32[cell, j1]).double() * t_mid
+    del cum32
+    k = torch.arange(maxlen, device=tau_sob.device)
+    cols = torch.clamp(j1[:, None] + k[None, :], max=nlines - 1)
+    vals = tau_sob[cell[:, None], cols].double()
+    seg64 = torch.where(k[None, :] < length[:, None], vals, torch.zeros_like(vals)).sum(1) * t_mid
+    sel = (seg64 >= 0.01) & (seg64 <= 10.0)
+    rel = ((seg32 - seg64).abs() / seg64)[sel]
+    if rel.numel() == 0:
+        return 0, 0.0, 0.0, 0.0
+    return (int(sel.sum()), float(rel.max()), float(rel.median()),
+            float((rel > VPKT_F32_TABLE_TOL).double().mean()))
+
+
+def post_vpkt(rec):
+    """classic_3d_vpkt, right after its run: the trace's seconds per
+    timestep and share of the transport seconds, the rays, crossings per
+    ray; the Stokes spectra finite, every observer's I non-zero and every
+    exclusion channel's I at least channel 0's in every bin
+    (``VPKT_CHANNEL_RTOL``), the maps finite and non-zero; the captured
+    spawn of timestep 1 traced again on the card and on the CPU from the
+    same inputs, the worst difference within ``VPKT_CARD_CPU_TOL`` of the
+    largest bin; the float32-table error (``_f32_table_error``). Returns
+    the record's additions and drops the probe's references to the run's
+    tables."""
+    import types
+
+    import torch
+
+    from artis_tpu_torch.devutil import map_tensors
+    from artis_tpu_torch.transport import vpkt
+
+    name = "classic_3d_vpkt"
+    probe = rec["probe"]
+    out = {}
+    per_ts = []
+    for r in rec["timesteps"]:
+        vs = probe.vpkt_s.get(r["nts"], 0.0)
+        per_ts.append(dict(nts=r["nts"], trace_s=vs, transport_s=r["seconds"],
+                           share=vs / max(r["seconds"], 1e-12)))
+        log(f"{name}: timestep {r['nts']}: virtual packets {vs} s of the {r['seconds']} s of "
+            f"transport ({vs / max(r['seconds'], 1e-12)})")
+    st = probe.vpkt_stats
+    out["vpkt"] = dict(per_timestep=per_ts, sites=st["sites"], rays=st["rays"],
+                       crossings=st["crossings"],
+                       crossings_per_ray=st["crossings"] / max(st["rays"], 1),
+                       peak_mem_bytes=rec["peak_mem_bytes"], ray_chunk=vpkt.RAY_CHUNK)
+    log(f"{name}: {st['sites']} spawn sites, {st['rays']} rays traced, {st['crossings']} "
+        f"crossings ({out['vpkt']['crossings_per_ray']} per ray, rays traced "
+        f"{vpkt.RAY_CHUNK} at most at once); peak memory {rec['peak_mem_bytes']} bytes")
+    vs, vg = probe.vspec_total, probe.vgrid_total
+    if vs is None:
+        raise RuntimeError(f"{name}: the run wrote no virtual spectra")
+    bad = int((~np.isfinite(vs)).sum() + (~np.isfinite(vg)).sum())
+    if bad:
+        raise RuntimeError(f"{name}: {bad} non-finite bins in the virtual spectra or maps")
+    tot = vs[..., 0].sum(axis=(2, 3))  # (nobs, nspec)
+    log(f"{name}: Stokes I per observer and channel {tot.tolist()}; |Q|, |U| sums "
+        f"{float(np.abs(vs[..., 1]).sum())} {float(np.abs(vs[..., 2]).sum())}; map I "
+        f"{float(vg[..., 0].sum())}")
+    if vs.shape[:2] != (3, 6) or not np.all(tot[:, 0] > 0) or not vg[..., 0].sum() > 0:
+        raise RuntimeError(f"{name}: an observer's Stokes I or the map is zero: {tot}")
+    low = vs[:, 1:, :, :, 0] - vs[:, :1, :, :, 0]
+    worst = float((low / np.maximum(vs[:, :1, :, :, 0], 1e-300)).min())
+    log(f"{name}: the lowest channel bin against channel 0, relative: {worst}")
+    if worst < -VPKT_CHANNEL_RTOL:
+        raise RuntimeError(f"{name}: an exclusion channel's I is below channel 0's ({worst})")
+    for fname in ("specpol_virtual.out", "vpkt_grid.out"):
+        v = np.loadtxt(os.path.join(rec["dir"], fname), skiprows=1)
+        if not np.all(np.isfinite(v)):
+            raise RuntimeError(f"{name}: non-finite values in {fname}")
+    cap = probe.vpkt_spawn
+    if cap is None:
+        raise RuntimeError(f"{name}: no spawn captured in timestep 1")
+    sites = cap["sites"]
+    n = sites["pos"].shape[0]
+    ctx = cap["ctx"]
+
+    def trace(to):
+        cfg = cap["cfg"]
+        c = types.SimpleNamespace(bf_a=to(ctx.bf_a), bf_dep=to(ctx.bf_dep),
+                                  chi_ff_nnionpart=to(ctx.chi_ff_nnionpart))
+        shp = (cfg.nobs, int(cfg.vgrid_numin.shape[0]), cfg.vgrid_ny, cfg.vgrid_nz, 3)
+        dev = to(sites["pos"]).device
+        t0 = time.time()
+        v, g = vpkt.trace_vpkts(
+            cfg, vpkt.zero_vspectra(cfg, sites["pos"].dtype, dev),
+            map_tensors(to, cap["dad"]), map_tensors(to, cap["grid"]),
+            map_tensors(to, cap["cells"]), c, to(ctx.vpkt_cum_tau), to(ctx.vpkt_cum_taunu),
+            *(to(sites[k]) for k in ("pos", "dir", "prop_time", "where", "nu_cmf", "e_cmf",
+                                     "stokes_qu")),
+            cap["is_scatter"], torch.ones(n, dtype=torch.bool, device=dev), cap["opacity_case"],
+            vgrid_acc=torch.zeros(shp, dtype=sites["pos"].dtype, device=dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return v.double().cpu(), g.double().cpu(), time.time() - t0
+
+    card_v, card_g, card_s = trace(lambda x: x)
+    cpu_v, cpu_g, cpu_s = trace(lambda x: x.cpu())
+    diff = max(float((card_v - cpu_v).abs().max() / cpu_v.abs().max().clamp(min=1e-300)),
+               float((card_g - cpu_g).abs().max() / cpu_g.abs().max().clamp(min=1e-300)))
+    tot_diff = float(((card_v[..., 0].sum((2, 3)) - cpu_v[..., 0].sum((2, 3))).abs()
+                      / cpu_v[..., 0].sum((2, 3)).abs().clamp(min=1e-300)).max())
+    out["vpkt"].update(card_vs_cpu=diff, card_vs_cpu_totals=tot_diff, captured_sites=n,
+                       captured_is_scatter=cap["is_scatter"], card_trace_s=card_s,
+                       cpu_trace_s=cpu_s)
+    log(f"{name}: captured spawn of timestep 1 ({n} sites, electron scattering "
+        f"{cap['is_scatter']}): card {card_s:.3f} s, CPU {cpu_s:.3f} s; worst bin difference "
+        f"{diff} of the largest bin, worst (observer, channel) I total {tot_diff}; Stokes I "
+        f"{float(cpu_v[..., 0].sum())}")
+    if not cpu_v[..., 0].sum() > 0 or diff > VPKT_CARD_CPU_TOL:
+        raise RuntimeError(f"{name}: the card's trace differs from the CPU's ({diff})")
+    tau_sob, t_mid = probe.tau_sob_ts1
+    nseg, worst32, med32, over = _f32_table_error(tau_sob, float(t_mid))
+    out["vpkt"].update(f32_table_segments=nseg, f32_table_max_rel=worst32,
+                       f32_table_median_rel=med32, f32_table_share_over_tol=over)
+    log(f"{name}: float32 cumulative line tables against float64 per-line sums, {nseg} "
+        f"segments with tau in [0.01, 10] of timestep 1: max rel {worst32}, median {med32}, "
+        f"share above {VPKT_F32_TABLE_TOL}: {over}")
+    probe.vpkt_spawn = probe.tau_sob_ts1 = None
+    return out
+
+
+def post_xcom(rec):
+    """kilonova_2d_2dgrid_xcomgammaphotoion, right after its run: every
+    XCOM opacity of the run finite; every timestep's gamma deposition
+    finite, and some positive; the first call's inputs again on the CPU,
+    every opacity within rtol 1e-12 of the card's."""
+    import torch
+
+    from artis_tpu_torch.transport.engine import xcom_photoion_chi
+
+    name = "kilonova_2d_2dgrid_xcomgammaphotoion"
+    probe = rec["probe"]
+    dep = np.loadtxt(os.path.join(rec["dir"], "deposition.out"), ndmin=2)[:, 5]
+    log(f"{name}: {probe.xcom_nonfinite} non-finite XCOM opacities; gamma deposition per "
+        f"timestep {dep.tolist()} Lsun")
+    if probe.xcom_nonfinite or probe.xcom_first is None:
+        raise RuntimeError(f"{name}: non-finite or no XCOM opacities")
+    if not np.all(np.isfinite(dep)) or not np.any(dep > 0):
+        raise RuntimeError(f"{name}: gamma deposition not finite or zero: {dep}")
+    args, card = probe.xcom_first
+    cpu = xcom_photoion_chi(*args)
+    rel = float(((card - cpu).abs() / cpu.abs().clamp(min=1e-300)).max())
+    log(f"{name}: XCOM opacity of {card.numel()} gamma packets, card against CPU: max rel "
+        f"{rel} (energies {float(args[4].min()) / 2.41326e20:.4g}-"
+        f"{float(args[4].max()) / 2.41326e20:.4g} MeV)")
+    if not torch.allclose(card, cpu, rtol=1e-12, atol=0.0):
+        raise RuntimeError(f"{name}: the card's XCOM opacity differs from the CPU's ({rel})")
+    return dict(xcom=dict(card_vs_cpu=rel, packets=card.numel(), gamma_dep_lsun=dep.tolist()))
+
+
+def check_vpkt_ts0(classic, vrec):
+    """Timestep 0 of classic_3d_vpkt is classic_3d's: the same rpkt steps
+    and every packet field bit for bit (only the kernel's float-atomic
+    estimator sums may differ between two runs; the packets do not)."""
+    a, b = classic["probe"].state_ts0, vrec["probe"].state_ts0
+    sa, sb = classic["timesteps"][0]["steps"], vrec["timesteps"][0]["steps"]
+    bad = [f for f in a if not _same_bits(a[f], b[f])]
+    log(f"classic_3d_vpkt: timestep 0 rpkt steps {sb} (classic_3d {sa}); packet fields that "
+        f"differ from classic_3d's: {bad}")
+    if sa != sb or bad:
+        raise RuntimeError(f"classic_3d_vpkt: timestep 0 differs from classic_3d's: steps {sa} "
+                           f"{sb}, fields {bad}")
+
+
+# the runs whose packets after timestep 0 are kept, and what runs right
+# after a run (before the next frees its memory)
+KEEP_TS0 = {"classic_3d", "classic_3d_vpkt"}
+POST_RUN = {"classic_3d_vpkt": post_vpkt, "kilonova_2d_2dgrid_xcomgammaphotoion": post_xcom}
+
+
 # the main-path runs of phase 4: name, scene, packets, grid, the kernel
 # configurations the run must launch, and its options
 CART = ["rpkt_crossing_cart3d"]
@@ -1917,6 +2298,12 @@ SCENES = [
      dict(preset="nltenebular", **NEBULAR_NT)),
     ("classic_3d", classic_scene, NPKTS_REAL, "CARTESIAN3D", CART + ["rpkt_crossing_deferred"],
      dict(preset="classic")),
+    # classic_3d's scene with virtual packets, timesteps 0-1
+    ("classic_3d_vpkt", classic_vpkt_scene, NPKTS_REAL, "CARTESIAN3D",
+     CART + ["rpkt_crossing_deferred"], dict(preset="classic", vpkt_on=True)),
+    # kilonova_2d_2dgrid with XCOM gamma photoionisation (timesteps 0-1)
+    ("kilonova_2d_2dgrid_xcomgammaphotoion", xcom_scene, NPKTS_2D, "CYLINDRICAL2D",
+     ["rpkt_crossing_cyl2d"], dict(use_xcom_gammaphotoion=True)),
     # the dense classic scene on an 8^3 grid, at few packets: its k-packets
     # and macro-atoms cycle for about 1300 iterations in timestep 0
     ("classic_dense", classic_dense_scene, NPKTS_DENSE, "CARTESIAN3D",
@@ -1930,14 +2317,17 @@ def scene_runs(workdir, names):
     (``_run_scene``: per-timestep grid-update seconds, wall, peak device
     memory, kernel share); raises on an unknown name."""
     table = {sc[0]: sc for sc in SCENES}
+    runs = {}
     for name in names:
         if name not in table:
             raise SystemExit(f"unknown scene {name}; scenes: {sorted(table)}")
         _, make, npkts, grid, expect, extra = table[name]
-        rec = _run_scene(workdir, name, make, npkts, grid, expect, **extra)
+        runs[name] = rec = _run_scene(workdir, name, make, npkts, grid, expect, **extra)
         if name == "nebular_1d_3dgrid":
             check_nebular_nt(rec)
             phase_sf_card_vs_cpu(rec)
+    if "classic_3d" in runs and "classic_3d_vpkt" in runs:
+        check_vpkt_ts0(runs["classic_3d"], runs["classic_3d_vpkt"])
 
 
 def main():
@@ -1975,6 +2365,7 @@ def main():
         check_nebular_nt(runs["nebular_1d_3dgrid"])
         phase_sf_card_vs_cpu(runs["nebular_1d_3dgrid"])
         check_classic(runs["classic_3d"])
+        check_vpkt_ts0(runs["classic_3d"], runs["classic_3d_vpkt"])
         check_classic_dense(runs["classic_dense"])
     # bin events activated the macro-atom on lines of their bins, and the
     # analytic schemes resolved gamma packets
@@ -2011,6 +2402,12 @@ def main():
     for key in ("rpkt_crossing_cart3d", "rpkt_crossing_bfrate", "rpkt_crossing_multibin",
                 "rpkt_crossing_jblue"):
         rec[key]["launches_nebular_1d_3dgrid"] = runs["nebular_1d_3dgrid"]["launches"][key]
+    # the new main paths of virtual packets (K2's geometry in K6 mode) and
+    # XCOM (K3)
+    for key in ("rpkt_crossing_cart3d", "rpkt_crossing_deferred"):
+        rec[key]["launches_classic_3d_vpkt"] = runs["classic_3d_vpkt"]["launches"][key]
+    rec["rpkt_crossing_cyl2d"]["launches_kilonova_2d_2dgrid_xcomgammaphotoion"] = \
+        runs["kilonova_2d_2dgrid_xcomgammaphotoion"]["launches"]["rpkt_crossing_cyl2d"]
     kernels = []
     for key, (label, replaces) in CONFIGS.items():
         r = rec[key]
@@ -2022,6 +2419,10 @@ def main():
                             **{k: v for k, v in r.items()
                                if k.endswith("rows_ms") or k == "note"
                                or k.startswith("launches_")}))
+    # the virtual packets' trace is torch ops, not a kernel: its numbers
+    # beside the kernels'
+    log("trace_vpkts: " + json.dumps(runs["classic_3d_vpkt"]["vpkt"]))
+    log("xcom: " + json.dumps(runs["kilonova_2d_2dgrid_xcomgammaphotoion"]["xcom"]))
     log(f"total {time.time() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

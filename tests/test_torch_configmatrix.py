@@ -25,9 +25,12 @@ points, the synthetic non-thermal files of
 ``synthdata.write_synthetic_nonthermal_data`` in the run directory), run
 for three timesteps: the second is the first non-LTE timestep, which keeps
 the default solution, the third solves Spencer-Fano and splits the
-deposited leptons. kilonova_2d_2dgrid_xcomgammaphotoion waits for a
-synthetic xcom_photoion_data.txt. The table is the port's own copy; the
-JAX test module is not imported."""
+deposited leptons. kilonova_2d_2dgrid_xcomgammaphotoion is kilonova_2d_2dgrid
+with XCOM gamma photoionisation, on the synthetic
+``synthdata.write_synthetic_xcom_data`` table and synthetic Ni56 / Co56
+gamma lines (tests/test_torch_xcom.py holds it against the JAX package);
+its gamma packets must deposit energy. The table is the port's own copy;
+the JAX test module is not imported."""
 
 import os
 
@@ -65,6 +68,9 @@ CONFIGS = {
     "kilonova_2d_2dgrid_expansionopac": (
         "kilonova_lte", _mini(grid_type="CYLINDRICAL2D", expansionopacities_on=True), 2,
         dict(ncells=3)),
+    "kilonova_2d_2dgrid_xcomgammaphotoion": (
+        "kilonova_lte", _mini(grid_type="CYLINDRICAL2D", use_xcom_gammaphotoion=True), 2,
+        dict(ncells=3)),
     "kilonova_2d_3dgrid": ("kilonova_lte", _mini(**GRID8), 2, dict(ncells=3)),
     "nebular_1d_3dgrid_nont": (
         "nltenebular", _mini(**GRID8, **NONT, detailed_bf_estimators_usefromtimestep=1), 1,
@@ -86,7 +92,9 @@ CONFIGS = {
 def test_config(name, tmp_path):
     from artis_tpu_torch import options as to
     from artis_tpu_torch.driver import Simulation
-    from artis_tpu_torch.synthdata import make_run, write_synthetic_nonthermal_data
+    from artis_tpu_torch.synthdata import (make_run, write_synthetic_gamma_lines,
+                                           write_synthetic_nonthermal_data,
+                                           write_synthetic_xcom_data)
 
     preset, okw, model_dim, make_kw = CONFIGS[name]
     okw = dict(okw, grid_type=to.GridType[okw["grid_type"]])
@@ -101,6 +109,9 @@ def test_config(name, tmp_path):
     opts = getattr(to, preset)(**okw)
     if opts.nt_on:
         write_synthetic_nonthermal_data(d, ((26, 3), (27, 2), (28, 2)))
+    if opts.use_xcom_gammaphotoion:
+        write_synthetic_xcom_data(d, ((26, 3), (27, 2), (28, 2)))
+        write_synthetic_gamma_lines(d)
     sim = Simulation(d, opts, datadir="/nonexistent", device="cpu")
     modes = []
     for ts in range(mk["ntimesteps"] - 1):
@@ -117,6 +128,9 @@ def test_config(name, tmp_path):
         assert sim.sf_solves >= 1 and sim._sf_carry is not None
         c = sim.est.counters.numpy()
         assert c[stats.NT_STAT_TO_IONIZATION] + c[stats.NT_STAT_TO_KPKT] > 0
+
+    if opts.use_xcom_gammaphotoion:
+        assert sim.xcom is not None and np.all(sim.gamma_dep_ts[:2] > 0), sim.gamma_dep_ts
 
     types = sim.state.ptype.numpy()
     assert len(types) == opts.npkts

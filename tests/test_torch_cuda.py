@@ -8,8 +8,11 @@ packet order and sorted by cell; the redesigned cylindrical walk K3 on the
 2^18, in both row modes and with grey scatters), on the main path through the CLI, two same-seed runs of a small nebular scene
 (timestep 0 bitwise identical but for the sums the kernel adds with float
 atomics) and the host sums' CUDA formulation (the same bits on every
-call); and the Spencer-Fano solve on the card against the CPU in float64,
-and a nebular timestep with the non-thermal solver on the card.
+call); the Spencer-Fano solve on the card against the CPU in float64,
+and a nebular timestep with the non-thermal solver on the card; the
+closed-form oracles of tests/test_torch_oracles.py through K1; two
+same-seed runs with virtual packets (the same virtual spectra bit for
+bit); and the XCOM photoelectric opacity on the card against the CPU.
 
 Every test here needs an NVIDIA GPU and skips where there is none. The file
 imports no jax, so it runs where only PyTorch is installed; the
@@ -679,3 +682,75 @@ def test_nebular_timestep_with_the_solver_on_card(tmp_path):
     p = sim.state.ptype
     assert not bool(((p == TYPE_NTLEPTON_DEPOSITED) | (p == TYPE_NTALPHA_DEPOSITED)).any())
     assert bool(torch.isfinite(sim.cells.Te).all())
+
+
+@pytest.fixture(scope="module")
+def oracle_sim_cuda(tmp_path_factory):
+    _need_cuda()
+    from test_torch_oracles import oracle_sim
+
+    return oracle_sim(str(tmp_path_factory.mktemp("cuda_oracle")), "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oracle", ["pcygni_check", "planck_check"])
+def test_oracles_through_k1(oracle_sim_cuda, oracle):
+    """tests/test_torch_oracles.py's closed forms (the P-Cygni profile of a
+    two-level atom, the Planck spectrum of the thermalisation limit) with
+    the crossing kernel K1 on the card."""
+    import test_torch_oracles
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    rpkt_kernel.reset_launches()
+    getattr(test_torch_oracles, oracle)(*oracle_sim_cuda)
+    assert rpkt_kernel.propagate.launches["rpkt_crossing_sph1d"] > 0
+
+
+@pytest.mark.cuda
+def test_same_seed_vpkt_runs_repeat(tmp_path):
+    """Two same-seed classic runs with virtual packets (the six exclusion
+    channels and the velocity-grid maps) write the same
+    specpol_virtual.out and vpkt_grid.out after timestep 0: the trace and
+    its binning (sorted index_put_) repeat bit for bit on the card."""
+    _need_cuda()
+    from artis_tpu_torch.driver import Simulation
+
+    vpkt_txt = ("3\n1 0 -1\n0 90 0\n1\n6\n0 -1 -2 -3 -4 26\n0 0 0\n0\n1 1e9\n10\n"
+                "1\n0.5 3.0\n1\n3500 8000\n")
+    out = []
+    for k in range(2):
+        d = tmp_path / f"run{k}"
+        d.mkdir()
+        make_run(str(d), ntimesteps=3, tmin_days=1.0, tmax_days=2.0, ngreyts=0, ncells=8,
+                 logrho0=-7.0)
+        (d / "vpkt.txt").write_text(vpkt_txt)
+        sim = Simulation(str(d), _opts(20000, grid_type="CARTESIAN3D", ncoordgrid_x=8,
+                                       ncoordgrid_y=8, ncoordgrid_z=8, dipole=True,
+                                       pol_on=True, vpkt_on=True), device="cuda")
+        sim.do_timestep(0)
+        sim.finish()
+        sim.close()
+        assert sim._vspec_total[..., 0].sum() > 0
+        out.append([(d / f).read_bytes() for f in ("specpol_virtual.out", "vpkt_grid.out")])
+    assert out[0] == out[1]
+
+
+@pytest.mark.cuda
+def test_xcom_opacity_card_matches_cpu(tmp_path):
+    """The XCOM photoelectric opacity of gamma_step on the card against the
+    CPU, float64, for energies across and beyond every table."""
+    _need_cuda()
+    from artis_tpu_torch.io.gammadata import read_xcom_photoion
+    from artis_tpu_torch.synthdata import write_synthetic_xcom_data
+    from artis_tpu_torch.transport.engine import xcom_photoion_chi
+
+    write_synthetic_xcom_data(str(tmp_path))
+    e, s, n = read_xcom_photoion(str(tmp_path / "xcom_photoion_data.txt"), [26, 27, 28])
+    rng = np.random.default_rng(3)
+    nu = torch.as_tensor(10.0 ** rng.uniform(-2.5, 1.3, 100000) * 2.41326e20)
+    nd = torch.as_tensor(10.0 ** rng.uniform(0, 8, (100000, 3)))
+    args = [torch.as_tensor(x) for x in (e, s, n)] + [nd, nu]
+    cpu = xcom_photoion_chi(*args)
+    card = xcom_photoion_chi(*[x.cuda() for x in args]).cpu()
+    assert torch.isfinite(card).all() and (card > 0).all()
+    torch.testing.assert_close(card, cpu, rtol=1e-12, atol=0.0)

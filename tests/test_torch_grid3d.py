@@ -478,10 +478,12 @@ def test_check_supported_takes_the_new_slice():
         check_supported(to.nltenebular(grid_type=gt), 4)
         check_supported(to.nltenebular(grid_type=gt, nt_solve_spencerfano=False), 4)
         check_supported(base.replace(grid_type=gt, nt_on=True, nt_solve_spencerfano=True), 4)
+        # virtual packets and XCOM gamma photoionisation
+        check_supported(to.classic(grid_type=gt, vpkt_on=True), 4)
+        check_supported(base.replace(grid_type=gt, vpkt_on=True, use_xcom_gammaphotoion=True), 4)
     with pytest.raises(NotImplementedError, match="grid_type"):
         check_supported(base.replace(grid_type="SPHERICAL3D"), 4)
-    for name, value in (("vpkt_on", True), ("use_xcom_gammaphotoion", True),
-                        ("record_linestat", True), ("track_ion_stats", True),
+    for name, value in (("record_linestat", True), ("track_ion_stats", True),
                         ("log_macroatom", True)):
         with pytest.raises(NotImplementedError, match=name):
             check_supported(base.replace(**{name: value}), 4)

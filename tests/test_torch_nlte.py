@@ -273,6 +273,8 @@ def test_check_supported_takes_nebular_without_nonthermal():
     for kw in (dict(nt_on=True, nt_solve_spencerfano=False),
                dict(nt_on=False, nt_solve_spencerfano=True), {}):
         check_supported(to.nltenebular(**kw))
+    # virtual packets run with it too; the run diagnostics do not
     for kw in (dict(nt_on=False, nt_solve_spencerfano=False, vpkt_on=True), dict(vpkt_on=True)):
-        with pytest.raises(NotImplementedError, match="vpkt_on"):
-            check_supported(to.nltenebular(**kw))
+        check_supported(to.nltenebular(**kw))
+        with pytest.raises(NotImplementedError, match="record_linestat"):
+            check_supported(to.nltenebular(record_linestat=True, **kw))

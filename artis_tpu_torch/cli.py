@@ -3,8 +3,9 @@
 Port of the JAX package's CLI (reference: sn3d.cc:686-946 main,
 exspec.cc:155-248 main). The preset is selected at runtime with --preset
 plus field overrides (--set key=value); --device picks where the tensors
-live (a CUDA device runs the crossing kernel). Multi-device runs (--mesh)
-are not ported.
+live (a CUDA device runs the crossing kernel). sn3d takes the run
+directory's pid lockfile (artis.pid) for the run. Multi-device runs
+(--mesh) are not ported.
 
     python -m artis_tpu_torch.cli --rundir RUN --preset kilonova_lte \
         --set npkts=65536 --set transport_dtype=float32 --device cuda
@@ -64,7 +65,10 @@ def main_sn3d(argv=None) -> int:
 
     from .driver import Simulation
 
-    sim = Simulation(args.rundir, _build_opts(args), datadir=args.datadir, device=args.device)
+    # the run directory's pid lockfile, as the JAX package's sn3d takes it
+    # (artis_tpu/cli.py:73); released when the run closes
+    sim = Simulation(args.rundir, _build_opts(args), datadir=args.datadir, device=args.device,
+                     lockfile=True)
     try:
         sim.run(walltime_hours=args.walltimehours)
     finally:

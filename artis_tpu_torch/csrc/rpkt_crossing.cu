@@ -154,6 +154,23 @@
 // LUT-off nebular presets) the gamma and bf-heating rows are neither
 // computed nor allocated (want_gamma / want_bfheat, pallas_rpkt.py:270-273).
 //
+// The grey opacity cases 0-3 (the JAX package's opacity_case < 4, which it
+// runs on the XLA path, artis_tpu/transport/opacity.py:242-258: a
+// free-free continuum) are the runtime field sigma_es of every
+// instantiation, with the continuum tables the wrapper hands in
+// (rpkt_kernel.ff_only_tables):
+// sigma_es 0 takes electron scattering out. Without the detailed bf-rate
+// rows the wrapper passes no continuum (ncont 0, the bf loops skipped);
+// with them a zero bf_a table takes the bound-free opacity out (and so the
+// continuum selection), and ground-continuum indices of -1 the LUT gamma
+// and bf-heating rows, while the bf-rate rows accumulate as in every case
+// (the JAX package's accumulate_bf_estimators does not look at the opacity
+// case). The field is
+// a float in place of the constant, read once before the crossing loop, and
+// no branch: a flag with branches around the bf loops left the 3D line walk
+// 1-3 % slower on its replayed main paths, and the float read inside the
+// loop K1 0.5-0.8 % slower on the 128-shell replay (PERF.md, section 6).
+//
 // Random numbers: counter-based Philox4x32-10 keyed by (seed, lane id), with
 // (crossing index, sub-stream) as counter, so results depend neither on the
 // block size nor on lane order; the PyTorch plain version
@@ -181,6 +198,7 @@ struct RpktParams {
   uint32_t seed_lo, seed_hi;
   float t2, tmin, max_path_step, phixs_dnu, last_nuovernuedge;
   float rb_lo, rb_last, rb_super, rb_delta;  // multibin edges and width, float32
+  float sigma_es;  // the Thomson cross-section, or 0: the grey opacity cases 0-3
 };
 
 namespace {
@@ -188,7 +206,6 @@ namespace {
 constexpr float CLIGHT = 2.99792458e10f;
 constexpr float CLIGHT_PROP = 2.99792458e10f;
 constexpr float CLIGHTSQUARED = 8.9875518e20f;
-constexpr float SIGMA_T = 6.6524e-25f;
 constexpr float HOVERKB = 4.799243681e-11f;
 constexpr float BIG = 3.0e38f;
 constexpr int BOUNDARY_ESCAPE = -99;
@@ -683,6 +700,7 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
     float ev_esc = 0.0f, ev_ff = 0.0f, ev_bf = 0.0f, ev_cont = 0.0f;
     float em_x = 0.0f, em_y = 0.0f, em_z = 0.0f, em_t = 0.0f;
     const float nu_lastline = ld<GEN>(tb.line_nu + nlines - 1);
+    const float sigma_es = p.sigma_es;
 
     for (int it = 0; it < p.max_inner && moving; ++it) {
       const float tstart = t;
@@ -737,7 +755,7 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
       const float nu = need_chi ? nucmf : 1e15f;
 
       // --- continuum opacities (rpkt.cc:972-1032) ---
-      const float chi_escat = SIGMA_T * nne_p;
+      const float chi_escat = sigma_es * nne_p;
       const float nus = nu * 8.8817841970012523e-16f;  // 2^-50
       const float hnu_kt = HOVERKB * nu / te_p;
       const float chi_ff = (chiffpart_p * 2.6469779601696886e-23f) * (nne_p * 2.6469779601696886e-23f) /

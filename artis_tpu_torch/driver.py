@@ -71,7 +71,7 @@ from . import packets as packets_mod
 from . import spectrum as spectrum_mod
 from . import stats as stats_mod
 from .atomic import to_device
-from .constants import DAY, EV, FOURPI, H, LSUN, MEV, ONEOVER4PI
+from .constants import CLIGHT, DAY, EV, FOURPI, H, LSUN, ME, MEV, MH, ONEOVER4PI, PI, QE
 from .devutil import demote_to_f32, index_add, map_tensors
 from .estimators import Estimators, zero_estimators
 from .io import atomicdata as atomicdata_io
@@ -97,6 +97,18 @@ from .transport import thermalisation as therm_mod
 from .transport import vpkt as vpkt_mod
 
 GREY_OP = 0.1  # reference: globals.h:240
+# the packet checkpoint's write attempts and the pause before the n-th
+# retry, n times this (artis_tpu/driver.py:2009-2025 sleeps 1 + n s)
+CHECKPOINT_ATTEMPTS = 3
+CHECKPOINT_RETRY_S = 1.0
+
+
+def _remove_pidfile(path):
+    """Remove a run directory's lockfile (artis.pid), if it is still there."""
+    try:
+        os.remove(path)
+    except OSError:
+        pass
 
 
 def printout(logfile, msg):
@@ -527,16 +539,30 @@ def _np(x):
     return x.detach().cpu().numpy()
 
 
+def _ionstats_row(z, stage, row):
+    """One ion's ``ionstats`` line of an estimator file (the JAX package's
+    columns, artis_tpu/driver.py:2210-2219)."""
+    return (f"ionstats Z {int(z)} ionstage {int(stage)} "
+            f"photoion_mc {row[stats_mod.ION_PHOTOION]:g} ntion_mc {row[stats_mod.ION_NTION]:g} "
+            f"bb_absorbed {row[stats_mod.ION_BOUNDBOUND_ABSORBED]:g} "
+            f"bb_emitted {row[stats_mod.ION_BOUNDBOUND_MACROATOM]:g} "
+            f"ma_energy_in {row[stats_mod.ION_MACROATOM_ENERGYIN_TOTAL]:g} "
+            f"ma_energy_out {row[stats_mod.ION_MACROATOM_ENERGYOUT_TOTAL]:g}\n")
+
+
 class Simulation:
     """Owns all static data and the evolving state of one run."""
 
     def __init__(self, rundir: str, opts: Options | None = None, datadir: str | None = None,
-                 device="cuda"):
+                 device="cuda", lockfile: bool = False):
         self.device = torch.device(device)
         self.rundir = rundir
         self.datadir = datadir or os.path.join(rundir, "data")
         if not os.path.isdir(self.datadir):
             self.datadir = rundir
+        self._lockpath = None
+        if lockfile:
+            self._acquire_lockfile()
         self.logfile = open(os.path.join(rundir, "output_0-0.txt"), "w")
         self.log = lambda msg: printout(self.logfile, msg)
         p = inputparams_io.read_parameterfile(os.path.join(rundir, "input.txt"))
@@ -665,6 +691,8 @@ class Simulation:
                     f.write(f"{n} {int(mgi_all[n])}\n")
         if not p.simulation_continued_from_saved:
             self._write_listfiles()
+            if self.opts.record_linestat:
+                self._write_linestat_header()
 
         self.nlte_indices = (nltepop_mod.build_indices(self.dad_f64, self.opts)
                              if self.opts.nlte_enabled else None)
@@ -766,8 +794,49 @@ class Simulation:
             self.load_checkpoint(p.timestep_start)
 
     def close(self):
-        """Close the run's log file (output_0-0.txt)."""
+        """Close the run's log file (output_0-0.txt) and release the run
+        directory's lockfile, if this run took it."""
         self.logfile.close()
+        self._release_lockfile()
+
+    def _acquire_lockfile(self):
+        """Guard against two drivers on one run directory (reference:
+        check_already_running, sn3d.h:277-309; artis_tpu/driver.py:1943-1970):
+        refuse to start when artis.pid names a process that is still alive;
+        otherwise take the file over. Released by ``close`` or at exit (the
+        exit hook holds the path alone, so that it keeps no run alive)."""
+        import atexit
+        import functools
+
+        path = os.path.join(self.rundir, "artis.pid")
+        if os.path.exists(path):
+            try:
+                oldpid = int(open(path).read().split()[0])
+            except (ValueError, IndexError):
+                oldpid = -1
+            alive = False
+            if oldpid > 0:
+                try:
+                    os.kill(oldpid, 0)
+                    alive = True
+                except (ProcessLookupError, PermissionError):
+                    pass
+            if alive:
+                raise RuntimeError(f"ABORTING: another simulation (pid {oldpid}) is already "
+                                   f"running in {self.rundir} (lockfile {path})")
+        with open(path, "w") as f:
+            f.write(f"{os.getpid()}\n")
+        self._lockpath = path
+        self._lock_release = functools.partial(_remove_pidfile, path)
+        atexit.register(self._lock_release)
+
+    def _release_lockfile(self):
+        if self._lockpath:
+            import atexit
+
+            atexit.unregister(self._lock_release)
+            _remove_pidfile(self._lockpath)
+        self._lockpath = self._lock_release = None
 
     # ------------------------------------------------------------------
     def _t(self, x, dtype=None):
@@ -795,19 +864,47 @@ class Simulation:
                     f.write(f"{k} {int(ad.cont_element[ci])} {int(ad.cont_ion[ci])} "
                             f"{int(ad.cont_level[ci])} {int(ad.cont_upperlevel[ci])}\n")
 
+    def _write_linestat_header(self):
+        """linestat.out's five header rows, one column per line: wavelength
+        [cm], Z, ion stage, upper and lower level (1-based) (reference:
+        sn3d.cc:64-98; artis_tpu/driver.py:877-893); ``do_timestep``
+        appends each timestep's emission and absorption counts."""
+        ad = self.ad
+        uii = ad.elem_ion_start[ad.line_element] + ad.line_ion
+        with open(os.path.join(self.rundir, "linestat.out"), "w") as f:
+            for row in (CLIGHT / np.asarray(ad.line_nu), np.asarray(ad.elem_z)[ad.line_element],
+                        _np(self.dad.ion_stage)[uii], np.asarray(ad.line_upper) + 1,
+                        np.asarray(ad.line_lower) + 1):
+                f.write(" ".join(f"{v:g}" for v in row) + "\n")
+
     def _calculate_kappagrey_initial(self):
-        """Grey opacities at t=tmin for the opacity cases the kernel path
-        takes (>= 4) (reference: grid.cc:1722-1834)."""
+        """Grey opacities at t=tmin (reference: grid.cc:1722-1834;
+        artis_tpu/driver.py:1165-1216): case 0 the constant GREY_OP, cases 1
+        and 4 the Fe-group weighting over the total masses, case 2 over the
+        cell count, case 3 the same normalised by the density-weighted sum
+        (``opcase3_normal``; ``update_grid`` switches it at rho_crit every
+        timestep), case 5 by Y_e, case 6 Just et al. 2022 (recomputed every
+        timestep); any other case GREY_OP."""
         p = self.params
         mgi = self.mgi_of_nonempty
         rho_tmin = self.model.rho_tmin[mgi]
         ffegrp = self.model.ffegrp[mgi]
         case = p.opacity_case
-        if case == 4:
+        if case == 0:
+            kappa = np.full_like(rho_tmin, GREY_OP)
+        elif case in (1, 4):
             vol = model_io.model_cell_volume_at_tmin(self.model, p.tmin)
             mtot = (self.model.rho_tmin * vol).sum()
             mfegroup = (self.model.rho_tmin * vol * self.model.ffegrp).sum()
             kappa = (0.9 * ffegrp + 0.1) * GREY_OP / (0.9 * mfegroup / mtot + 0.1)
+        elif case == 2:
+            opcase2_normal = GREY_OP * rho_tmin.sum() / (0.9 * ffegrp.sum()
+                                                         + 0.1 * int(self.grid.ngrid))
+            kappa = opcase2_normal / rho_tmin * (0.9 * ffegrp + 0.1)
+        elif case == 3:
+            kappagrey = 0.9 * ffegrp + 0.1
+            self.opcase3_normal = GREY_OP * rho_tmin.sum() / (kappagrey * rho_tmin).sum()
+            kappa = kappagrey * self.opcase3_normal
         elif case == 5:
             ye = (self.model.init_ye[mgi] if self.model.init_ye is not None
                   else np.full(len(mgi), 0.3))
@@ -820,7 +917,7 @@ class Simulation:
             kappa = _kappagrey_just2022(self._lanthanide_massfrac(elem_massfrac0),
                                         _np(self.cells.TR))
         else:
-            raise NotImplementedError(f"opacity_case={case}")
+            kappa = np.full_like(rho_tmin, GREY_OP)
         self._kappagrey_np = np.asarray(kappa, np.float64)
         self.cells = self.cells.replace(kappagrey=self._t(kappa, self.cells.rho.dtype))
 
@@ -855,11 +952,14 @@ class Simulation:
     def _zero_est(self):
         # detailed bf-rate estimators: one row per nonempty cell, one column
         # per bf continuum; multibin rows per (cell, bin); J_b_lu rows per
-        # (cell, selected line) (artis_tpu/driver.py:893-926)
+        # (cell, selected line); the run diagnostics: per (cell, ion) stats,
+        # per-line counts and the bounded macro-atom log
+        # (artis_tpu/driver.py:893-953)
         ncells = self.grid.nonempty_npts
         o = self.opts
         bfr = o.detailed_bf_estimators_on
         jbl = o.detailed_line_estimators_on
+        ist = o.track_ion_stats
         return zero_estimators(ncells, max(self.ad.nbfcontinua_ground, 1),
                                dtype=self.fdtype, device=self.device,
                                nradfieldbins=o.radfieldbincount if o.multibin_radfield else 1,
@@ -867,6 +967,11 @@ class Simulation:
                                nbfrate_cells=ncells if bfr else 1,
                                njblue=self._njblue if jbl else 1,
                                njblue_cells=ncells if jbl else 1,
+                               nion_stats_cells=ncells if ist else 1,
+                               nion_stats_ions=max(self.ad.nions_total, 1) if ist else 1,
+                               nion_stats=stats_mod.N_ION_STATS if ist else 1,
+                               nlinestat=max(self.ad.nlines, 1) if o.record_linestat else 1,
+                               nmalog=max(o.log_macroatom_capacity, 1) if o.log_macroatom else 1,
                                vspec_shape=self._vspec_shape, vgrid_shape=self._vgrid_shape)
 
     # ------------------------------------------------------------------
@@ -937,6 +1042,19 @@ class Simulation:
         mgi = self.mgi_of_nonempty
         rho = self.rho_tmin_nonempty / tratmid**3
         self.cells = self.cells.replace(rho=self._t(rho))
+        if p.opacity_case == 3:
+            # the critical density where tau_sobolev(3000 A) is 1 at t_mid:
+            # above it kappagrey leaves the rho-independent regime for
+            # kappagrey * rho = const (update_grid.cc:1090-1097, 893-907;
+            # artis_tpu/driver.py:1411-1423)
+            self.rho_crit = (ME * CLIGHT * 56.0 * MH
+                             / (PI * QE**2 * p.rho_crit_para * 3000e-8 * tmid))
+            kgrey = self.opcase3_normal * (0.9 * self.model.ffegrp[mgi] + 0.1)
+            kgrey = np.where(rho > self.rho_crit, kgrey * self.rho_crit / rho, kgrey)
+            self._kappagrey_np = np.asarray(kgrey)
+            self.cells = self.cells.replace(kappagrey=self._t(kgrey))
+            self.log(f"timestep {nts}: rho_crit {self.rho_crit!r} g/cm^3, "
+                     f"{int((rho > self.rho_crit).sum())} of {rho.size} cells above it")
         elem_massfrac, elem_meanweight = decay_mod.update_abundances(
             self.dec, self.initnucmassfrac[mgi], self.stable_initabund,
             self.ad.elem_meanweight_init, np.asarray(self.ad.elem_z), tmid)
@@ -1118,6 +1236,14 @@ class Simulation:
                 self.write_nltepops(nts)
             if self.opts.multibin_radfield:
                 self.write_radfield(nts)
+        if self.opts.record_linestat:
+            # this timestep's emission and absorption counts per line
+            # (sn3d.cc:640-660)
+            with open(os.path.join(self.rundir, "linestat.out"), "a") as f:
+                for row in (_np(self.est.line_emisscount), _np(self.est.line_absorbcount)):
+                    f.write(" ".join(str(int(v)) for v in row) + "\n")
+        if self.opts.log_macroatom:
+            self.write_macroatom_log(nts)
         counter_txt = stats_mod.format_counters(self.est.counters)
         if counter_txt:
             self.log(f"timestep {nts} event counters:\n{counter_txt}")
@@ -1149,12 +1275,23 @@ class Simulation:
         """Checkpoint packets + the carried simulation state and rewrite
         input.txt to resume at next_nts (reference: sn3d.cc:427-487); same
         file layout as the JAX package (packets_0000_ts<n>.npz and
-        gridsave_ts<n>.npz)."""
+        gridsave_ts<n>.npz). The packet file is written up to three times,
+        each read back and compared (sn3d.cc:356-375 write retry loop,
+        packet.cc:205-233 VERIFY_WRITTEN_PACKETS_FILES;
+        artis_tpu/driver.py:2009-2025); the third failure raises."""
         pktpath = os.path.join(self.rundir, f"packets_0000_ts{next_nts}.npz")
-        packets_mod.save_packets_npz(pktpath, self.state)
-        reread = packets_mod.load_packets_npz(pktpath)
-        if not np.array_equal(_np(reread.e_cmf), _np(self.state.e_cmf)):
-            raise IOError(f"packet checkpoint read-back mismatch: {pktpath}")
+        for attempt in range(CHECKPOINT_ATTEMPTS):
+            try:
+                packets_mod.save_packets_npz(pktpath, self.state)
+                reread = packets_mod.load_packets_npz(pktpath)
+                if np.array_equal(_np(reread.e_cmf), _np(self.state.e_cmf)):
+                    break
+                raise IOError("packet file read-back mismatch")
+            except Exception as exc:  # noqa: BLE001 - a full disk or a network file system
+                self.log(f"packet checkpoint write attempt {attempt} failed: {exc}")
+                _time.sleep(CHECKPOINT_RETRY_S * (1 + attempt))
+        else:
+            raise IOError(f"could not write packet checkpoint {pktpath}")
         blob = {f"cells_{f.name}": _np(getattr(self.cells, f.name))
                 for f in dataclasses.fields(self.cells)}
         if self.prev_est is not None:
@@ -1280,12 +1417,65 @@ class Simulation:
         te, tr, tj, w = _np(c.Te), _np(c.TR), _np(c.TJ), _np(c.W)
         nne, thick, rho = _np(c.nne), _np(c.thick), _np(c.rho)
         cool, gd = _np(c.totalcooling), _np(c.grey_depth)
+        # the per-ion Monte Carlo statistics of the timestep just run
+        # (update_grid.cc:424-620 TRACK_ION_STATS; artis_tpu/driver.py:2200-2221)
+        ist = None
+        if self.opts.track_ion_stats and self.prev_est is not None:
+            ist = _np(self.prev_est.ion_stats).astype(np.float64)
+            if ist.shape[0] != self.grid.nonempty_npts:
+                ist = None
+            z_of_ion = np.asarray(self.ad.elem_z)[_np(self.dad.ion_element)]
+            stage = _np(self.dad.ion_stage)
         with open(os.path.join(self.rundir, f"estimators_{nts:04d}.out"), "w") as f:
             for i in range(self.grid.nonempty_npts):
                 f.write(f"timestep {nts} modelgridindex {int(self.mgi_of_nonempty[i])} "
                         f"titeration 0 TR {tr[i]:g} Te {te[i]:g} W {w[i]:g} TJ {tj[i]:g} "
                         f"grey_depth {float(gd[i]):g} nne {nne[i]:g} rho {rho[i]:g} "
                         f"thick {int(thick[i])} totalcooling {cool[i]:g}\n")
+                if ist is not None:
+                    f.write("".join(_ionstats_row(z_of_ion[u], stage[u], ist[i, u])
+                                    for u in range(ist.shape[1]) if np.any(ist[i, u])))
+
+    def write_macroatom_log(self, nts: int):
+        """Drain the timestep's bounded macro-atom log into
+        macroatom_0000.out, one row per radiative bound-bound deactivation
+        (reference: LOG_MACROATOM, macroatom.cc:413-421, 630-641, file
+        macroatom_%.4d.out of rank 0; artis_tpu/driver.py:1896-1941). The
+        rows name the model grid cell (the JAX package writes the
+        nonemptymgi and names the file macroatom_0-0.out: ROADMAP Queue
+        3). The header starts the file at timestep 0; a log that overflowed
+        ``log_macroatom_capacity`` says so in output_0-0.txt."""
+        n_seen = int(self.est.malog_n)
+        cap = int(self.est.malog.shape[0])
+        n = min(n_seen, cap)
+        path = os.path.join(self.rundir, "macroatom_0000.out")
+        if nts == 0 or not os.path.exists(path):
+            with open(path, "w") as f:
+                f.write(f"{'timestep':>8} {'modelgridindex':>14} {'Z':>2} {'ionstage_in':>12} "
+                        f"{'ionstage_out':>12} {'level_in':>9} {'level_out':>9} "
+                        f"{'activline':>9} {'nu_cmf_in':>11} {'nu_cmf_out':>11} "
+                        f"{'nu_rf_in':>11} {'nu_rf_out':>11}\n")
+        if n == 0:
+            return
+        rows = _np(self.est.malog[:n]).astype(np.float64)
+        lvl_ion = _np(self.dad.level_ion)
+        ion_z = np.asarray(self.ad.elem_z)[_np(self.dad.ion_element)]
+        ion_stage = _np(self.dad.ion_stage)
+        ion_lvl0 = _np(self.dad.ion_level_start)
+        mgi = self.mgi_of_nonempty[rows[:, 0].astype(np.int64)]
+        li = np.clip(rows[:, 1].astype(np.int64), 0, lvl_ion.shape[0] - 1)
+        lo = np.clip(rows[:, 2].astype(np.int64), 0, lvl_ion.shape[0] - 1)
+        ion_in, ion_out = lvl_ion[li], lvl_ion[lo]
+        with open(path, "a") as f:
+            f.write("".join(
+                f"{nts:>8d} {int(mgi[k]):>14d} {int(ion_z[ion_in[k]]):>2d} "
+                f"{int(ion_stage[ion_in[k]]):>12d} {int(ion_stage[ion_out[k]]):>12d} "
+                f"{int(li[k] - ion_lvl0[ion_in[k]]):>9d} {int(lo[k] - ion_lvl0[ion_out[k]]):>9d} "
+                f"{int(rows[k, 3]):>9d} {rows[k, 4]:>11.5e} {rows[k, 5]:>11.5e} "
+                f"{rows[k, 6]:>11.5e} {rows[k, 7]:>11.5e}\n" for k in range(n)))
+        if n_seen > cap:
+            self.log(f"timestep {nts}: macroatom log overflow: {n_seen - cap} of {n_seen} "
+                     f"events dropped (log_macroatom_capacity={cap})")
 
     def write_nltepops(self, nts: int):
         """nlte_0000.out (reference: nltepop.cc:1076-1130): per cell, ion and

@@ -3,9 +3,10 @@ J/nuJ/ffheating/deposition arrays, stats.h:47-82 event counters).
 
 Per-packet contributions are index-added into (ncells,) tensors; the
 crossing kernel adds its per-cell rows (J, nuJ, the LUT, detailed bf-rate,
-multibin and J_b_lu estimators). The optional estimators of modes that are
-not ported (vpkt, ion stats, linestat, macro-atom log) keep their
-placeholder shapes so the field set matches the JAX package's.
+multibin and J_b_lu estimators). The estimators of modes that are off
+(virtual packets, and the run diagnostics: per-ion statistics, per-line
+counts, the macro-atom log) keep placeholder shapes, so the field set
+matches the JAX package's.
 """
 
 from __future__ import annotations

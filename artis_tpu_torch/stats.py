@@ -1,8 +1,13 @@
 """Event statistics counters (reference: stats.h:47-82 eventcounters enum,
 stats.cc:156-234): one (N_COUNTERS,) tensor inside the estimators, bumped
-with masked sums."""
+with masked sums; and the per-ion statistics of ``track_ion_stats``
+(stats.h:12-44), one (ncells, nions, N_ION_STATS) tensor."""
 
 from __future__ import annotations
+
+import torch
+
+from .devutil import index_add_
 
 MA_STAT_ACTIVATION_COLLEXC = 0
 MA_STAT_ACTIVATION_COLLION = 1
@@ -68,3 +73,56 @@ def format_counters(counters) -> str:
     vals = counters.detach().cpu().numpy()
     return "\n".join(
         f"  {name}: {int(v)}" for name, v in zip(COUNTER_NAMES, vals) if v != 0)
+
+
+# Per-ion-per-cell statistics (reference: stats.h:12-44 ionstattypes),
+# accumulated into the (ncells, nions, N_ION_STATS) estimator when
+# Options.track_ion_stats is on; the indices are the reference enum's.
+ION_RADRECOMB_MACROATOM = 0
+ION_RADRECOMB_KPKT = 1
+ION_RADRECOMB_ABSORBED = 2
+ION_BOUNDBOUND_MACROATOM = 3
+ION_BOUNDBOUND_ABSORBED = 4
+ION_NTION = 5
+ION_PHOTOION = 6
+ION_PHOTOION_FROMBOUNDFREE = 7
+ION_PHOTOION_FROMBFSAMEELEMENT = 8
+ION_PHOTOION_FROMBFIONPLUSONE = 9
+ION_PHOTOION_FROMBFIONPLUSTWO = 10
+ION_PHOTOION_FROMBFIONPLUSTHREE = 11
+ION_PHOTOION_FROMBFLOWERSUPERLEVEL = 12
+ION_PHOTOION_FROMBOUNDBOUND = 13
+ION_PHOTOION_FROMBOUNDBOUNDIONPLUSONE = 14
+ION_PHOTOION_FROMBOUNDBOUNDIONPLUSTWO = 15
+ION_PHOTOION_FROMBOUNDBOUNDIONPLUSTHREE = 16
+ION_MACROATOM_ENERGYOUT_RADDEEXC = 17
+ION_MACROATOM_ENERGYOUT_RADRECOMB = 18
+ION_MACROATOM_ENERGYOUT_COLLDEEXC = 19
+ION_MACROATOM_ENERGYOUT_COLLRECOMB = 20
+ION_MACROATOM_ENERGYIN_RADEXC = 21
+ION_MACROATOM_ENERGYIN_PHOTOION = 22
+ION_MACROATOM_ENERGYIN_COLLEXC = 23
+ION_MACROATOM_ENERGYIN_COLLION = 24
+ION_MACROATOM_ENERGYIN_NTCOLLEXC = 25
+ION_MACROATOM_ENERGYIN_NTCOLLION = 26
+ION_MACROATOM_ENERGYIN_TOTAL = 27
+ION_MACROATOM_ENERGYOUT_TOTAL = 28
+ION_MACROATOM_ENERGYIN_INTERNAL = 29
+ION_MACROATOM_ENERGYOUT_INTERNAL = 30
+N_ION_STATS = 31
+
+
+def ion_add(ion_stats, mgi, ion, stat: int, value, active):
+    """ion_stats[mgi, ion, stat] += value over the ``active`` lanes with a
+    model cell, in place (replaces the reference's atomicadd,
+    stats.cc:147-154); the other lanes add 0 to the first entry. The sum
+    goes through ``devutil.index_add_``: on the card a sorted index_put_,
+    so same-seed runs give the same bits."""
+    ok = active & (mgi >= 0)
+    nions = ion_stats.shape[1]
+    flat = (torch.clamp(mgi.long(), min=0) * nions + ion.long()) * N_ION_STATS + stat
+    flat = torch.where(ok, flat, torch.zeros_like(flat))
+    vals = torch.where(ok, value.to(ion_stats.dtype), torch.zeros((), dtype=ion_stats.dtype,
+                                                                  device=ion_stats.device))
+    index_add_(ion_stats.view(-1), 0, flat, vals)
+    return ion_stats

@@ -30,6 +30,7 @@ from .. import geometry, rng, stats
 from ..atomic import DeviceAtomicData
 from ..constants import CLIGHT_PROP, H, ME_C2, MEV, PI, SIGMA_T, THOMSON_LIMIT
 from ..decay import DECAYTYPE_ALPHA, DECAYTYPE_BETAMINUS, DECAYTYPE_BETAPLUS
+from ..devutil import index_add_
 from ..estimators import Estimators, cell_add
 from ..grid import BOUNDARY_ESCAPE, GridData, boundary_distance
 from ..options import GridType, Options, ThermalisationScheme
@@ -100,7 +101,9 @@ class StepContext:
 def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     """Raise NotImplementedError naming the first option off the ported
     slice: transport on a SPHERICAL1D, CYLINDRICAL2D or CARTESIAN3D grid
-    (the kilonova_lte, classic and nltenebular presets), optionally with
+    (every preset), in every grey opacity case (``opacity_case`` 0-6: below
+    4 the continuum is free-free only), with the run diagnostics
+    (``record_linestat``, ``track_ion_stats``, ``log_macroatom``), optionally with
     NLTE populations, the non-thermal solver (``nt_on``: the Spencer-Fano
     solve with ``nt_solve_spencerfano``, else the work-function
     approximation), the multibin radiation field, virtual packets
@@ -114,9 +117,6 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     off = [
         ("grid_type", opts.grid_type not in (GridType.SPHERICAL1D, GridType.CYLINDRICAL2D,
                                              GridType.CARTESIAN3D)),
-        ("record_linestat", opts.record_linestat),
-        ("track_ion_stats", opts.track_ion_stats),
-        ("log_macroatom", opts.log_macroatom),
         # the JAX package has no GUTTMAN particle scheme either
         ("particle_thermalisation_scheme=GUTTMAN",
          opts.particle_thermalisation_scheme == ThermalisationScheme.GUTTMAN),
@@ -124,8 +124,6 @@ def check_supported(opts: Options, opacity_case: int | None = None) -> None:
     for name, bad in off:
         if bad:
             raise NotImplementedError(f"option {name} is not ported")
-    if opacity_case is not None and opacity_case < 4:
-        raise NotImplementedError(f"opacity_case={opacity_case} (< 4) is not ported")
 
 
 def want_bfrate(opts: Options, dad: DeviceAtomicData) -> bool:
@@ -832,7 +830,7 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
         phixs_dnu=float(dad.nphixsnuincrement),
         last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
         want_bfrate=want_bfrate(opts, dad), expansion=opts.expansionopacities_on,
-        defer_scatter=defer, **crossing_estimators(opts, est),
+        defer_scatter=defer, ff_only=opacity_case < 4, **crossing_estimators(opts, est),
         **rpkt_kernel.kernel_geometry(grid))
 
     def put(full, part):
@@ -1009,6 +1007,31 @@ def _rpkt_apply_events(key, st, est, ctx, grid, dad, cells, opts, opacity_case,
     ma_level = torch.where(ev_bb, ma_level_bb, ma_level_bf)
     ma_mask = ev_bb | ma_from_bf
     ma_activating_line = _w(ev_bb, act_line, torch.full_like(act_line, -99))
+    if opts.record_linestat:
+        # per-line absorption counts (rpkt.cc:530-535 acounter)
+        al = act_line[ev_bb]
+        la = index_add_(est.line_absorbcount.clone(), 0,
+                        torch.clamp(al, 0, est.line_absorbcount.shape[0] - 1),
+                        torch.ones_like(al, dtype=est.line_absorbcount.dtype))
+        est = est.replace(line_absorbcount=la)
+    if opts.track_ion_stats:
+        # per-ion absorption statistics (rpkt.cc:487-535, stats.cc:36-154)
+        e = st.e_cmf
+        ist = est.ion_stats.clone()
+        line_ion = dad.line_ion[torch.clamp(act_line, 0, dad.nlines - 1)]
+        stats.ion_add(ist, nonemptymgi, line_ion, stats.ION_MACROATOM_ENERGYIN_RADEXC, e, ev_bb)
+        emt = st.emissiontype
+        stats.ion_add(ist, nonemptymgi, dad.line_ion[torch.clamp(emt, 0, dad.nlines - 1)],
+                      stats.ION_BOUNDBOUND_ABSORBED, e, ev_bb & (emt >= 0))
+        if dad.nbfcontinua > 0:
+            ion_bf = dad.cont_ion[bf_contindex]
+            eps = (H * dad.cont_nu_edge[bf_contindex]).to(e.dtype)
+            stats.ion_add(ist, nonemptymgi, ion_bf, stats.ION_PHOTOION,
+                          e / torch.clamp(eps, min=1e-300), ev_bf)
+            stats.ion_add(ist, nonemptymgi, ion_bf, stats.ION_RADRECOMB_ABSORBED, e, ev_bf)
+            stats.ion_add(ist, nonemptymgi, torch.clamp(ion_bf + 1, max=dad.nions_total - 1),
+                          stats.ION_MACROATOM_ENERGYIN_PHOTOION, e, ma_from_bf)
+        est = est.replace(ion_stats=ist)
     return st, est, ma_mask, ma_level, ma_activating_line
 
 
@@ -1115,6 +1138,16 @@ def nt_deposit_split(key, st: PacketState, est: Estimators, nt_dep, ctx: StepCon
                        (stats.MA_STAT_ACTIVATION_NTCOLLEXC, to_exc),
                        (stats.NT_STAT_TO_KPKT, ~to_ma)):
         stats.bump(cnt, stat, mask)
+    if opts.track_ion_stats:
+        # non-thermal ionisations (nonthermal.cc:2340-2347)
+        ist = est.ion_stats.clone()
+        mgi_s = grid.nonemptymgi_of_cell[st.where[idx]]
+        e = st.e_cmf[idx]
+        eps_ion = (dad.ion_eps0[upperion] - dad.ion_eps0[lowerion]).to(e.dtype)
+        stats.ion_add(ist, mgi_s, lowerion, stats.ION_NTION, e / torch.clamp(eps_ion, min=1e-300),
+                      to_ion)
+        stats.ion_add(ist, mgi_s, upperion, stats.ION_MACROATOM_ENERGYIN_NTCOLLION, e, to_ion)
+        est = est.replace(ion_stats=ist)
     return (st.replace(ptype=ptype, ma_level=ma_level, trueemissiontype=trueem),
             est.replace(counters=cnt))
 
@@ -1145,7 +1178,7 @@ def transport_timestep(key, st: PacketState, est: Estimators, grid: GridData,
     goes through the crossing kernel: a launch when the packet tensors are on
     CUDA, its plain version on the CPU. ``key`` is a counter tuple."""
     from .kpkt import do_kpkt_batch
-    from .macroatom import do_macroatom_batch
+    from .macroatom import do_macroatom_batch, macroatom_log_rows
 
     check_supported(opts, opacity_case)
     check_crossing_dtype(opts)
@@ -1218,6 +1251,12 @@ def transport_timestep(key, st: PacketState, est: Estimators, grid: GridData,
                 stats.bump(cnt, stats.K_STAT_TO_R_FF, kpkt_rad)
                 stats.bump(cnt, stats.K_STAT_TO_MA_COLLEXC, ma_mask_k)
                 est = est.replace(counters=cnt)
+                if opts.track_ion_stats:
+                    # collisional excitation into the macro-atom (kpkt.cc)
+                    ion_k = dad.level_ion[torch.clamp(ma_level_k, 0, dad.nlevels_total - 1)]
+                    est = est.replace(ion_stats=stats.ion_add(
+                        est.ion_stats.clone(), nonemptymgi, ion_k,
+                        stats.ION_MACROATOM_ENERGYIN_COLLEXC, st.e_cmf, ma_mask_k))
 
         # 5: gamma packets
         if bool(((st.prop_time < t2) & (st.ptype == TYPE_GAMMA)).any()):
@@ -1272,6 +1311,45 @@ def transport_timestep(key, st: PacketState, est: Estimators, grid: GridData,
             stats.bump(cnt, stats.MA_STAT_DEACTIVATION_FB, kindf == 2)
             stats.bump(cnt, stats.MA_STAT_DEACTIVATION_COLLDEEXC, kindf == 3)
             est = est.replace(counters=cnt)
+            if opts.record_linestat:
+                # per-line emission counts (macroatom.cc:404-410 ecounter)
+                em = res["emissiontype"][res["kind"] == 1]
+                le = index_add_(est.line_emisscount.clone(), 0,
+                                torch.clamp(em, 0, est.line_emisscount.shape[0] - 1),
+                                torch.ones_like(em, dtype=est.line_emisscount.dtype))
+                est = est.replace(line_emisscount=le)
+            if opts.log_macroatom:
+                # the bounded macro-atom log (LOG_MACROATOM,
+                # macroatom.cc:413-421), one row per radiative bound-bound
+                # deactivation, kept on the device
+                malog, malog_n = macroatom_log_rows(
+                    est.malog, est.malog_n, res["kind"] == 1,
+                    (safe_mgi[idx], ma_level[idx], res["level"], res["emissiontype"],
+                     st.nu_cmf[idx], res["nu_cmf"], st.nu_rf[idx], st2.nu_rf[idx]))
+                est = est.replace(malog=malog, malog_n=malog_n)
+            if opts.track_ion_stats:
+                # energy into the macro-atom at activation, out by the
+                # deactivation channel (macroatom.cc:341, 405-433)
+                ist = est.ion_stats.clone()
+                mgi_s = grid.nonemptymgi_of_cell[st.where]
+                e = st.e_cmf
+                nlev1 = dad.nlevels_total - 1
+                ion_act = dad.level_ion[torch.clamp(ma_level, 0, nlev1)]
+                stats.ion_add(ist, mgi_s, ion_act, stats.ION_MACROATOM_ENERGYIN_TOTAL, e, ma_mask)
+                ion_out = dad.level_ion[torch.clamp(expand(res["level"], 0), 0, nlev1)]
+                is_bb, is_fb, is_cd = kindf == 1, kindf == 2, kindf == 3
+                emline = ma_res["emissiontype"]
+                eps_line = (H * dad.line_nu[torch.clamp(emline, 0, dad.nlines - 1)]).to(e.dtype)
+                for ion, stat, val, mask in (
+                        (ion_out, stats.ION_MACROATOM_ENERGYOUT_RADDEEXC, e, is_bb),
+                        (ion_out, stats.ION_BOUNDBOUND_MACROATOM,
+                         e / torch.clamp(eps_line, min=1e-300), is_bb & (emline >= 0)),
+                        (torch.clamp(ion_out + 1, max=dad.nions_total - 1),
+                         stats.ION_RADRECOMB_MACROATOM, e, is_fb),
+                        (ion_out, stats.ION_MACROATOM_ENERGYOUT_COLLDEEXC, e, is_cd),
+                        (ion_out, stats.ION_MACROATOM_ENERGYOUT_TOTAL, e, is_bb | is_fb | is_cd)):
+                    stats.ion_add(ist, mgi_s, ion, stat, val, mask)
+                est = est.replace(ion_stats=ist)
             pending = ma_mask & expand(res["unresolved"], False)
             pend_level = expand(res["level"], 0)
             st = st2.replace(ptype=_w(pending, TYPE_MA, st2.ptype),

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import CLIGHT, CLIGHT_PROP
+from ..devutil import index_add_
 from ..plasma.radfield import dbb
 
 LAMBDA_MIN = 534.5  # Angstrom (rpkt.cc:32)
@@ -53,7 +54,7 @@ def build_expansion_opacities(tau_sob_factor, line_nu, rho, t_r, t_mid: float):
     tau = tau_sob_factor * t_mid
     w = (lam / DELTA_LAMBDA).to(dt)[None, :] * -torch.expm1(-tau)
     binsum = torch.zeros((ncells, NBINS + 1), dtype=dt, device=tau.device)
-    binsum.index_add_(1, binidx, w)
+    index_add_(binsum, 1, binidx, w)
     kappa = binsum[:, :NBINS] / (CLIGHT * t_mid * torch.clamp(rho.to(dt), min=1e-300)[:, None])
     b = torch.arange(NBINS, device=tau.device, dtype=torch.float64)
     nu_lo = bin_nu_lower(b).to(dt)

@@ -208,7 +208,11 @@ def do_macroatom_batch(key, dad: DeviceAtomicData, aux: MacroAtomAux, rc: RateCo
         m = act(MA_ACTION_RADDEEXC)
         tidx = torch.clamp(downstart + ksel, 0, dad.ntrans_total - 1)
         lineindex = dad.trans_lineindex[tidx]
-        target_d = dad.ion_level_start[dad.level_ion[level]] + dad.trans_target[tidx]
+        # a level without downward transitions (the single level of a top
+        # ion) reads another level's transition here: clamped, as the JAX
+        # package's gather clamps, and used only where the action takes it
+        target_d = torch.clamp(dad.ion_level_start[dad.level_ion[level]] + dad.trans_target[tidx],
+                               0, nlev - 1)
         nu_line = (level_energy[level] - level_energy[target_d]) / H
         kind = torch.where(m, 1, kind)
         nu_cmf = torch.where(m, nu_line, nu_cmf)
@@ -257,3 +261,23 @@ def do_macroatom_batch(key, dad: DeviceAtomicData, aux: MacroAtomAux, rc: RateCo
     nu_cmf = torch.where(fb_mask, nu_fb, nu_cmf)
     return dict(kind=kind, nu_cmf=nu_cmf, emissiontype=emissiontype,
                 next_trans=next_trans, level=level, unresolved=active)
+
+
+def macroatom_log_rows(malog, malog_n, logged, columns):
+    """Append one row of ``columns`` (each (K,) over a batch's macro-atoms:
+    the cell's nonemptymgi, the activating level, the deactivating level,
+    the emitted line, nu_cmf in and out, nu_rf in and out) for each
+    macro-atom in ``logged`` (a radiative bound-bound deactivation) to the
+    bounded log ``malog`` (capacity rows of 8) after its first ``malog_n``
+    rows (reference: LOG_MACROATOM, macroatom.cc:413-421; the JAX
+    package's rows at engine.py:2189-2214). Rows past the capacity are
+    dropped but counted, so the writer can report the overflow. Device ops
+    only: no host synchronise. Returns (malog, malog_n)."""
+    cap = malog.shape[0]
+    pos = malog_n + torch.cumsum(logged.long(), 0) - 1
+    pos = torch.where(logged & (pos < cap), pos, torch.full_like(pos, cap))
+    rows = torch.stack([c.to(malog.dtype) for c in columns], dim=1)
+    # the dropped rows land in a spare row past the capacity
+    buf = torch.cat([malog, malog.new_zeros((1, malog.shape[1]))])
+    buf.index_put_((pos,), rows)
+    return buf[:cap], malog_n + logged.sum().to(malog_n.dtype)

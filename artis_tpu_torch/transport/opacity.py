@@ -92,16 +92,19 @@ def calculate_chi_bf(dad: DeviceAtomicData, nu, cellidx, active, bf_a, bf_dep, t
 
 
 def calculate_chi_rpkt_cont(dad: DeviceAtomicData, nu_cmf, cellidx, active, bf_a, bf_dep,
-                            chi_ff_nnionpart, nne, t_e):
+                            chi_ff_nnionpart, nne, t_e, opacity_case: int):
     """Electron-scattering, free-free and bound-free continuum opacities
     (chi_es, chi_ff, chi_bf) [1/cm] at ``nu_cmf`` (reference:
-    rpkt.cc:972-1032, opacity_case >= 4; the JAX package's
-    calculate_chi_rpkt_cont), in the dtype of ``nu_cmf``: the continuum of
-    rays outside the crossing kernel, e.g. virtual packets."""
+    rpkt.cc:972-1032; the JAX package's calculate_chi_rpkt_cont), in the
+    dtype of ``nu_cmf``: the continuum of rays outside the crossing kernel,
+    e.g. virtual packets. Below ``opacity_case`` 4 the continuum is
+    free-free only (chi_es = chi_bf = 0)."""
     dt = nu_cmf.dtype
     nne_p = nne.to(dt)[cellidx]
     t_e_p = t_e.to(dt)[cellidx]
     chi_ff = calculate_chi_ffheating(chi_ff_nnionpart.to(dt)[cellidx], nne_p, t_e_p,
                                      torch.clamp(nu_cmf, min=1e-30))
+    if opacity_case < 4:
+        return torch.zeros_like(chi_ff), chi_ff, torch.zeros_like(chi_ff)
     chi_bf = calculate_chi_bf(dad, nu_cmf, cellidx, active, bf_a, bf_dep, t_e.to(dt))
     return SIGMA_T * nne_p, chi_ff, chi_bf

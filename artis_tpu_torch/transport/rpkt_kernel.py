@@ -4,7 +4,8 @@
 cell crossings: optical-depth draw, cell boundary distance (spherical
 shells, cylindrical (rcyl, z) cells or Cartesian cubes), Doppler and abort
 frequency, continuum opacity (electron scattering + free-free + bound-free
-with phixs interpolation and log departure), continuum selection, the
+with phixs interpolation and log departure; free-free alone with
+``ff_only``, the grey opacity cases 0-3), continuum selection, the
 Sobolev line walk from each packet's cursor (or, in expansion-opacity mode,
 the walk over wavelength bins of binned line opacity), in-kernel isotropic
 electron / thick-grey scattering (or, in the deferred mode, every event
@@ -112,6 +113,26 @@ def radbin_index(nu, nradbins: int):
     return b, (nu >= lo) & (nu < sup)
 
 
+def ff_only_tables(tables: dict, want_bfrate: bool = False) -> dict:
+    """The tables of a launch with the free-free continuum of the grey
+    opacity cases 0-3 (the JAX package's opacity_case < 4,
+    artis_tpu/transport/opacity.py:242-258): no bound-free opacity (and so
+    no continuum selection) and no LUT gamma or bf-heating contribution.
+    Without the detailed bf-rate rows the continuum window is empty (no
+    continuum table, as for an atom without bound-free continua); with them
+    a zero bf_a table takes the opacity out and ground-continuum indices of
+    -1 the LUT rows, and the bf-rate rows, which read neither, accumulate as
+    in every case. The kernel's electron scattering goes with its
+    ``sigma_es`` field."""
+    if not want_bfrate:
+        return dict(tables, cont_nu_edge=tables["cont_nu_edge"][:0],
+                    bf_a=tables["bf_a"][:, :0], bf_dep=tables["bf_dep"][:, :0],
+                    cont_phixs=tables["cont_phixs"][:0], cont_prob=tables["cont_prob"][:0],
+                    cont_gidx=tables["cont_gidx"][:0])
+    return dict(tables, bf_a=torch.zeros_like(tables["bf_a"]),
+                cont_gidx=torch.full_like(tables["cont_gidx"], -1))
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
@@ -180,8 +201,8 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
                         geom: int = GEOM_SPH, ncoord=None, want_bfrate: bool = False,
                         expansion: bool = False, defer_scatter: bool = False,
                         nradbins: int = 0, njblue: int = 0, want_gamma: bool = True,
-                        want_bfheat: bool = True, line_chunk: int = 128,
-                        walk_log: list | None = None) -> dict:
+                        want_bfheat: bool = True, ff_only: bool = False,
+                        line_chunk: int = 128, walk_log: list | None = None) -> dict:
     """The crossing kernel as a per-crossing loop over (N,) float32 tensors.
     Same signature and outputs as ``propagate``. ``walk_log``, where given,
     gets one (model cell, first entry, end entry) triple of tensors per
@@ -189,6 +210,8 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
     walk read there."""
     from .linewalk import get_event_batch, initial_cursor
 
+    if ff_only:
+        tables = ff_only_tables(tables, want_bfrate)
     s = {k: lanes[k].clone() for k in LANE_F32}
     px, py, pz = s["posx"], s["posy"], s["posz"]
     dx, dy, dz = s["dirx"], s["diry"], s["dirz"]
@@ -275,7 +298,7 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
 
         need_chi = mask & nonempty & ~thick
         nu = torch.where(need_chi, nucmf, torch.full_like(nucmf, 1e15))
-        chi_escat = SIGMA_T * nne_p
+        chi_escat = zf if ff_only else SIGMA_T * nne_p
         nu3_scaled = (nu * 2.0 ** -50) ** 3
         hnu_kt = HOVERKB_F32 * nu / te_p
         chi_ff = (chiffpart_p * 2.0 ** -75) * (nne_p * 2.0 ** -75) / nu3_scaled * (
@@ -542,6 +565,7 @@ class _Params(ctypes.Structure):
         ("max_path_step", ctypes.c_float), ("phixs_dnu", ctypes.c_float),
         ("last_nuovernuedge", ctypes.c_float), ("rb_lo", ctypes.c_float),
         ("rb_last", ctypes.c_float), ("rb_super", ctypes.c_float), ("rb_delta", ctypes.c_float),
+        ("sigma_es", ctypes.c_float),
     ]
 
 
@@ -677,10 +701,12 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
             ncells, ngc, nphixs, max_inner, relativistic, phixs_dnu, last_nuovernuedge,
             test_mode, geom=GEOM_SPH, ncoord=None, want_bfrate=False, expansion=False,
             defer_scatter=False, nradbins=0, njblue=0, want_gamma=True, want_bfheat=True,
-            shared_rows=None):
+            ff_only=False, shared_rows=None):
     lib = build()
     dev = lanes["posx"].device
     n = lanes["posx"].shape[0]
+    if ff_only:
+        tables = ff_only_tables(tables, want_bfrate)
     ncont = tables["cont_nu_edge"].shape[0]
     nprop = tables["mgi_of_cell"].shape[0]
     for k in LANE_F32:
@@ -752,7 +778,7 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
                   seed_lo=seed & 0xFFFFFFFF, seed_hi=(seed >> 32) & 0xFFFFFFFF,
                   t2=t2, tmin=tmin, max_path_step=max_path_step, phixs_dnu=phixs_dnu,
                   last_nuovernuedge=last_nuovernuedge, rb_lo=rb_lo, rb_last=rb_last,
-                  rb_super=rb_super, rb_delta=rb_delta)
+                  rb_super=rb_super, rb_delta=rb_delta, sigma_es=0.0 if ff_only else SIGMA_T)
     in_lanes = dict(lanes, test_tau=test_tau, test_sel=test_sel)
     lane_ptrs = _ptrs(LANE_F32 + LANE_I32 + ("test_tau", "test_sel"), in_lanes)
     table_ptrs = _ptrs(TABLES_F32 + TABLES_I32 + ("expo_nu_lo",),
@@ -772,7 +798,7 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
         configs = [CONFIG_OF_GEOM[geom]] + [c for c, on in (
             (CONFIG_BFRATE, nbfr), (CONFIG_EXPANSION, expansion),
             (CONFIG_DEFERRED, defer_scatter), (CONFIG_MULTIBIN, nradbins),
-            (CONFIG_JBLUE, njblue)) if on]
+            (CONFIG_JBLUE, njblue), (CONFIG_FFONLY, ff_only)) if on]
         for c in configs:
             propagate.launches[c] += 1
         if timing is not None:
@@ -803,10 +829,14 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
     the event pass instead of redirecting them in the kernel; ``nradbins``
     > 0 turns on the multibin estimators, ``njblue`` > 0 the J_b_lu
     estimators of the lines whose ``jblue_of_line`` column is below it;
-    ``want_gamma`` / ``want_bfheat`` off skip the LUT estimators.
-    Returns OUT_F32/OUT_I32 lane tensors plus est (ncells, 4: J, nuJ,
-    ffheating, boundary crossings out of the cell), gamma and bfheat
-    (ncells, ngc, or ncells x 0 when off), bfrate (ncells, ncont, or
+    ``want_gamma`` / ``want_bfheat`` off skip the LUT estimators;
+    ``ff_only`` (the grey opacity cases 0-3, the JAX package's
+    opacity_case < 4) takes a free-free continuum (``ff_only_tables`` and
+    the kernel's ``sigma_es``): no electron scattering, no bound-free
+    opacity, zero LUT gamma / bf-heating contributions, the detailed bf-rate
+    rows as in every case (the continuum window empty without them). Returns OUT_F32/OUT_I32 lane tensors plus est
+    (ncells, 4: J, nuJ, ffheating, boundary crossings out of the cell),
+    gamma and bfheat (ncells, ngc, or ncells x 0 when off), bfrate (ncells, ncont, or
     ncells x 0 when off), radbin (ncells, 3, nradbins: J, nuJ, count),
     jblue (ncells, 2, njblue: raw sum, count) and misc (MISC). ``expansion``
     walks the (ncells, NBINS) ``expo_kappa`` table's
@@ -820,8 +850,8 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
 
 # kernel launches since the last reset, per kernel configuration: plain
 # integers that a run resets and reads to show that its main path went
-# through the kernel (a bf-rate, expansion or deferred-scatter launch counts
-# for its geometry too). ``propagate.timing``, off (None) unless a caller
+# through the kernel (a bf-rate, expansion, deferred-scatter or free-free
+# continuum launch counts for its geometry too). ``propagate.timing``, off (None) unless a caller
 # sets a list, gets one record per launch: its configurations, its lanes,
 # the CUDA events around the whole wrapper call (``events``: allocations,
 # zero fill, host work and kernel) and those right around the ctypes call
@@ -833,9 +863,10 @@ CONFIG_EXPANSION = "rpkt_crossing_expansion"
 CONFIG_DEFERRED = "rpkt_crossing_deferred"
 CONFIG_MULTIBIN = "rpkt_crossing_multibin"
 CONFIG_JBLUE = "rpkt_crossing_jblue"
+CONFIG_FFONLY = "rpkt_crossing_ffonly"
 propagate.launches = dict.fromkeys((*CONFIG_OF_GEOM.values(), CONFIG_BFRATE,
                                     CONFIG_EXPANSION, CONFIG_DEFERRED, CONFIG_MULTIBIN,
-                                    CONFIG_JBLUE), 0)
+                                    CONFIG_JBLUE, CONFIG_FFONLY), 0)
 propagate.timing = None
 
 

@@ -239,7 +239,7 @@ def _emission(obs, rpos, rt, rdir_in, rq_in, ru_in, ris_scatter):
 
 
 def _trace_rays(cfg, dad, grid, cells, ctx, cum_tau, cum_taunu, line_nu_neg, obs, pos, t,
-                where, nu_c, max_crossings: int):
+                where, nu_c, max_crossings: int, opacity_case: int):
     """Per-channel optical depth (n, nspectra) of rays from ``pos`` at time
     ``t`` in cell ``where`` with cmf frequency ``nu_c`` toward ``obs``, to
     escape; inf for rays killed by tau_max or a thick cell (vpkt.cc:283,
@@ -273,7 +273,7 @@ def _trace_rays(cfg, dad, grid, cells, ctx, cum_tau, cum_taunu, line_nu_neg, obs
             live = ~done & nonempty
             chi = opacity.calculate_chi_rpkt_cont(
                 dad, torch.where(live, nu_c, torch.full_like(nu_c, 1e15)), safe_mgi, live,
-                ctx.bf_a, ctx.bf_dep, ctx.chi_ff_nnionpart, cells.nne, cells.Te)
+                ctx.bf_a, ctx.bf_dep, ctx.chi_ff_nnionpart, cells.nne, cells.Te, opacity_case)
             chi_tot = chi[0] + chi[1] + chi[2]
             # continuum per channel with exclusions (vpkt.cc:267-280)
             chi_chan = torch.stack([chi_tot - chi[excl[e]] if e in excl else chi_tot
@@ -330,10 +330,8 @@ def trace_vpkts(cfg: VpktConfig, vspec, dad, grid, cells, ctx, cum_tau, cum_taun
     of ``vspec`` (reference: vpkt.cc:899-962). With cfg.vgrid_on and
     a ``vgrid_acc`` accumulator, also bins each ray's emission velocity,
     projected onto the observer plane, into the polarisation maps
-    (vpkt.cc:66-160). Returns (vspec, vgrid_acc). ``opacity_case`` >= 4
-    (the cases the port runs)."""
-    if opacity_case < 4:
-        raise NotImplementedError(f"opacity_case={opacity_case} (< 4) is not ported")
+    (vpkt.cc:66-160). Returns (vspec, vgrid_acc). Below ``opacity_case``
+    4 the rays' continuum is free-free only."""
     dev, dt = pos.device, pos.dtype
     nobs = cfg.nobs
     sites = torch.nonzero(active)[:, 0]
@@ -371,7 +369,8 @@ def trace_vpkts(cfg: VpktConfig, vspec, dad, grid, cells, ctx, cum_tau, cum_taun
     tau = torch.cat([
         _trace_rays(cfg, dad, grid, cells, ctx, cum_tau, cum_taunu, line_nu_neg,
                     obs[c:c + RAY_CHUNK], rpos[c:c + RAY_CHUNK], rt[c:c + RAY_CHUNK],
-                    where[site[c:c + RAY_CHUNK]], nu_cmf[site[c:c + RAY_CHUNK]], max_crossings)
+                    where[site[c:c + RAY_CHUNK]], nu_cmf[site[c:c + RAY_CHUNK]], max_crossings,
+                    opacity_case)
         for c in range(0, sel.numel(), RAY_CHUNK)])
 
     # --- bin into the Stokes spectra (vpkt.cc:33-111 add_to_vspecpol) ---

@@ -39,13 +39,25 @@ line is printed):
        4, 64) and the lanes its timestep 0 leaves in flight, and the
        default 16-shell scene with both estimators (and the LUT ones); a
        bin row or J_b_lu row that stays zero in every case fails;
+     - the free-free continuum of the grey opacity cases 0-3 (``ff_only``):
+       K1 on the default scene's non-grey and denser ionised shells, and
+       the 3D walk on the 1D model on 50^3 with bf-rate estimators; no
+       lane may take an electron-scattering or bound-free event and the
+       kernel's electron-scattering and bound-free opacities and LUT rows
+       must be zero, and free-free events must occur;
      then the time of each kernel configuration against its plain version
      at N=65536, max_inner=64 (plain, kernel, kernel, plain), the kernel in
      both estimator-row modes (shared memory, global atomics) where the
      rows fit shared memory;
   4. end to end through ``artis_tpu_torch.cli.main_sn3d``, each run with the
      launch counts reset just before it and read just after: the default
-     1D scene (65536 packets), the 128-shell 1D scene (2^20 packets), the
+     1D scene (65536 packets), default_opacity3 (the default scene under
+     grey opacity case 3 with rho_crit_para 5e-7 and the run diagnostics
+     on: K1 with the free-free continuum; timestep 1 has shells on both
+     sides of rho_crit, no electron-scattering or bound-free event is
+     counted, linestat.out's counts of each timestep equal its bound-bound
+     counters, macroatom_0000.out has rows, the lockfile is gone), the
+     128-shell 1D scene (2^20 packets), the
      big 3D scene with detailed bf-rate estimators (2^20 packets,
      timesteps 0-2), kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
      timesteps 0-1), kilonova_2d_2dgrid_fe (the same cylinder with the
@@ -99,7 +111,16 @@ line is printed):
      completes, every output is finite and packets escape; each run also
      logs its kernel launches, their summed CUDA-event ms (the wrapper's
      ``propagate.timing``), the lane-count range and their share of the
-     run's transport seconds;
+     run's transport seconds; then the default scene's timesteps 0-1
+     without and with the run diagnostics, in lockstep: packet states and
+     cells bitwise, and every estimator but the kernel's float-atomic sums
+     and the diagnostics' own (``check_diagnostics_observe``); then
+     timestep 0 of the default scene's shells at 1e4 times the density
+     with no grey timestep, cut after 32 transport iterations, under case 4
+     without and with the diagnostics and under case 3 with them
+     (``check_opacity_cases_differ``): the diagnostics leave case 4's
+     packets and cells bitwise, case 4 scatters on electrons and case 3
+     does not, both absorb in lines and count them as their counters do;
   5. prints the kernel records, the card and, last, the device record.
 
     python3 chip_smoke.py --rows-sweep
@@ -132,7 +153,7 @@ lanes in packet order (the main path's) and sorted by (model cell,
 cursor), in alternating rounds (``kernel_ab``): wrapper-inclusive and
 kernel-only CUDA-event times, ptxas registers and the work per crossing;
 then the launches of the main paths in ``REPLAYS`` (the default and
-128-shell 1D scenes, the cylinder at the synthetic and at the Fe line
+128-shell 1D scenes, the big 3D scene, the cylinder at the synthetic and at the Fe line
 list, the expansion-opacity cylinder, nebular, classic_3d) replayed through
 each kernel in both orders, with each version's counters (advances and
 boundary crossings per lane, lines or bins walked and bf continua per
@@ -171,6 +192,10 @@ CONFIGS = {
     "rpkt_crossing_deferred": ("K6", f"{PALLAS}:1426"),
     "rpkt_crossing_multibin": ("K5-multibin", f"{PALLAS}:1491"),
     "rpkt_crossing_jblue": ("K5-jblue", f"{PALLAS}:1254"),
+    # the free-free continuum of the grey opacity cases 0-3 (a runtime field
+    # of every instantiation): the continuum of _kernel, which the JAX
+    # package runs outside Pallas below case 4 (opacity.py:242-258)
+    "rpkt_crossing_ffonly": ("ff-only", f"{PALLAS}:980"),
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12
@@ -185,6 +210,24 @@ def default_scene(d):
 
     make_run(d, ncells=16, ntimesteps=6, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
              logrho0=-9.0, logrho_slope=-0.15)
+
+
+# default_opacity3: the default scene under opacity case 3 with a
+# rho_crit_para that moves the regime switch into the run: at 5e-7 the inner
+# shells lie above rho_crit in timesteps 1-2 and none by timestep 3
+OPACITY3_RHO_CRIT_PARA = 5e-7
+
+
+def default_opacity3_scene(d):
+    from artis_tpu_torch.synthdata import make_run
+
+    make_run(d, ncells=16, ntimesteps=6, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
+             logrho0=-9.0, logrho_slope=-0.15, opacity_case=3,
+             rho_crit_para=OPACITY3_RHO_CRIT_PARA)
+
+
+# the run diagnostics' options
+DIAGNOSTICS = dict(record_linestat=True, track_ion_stats=True, log_macroatom=True)
 
 
 def real_scene(d):
@@ -335,8 +378,10 @@ def nebular_nt_scene(d):
 # deactivate, as the JAX package's do (tests/test_torch_nt_chains.py): the
 # transport of timestep 2 did not end within the smoke's time limit
 # (PERF.md, section 6). Timesteps 2-3 of both scenes stop at a wall budget,
-# and the macro-atoms still active go on in the next timestep
-NT_WALL_BUDGET_S = 30.0
+# and the macro-atoms still active go on in the next timestep. 20 s, not
+# 30 s: with 30 s the whole smoke took 1040 s of its 1200 s on one card
+# once the grey opacity cases and the run diagnostics were in it
+NT_WALL_BUDGET_S = 20.0
 NEBULAR = dict(nt_on=False, nt_solve_spencerfano=False,
                detailed_bf_estimators_usefromtimestep=2, first_nlte_radfield_timestep=3,
                transport_wall_budget=NT_WALL_BUDGET_S)
@@ -585,7 +630,11 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=
     in-kernel scatter counters must stay 0; with ``every_kind`` each case
     must send events of every kind to the pass: bound-bound,
     electron-scattering, free-free, bound-free and, where its tables have
-    thick cells, thick-cell grey. Returns the prop_time max_abs_err of
+    thick cells, thick-cell grey. With ``ff_only`` (the free-free
+    continuum of the grey opacity cases 0-3) no lane may take an
+    electron-scattering or bound-free event, in the kernel or after it, and
+    the kernel's electron-scattering and bound-free opacities and LUT gamma
+    and bf-heating rows must be zero. Returns the prop_time max_abs_err of
     each."""
     import torch
 
@@ -607,7 +656,7 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=
             rep["prop_time_max_abs_err_s"] = err
             log(f"compare[{tag} {'injected' if test_mode else 'philox'}] ok={ok}: "
                 f"{json.dumps(rep)}")
-            if extra:
+            if "nradbins" in extra:
                 log(f"compare[{tag}]: radbin count {float(p['radbin'][:, 2].sum())}, J_b_lu "
                     f"count {float(p['jblue'][:, 1].sum())}, bin flips "
                     f"{rep.get('radbin_flips')}, moved J_b_lu passes {rep.get('jblue_moved')}")
@@ -628,6 +677,17 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=
                            and (kind != "thick" or bool((tb["thick"] != 0).any()))]
                 if every_kind and missing:
                     raise RuntimeError(f"{tag}: no {missing} event left the kernel")
+            if extra.get("ff_only"):
+                kinds = _event_kinds(p, se)
+                largest = {f: float(k[f].abs().max()) if k[f].numel() else 0.0
+                           for f in ("chi_escat", "chi_bf", "gamma", "bfheat")}
+                largest["in-kernel electron scatters"] = float(k["misc"][3])
+                log(f"compare[{tag}]: ff-only events {kinds}, the kernel's largest {largest}")
+                if kinds["escat"] or kinds["bf"] or any(largest.values()):
+                    raise RuntimeError(f"{tag}: the free-free continuum took electron "
+                                       f"scattering or bound-free opacity")
+                nonzero["ff_only_ff_events"] = (nonzero.get("ff_only_ff_events", False)
+                                                or kinds["ff"] > 0)
             ok_all &= ok
             errs.append(err)
     # comparison launches (and the timesteps run to capture lanes) are not
@@ -803,7 +863,11 @@ def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7, expansion=Fals
     rpkt_kernel.propagate.launches.update(before)
     walk_log = []
     rpkt_kernel.propagate_reference(*args, walk_log=walk_log, **kw)
-    bound, by, nbytes = _bound_ms(out, walk_log, tables, kw, test_mode=False)
+    # the tables the launch read (with the free-free continuum and no
+    # bf-rate rows: no continuum)
+    launch_tables = (rpkt_kernel.ff_only_tables(tables, want_bfrate) if extra.get("ff_only")
+                     else tables)
+    bound, by, nbytes = _bound_ms(out, walk_log, launch_tables, kw, test_mode=False)
     misc = out["misc"].double().cpu().numpy()
     log(f"timing[{label}] (N={NPKTS_DEFAULT}, max_inner=64): "
         + ", ".join(f"kernel with {ROW_MODE[m]} rows "
@@ -847,6 +911,15 @@ def phase_kernel_vs_plain(workdir):
     cases.append(_captured_case(sim, seed=1))
     errs["rpkt_crossing_sph1d"] += _check_cases(sim, cases, nonzero)
     rec["rpkt_crossing_sph1d"] = _time_config(sim, *timing_1d, False, "K1 sph1d")
+    # the free-free continuum of the grey opacity cases 0-3 in K1's kernel:
+    # the same lanes on the non-grey and the ionised, denser shells (where
+    # free-free absorbs)
+    ff_cases = [(f"ff_only {name} max_inner={mi}", lanes, tb, tau, sel, float(ctx.t2), mi)
+                for name, tb in (("nongrey", tables_ng), ("dense", dense_tables(tables)))
+                for mi in (1, 4, 64)]
+    errs["rpkt_crossing_ffonly"] += _check_cases(sim, ff_cases, nonzero, ff_only=True)
+    rec["rpkt_crossing_ffonly"] = _time_config(sim, *timing_1d, False, "ff_only sph1d",
+                                               ff_only=True)
     real = _phase3_sim(workdir, "phase3_real", real_scene, NPKTS_REAL)
     log(f"phase 3 realistic shapes: ncells={real.cells.Te.shape[0]} "
         f"nlines={real.dad.nlines} ncont={real.dad.nbfcontinua}")
@@ -870,6 +943,13 @@ def phase_kernel_vs_plain(workdir):
                                      seed=3), nonzero, want_bfrate=True)
         for k in cart:
             errs[k] += e
+        if name == "1dmodel_50cube":
+            # the free-free continuum in the 3D walk (<CART, false, true>),
+            # whose bf-rate rows accumulate as in every case
+            errs["rpkt_crossing_ffonly"] += _check_cases(
+                sim, _cases(f"ff_only {name}", sim, dense_tables(tb), float(ctx.ts),
+                            float(ctx.t2), (1, 64), seed=17), nonzero, want_bfrate=True,
+                ff_only=True)
         sim.close()
         del sim
         gc.collect()
@@ -1575,10 +1655,12 @@ def kernel_ab(workdir, roots):
 
 
 # the main paths whose kernel launches --kernel-ab replays: scene (SCENES),
-# packets and timesteps; K1's (the default and 128-shell 1D scenes), K3's
+# packets and timesteps; K1's (the default and 128-shell 1D scenes), K2 /
+# K5-bfrate's (the big 3D scene), K3's
 # (the cylinder at the synthetic and at the Fe line list), K4's (the
 # expansion-opacity cylinder) and the 3D line walk's (nebular, classic_3d)
 REPLAYS = (("default_scene", NPKTS_DEFAULT, 5), ("realistic_scene", NPKTS_REAL, 2),
+           ("big_scene", NPKTS_REAL, 2),
            ("kilonova_2d_2dgrid", NPKTS_2D, 2), ("kilonova_2d_2dgrid_fe", NPKTS_2D, 3),
            ("kilonova_2d_2dgrid_expansionopac", NPKTS_2D, 3),
            ("nebular_1d_3dgrid_nont", NPKTS_REAL, 2), ("classic_3d", NPKTS_REAL, 2))
@@ -1847,6 +1929,156 @@ def repeat_runs(workdir):
     if differing:
         raise RuntimeError(f"same-seed runs differ beyond the kernel's sums: {differing}")
     log("repeat: timestep 0 repeats bit for bit but for the kernel's sums in every scene")
+
+
+# the estimators that only the run diagnostics fill
+DIAGNOSTIC_FIELDS = ("ion_stats", "line_emisscount", "line_absorbcount", "malog", "malog_n")
+
+
+def check_diagnostics_observe(workdir):
+    """The run diagnostics observe and do not perturb: the default scene's
+    timesteps 0-1 without and with ``DIAGNOSTICS``, in lockstep. After each
+    timestep the packet states and cells must be bitwise equal, and so
+    every estimator but the kernel's float-atomic sums
+    (rpkt_kernel.ATOMIC_SUMS, whose adds change order from launch to
+    launch) and the diagnostics' own; timestep 1 starts both runs from the
+    first run's atomic sums, so that its inputs are the same. The
+    diagnostics' counts must equal the counters. Returns the record."""
+    from artis_tpu_torch import stats
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    sims = [_phase3_sim(workdir, f"observe_{i}", default_scene, NPKTS_DEFAULT, **kw)
+            for i, kw in enumerate(({}, DIAGNOSTICS))]
+    a, b = sims
+    rec = {}
+    for nts in range(2):
+        if nts:
+            b.prev_est = b.prev_est.replace(**{k: getattr(a.prev_est, k)
+                                               for k in rpkt_kernel.ATOMIC_SUMS})
+        for sim in sims:
+            sim.do_timestep(nts)
+        diff = {"state": _differing(a.state, b.state), "cells": _differing(a.cells, b.cells),
+                "est": {k: n for k, n in _differing(a.est, b.est).items()
+                        if k not in DIAGNOSTIC_FIELDS}}
+        c = b.est.counters
+        counts = dict(emitted=int(b.est.line_emisscount.sum()),
+                      deactivation_bb=int(c[stats.MA_STAT_DEACTIVATION_BB]),
+                      absorbed=int(b.est.line_absorbcount.sum()),
+                      activation_bb=int(c[stats.MA_STAT_ACTIVATION_BB]),
+                      malog_rows=int(b.est.malog_n),
+                      ion_stats_nonzero=int((b.est.ion_stats != 0).sum()))
+        rec[nts] = dict(differing=diff, **counts)
+        log(f"observe: timestep {nts} ({a.plasma_mode}): without / with the diagnostics, "
+            f"differing elements {json.dumps(diff)}; diagnostics {json.dumps(counts)}")
+        if diff["state"] or diff["cells"] or set(diff["est"]) - set(rpkt_kernel.ATOMIC_SUMS):
+            raise RuntimeError(f"observe: the diagnostics changed timestep {nts}: {diff}")
+        if (counts["emitted"] != counts["deactivation_bb"]
+                or counts["absorbed"] != counts["activation_bb"]):
+            raise RuntimeError(f"observe: timestep {nts}: line counts {counts} differ from the "
+                               f"counters")
+    if not rec[1]["emitted"] or not rec[1]["ion_stats_nonzero"]:
+        raise RuntimeError(f"observe: the diagnostics recorded nothing: {rec}")
+    for sim in sims:
+        sim.close()
+    del sims, a, b
+    gc.collect()
+    return rec
+
+
+# the default scene's 16 shells and atom at 1e4 times its density and
+# without its grey timestep: electron scattering and line absorption are
+# common there under case 4 (the default scene takes neither in a non-grey
+# timestep), and its k-packets and macro-atoms cycle for about a thousand
+# iterations of timestep 0, so the runs below stop after OPACITY_CASES_ITERS
+# iterations (a count, not a wall budget, so what they cover does not depend
+# on the host)
+OPACITY_CASES_ITERS = 32
+
+
+def dense_default_scene(d, opacity_case):
+    from artis_tpu_torch.synthdata import make_run
+
+    make_run(d, ncells=16, ntimesteps=2, tmin_days=5.0, tmax_days=9.0, ngreyts=0,
+             logrho0=-5.0, logrho_slope=-0.15, opacity_case=opacity_case,
+             rho_crit_para=OPACITY3_RHO_CRIT_PARA)
+
+
+def check_opacity_cases_differ(workdir, npkts=NPKTS_DEFAULT):
+    """The free-free continuum and the run diagnostics end to end, where
+    they make a difference: timestep 0 of ``dense_default_scene`` through
+    ``Simulation.do_timestep``, its transport cut after OPACITY_CASES_ITERS
+    iterations, under case 4 without and with ``DIAGNOSTICS`` and under
+    case 3 with them. The two case-4 runs must end in bitwise the same
+    packet states and cells (the diagnostics observe and do not perturb).
+    Case 4 must take electron scatterings and case 3 none, nor a bound-free
+    event; both must absorb in lines, and each run's line_absorbcount and
+    line_emisscount must equal its bound-bound activation and deactivation
+    counters, with the bound-bound terms of ion_stats filled and macro-atom
+    log rows. Case 3 launches the kernel with the free-free continuum in
+    every launch, case 4 never. Returns the record."""
+    import functools
+
+    from artis_tpu_torch import stats
+    from artis_tpu_torch.transport import engine, rpkt_kernel
+
+    rec, sims, orig = {}, {}, engine.transport_timestep
+    engine.transport_timestep = functools.partial(orig, max_iters=OPACITY_CASES_ITERS)
+    try:
+        for key, case, extra in (("case4", 4, {}), ("case4_diagnostics", 4, DIAGNOSTICS),
+                                 ("case3_diagnostics", 3, DIAGNOSTICS)):
+            sim = _phase3_sim(workdir, f"opacity_{key}",
+                              functools.partial(dense_default_scene, opacity_case=case), npkts,
+                              **extra)
+            before = dict(rpkt_kernel.propagate.launches)
+            sim.do_timestep(0)
+            launched = {k: v - before[k] for k, v in rpkt_kernel.propagate.launches.items()}
+            rpkt_kernel.propagate.launches.update(before)
+            c, est = sim.est.counters, sim.est
+            r = rec[key] = dict(
+                escounter=int(c[stats.ESCOUNTER]), k_stat_from_bf=int(c[stats.K_STAT_FROM_BF]),
+                activation_bf=int(c[stats.MA_STAT_ACTIVATION_BF]),
+                activation_bb=int(c[stats.MA_STAT_ACTIVATION_BB]),
+                deactivation_bb=int(c[stats.MA_STAT_DEACTIVATION_BB]),
+                ffonly_launches=launched["rpkt_crossing_ffonly"],
+                sph1d_launches=launched["rpkt_crossing_sph1d"])
+            if extra:
+                ist = est.ion_stats.double().sum(dim=(0, 1))
+                r.update(absorbed=int(est.line_absorbcount.sum()),
+                         emitted=int(est.line_emisscount.sum()), malog_rows=int(est.malog_n),
+                         ion_energyin_radexc=float(ist[stats.ION_MACROATOM_ENERGYIN_RADEXC]),
+                         ion_boundbound_absorbed=float(ist[stats.ION_BOUNDBOUND_ABSORBED]))
+            log(f"opacity cases: {key}, timestep 0 cut after {OPACITY_CASES_ITERS} iterations: "
+                f"{json.dumps(r)}")
+            sims[key] = sim
+    finally:
+        engine.transport_timestep = orig
+    a, b = sims["case4"], sims["case4_diagnostics"]
+    diff = {"state": _differing(a.state, b.state), "cells": _differing(a.cells, b.cells)}
+    rec["observe_differing"] = diff
+    log(f"opacity cases: case 4 without / with the diagnostics, differing elements "
+        f"{json.dumps(diff)}")
+    for sim in sims.values():
+        sim.close()
+    del sims, a, b
+    gc.collect()
+    c4, c3 = rec["case4_diagnostics"], rec["case3_diagnostics"]
+    faults = [msg for msg, bad in (
+        ("the diagnostics changed case 4's timestep", diff["state"] or diff["cells"]),
+        ("case 4 took no electron scattering", c4["escounter"] <= 0),
+        ("case 3 took electron scatterings or bound-free events",
+         c3["escounter"] or c3["k_stat_from_bf"] or c3["activation_bf"]),
+        ("a case absorbed in no line", c4["activation_bb"] <= 0 or c3["activation_bb"] <= 0),
+        ("line counts differ from the counters",
+         any(r["absorbed"] != r["activation_bb"] or r["emitted"] != r["deactivation_bb"]
+             for r in (c4, c3))),
+        ("ion_stats miss the bound-bound absorptions, or the macro-atom log is empty",
+         any(r["ion_energyin_radexc"] <= 0 or r["malog_rows"] <= 0 for r in (c4, c3))),
+        ("the launches do not follow the case",
+         c4["ffonly_launches"] or not 0 < c3["ffonly_launches"] == c3["sph1d_launches"]))
+        if bad]
+    if faults:
+        raise RuntimeError(f"opacity cases: {faults}: {rec}")
+    return rec
 
 
 def check_nebular(rec, name="nebular_1d_3dgrid_nont"):
@@ -2267,7 +2499,69 @@ def check_vpkt_ts0(classic, vrec):
 # the runs whose packets after timestep 0 are kept, and what runs right
 # after a run (before the next frees its memory)
 KEEP_TS0 = {"classic_3d", "classic_3d_vpkt"}
-POST_RUN = {"classic_3d_vpkt": post_vpkt, "kilonova_2d_2dgrid_xcomgammaphotoion": post_xcom}
+def _counters_by_timestep(d):
+    """{timestep: {counter: value}} from a run's output_0-0.txt."""
+    out, cur = {}, None
+    for line in open(os.path.join(d, "output_0-0.txt")):
+        words = line.split()
+        if len(words) == 5 and words[1] == "timestep" and words[3:] == ["event", "counters:"]:
+            cur = out.setdefault(int(words[2]), {})
+        elif cur is not None and line.startswith("  ") and ": " in line:
+            key, val = line.strip().split(": ")
+            cur[key] = int(val)
+        else:
+            cur = None
+    return out
+
+
+def post_opacity3(rec):
+    """default_opacity3 (grey opacity case 3, the run diagnostics on,
+    through the CLI): timestep 1 has shells on both sides of rho_crit (the
+    driver's log line), no electron-scattering or bound-free event was
+    taken in any timestep, linestat.out's counts of each timestep equal
+    its bound-bound activation and deactivation counters, the macro-atom
+    log has rows, and the lockfile is gone."""
+    d = rec["dir"]
+    above = {}
+    for line in open(os.path.join(d, "output_0-0.txt")):
+        # "HH:MM:SS timestep N: rho_crit R g/cm^3, K of M cells above it"
+        words = line.split()
+        if len(words) == 12 and words[3] == "rho_crit" and words[-2:] == ["above", "it"]:
+            above[int(words[2].rstrip(":"))] = (float(words[4]), int(words[6]), int(words[8]))
+    log(f"default_opacity3: rho_crit and shells above it by timestep {json.dumps(above)}")
+    if not 0 < above[1][1] < above[1][2]:
+        raise RuntimeError(f"default_opacity3: timestep 1 has shells on one side of rho_crit "
+                           f"only: {above[1]}")
+    counters = _counters_by_timestep(d)
+    rows = open(os.path.join(d, "linestat.out")).read().splitlines()[5:]
+    if len(rows) != 2 * len(rec["timesteps"]):
+        raise RuntimeError(f"default_opacity3: linestat.out has {len(rows)} count rows")
+    lines = {}
+    for nts, c in sorted(counters.items()):
+        bad = {k: c.get(k, 0) for k in ("escounter", "k_stat_from_bf", "ma_stat_activation_bf")}
+        emitted, absorbed = (sum(int(v) for v in rows[2 * nts + i].split()) for i in (0, 1))
+        lines[nts] = (emitted, c.get("ma_stat_deactivation_bb", 0), absorbed,
+                      c.get("ma_stat_activation_bb", 0))
+        if any(bad.values()):
+            raise RuntimeError(f"default_opacity3: timestep {nts} took {bad}")
+        if emitted != lines[nts][1] or absorbed != lines[nts][3]:
+            raise RuntimeError(f"default_opacity3: timestep {nts}: linestat.out counts "
+                               f"{lines[nts]} differ from the counters")
+    log(f"default_opacity3: (emitted, ma_stat_deactivation_bb, absorbed, "
+        f"ma_stat_activation_bb) by timestep {json.dumps(lines)}")
+    if not sum(v[0] for v in lines.values()):
+        raise RuntimeError("default_opacity3: linestat.out counts no emission")
+    malog = open(os.path.join(d, "macroatom_0000.out")).read().splitlines()
+    log(f"default_opacity3: macroatom_0000.out has {len(malog) - 1} rows")
+    if len(malog) < 2:
+        raise RuntimeError("default_opacity3: macroatom_0000.out has no row")
+    if os.path.exists(os.path.join(d, "artis.pid")):
+        raise RuntimeError("default_opacity3: artis.pid is left after the run")
+    return {"opacity3": dict(rho_crit=above, lines=lines, malog_rows=len(malog) - 1)}
+
+
+POST_RUN = {"classic_3d_vpkt": post_vpkt, "kilonova_2d_2dgrid_xcomgammaphotoion": post_xcom,
+            "default_opacity3": post_opacity3}
 
 
 # the main-path runs of phase 4: name, scene, packets, grid, the kernel
@@ -2275,6 +2569,10 @@ POST_RUN = {"classic_3d_vpkt": post_vpkt, "kilonova_2d_2dgrid_xcomgammaphotoion"
 CART = ["rpkt_crossing_cart3d"]
 SCENES = [
     ("default_scene", default_scene, NPKTS_DEFAULT, "SPHERICAL1D", ["rpkt_crossing_sph1d"], {}),
+    # the default scene under grey opacity case 3 with the run diagnostics:
+    # K1 with the free-free continuum
+    ("default_opacity3", default_opacity3_scene, NPKTS_DEFAULT, "SPHERICAL1D",
+     ["rpkt_crossing_sph1d", "rpkt_crossing_ffonly"], DIAGNOSTICS),
     ("realistic_scene", real_scene, NPKTS_REAL, "SPHERICAL1D", ["rpkt_crossing_sph1d"], {}),
     ("big_scene", big_scene, NPKTS_REAL, "CARTESIAN3D", CART + ["rpkt_crossing_bfrate"],
      dict(detailed_bf_estimators_on=True)),
@@ -2326,6 +2624,12 @@ def scene_runs(workdir, names):
         if name == "nebular_1d_3dgrid":
             check_nebular_nt(rec)
             phase_sf_card_vs_cpu(rec)
+        if name == "nebular_1d_3dgrid_nont":
+            check_nebular(rec)
+        if name == "classic_dense":
+            check_classic_dense(rec)
+        if name == "default_opacity3":
+            check_opacity_cases_differ(workdir)
     if "classic_3d" in runs and "classic_3d_vpkt" in runs:
         check_vpkt_ts0(runs["classic_3d"], runs["classic_3d_vpkt"])
 
@@ -2367,6 +2671,8 @@ def main():
         check_classic(runs["classic_3d"])
         check_vpkt_ts0(runs["classic_3d"], runs["classic_3d_vpkt"])
         check_classic_dense(runs["classic_dense"])
+        check_diagnostics_observe(workdir)
+        check_opacity_cases_differ(workdir)
     # bin events activated the macro-atom on lines of their bins, and the
     # analytic schemes resolved gamma packets
     n_bb = runs["kilonova_2d_2dgrid_expansionopac"]["counters"].get("ma_stat_activation_bb", 0)
@@ -2386,7 +2692,8 @@ def main():
                 "rpkt_crossing_expansion": "kilonova_2d_2dgrid_expansionopac",
                 "rpkt_crossing_deferred": "classic_3d",
                 "rpkt_crossing_multibin": "nebular_1d_3dgrid_nont",
-                "rpkt_crossing_jblue": "nebular_1d_3dgrid_nont"}
+                "rpkt_crossing_jblue": "nebular_1d_3dgrid_nont",
+                "rpkt_crossing_ffonly": "default_opacity3"}
     # K2's launches come from the classic run, the main path that launches
     # the cart3d geometry without bf-rate estimators (in the deferred mode);
     # its time is the big scene's in-kernel-scatter mode
@@ -2408,6 +2715,9 @@ def main():
         rec[key]["launches_classic_3d_vpkt"] = runs["classic_3d_vpkt"]["launches"][key]
     rec["rpkt_crossing_cyl2d"]["launches_kilonova_2d_2dgrid_xcomgammaphotoion"] = \
         runs["kilonova_2d_2dgrid_xcomgammaphotoion"]["launches"]["rpkt_crossing_cyl2d"]
+    # the grey opacity case 3 (K1 with the free-free continuum)
+    rec["rpkt_crossing_sph1d"]["launches_default_opacity3"] = \
+        runs["default_opacity3"]["launches"]["rpkt_crossing_sph1d"]
     kernels = []
     for key, (label, replaces) in CONFIGS.items():
         r = rec[key]

@@ -114,7 +114,7 @@ def _forced_lanes(sim, ctx, seed, npkts=NPKTS):
 
 def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
            expansion=False, defer=False, nradbins=0, njblue=0, lut=True, order="packet",
-           n=None, grey=False):
+           n=None, grey=False, ff_only=False):
     """Kernel against plain version on the scene's forced lanes (the first
     ``n`` of them where given; more than NPKTS drawn where ``n`` asks for
     them). ``grey``: every other cell thick, at a grey opacity that makes
@@ -149,7 +149,7 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
               last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
               want_bfrate=want_bfrate, expansion=expansion, defer_scatter=defer,
               nradbins=nradbins, njblue=njblue, want_gamma=lut, want_bfheat=lut,
-              **rpkt_kernel.kernel_geometry(sim.grid))
+              ff_only=ff_only, **rpkt_kernel.kernel_geometry(sim.grid))
     before = sum(rpkt_kernel.propagate.launches.values())
     ok, rep, _, plain = rpkt_kernel.check_kernel(
         99, lanes, tables, tau, sel, float(ctx.t2), float(ctx.tmin),
@@ -158,7 +158,7 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
     launches = 1 + (rep["diverged_lanes"] > 0)
     assert sum(rpkt_kernel.propagate.launches.values()) == (
         before + launches * (1 + want_bfrate + expansion + defer + bool(nradbins)
-                             + bool(njblue)))
+                             + bool(njblue) + ff_only))
     assert ok, rep
     # the estimators accumulated, so their comparison tested something (a
     # launch of a few lanes: they moved)
@@ -198,6 +198,58 @@ def test_kernel_global_atomics_mode(scenes, name, max_inner):
     """Estimator rows added straight into global memory (the mode the
     wrapper takes for many cells), forced on a small grid."""
     _check(*scenes[name], max_inner, test_mode=True, shared_rows=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("max_inner", [1, 16])
+@pytest.mark.parametrize("name", ["sph1d", "1dmodel_3dgrid"])
+def test_ff_only_kernel_matches_plain_version(scenes, name, max_inner, test_mode):
+    """The free-free continuum of the grey opacity cases 0-3 (``ff_only``) in
+    K1's kernel (without bf-rate rows) and in the 3D walk (with them, which
+    accumulate in every case): the kernel against its plain version, and
+    no electron-scattering or bound-free opacity, no LUT gamma or
+    bf-heating row, in either."""
+    plain = _check(*scenes[name], max_inner, test_mode, want_bfrate=name != "sph1d",
+                   ff_only=True)
+    for f in ("chi_escat", "chi_bf", "gamma", "bfheat"):
+        assert not bool(plain[f].any()), f
+
+
+@pytest.mark.cuda
+def test_main_path_opacity_case3_with_diagnostics(tmp_path):
+    """Grey opacity case 3 with the run diagnostics through the CLI on the
+    card: K1 launches with the free-free continuum, no electron scattering
+    or bound-free event is counted, linestat.out's counts equal the
+    counters, the macro-atom log and the ion statistics are written, and
+    the lockfile is released."""
+    _need_cuda()
+    from artis_tpu_torch.cli import main_sn3d
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    d = str(tmp_path)
+    make_run(d, ncells=8, ntimesteps=4, tmin_days=2.0, tmax_days=4.0, ngreyts=1, logrho0=-8.0,
+             opacity_case=3, rho_crit_para=1e-7)
+    rpkt_kernel.reset_launches()
+    assert main_sn3d(["--rundir", d, "--device", "cuda", "--set", "npkts=4000",
+                      "--set", "transport_dtype=float32", "--set", "grid_type=SPHERICAL1D",
+                      "--set", "mintemp=1000.0", "--set", "maxtemp=20000.0",
+                      "--set", "tablesize=20", "--set", "record_linestat=True",
+                      "--set", "track_ion_stats=True", "--set", "log_macroatom=True"]) == 0
+    launched = rpkt_kernel.propagate.launches
+    assert launched["rpkt_crossing_sph1d"] == launched["rpkt_crossing_ffonly"] > 0
+    assert not os.path.exists(os.path.join(d, "artis.pid"))
+    log = open(os.path.join(d, "output_0-0.txt")).read()
+    for name in ("escounter", "k_stat_from_bf", "ma_stat_activation_bf"):
+        assert f"  {name}:" not in log, name
+    rows = open(os.path.join(d, "linestat.out")).read().splitlines()
+    emitted = sum(int(v) for r in rows[5::2] for v in r.split())
+    assert len(rows) == 5 + 2 * 3 and emitted > 0
+    counted = sum(int(line.split(": ")[1]) for line in log.splitlines()
+                  if line.startswith("  ma_stat_deactivation_bb: "))
+    assert emitted == counted
+    assert len(open(os.path.join(d, "macroatom_0000.out")).read().splitlines()) > 1
+    assert "ionstats Z" in open(os.path.join(d, "estimators_0002.out")).read()
 
 
 @pytest.mark.cuda
@@ -754,3 +806,105 @@ def test_xcom_opacity_card_matches_cpu(tmp_path):
     card = xcom_photoion_chi(*[x.cuda() for x in args]).cpu()
     assert torch.isfinite(card).all() and (card > 0).all()
     torch.testing.assert_close(card, cpu, rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_expansion_opacity_bins_repeat_on_card(dtype):
+    """The expansion-opacity bin sums (devutil.index_add_, a sorted
+    index_put_ on the card) give the same bits in two builds from the same
+    inputs, and the CPU's sums within rounding."""
+    _need_cuda()
+    from artis_tpu_torch.transport.expansionopacity import build_expansion_opacities
+
+    rng = np.random.default_rng(8)
+    ncells, nlines = 64, 20000
+    line_nu = torch.as_tensor(np.sort(10.0 ** rng.uniform(14.0, 15.8, nlines))[::-1].copy())
+    tau = torch.as_tensor(10.0 ** rng.uniform(-4, 3, (ncells, nlines)) / 4e5)
+    rho = torch.as_tensor(10.0 ** rng.uniform(-15, -12, ncells))
+    t_r = torch.as_tensor(rng.uniform(3e3, 2e4, ncells))
+    args = [x.to(dtype) for x in (tau, line_nu, rho, t_r)]
+    cuda = [x.cuda() for x in args]
+    k1, p1 = build_expansion_opacities(*cuda, 4e5)
+    k2, p2 = build_expansion_opacities(*cuda, 4e5)
+    assert torch.equal(k1, k2) and torch.equal(p1, p2)
+    assert float(k1.sum()) > 0
+    kc, _ = build_expansion_opacities(*args, 4e5)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    torch.testing.assert_close(k1.cpu(), kc, rtol=rtol, atol=rtol * float(kc.abs().max()))
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.cuda
+def test_polarised_vpkt_spawn_card_matches_cpu(tmp_path):
+    """Virtual packets from electron scatterings on the card: the dense, hot
+    classic scene (chip_smoke.classic_dense_scene's) with virtual packets,
+    4096 packets; the first electron-scattering spawns of timestep 0 (at
+    least 16 sites) are traced on the card and, from the same inputs, on
+    the CPU: the virtual I, Q and U of every bin within 1e-5 of the largest
+    bin, and Q or U non-zero (dipole scattering polarises)."""
+    _need_cuda()
+    import types
+
+    from artis_tpu_torch.devutil import map_tensors
+    from artis_tpu_torch.driver import Simulation
+    from artis_tpu_torch.transport import engine, vpkt
+
+    d = tmp_path / "dense"
+    d.mkdir()
+    make_run(str(d), ncells=8, ntimesteps=3, tmin_days=1.0, tmax_days=2.0, ngreyts=0,
+             logrho0=-6.0, num_lte_timesteps=1)
+    (d / "vpkt.txt").write_text("3\n1 0 -1\n0 90 0\n1\n6\n0 -1 -2 -3 -4 26\n0 0 0\n0\n1 1e9\n"
+                                "10\n1\n0.5 3.0\n1\n3500 8000\n")
+    from artis_tpu_torch.options import GridType, classic
+
+    opts = classic(npkts=4096, grid_type=GridType.CARTESIAN3D, ncoordgrid_x=8, ncoordgrid_y=8,
+                   ncoordgrid_z=8, mintemp=1000.0, maxtemp=20000.0, tablesize=20,
+                   transport_dtype="float32", vpkt_on=True)
+    sim = Simulation(str(d), opts, device="cuda")
+    spawn, sites, cap = engine.vpkt_spawn, [], {}
+
+    def capture(st, est, ctx, grid, dad, cells, o, mask, is_scatter, nu_cmf, oc):
+        if is_scatter and bool(mask.any()):
+            idx = torch.nonzero(mask)[:, 0]
+            sites.append({k: v[idx].clone() for k, v in (
+                ("pos", st.pos), ("dir", st.dir), ("prop_time", st.prop_time),
+                ("where", st.where), ("nu_cmf", nu_cmf), ("e_cmf", st.e_cmf),
+                ("stokes_qu", st.stokes[:, 1:3]))})
+            cap.update(ctx=ctx, grid=grid, dad=dad, cells=cells, oc=oc)
+            if sum(s["pos"].shape[0] for s in sites) >= 16:
+                raise _Captured()
+        return spawn(st, est, ctx, grid, dad, cells, o, mask, is_scatter, nu_cmf, oc)
+
+    engine.vpkt_spawn = capture
+    try:
+        with pytest.raises(_Captured):
+            sim.do_timestep(0)
+    finally:
+        engine.vpkt_spawn = spawn
+        sim.close()
+    site = {k: torch.cat([s[k] for s in sites]) for k in sites[0]}
+    n = site["pos"].shape[0]
+    cfg, ctx = sim.vpkt_cfg, cap["ctx"]
+
+    def trace(to):
+        c = types.SimpleNamespace(bf_a=to(ctx.bf_a), bf_dep=to(ctx.bf_dep),
+                                  chi_ff_nnionpart=to(ctx.chi_ff_nnionpart))
+        dev = to(site["pos"]).device
+        v, _ = vpkt.trace_vpkts(
+            cfg, vpkt.zero_vspectra(cfg, site["pos"].dtype, dev), map_tensors(to, cap["dad"]),
+            map_tensors(to, cap["grid"]), map_tensors(to, cap["cells"]), c,
+            to(ctx.vpkt_cum_tau), to(ctx.vpkt_cum_taunu),
+            *(to(site[k]) for k in ("pos", "dir", "prop_time", "where", "nu_cmf", "e_cmf",
+                                    "stokes_qu")),
+            True, torch.ones(n, dtype=torch.bool, device=dev), cap["oc"])
+        return v.double().cpu().numpy()
+
+    card = trace(lambda x: x.cuda())
+    cpu = trace(lambda x: x.cpu())
+    assert np.all(np.isfinite(card)) and card[..., 0].sum() > 0
+    assert np.abs(card[..., 1:]).sum() > 0, "no Q or U from the electron scatterings"
+    assert np.abs(card - cpu).max() <= 1e-5 * np.abs(cpu).max()

@@ -483,7 +483,8 @@ def test_check_supported_takes_the_new_slice():
         check_supported(base.replace(grid_type=gt, vpkt_on=True, use_xcom_gammaphotoion=True), 4)
     with pytest.raises(NotImplementedError, match="grid_type"):
         check_supported(base.replace(grid_type="SPHERICAL3D"), 4)
-    for name, value in (("record_linestat", True), ("track_ion_stats", True),
-                        ("log_macroatom", True)):
-        with pytest.raises(NotImplementedError, match=name):
-            check_supported(base.replace(**{name: value}), 4)
+    # the run diagnostics and the grey opacity cases 0-3 run too
+    for name in ("record_linestat", "track_ion_stats", "log_macroatom"):
+        check_supported(base.replace(**{name: True}), 4)
+    for case in range(7):
+        check_supported(base, case)

@@ -212,3 +212,68 @@ def test_estimator_rows_are_16_byte_aligned(ngc, nbfr, nradbins, njblue, lut):
     offset = bufs["est"].data_ptr() - bufs["misc"].data_ptr()
     assert offset == 8 * rk.NMISC and offset % 16 == 0
     assert bufs["est"].stride() == (4, 1)
+
+
+def test_ff_only_empty_window_matches_zero_bf_tables(tmp_path):
+    """The free-free continuum of the grey opacity cases 0-3 in its two
+    forms: without the detailed bf-rate rows the launch has no continuum
+    (an empty window), with them a zero bf_a table and no ground-continuum
+    index. On the same lanes both give the same lanes, J / nuJ / ffheating
+    rows, zero LUT rows and counters, but for the bf continua that the
+    bf-rate form's windows hold."""
+    from artis_tpu_torch.driver import Simulation
+    from artis_tpu_torch.options import GridType, kilonova_lte
+    from artis_tpu_torch.synthdata import make_run
+
+    d = str(tmp_path)
+    make_run(d, ncells=8, ntimesteps=2, tmin_days=5.0, tmax_days=9.0, ngreyts=0,
+             logrho0=-9.0, logrho_slope=-0.15)
+    opts = kilonova_lte(npkts=64, grid_type=GridType.SPHERICAL1D, mintemp=1000.0,
+                        maxtemp=20000.0, tablesize=8, transport_dtype="float32")
+    sim = Simulation(d, opts, datadir="/nonexistent", device="cpu")
+    ctx = sim.update_grid(0)
+    tables = rk.kernel_tables(sim.dad, sim.grid, sim.cells, ctx)
+    # singly ionised at 1e4 K and 1e4 times denser, so that free-free absorbs
+    te = torch.full_like(tables["Te"], 1.0e4)
+    nne = tables["rho"] * 1e4 / (56.0 * 1.66054e-24)
+    tables = dict(tables, thick=torch.zeros_like(tables["thick"]), Te=te, nne=nne,
+                  chiffpart=nne * 3.69255e8 / torch.sqrt(te))
+    rng = np.random.default_rng(5)
+    n, t0 = 256, float(ctx.ts)
+    cell = rng.integers(0, 8, n)
+    rmin = sim.grid_host.cell_pos_min[:8, 0] * t0 / sim.grid.tmin
+    rmax = sim.grid_host.cell_pos_max[:8, 0] * t0 / sim.grid.tmin
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    pos = u * (rmin[cell] + (rmax[cell] - rmin[cell]) * rng.uniform(0.02, 0.98, n))[:, None]
+    dv = rng.normal(size=(n, 3))
+    dv /= np.linalg.norm(dv, axis=1, keepdims=True)
+    nu = 10 ** rng.uniform(14.2, 15.9, n)
+    f = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    i = lambda x: torch.as_tensor(np.asarray(x, np.int32))
+    lanes = dict(posx=f(pos[:, 0]), posy=f(pos[:, 1]), posz=f(pos[:, 2]), dirx=f(dv[:, 0]),
+                 diry=f(dv[:, 1]), dirz=f(dv[:, 2]), nu_rf=f(nu), nu_cmf=f(nu * 0.98),
+                 e_rf=f(np.ones(n)), e_cmf=f(np.full(n, 0.98)), prop_time=f(np.full(n, t0)),
+                 where=i(cell), next_trans=i(np.zeros(n)), moving=i(np.ones(n)),
+                 lane_id=i(np.arange(n)))
+    dad = sim.dad
+    kw = dict(nlines=dad.nlines, ncells=8, ngc=max(dad.nbfcontinua_ground, 1),
+              nphixs=dad.nphixspoints, max_inner=16, relativistic=True,
+              phixs_dnu=float(dad.nphixsnuincrement),
+              last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=True,
+              ff_only=True)
+    args = (3, lanes, tables, f(-np.log(rng.uniform(0.05, 0.95, n))),
+            f(rng.uniform(0.0, 1.0, n)), float(ctx.t2), float(sim.grid.tmin),
+            float(sim.grid.max_path_step))
+    empty = rk.propagate_reference(*args, want_bfrate=False, **kw)
+    zero = rk.propagate_reference(*args, want_bfrate=True, **kw)
+    sim.close()
+    assert dad.nbfcontinua > 0 and float(zero["misc"][7]) > 0 and float(empty["misc"][7]) == 0
+    assert float(zero["bfrate"].sum()) > 0 and empty["bfrate"].numel() == 0
+    assert float(empty["est"][:, 2].sum()) > 0  # free-free heating
+    assert int((empty["evented"] > 0).sum()) > 0
+    for k in rk.OUT_F32 + rk.OUT_I32 + ("est", "gamma", "bfheat"):
+        torch.testing.assert_close(empty[k], zero[k], rtol=0, atol=0, msg=k)
+    for k in ("gamma", "bfheat"):
+        assert not empty[k].any(), k
+    torch.testing.assert_close(empty["misc"][:7], zero["misc"][:7], rtol=0, atol=0)

@@ -273,8 +273,8 @@ def test_check_supported_takes_nebular_without_nonthermal():
     for kw in (dict(nt_on=True, nt_solve_spencerfano=False),
                dict(nt_on=False, nt_solve_spencerfano=True), {}):
         check_supported(to.nltenebular(**kw))
-    # virtual packets run with it too; the run diagnostics do not
+    # virtual packets run with it too, and so do the run diagnostics
     for kw in (dict(nt_on=False, nt_solve_spencerfano=False, vpkt_on=True), dict(vpkt_on=True)):
         check_supported(to.nltenebular(**kw))
-        with pytest.raises(NotImplementedError, match="record_linestat"):
-            check_supported(to.nltenebular(record_linestat=True, **kw))
+        check_supported(to.nltenebular(record_linestat=True, track_ion_stats=True,
+                                       log_macroatom=True, **kw))

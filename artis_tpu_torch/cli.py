@@ -8,7 +8,12 @@ directory's pid lockfile (artis.pid) for the run. Multi-device runs
 (--mesh) are not ported.
 
     python -m artis_tpu_torch.cli --rundir RUN --preset kilonova_lte \
-        --set npkts=65536 --set transport_dtype=float32 --device cuda
+        --set npkts=65536 --device cuda
+
+runs at the preset's transport_dtype, float64 (the crossing kernel's
+double instantiation); ``--set transport_dtype=float32`` runs the float32
+one;
+
     python -c "from artis_tpu_torch.cli import main_exspec; \
         main_exspec(['--rundir', 'RUN', '--preset', 'classic'])"
 

@@ -171,6 +171,21 @@
 // 1-3 % slower on its replayed main paths, and the float read inside the
 // loop K1 0.5-0.8 % slower on the 128-shell replay (PERF.md, section 6).
 //
+// Precision. The body is a template over its real type R. The float32
+// instantiations are those above (the Pallas kernel's precision). Built with
+// -DRPKT_F64 the same source gives their double forms
+// (rpkt_crossing_launch_f64), the crossing of transport_dtype="float64",
+// the default, which the JAX package runs on its XLA path
+// (_rpkt_propagate_once): the generic body in double, without K1's staged
+// tables, K3's vector reduction and K4's edge table (cp.async copies 4-byte
+// words, and PTX has no vector reduction of four doubles), and with the
+// XLA path's float64 differences: no boundary overshoot and no 2e-6 r
+// ping-pong guard, no Kahan compensation (t advances by the two half-moves,
+// as geometry.move_pkt), h/k and the multibin edges in double, the bin edges
+// computed in double, and 53-bit uniforms (uniform2d: two a draw, three
+// draws a crossing). The two precisions build into two libraries in
+// parallel; each has eleven instantiations.
+//
 // Random numbers: counter-based Philox4x32-10 keyed by (seed, lane id), with
 // (crossing index, sub-stream) as counter, so results depend neither on the
 // block size nor on lane order; the PyTorch plain version
@@ -188,26 +203,62 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// scalar launch parameters; field order matches _Params in rpkt_kernel.py
-struct RpktParams {
+#include <type_traits>
+
+// scalar launch parameters of a launch in precision R (float or double);
+// field order matches _Params / _Params64 in rpkt_kernel.py
+template <typename R>
+struct RpktParamsT {
   int n, ncells, nprop, nlines, ncont, ngc, nphixs, max_inner, relativistic, test_mode;
   int geom, nx, ny, nz, want_bfrate, shared_rows, expansion, nbins, defer_scatter;
   int nradbins, njblue, want_gamma, want_bfheat;
-  int nrow;  // estimator floats per cell, as rpkt_kernel.row_floats counts them
+  int nrow;  // estimator entries per cell, as rpkt_kernel.row_floats counts them
   int stage;  // table groups the 1D line walk stages in shared memory (STAGE_*)
   uint32_t seed_lo, seed_hi;
-  float t2, tmin, max_path_step, phixs_dnu, last_nuovernuedge;
-  float rb_lo, rb_last, rb_super, rb_delta;  // multibin edges and width, float32
-  float sigma_es;  // the Thomson cross-section, or 0: the grey opacity cases 0-3
+  R t2, tmin, max_path_step, phixs_dnu, last_nuovernuedge;
+  R rb_lo, rb_last, rb_super, rb_delta;  // multibin edges and width
+  R sigma_es;  // the Thomson cross-section, or 0: the grey opacity cases 0-3
 };
 
 namespace {
 
-constexpr float CLIGHT = 2.99792458e10f;
-constexpr float CLIGHT_PROP = 2.99792458e10f;
-constexpr float CLIGHTSQUARED = 8.9875518e20f;
-constexpr float HOVERKB = 4.799243681e-11f;
-constexpr float BIG = 3.0e38f;
+// the precision's constants: the speed of light (also the propagation
+// speed), its square, h/k (float32: the Pallas kernel's; float64: the XLA
+// path's) and the "no event" distance, above any distance and finite in both
+template <typename R>
+struct K;
+template <>
+struct K<float> {
+  static constexpr float CLIGHT = 2.99792458e10f, CLIGHTSQUARED = 8.9875518e20f;
+  static constexpr float HOVERKB = 4.799243681e-11f, BIG = 3.0e38f;
+};
+template <>
+struct K<double> {
+  static constexpr double CLIGHT = 2.99792458e10, CLIGHTSQUARED = 8.9875518e20;
+  static constexpr double HOVERKB = 4.799243681748932e-11, BIG = 3.0e38;
+};
+template <typename R>
+constexpr bool is_f32 = std::is_same<R, float>::value;
+
+// math functions of either precision (a float argument takes the float
+// function, never a double one)
+__device__ __forceinline__ float r_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double r_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float r_exp(float x) { return expf(x); }
+__device__ __forceinline__ double r_exp(double x) { return exp(x); }
+__device__ __forceinline__ float r_log(float x) { return logf(x); }
+__device__ __forceinline__ double r_log(double x) { return log(x); }
+__device__ __forceinline__ float r_floor(float x) { return floorf(x); }
+__device__ __forceinline__ double r_floor(double x) { return floor(x); }
+__device__ __forceinline__ float r_cos(float x) { return cosf(x); }
+__device__ __forceinline__ double r_cos(double x) { return cos(x); }
+__device__ __forceinline__ float r_sin(float x) { return sinf(x); }
+__device__ __forceinline__ double r_sin(double x) { return sin(x); }
+__device__ __forceinline__ float r_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double r_max(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float r_min(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double r_min(double a, double b) { return fmin(a, b); }
+
 constexpr int BOUNDARY_ESCAPE = -99;
 constexpr int NMISC = 8;
 constexpr int BLOCK = 128;
@@ -226,26 +277,29 @@ constexpr int STAGE_CELL = 1, STAGE_BF = 2, STAGE_BFCELL = 4, STAGE_LINES = 8;
 // a build without the bound)
 constexpr int K1_MIN_BLOCKS = 4;
 
+template <typename R>
 struct Lanes {
-  const float *px, *py, *pz, *dx, *dy, *dz, *nurf, *nucmf, *erf, *ecmf, *t;
+  const R *px, *py, *pz, *dx, *dy, *dz, *nurf, *nucmf, *erf, *ecmf, *t;
   const int *where, *next_trans, *moving, *lane_id;
-  const float *test_tau, *test_sel;
+  const R *test_tau, *test_sel;
 };
 
+template <typename R>
 struct Tables {
-  const float *cellmin, *cellmax, *nne, *te, *kappagrey, *rho, *chiffpart, *line_nu,
+  const R *cellmin, *cellmax, *nne, *te, *kappagrey, *rho, *chiffpart, *line_nu,
       *tau_factor, *cont_nu_edge, *bf_a, *bf_dep, *cont_phixs, *cont_prob, *gc_nu_edge,
       *expo_kappa;
   const int *mgi_of_cell, *thick, *cont_gidx, *jblue_of_line;
-  const float* expo_nu_lo;  // the bins' lower edges, float32 (rpkt_kernel.expo_edges)
+  const R* expo_nu_lo;  // the bins' lower edges (rpkt_kernel.expo_edges)
 };
 
+template <typename R>
 struct Outs {
-  float *px, *py, *pz, *dx, *dy, *dz, *nurf, *nucmf, *erf, *ecmf, *t, *chi_escat, *chi_ff,
+  R *px, *py, *pz, *dx, *dy, *dz, *nurf, *nucmf, *erf, *ecmf, *t, *chi_escat, *chi_ff,
       *chi_bf, *chi_cont, *em_x, *em_y, *em_z, *em_t;
   int *where, *next_trans, *evented, *escaped, *thick, *is_bb, *act_line, *bf_idx, *mgi, *nsc,
       *inkscat;
-  float *est, *gamma, *bfheat, *bfrate, *radbin, *jblue;
+  R *est, *gamma, *bfheat, *bfrate, *radbin, *jblue;
   double *misc;
 };
 
@@ -327,6 +381,17 @@ __device__ __forceinline__ void red_add_v4(float* p, float v0, float v1, float v
 #endif
 }
 
+// the double form has no vector reduction (PTX has none of four doubles);
+// only K3's float32 instantiation calls red_add_v4, this keeps the shared
+// body compiling in double
+__device__ __forceinline__ void red_add_v4(double* p, double v0, double v1, double v2,
+                                           double v3) {
+  atomicAdd(p + 0, v0);
+  atomicAdd(p + 1, v1);
+  atomicAdd(p + 2, v2);
+  atomicAdd(p + 3, v3);
+}
+
 __device__ __forceinline__ void philox4x32(uint32_t c[4], uint32_t k0, uint32_t k1) {
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
@@ -354,71 +419,88 @@ __device__ __forceinline__ void uniform4(uint32_t lane, uint32_t draw, uint32_t 
   for (int i = 0; i < 4; ++i) u[i] = fmaxf((float)(c[i] >> 8) * (1.0f / 16777216.0f), 1e-12f);
 }
 
-__device__ __forceinline__ float doppler_at(float dx, float dy, float dz, float px, float py,
-                                            float pz, float t, bool rel) {
-  const float ndotv = (dx * px + dy * py + dz * pz) / t;
-  float dop = 1.0f - ndotv / CLIGHT;
+// two float64 uniforms in (0, 1): 53 bits from each pair of words (the high
+// 27 of the first, the high 26 of the second) scaled by 2^-53, floored at
+// 1e-300 (rng.philox_uniform2d)
+__device__ __forceinline__ void uniform2d(uint32_t lane, uint32_t draw, uint32_t sub,
+                                          uint32_t k0, uint32_t k1, double u[2]) {
+  uint32_t c[4] = {lane, draw, sub, 0u};
+  philox4x32(c, k0, k1);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint64_t bits = ((uint64_t)(c[2 * i] >> 5) << 26) | (uint64_t)(c[2 * i + 1] >> 6);
+    u[i] = fmax((double)bits * 1.1102230246251565e-16, 1e-300);  // 2^-53
+  }
+}
+
+template <typename R>
+__device__ __forceinline__ R doppler_at(R dx, R dy, R dz, R px, R py,
+                                            R pz, R t, bool rel) {
+  const R ndotv = (dx * px + dy * py + dz * pz) / t;
+  R dop = R(1.0) - ndotv / K<R>::CLIGHT;
   if (rel) {
-    const float betasq = (px * px + py * py + pz * pz) / (t * t) / CLIGHTSQUARED;
-    dop = dop / sqrtf(fmaxf(1.0f - betasq, 1e-30f));
+    const R betasq = (px * px + py * py + pz * pz) / (t * t) / K<R>::CLIGHTSQUARED;
+    dop = dop / r_sqrt(r_max(R(1.0) - betasq, R(1e-30)));
   }
   return dop;
 }
 
 // distance to an expanding shell (grid.cc:1222-1312), -1 if none: the
 // float32 form with an exact 2^-33 rescale in the radial-velocity test and a
-// ping-pong guard against re-intersecting the shell just crossed. speed is
+// ping-pong guard against re-intersecting the shell just crossed (float32
+// only, as the XLA path's, grid.py:298-302). speed is
 // the speed along the unit direction d: c for a sphere, the xy-plane speed
 // for the circles of the cylindrical grid (with the z parts zero)
-__device__ float shell_distance(float px, float py, float pz, float dx, float dy, float dz,
-                                float pos2, float pdotd, float tstart, float radius_t,
-                                bool inner, float speed) {
-  const float kgeo = 1.16415321826934814453125e-10f;  // 2^-33
-  const float st_k = (speed * kgeo) * tstart;
-  const float a = 1.0f - (radius_t / tstart / speed) * (radius_t / tstart / speed);
-  const float b = 2.0f * (pdotd - radius_t * radius_t / tstart / speed);
-  const float c = pos2 - radius_t * radius_t;
-  const float disc = b * b - 4.0f * a * c;
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  const float inv2a = 0.5f / a;
-  float d[2] = {(-b + sq) * inv2a, (-b - sq) * inv2a};
-  const float rk = radius_t * kgeo;
-  const float eps = 2e-6f * radius_t;
+template <typename R>
+__device__ R shell_distance(R px, R py, R pz, R dx, R dy, R dz,
+                                R pos2, R pdotd, R tstart, R radius_t,
+                                bool inner, R speed) {
+  const R kgeo = R(1.16415321826934814453125e-10);  // 2^-33
+  const R st_k = (speed * kgeo) * tstart;
+  const R a = R(1.0) - (radius_t / tstart / speed) * (radius_t / tstart / speed);
+  const R b = R(2.0) * (pdotd - radius_t * radius_t / tstart / speed);
+  const R c = pos2 - radius_t * radius_t;
+  const R disc = b * b - R(4.0) * a * c;
+  const R sq = r_sqrt(r_max(disc, R(0.0)));
+  const R inv2a = R(0.5) / a;
+  R d[2] = {(-b + sq) * inv2a, (-b - sq) * inv2a};
+  const R rk = radius_t * kgeo;
+  const R eps = is_f32<R> ? R(2e-6) * radius_t : R(0.0);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float fx = px + d[i] * dx, fy = py + d[i] * dy, fz = pz + d[i] * dz;
-    const float r2k = fmaxf(fx * fx + fy * fy + fz * fz, 1.0f) * (kgeo * kgeo);
-    const float dotf = (dx * fx + dy * fy + dz * fz) * kgeo;
-    const float a2 = (dotf * dotf) * (st_k * st_k);
-    const float b2 = (rk * rk) * r2k;
-    const bool bad = inner ? ((dotf > 0.0f) && (a2 > b2)) : ((dotf <= 0.0f) || (a2 < b2));
-    if (bad || d[i] < eps) d[i] = -1.0f;
+    const R fx = px + d[i] * dx, fy = py + d[i] * dy, fz = pz + d[i] * dz;
+    const R r2k = r_max(fx * fx + fy * fy + fz * fz, R(1.0)) * (kgeo * kgeo);
+    const R dotf = (dx * fx + dy * fy + dz * fz) * kgeo;
+    const R a2 = (dotf * dotf) * (st_k * st_k);
+    const R b2 = (rk * rk) * r2k;
+    const bool bad = inner ? ((dotf > R(0.0)) && (a2 > b2)) : ((dotf <= R(0.0)) || (a2 < b2));
+    if (bad || d[i] < eps) d[i] = -R(1.0);
   }
-  if (!(disc > 0.0f)) return -1.0f;
-  if (d[0] < 0.0f && d[1] < 0.0f) return -1.0f;
-  return (d[0] >= 0.0f && (d[1] < 0.0f || d[0] <= d[1])) ? d[0] : d[1];
+  if (!(disc > R(0.0))) return -R(1.0);
+  if (d[0] < R(0.0) && d[1] < R(0.0)) return -R(1.0);
+  return (d[0] >= R(0.0) && (d[1] < R(0.0) || d[0] <= d[1])) ? d[0] : d[1];
 }
 
 // bf cross-section by linear phixs interpolation with the Kramers tail
 // (atomic.h:147-193)
-template <bool GEN = false>
-__device__ __forceinline__ float bf_sigma(const float* __restrict__ phixs, int nphixs,
-                                          float nu, float edge, float dnu, float last) {
-  const float ireal = (nu / edge - 1.0f) / dnu;
-  if (ireal < 0.0f) return 0.0f;
-  if (ireal < (float)(nphixs - 1)) {
-    const int i0 = min(max((int)floorf(ireal), 0), nphixs - 2);
-    const float frac = ireal - (float)i0;
-    return (1.0f - frac) * ld<GEN>(phixs + i0) + frac * ld<GEN>(phixs + i0 + 1);
+template <bool GEN = false, typename R>
+__device__ __forceinline__ R bf_sigma(const R* __restrict__ phixs, int nphixs,
+                                          R nu, R edge, R dnu, R last) {
+  const R ireal = (nu / edge - R(1.0)) / dnu;
+  if (ireal < R(0.0)) return R(0.0);
+  if (ireal < (R)(nphixs - 1)) {
+    const int i0 = min(max((int)r_floor(ireal), 0), nphixs - 2);
+    const R frac = ireal - (R)i0;
+    return (R(1.0) - frac) * ld<GEN>(phixs + i0) + frac * ld<GEN>(phixs + i0 + 1);
   }
-  const float r = edge * last / fmaxf(nu, 1e-30f);
+  const R r = edge * last / r_max(nu, R(1e-30));
   return ld<GEN>(phixs + nphixs - 1) * (r * r * r);
 }
 
 // window [lo, hi) of continua with edge <= nu <= edge * last (edges ascend)
-template <bool GEN = false>
-__device__ __forceinline__ void bf_window(const float* __restrict__ edges, int ncont, float nu,
-                                          float last, int& lo, int& hi) {
+template <bool GEN = false, typename R>
+__device__ __forceinline__ void bf_window(const R* __restrict__ edges, int ncont, R nu,
+                                          R last, int& lo, int& hi) {
   int a = 0, b = ncont;
   while (a < b) {  // first c with edge*last >= nu
     const int m = (a + b) >> 1;
@@ -437,46 +519,49 @@ __device__ __forceinline__ void bf_window(const float* __restrict__ edges, int n
 // distance to a homologously expanding plane at coordbound (at tmin): the
 // float32 form with a guarded zero denominator (a packet moving with the
 // plane never reaches it)
-__device__ __forceinline__ float plane_distance(float posd, float veld, float tstart,
-                                                float coordbound, float tmin) {
-  float denom = coordbound - veld * tmin;
-  if (denom == 0.0f) denom = 1e-30f;
-  return CLIGHT_PROP * ((posd - veld * tstart) / denom * tmin - tstart);
+template <typename R>
+__device__ __forceinline__ R plane_distance(R posd, R veld, R tstart,
+                                                R coordbound, R tmin) {
+  R denom = coordbound - veld * tmin;
+  if (denom == R(0.0)) denom = R(1e-30);
+  return K<R>::CLIGHT * ((posd - veld * tstart) / denom * tmin - tstart);
 }
 
 // the xy terms of a direction that the cylindrical boundary distance uses:
 // the xy length floored at 1e-8, the unit xy direction, and whether the
 // direction moves in xy at all
+template <typename R>
 struct XYDir {
-  float sdl, dxn, dyn;
+  R sdl, dxn, dyn;
   bool has_xy;
 };
 
-__device__ __forceinline__ XYDir xy_dir(float dx, float dy) {
-  const float dirxylen = sqrtf(dx * dx + dy * dy);
-  const float sdl = fmaxf(dirxylen, 1e-8f);
-  return {sdl, dx / sdl, dy / sdl, dirxylen > 1e-8f};
+template <typename R>
+__device__ __forceinline__ XYDir<R> xy_dir(R dx, R dy) {
+  const R dirxylen = r_sqrt(dx * dx + dy * dy);
+  const R sdl = r_max(dirxylen, R(1e-8));
+  return {sdl, dx / sdl, dy / sdl, dirxylen > R(1e-8)};
 }
 
 // distance to the cell boundary and the next cell (-99: leaves the grid),
 // capped at max_path_step (grid.cc:2349-2597); with XYC the cylindrical
 // distance takes the direction's xy terms from xyc, which the caller keeps
-template <int GEOM, bool GEN = false, bool XYC = false>
-__device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, int cell,
-                                         float px, float py, float pz, float dx, float dy,
-                                         float dz, float pos2, float pdotd, float tstart,
-                                         float& sdist, int& snext, XYDir xyc = XYDir{}) {
+template <int GEOM, bool GEN = false, bool XYC = false, typename R>
+__device__ __forceinline__ void boundary(const RpktParamsT<R>& p, const Tables<R>& tb, int cell,
+                                         R px, R py, R pz, R dx, R dy,
+                                         R dz, R pos2, R pdotd, R tstart,
+                                         R& sdist, int& snext, XYDir<R> xyc = XYDir<R>{}) {
   if (GEOM == GEOM_SPH) {
-    const float coordmin0 = ld<GEN>(tb.cellmin + cell), coordmax0 = ld<GEN>(tb.cellmax + cell);
-    const float d_max = shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart,
-                                       coordmax0 * tstart / p.tmin, false, CLIGHT_PROP);
-    sdist = (d_max >= 0.0f && d_max < BIG) ? d_max : BIG;
-    snext = d_max >= 0.0f ? (cell == p.nprop - 1 ? BOUNDARY_ESCAPE : cell + 1) : -1;
-    const float r_inner = coordmin0 * tstart / p.tmin;
-    const float d_min = r_inner > 0.0f
-        ? shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart, r_inner, true, CLIGHT_PROP)
-        : -1.0f;
-    if (d_min >= 0.0f && d_min < sdist) {
+    const R coordmin0 = ld<GEN>(tb.cellmin + cell), coordmax0 = ld<GEN>(tb.cellmax + cell);
+    const R d_max = shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart,
+                                       coordmax0 * tstart / p.tmin, false, K<R>::CLIGHT);
+    sdist = (d_max >= R(0.0) && d_max < K<R>::BIG) ? d_max : K<R>::BIG;
+    snext = d_max >= R(0.0) ? (cell == p.nprop - 1 ? BOUNDARY_ESCAPE : cell + 1) : -1;
+    const R r_inner = coordmin0 * tstart / p.tmin;
+    const R d_min = r_inner > R(0.0)
+        ? shell_distance(px, py, pz, dx, dy, dz, pos2, pdotd, tstart, r_inner, true, K<R>::CLIGHT)
+        : -R(1.0);
+    if (d_min >= R(0.0) && d_min < sdist) {
       sdist = d_min;
       snext = cell == 0 ? BOUNDARY_ESCAPE : cell - 1;
     }
@@ -485,37 +570,37 @@ __device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, 
     // distance over the direction's xy length), homologous planes in z
     const int n0 = p.nx, n1 = p.ny;
     const int i_r = cell % n0, i_z = cell / n0;
-    const XYDir xd = XYC ? xyc : xy_dir(dx, dy);
+    const XYDir<R> xd = XYC ? xyc : xy_dir(dx, dy);
     const bool has_xy = xd.has_xy;
-    const float sdl = xd.sdl, dxn = xd.dxn, dyn = xd.dyn;
-    const float xyspeed = sdl * CLIGHT_PROP;
-    const float pos2xy = px * px + py * py;
-    const float pdotdxy = px * dxn + py * dyn;
-    sdist = BIG;
+    const R sdl = xd.sdl, dxn = xd.dxn, dyn = xd.dyn;
+    const R xyspeed = sdl * K<R>::CLIGHT;
+    const R pos2xy = px * px + py * py;
+    const R pdotdxy = px * dxn + py * dyn;
+    sdist = K<R>::BIG;
     snext = -1;
-    const float d_rc = shell_distance(px, py, 0.0f, dxn, dyn, 0.0f, pos2xy, pdotdxy, tstart,
+    const R d_rc = shell_distance(px, py, R(0.0), dxn, dyn, R(0.0), pos2xy, pdotdxy, tstart,
                                       __ldg(tb.cellmax + 2 * cell) * tstart / p.tmin, false,
                                       xyspeed);
-    const float d_out = d_rc / sdl;
-    if (has_xy && d_rc >= 0.0f && d_out > 0.0f && d_out < sdist) {
+    const R d_out = d_rc / sdl;
+    if (has_xy && d_rc >= R(0.0) && d_out > R(0.0) && d_out < sdist) {
       sdist = d_out;
       snext = i_r == n0 - 1 ? BOUNDARY_ESCAPE : cell + 1;
     }
-    const float r_in = __ldg(tb.cellmin + 2 * cell) * tstart / p.tmin;
-    const float d_rc_in = r_in > 0.0f
-        ? shell_distance(px, py, 0.0f, dxn, dyn, 0.0f, pos2xy, pdotdxy, tstart, r_in, true,
+    const R r_in = __ldg(tb.cellmin + 2 * cell) * tstart / p.tmin;
+    const R d_rc_in = r_in > R(0.0)
+        ? shell_distance(px, py, R(0.0), dxn, dyn, R(0.0), pos2xy, pdotdxy, tstart, r_in, true,
                          xyspeed)
-        : -1.0f;
-    const float d_in = d_rc_in / sdl;
-    if (has_xy && d_rc_in >= 0.0f && d_in < sdist) {
+        : -R(1.0);
+    const R d_in = d_rc_in / sdl;
+    if (has_xy && d_rc_in >= R(0.0) && d_in < sdist) {
       sdist = d_in;
       snext = i_r == 0 ? BOUNDARY_ESCAPE : cell - 1;
     }
-    const float velz = dz * CLIGHT_PROP;
+    const R velz = dz * K<R>::CLIGHT;
     const bool up = (velz * tstart) > pz;
-    const float db = plane_distance(
+    const R db = plane_distance(
         pz, velz, tstart, __ldg((up ? tb.cellmax : tb.cellmin) + 2 * cell + 1), p.tmin);
-    if (db >= 0.0f && db < sdist) {
+    if (db >= R(0.0) && db < sdist) {
       sdist = db;
       const bool at_edge = up ? (i_z == n1 - 1) : (i_z == 0);
       snext = at_edge ? BOUNDARY_ESCAPE : cell + (up ? n0 : -n0);
@@ -525,17 +610,17 @@ __device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, 
     const int ci[3] = {cell % nx, (cell / nx) % ny, cell / (nx * ny)};
     const int inc[3] = {1, nx, nx * ny};
     const int nax[3] = {nx, ny, nz};
-    const float pv[3] = {px, py, pz};
-    const float dv[3] = {dx, dy, dz};
-    sdist = BIG;
+    const R pv[3] = {px, py, pz};
+    const R dv[3] = {dx, dy, dz};
+    sdist = K<R>::BIG;
     snext = -1;
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
-      const float veld = dv[ax] * CLIGHT_PROP;
+      const R veld = dv[ax] * K<R>::CLIGHT;
       const bool up = (veld * tstart) > pv[ax];
-      const float db = plane_distance(
+      const R db = plane_distance(
           pv[ax], veld, tstart, __ldg((up ? tb.cellmax : tb.cellmin) + 3 * cell + ax), p.tmin);
-      if (db >= 0.0f && db < sdist) {
+      if (db >= R(0.0) && db < sdist) {
         sdist = db;
         const bool at_edge = up ? (ci[ax] == nax[ax] - 1) : (ci[ax] == 0);
         snext = at_edge ? BOUNDARY_ESCAPE : cell + (up ? inc[ax] : -inc[ax]);
@@ -550,16 +635,24 @@ __device__ __forceinline__ void boundary(const RpktParams& p, const Tables& tb, 
 
 // the redesigned instantiations: the 1D line walk (K1), the cylindrical
 // line walk (K3) and the bin walk of the 1D and cylindrical grids (K4), each
-// without the NLTE fields
-template <int GEOM, bool EXPO, bool NLTE>
-__host__ __device__ constexpr bool k1_redesign() { return GEOM == GEOM_SPH && !EXPO && !NLTE; }
-template <int GEOM, bool EXPO, bool NLTE>
-__host__ __device__ constexpr bool k3_redesign() { return GEOM == GEOM_CYL && !EXPO && !NLTE; }
-template <int GEOM, bool EXPO, bool NLTE>
-__host__ __device__ constexpr bool k4_redesign() { return EXPO && !NLTE && GEOM != GEOM_CART; }
+// without the NLTE fields and in float32; the double forms run the generic
+// body
+template <typename R, int GEOM, bool EXPO, bool NLTE>
+__host__ __device__ constexpr bool k1_redesign() {
+  return is_f32<R> && GEOM == GEOM_SPH && !EXPO && !NLTE;
+}
+template <typename R, int GEOM, bool EXPO, bool NLTE>
+__host__ __device__ constexpr bool k3_redesign() {
+  return is_f32<R> && GEOM == GEOM_CYL && !EXPO && !NLTE;
+}
+template <typename R, int GEOM, bool EXPO, bool NLTE>
+__host__ __device__ constexpr bool k4_redesign() {
+  return is_f32<R> && EXPO && !NLTE && GEOM != GEOM_CART;
+}
 
 // 4-byte words of the table groups in ``stage`` (the 1D grid: one bound per cell)
-__host__ __device__ inline int stage_words(const RpktParams& p) {
+template <typename R>
+__host__ __device__ inline int stage_words(const RpktParamsT<R>& p) {
   return ((p.stage & STAGE_CELL) ? 3 * p.nprop + 6 * p.ncells : 0) +
          ((p.stage & STAGE_BF) ? p.ncont * (3 + p.nphixs) + p.ngc : 0) +
          ((p.stage & STAGE_BFCELL) ? 2 * p.ncells * p.ncont : 0) +
@@ -569,20 +662,21 @@ __host__ __device__ inline int stage_words(const RpktParams& p) {
 // dynamic shared memory of a launch: the counters, the estimator rows in
 // shared mode, and the staged tables of the redesigned 1D walk (K1) or the
 // bin edges of the redesigned bin walk (K4)
-template <int GEOM, bool EXPO, bool NLTE>
-size_t smem_bytes(const RpktParams& p) {
-  constexpr bool R1 = k1_redesign<GEOM, EXPO, NLTE>(), R4 = k4_redesign<GEOM, EXPO, NLTE>();
-  size_t b = NMISC * sizeof(double) + (p.shared_rows ? sizeof(float) * (size_t)p.ncells * p.nrow : 0);
-  if (R1) b += sizeof(float) * (size_t)stage_words(p);
-  if (R4) b += sizeof(float) * (size_t)p.nbins;
+template <typename R, int GEOM, bool EXPO, bool NLTE>
+size_t smem_bytes(const RpktParamsT<R>& p) {
+  constexpr bool R1 = k1_redesign<R, GEOM, EXPO, NLTE>(), R4 = k4_redesign<R, GEOM, EXPO, NLTE>();
+  size_t b = NMISC * sizeof(double) + (p.shared_rows ? sizeof(R) * (size_t)p.ncells * p.nrow : 0);
+  if (R1) b += sizeof(R) * (size_t)stage_words(p);
+  if (R4) b += sizeof(R) * (size_t)p.nbins;
   return b;
 }
 
 // the crossing loop of one block (the kernels below)
-template <int GEOM, bool EXPO, bool NLTE>
-__device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs out) {
-  constexpr bool R1 = k1_redesign<GEOM, EXPO, NLTE>(), R4 = k4_redesign<GEOM, EXPO, NLTE>();
-  constexpr bool R3 = k3_redesign<GEOM, EXPO, NLTE>();
+template <typename R, int GEOM, bool EXPO, bool NLTE>
+__device__ __forceinline__ void crossing(RpktParamsT<R> p, Lanes<R> in, Tables<R> tb,
+                                         Outs<R> out) {
+  constexpr bool R1 = k1_redesign<R, GEOM, EXPO, NLTE>(), R4 = k4_redesign<R, GEOM, EXPO, NLTE>();
+  constexpr bool R3 = k3_redesign<R, GEOM, EXPO, NLTE>();
   constexpr bool GEN = R1;  // generic table loads: the tables may lie in shared memory
   extern __shared__ double smem_d[];
   double* s_misc = smem_d;
@@ -593,15 +687,15 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
   const int ngam = lut_g ? p.ngc : 0, nbfh = lut_h ? p.ngc : 0;
   const int nrb = NLTE ? p.nradbins : 0, njb = (NLTE && !EXPO) ? p.njblue : 0;
   // estimator rows: this block's copy in shared memory, or the global rows
-  float *a_est, *a_gam, *a_bfh, *a_bfr, *a_rb, *a_jb;
+  R *a_est, *a_gam, *a_bfh, *a_bfr, *a_rb, *a_jb;
   if (p.shared_rows) {
-    a_est = reinterpret_cast<float*>(smem_d + NMISC);
+    a_est = reinterpret_cast<R*>(smem_d + NMISC);
     a_gam = a_est + 4 * p.ncells;
     a_bfh = a_gam + p.ncells * ngam;
     a_bfr = a_bfh + p.ncells * nbfh;
     a_rb = a_bfr + p.ncells * nbfr;
     a_jb = a_rb + p.ncells * 3 * nrb;
-    for (int i = threadIdx.x; i < p.ncells * p.nrow; i += blockDim.x) a_est[i] = 0.0f;
+    for (int i = threadIdx.x; i < p.ncells * p.nrow; i += blockDim.x) a_est[i] = R(0.0);
   } else {
     a_est = out.est;
     a_gam = out.gamma;
@@ -611,7 +705,7 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
     a_jb = out.jblue;
   }
   // past the rows: the K1 tables or the K4 edges
-  float* s_free = reinterpret_cast<float*>(smem_d + NMISC) +
+  R* s_free = reinterpret_cast<R*>(smem_d + NMISC) +
                   (p.shared_rows ? (size_t)p.ncells * p.nrow : 0);
   if constexpr (GEN) {
     // stage the groups the wrapper picked; the loads below are generic
@@ -619,7 +713,7 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
       int* s_mgi = reinterpret_cast<int*>(s_free);
       stage_copy(s_mgi, tb.mgi_of_cell, p.nprop);
       tb.mgi_of_cell = s_mgi;
-      float* s = s_free + p.nprop;
+      R* s = s_free + p.nprop;
       stage_copy(s, tb.cellmin, p.nprop);
       tb.cellmin = s;
       stage_copy(s + p.nprop, tb.cellmax, p.nprop);
@@ -684,43 +778,43 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
   if (lane < p.n) {
     const bool rel = p.relativistic != 0;
     const int nlines = p.nlines;
-    float px = in.px[lane], py = in.py[lane], pz = in.pz[lane];
-    float dx = in.dx[lane], dy = in.dy[lane], dz = in.dz[lane];
+    R px = in.px[lane], py = in.py[lane], pz = in.pz[lane];
+    R dx = in.dx[lane], dy = in.dy[lane], dz = in.dz[lane];
     // K3: the direction's xy terms, recomputed only where a scatter turns it
-    XYDir xyd{};
+    XYDir<R> xyd{};
     if constexpr (R3) xyd = xy_dir(dx, dy);
-    float nurf = in.nurf[lane], nucmf = in.nucmf[lane], erf = in.erf[lane], ecmf = in.ecmf[lane];
-    float t = in.t[lane], terr = 0.0f;
+    R nurf = in.nurf[lane], nucmf = in.nucmf[lane], erf = in.erf[lane], ecmf = in.ecmf[lane];
+    R t = in.t[lane], terr = R(0.0);
     int cell = in.where[lane], ntr = in.next_trans[lane];
     bool moving = in.moving[lane] > 0;
     const uint32_t lane_id = (uint32_t)in.lane_id[lane];
-    const float test_tau = in.test_tau[lane], test_sel = in.test_sel[lane];
+    const R test_tau = in.test_tau[lane], test_sel = in.test_sel[lane];
     bool evented = false, escaped = false, ev_thick = false, ev_isbb = false, inkscat = false;
     int ev_act = -99, ev_bfidx = 0, ev_mgi = 0, nsc = 0;
-    float ev_esc = 0.0f, ev_ff = 0.0f, ev_bf = 0.0f, ev_cont = 0.0f;
-    float em_x = 0.0f, em_y = 0.0f, em_z = 0.0f, em_t = 0.0f;
-    const float nu_lastline = ld<GEN>(tb.line_nu + nlines - 1);
-    const float sigma_es = p.sigma_es;
+    R ev_esc = R(0.0), ev_ff = R(0.0), ev_bf = R(0.0), ev_cont = R(0.0);
+    R em_x = R(0.0), em_y = R(0.0), em_z = R(0.0), em_t = R(0.0);
+    const R nu_lastline = ld<GEN>(tb.line_nu + nlines - 1);
+    const R sigma_es = p.sigma_es;
 
     for (int it = 0; it < p.max_inner && moving; ++it) {
-      const float tstart = t;
+      const R tstart = t;
       const int mgi = ld<GEN>(tb.mgi_of_cell + cell);
       const bool nonempty = mgi >= 0;
       const int smgi = nonempty ? mgi : 0;
-      const float nne_p = ld<GEN>(tb.nne + smgi), te_p = ld<GEN>(tb.te + smgi);
-      const float kgrey_p = ld<GEN>(tb.kappagrey + smgi), rho_p = ld<GEN>(tb.rho + smgi);
-      const float chiffpart_p = ld<GEN>(tb.chiffpart + smgi);
+      const R nne_p = ld<GEN>(tb.nne + smgi), te_p = ld<GEN>(tb.te + smgi);
+      const R kgrey_p = ld<GEN>(tb.kappagrey + smgi), rho_p = ld<GEN>(tb.rho + smgi);
+      const R chiffpart_p = ld<GEN>(tb.chiffpart + smgi);
       const bool thick = nonempty && (ld<GEN>(tb.thick + smgi) == 1);
 
-      float tau_next, sel_u, u_split, u_bb, z1, z2;
+      R tau_next, sel_u, u_split, u_bb, z1, z2;
       if (p.test_mode) {
         tau_next = test_tau;
         sel_u = test_sel;
         u_split = test_sel;
         u_bb = test_sel;
-        z1 = 0.37f;
-        z2 = 0.81f;
-      } else {
+        z1 = R(0.37);
+        z2 = R(0.81);
+      } else if constexpr (is_f32<R>) {
         float u[4], v[4];
         uniform4(lane_id, (uint32_t)it, 0u, p.seed_lo, p.seed_hi, u);
         uniform4(lane_id, (uint32_t)it, 1u, p.seed_lo, p.seed_hi, v);
@@ -730,88 +824,99 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
         z2 = u[3];
         u_split = v[0];
         u_bb = v[1];
+      } else {  // float64: two uniforms a draw, three draws a crossing
+        double u[2], z[2], v[2];
+        uniform2d(lane_id, (uint32_t)it, 0u, p.seed_lo, p.seed_hi, u);
+        uniform2d(lane_id, (uint32_t)it, 1u, p.seed_lo, p.seed_hi, z);
+        uniform2d(lane_id, (uint32_t)it, 2u, p.seed_lo, p.seed_hi, v);
+        tau_next = -log(u[0]);
+        sel_u = u[1];
+        z1 = z[0];
+        z2 = z[1];
+        u_split = v[0];
+        u_bb = v[1];
       }
 
       // --- boundary distance of the grid geometry ---
-      const float pos2 = px * px + py * py + pz * pz;
-      const float pdotd = px * dx + py * dy + pz * dz;
-      float sdist;
+      const R pos2 = px * px + py * py + pz * pz;
+      const R pdotd = px * dx + py * dy + pz * dz;
+      R sdist;
       int snext;
       boundary<GEOM, GEN, R3>(p, tb, cell, px, py, pz, dx, dy, dz, pos2, pdotd, tstart, sdist,
                               snext, xyd);
-      const float tdist = fmaxf((p.t2 - tstart) * CLIGHT_PROP, 0.0f);
-      const float abort_dist = fminf(sdist, tdist);
+      const R tdist = r_max((p.t2 - tstart) * K<R>::CLIGHT, R(0.0));
+      const R abort_dist = r_min(sdist, tdist);
 
       // --- Doppler + abort-point frequency (rpkt.cc:49-61) ---
-      const float doppler = doppler_at(dx, dy, dz, px, py, pz, tstart, rel);
-      const float atime = tstart + abort_dist / CLIGHT_PROP;
-      const float nu_cmf_abort = nurf * doppler_at(dx, dy, dz, px + dx * abort_dist,
+      const R doppler = doppler_at(dx, dy, dz, px, py, pz, tstart, rel);
+      const R atime = tstart + abort_dist / K<R>::CLIGHT;
+      const R nu_cmf_abort = nurf * doppler_at(dx, dy, dz, px + dx * abort_dist,
                                                    py + dy * abort_dist, pz + dz * abort_dist,
                                                    atime, rel);
-      float dnudl = (nu_cmf_abort - nucmf) / fmaxf(abort_dist, 1e-30f);
-      if (!(dnudl < 0.0f)) dnudl = -1e-30f;
+      R dnudl = (nu_cmf_abort - nucmf) / r_max(abort_dist, R(1e-30));
+      if (!(dnudl < R(0.0))) dnudl = -R(1e-30);
 
       const bool need_chi = nonempty && !thick;
-      const float nu = need_chi ? nucmf : 1e15f;
+      const R nu = need_chi ? nucmf : R(1e15);
 
       // --- continuum opacities (rpkt.cc:972-1032) ---
-      const float chi_escat = sigma_es * nne_p;
-      const float nus = nu * 8.8817841970012523e-16f;  // 2^-50
-      const float hnu_kt = HOVERKB * nu / te_p;
-      const float chi_ff = (chiffpart_p * 2.6469779601696886e-23f) * (nne_p * 2.6469779601696886e-23f) /
-                           (nus * nus * nus) * (1.0f - expf(-hnu_kt));
-      float chi_bf = 0.0f;
+      const R chi_escat = sigma_es * nne_p;
+      const R nus = nu * R(8.8817841970012523e-16);  // 2^-50
+      const R hnu_kt = K<R>::HOVERKB * nu / te_p;
+      const R chi_ff = (chiffpart_p * R(2.6469779601696886e-23)) * (nne_p * R(2.6469779601696886e-23)) /
+                           (nus * nus * nus) * (R(1.0) - r_exp(-hnu_kt));
+      R chi_bf = R(0.0);
       int bf_lo = 0, bf_hi = 0;
       if (need_chi && p.ncont > 0) {
         bf_window<GEN>(tb.cont_nu_edge, p.ncont, nu, p.last_nuovernuedge, bf_lo, bf_hi);
         m_bfwin += bf_hi - bf_lo;
         for (int c = bf_lo; c < bf_hi; ++c) {
-          const float edge = ld<GEN>(tb.cont_nu_edge + c);
-          const float sigma = bf_sigma<GEN>(tb.cont_phixs + (size_t)c * p.nphixs, p.nphixs, nu,
+          const R edge = ld<GEN>(tb.cont_nu_edge + c);
+          const R sigma = bf_sigma<GEN>(tb.cont_phixs + (size_t)c * p.nphixs, p.nphixs, nu,
                                             edge, p.phixs_dnu, p.last_nuovernuedge);
-          const float dep = ld<GEN>(tb.bf_dep + (size_t)smgi * p.ncont + c);
-          const float corr = fmaxf(0.0f, 1.0f - expf(fminf(fmaxf(dep - hnu_kt, -80.0f), 80.0f)));
+          const R dep = ld<GEN>(tb.bf_dep + (size_t)smgi * p.ncont + c);
+          const R corr = r_max(R(0.0), R(1.0) - r_exp(r_min(r_max(dep - hnu_kt, -R(80.0)), R(80.0))));
           chi_bf += ld<GEN>(tb.bf_a + (size_t)smgi * p.ncont + c) * sigma * corr;
         }
       }
-      const float chi_cont_cmf = chi_escat + chi_ff + chi_bf;
-      const float chi_cont = chi_cont_cmf * doppler;
+      const R chi_cont_cmf = chi_escat + chi_ff + chi_bf;
+      const R chi_cont = chi_cont_cmf * doppler;
 
-      float ev_edist = BIG;
+      R ev_edist = K<R>::BIG;
       int ev_ntr = ntr, ev_lact = -99;
       bool ev_bb = false;
       if (need_chi) {
         if constexpr (EXPO) {
           // --- binned expansion-opacity walk (rpkt.cc:199-290) ---
           ev_ntr = -1;  // no line cursor in this mode (pallas_rpkt.py:1198)
-          const float safe_chi = fmaxf(chi_cont, 1e-30f);
-          const float rho_dop = rho_p * doppler;
-          const float* __restrict__ krow = tb.expo_kappa + (size_t)smgi * p.nbins;
+          const R safe_chi = r_max(chi_cont, R(1e-30));
+          const R rho_dop = rho_p * doppler;
+          const R* __restrict__ krow = tb.expo_kappa + (size_t)smgi * p.nbins;
           if constexpr (R4) {
             // the edges from the staged table (the plain version's float32
             // values); the walk starts at the first bin whose lower edge lies
             // below nu, found from a float estimate and corrected on the table:
             // the bins before it have no path length
-            const float* __restrict__ edge = tb.expo_nu_lo;
-            int b = (int)fminf(fmaxf(floorf((2.99792458e18f / nu - 534.5f) / 35.5f), 0.0f),
-                               (float)p.nbins);
+            const R* __restrict__ edge = tb.expo_nu_lo;
+            int b = (int)r_min(r_max(r_floor((R(2.99792458e18) / nu - R(534.5)) / R(35.5)), R(0.0)),
+                               (R)p.nbins);
             while (b > 0 && edge[b - 1] < nu) --b;
             while (b < p.nbins && edge[b] >= nu) ++b;
-            float cum = 0.0f, dprev = 0.0f;
+            R cum = R(0.0), dprev = R(0.0);
             for (; b < p.nbins; ++b) {
-              const float nu_lo = edge[b];
-              float de = rel ? (nu_lo - nu) / dnudl : CLIGHT_PROP * tstart * (nu / nu_lo - 1.0f);
-              de = fminf(fmaxf(de, 0.0f), 1e30f);
-              const float seg = fmaxf(de - dprev, 0.0f);
-              if (seg > 0.0f) {
+              const R nu_lo = edge[b];
+              R de = rel ? (nu_lo - nu) / dnudl : K<R>::CLIGHT * tstart * (nu / nu_lo - R(1.0));
+              de = r_min(r_max(de, R(0.0)), R(1e30));
+              const R seg = r_max(de - dprev, R(0.0));
+              if (seg > R(0.0)) {
                 ++m_walk;
-                const float kap = __ldg(krow + b);
-                const float chi_bb = kap * rho_dop;
-                const float chi_t = safe_chi + chi_bb;
-                const float dtau = chi_t * seg;
+                const R kap = __ldg(krow + b);
+                const R chi_bb = kap * rho_dop;
+                const R chi_t = safe_chi + chi_bb;
+                const R dtau = chi_t * seg;
                 if (cum + dtau >= tau_next) {
-                  ev_edist = fmaxf(dprev + (tau_next - cum) / fmaxf(chi_t, 1e-30f), 0.0f);
-                  ev_bb = u_bb <= chi_bb / fmaxf(chi_t, 1e-30f);
+                  ev_edist = r_max(dprev + (tau_next - cum) / r_max(chi_t, R(1e-30)), R(0.0));
+                  ev_bb = u_bb <= chi_bb / r_max(chi_t, R(1e-30));
                   break;
                 }
                 cum += dtau;
@@ -825,21 +930,21 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
           // length, so starting early changes nothing
           const double lam = CLIGHT_ANGSTROM / (double)nu;
           const double bin_est = fmin((lam - LAMBDA_MIN_A) / DELTA_LAMBDA_A, (double)p.nbins);
-          float cum = 0.0f, dprev = 0.0f;
+          R cum = R(0.0), dprev = R(0.0);
           for (int b = max((int)floor(bin_est) - 1, 0); b < p.nbins; ++b) {
-            const float nu_lo =
-                (float)(CLIGHT_ANGSTROM / (LAMBDA_MIN_A + (double)(b + 1) * DELTA_LAMBDA_A));
-            float de = rel ? (nu_lo - nu) / dnudl : CLIGHT_PROP * tstart * (nu / nu_lo - 1.0f);
-            de = fminf(fmaxf(de, 0.0f), 1e30f);
-            const float seg = fmaxf(de - dprev, 0.0f);
-            if (seg > 0.0f) {
+            const R nu_lo =
+                (R)(CLIGHT_ANGSTROM / (LAMBDA_MIN_A + (double)(b + 1) * DELTA_LAMBDA_A));
+            R de = rel ? (nu_lo - nu) / dnudl : K<R>::CLIGHT * tstart * (nu / nu_lo - R(1.0));
+            de = r_min(r_max(de, R(0.0)), R(1e30));
+            const R seg = r_max(de - dprev, R(0.0));
+            if (seg > R(0.0)) {
               ++m_walk;
-              const float chi_bb = __ldg(krow + b) * rho_dop;
-              const float chi_t = safe_chi + chi_bb;
-              const float dtau = chi_t * seg;
+              const R chi_bb = __ldg(krow + b) * rho_dop;
+              const R chi_t = safe_chi + chi_bb;
+              const R dtau = chi_t * seg;
               if (cum + dtau >= tau_next) {
-                ev_edist = fmaxf(dprev + (tau_next - cum) / fmaxf(chi_t, 1e-30f), 0.0f);
-                ev_bb = u_bb <= chi_bb / fmaxf(chi_t, 1e-30f);
+                ev_edist = r_max(dprev + (tau_next - cum) / r_max(chi_t, R(1e-30)), R(0.0));
+                ev_bb = u_bb <= chi_bb / r_max(chi_t, R(1e-30));
                 break;
               }
               cum += dtau;
@@ -865,23 +970,23 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
             }
             cursor0 = a;
           }
-          const float safe_chi = fmaxf(chi_cont, 1e-30f);
+          const R safe_chi = r_max(chi_cont, R(1e-30));
           if (cursor0 >= nlines) {
-            const float cd = fmaxf(tau_next / safe_chi, 0.0f);
+            const R cd = r_max(tau_next / safe_chi, R(0.0));
             if (cd <= abort_dist) {
               ev_edist = cd;
               ev_ntr = nlines + 1;
             }
           } else {
-            const float* __restrict__ taurow = tb.tau_factor + (size_t)smgi * nlines;
-            float* __restrict__ jbrow = a_jb + (size_t)smgi * 2 * njb;
+            const R* __restrict__ taurow = tb.tau_factor + (size_t)smgi * nlines;
+            R* __restrict__ jbrow = a_jb + (size_t)smgi * 2 * njb;
             // c e_cmf / nu_cmf is invariant along the free flight
             // (pallas_rpkt.py:1255-1262)
-            const float e_over_nu = njb ? CLIGHT * ecmf / fmaxf(nu, 1.0f) : 0.0f;
-            float tau_cum = 0.0f, prevD = 0.0f;
+            const R e_over_nu = njb ? K<R>::CLIGHT * ecmf / r_max(nu, R(1.0)) : R(0.0);
+            R tau_cum = R(0.0), prevD = R(0.0);
             for (int l = cursor0;; ++l) {
               if (l > nlines - 1) {  // past the end of the list
-                const float cd = fmaxf((tau_next - tau_cum) / safe_chi, 0.0f);
+                const R cd = r_max((tau_next - tau_cum) / safe_chi, R(0.0));
                 if (cd <= abort_dist) {
                   ev_edist = cd;
                   ev_ntr = nlines + 1;
@@ -890,12 +995,12 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
                 }
                 break;
               }
-              const float nu_k = ld<GEN>(tb.line_nu + l);
-              float relD = rel ? (nu_k - nu) / dnudl : CLIGHT_PROP * tstart * (nu / nu_k - 1.0f);
-              relD = fminf(fmaxf(relD, 0.0f), 1e30f);
-              const float t_prev = tstart + prevD / CLIGHT_PROP;
-              const float tau_line = ld<GEN>(taurow + l) * t_prev;
-              const float contdist = fmaxf((tau_next - tau_cum) / safe_chi, 0.0f);
+              const R nu_k = ld<GEN>(tb.line_nu + l);
+              R relD = rel ? (nu_k - nu) / dnudl : K<R>::CLIGHT * tstart * (nu / nu_k - R(1.0));
+              relD = r_min(r_max(relD, R(0.0)), R(1e30));
+              const R t_prev = tstart + prevD / K<R>::CLIGHT;
+              const R tau_line = ld<GEN>(taurow + l) * t_prev;
+              const R contdist = r_max((tau_next - tau_cum) / safe_chi, R(0.0));
               if (contdist <= relD) {
                 ev_edist = contdist;
                 ev_ntr = l;
@@ -909,9 +1014,9 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
               if (njb) {  // a line passed, or the activating line (:1346-1363)
                 const int col = __ldg(tb.jblue_of_line + l);
                 if (col >= 0 && col < njb) {
-                  const float t_line = tstart + relD / CLIGHT_PROP;
+                  const R t_line = tstart + relD / K<R>::CLIGHT;
                   atomicAdd(jbrow + col, t_line * e_over_nu);
-                  atomicAdd(jbrow + njb + col, 1.0f);
+                  atomicAdd(jbrow + njb + col, R(1.0));
                 }
               }
               if (line_event) {
@@ -930,24 +1035,26 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
       }
 
       // thick cells: grey opacity (rpkt.cc:647-654)
-      float edist;
+      R edist;
       int next_trans;
       if (thick) {
-        edist = tau_next / fmaxf(kgrey_p * rho_p * doppler, 1e-30f);
+        edist = tau_next / r_max(kgrey_p * rho_p * doppler, R(1e-30));
         next_trans = -1;
       } else if (nonempty) {
         edist = ev_edist;
         next_trans = ev_ntr;
       } else {
-        edist = BIG;
+        edist = K<R>::BIG;
         next_trans = -1;
       }
       const bool is_bb = !thick && nonempty && ev_bb;
       const bool take_boundary = (sdist <= tdist) && (sdist <= edist);
       bool take_event = !take_boundary && (edist <= tdist);
       const bool take_tlimit = !take_boundary && !take_event;
-      float dist = take_boundary ? sdist + 3e-6f * sqrtf(pos2) : (take_event ? edist : tdist);
-      dist = fmaxf(dist, 0.0f);
+      // the boundary overshoot: float32 only, as the XLA path's
+      R dist = take_boundary ? sdist + (is_f32<R> ? R(3e-6) * r_sqrt(pos2) : R(0.0))
+                             : (take_event ? edist : tdist);
+      dist = r_max(dist, R(0.0));
 
       // in-kernel isotropic scattering: electron scattering and thick grey;
       // in the deferred mode (K6, dipole scattering) every event, these
@@ -960,64 +1067,64 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
       take_event = take_event && !scat;
 
       // --- two half-moves with midpoint estimators (rpkt.cc:676-727) ---
-      const float h = dist * 0.5f;
-      const float mx = px + dx * h, my = py + dy * h, mz = pz + dz * h;
-      const float mt = tstart + h / CLIGHT_PROP;
-      const float dop_mid = doppler_at(dx, dy, dz, mx, my, mz, mt, rel);
-      const float nucmf1 = fminf(nurf * dop_mid, nucmf);
-      const float ecmf1 = erf * dop_mid;
+      const R h = dist * R(0.5);
+      const R mx = px + dx * h, my = py + dy * h, mz = pz + dz * h;
+      const R mt = tstart + h / K<R>::CLIGHT;
+      const R dop_mid = doppler_at(dx, dy, dz, mx, my, mz, mt, rel);
+      const R nucmf1 = r_min(nurf * dop_mid, nucmf);
+      const R ecmf1 = erf * dop_mid;
       const bool crossing = take_boundary && snext >= 0;
       if (nonempty) {
-        const float contrib = dist * ecmf1;
+        const R contrib = dist * ecmf1;
         if constexpr (R1) {
           est_add_warp(a_est + 4 * mgi, mgi, contrib, contrib * nucmf1,
-                       thick ? 0.0f : contrib * chi_ff, crossing ? 1.0f : 0.0f);
+                       thick ? R(0.0) : contrib * chi_ff, crossing ? R(1.0) : R(0.0));
         } else if (R3 && !p.shared_rows) {
           // K3: the cell's four floats in one vector reduction (the global
           // rows are 16-byte aligned, rpkt_kernel.estimator_buffers)
-          red_add_v4(a_est + 4 * mgi, contrib, contrib * nucmf1, thick ? 0.0f : contrib * chi_ff,
-                     crossing ? 1.0f : 0.0f);
+          red_add_v4(a_est + 4 * mgi, contrib, contrib * nucmf1, thick ? R(0.0) : contrib * chi_ff,
+                     crossing ? R(1.0) : R(0.0));
         } else {
           atomicAdd(a_est + 4 * mgi + 0, contrib);
           atomicAdd(a_est + 4 * mgi + 1, contrib * nucmf1);
           if (!thick) atomicAdd(a_est + 4 * mgi + 2, contrib * chi_ff);
-          if (crossing) atomicAdd(a_est + 4 * mgi + 3, 1.0f);
+          if (crossing) atomicAdd(a_est + 4 * mgi + 3, R(1.0));
         }
         if (nrb && nucmf1 >= p.rb_lo && nucmf1 < p.rb_super) {
           // multibin J / nuJ / count at the midpoint (pallas_rpkt.py:1491-1514)
-          float bsel = floorf((nucmf1 - p.rb_lo) / p.rb_delta);
-          if (nucmf1 >= p.rb_last) bsel = (float)(nrb - 1);
-          const int b = (int)fminf(fmaxf(bsel, 0.0f), (float)(nrb - 1));
-          float* rbrow = a_rb + (size_t)mgi * 3 * nrb;
+          R bsel = r_floor((nucmf1 - p.rb_lo) / p.rb_delta);
+          if (nucmf1 >= p.rb_last) bsel = (R)(nrb - 1);
+          const int b = (int)r_min(r_max(bsel, R(0.0)), (R)(nrb - 1));
+          R* rbrow = a_rb + (size_t)mgi * 3 * nrb;
           atomicAdd(rbrow + b, contrib);
           atomicAdd(rbrow + nrb + b, contrib * nucmf1);
-          atomicAdd(rbrow + 2 * nrb + b, 1.0f);
+          atomicAdd(rbrow + 2 * nrb + b, R(1.0));
         }
         if (!thick && bf_hi > bf_lo) {
           // per-ground-continuum sigma*prob*corr (rpkt.cc:870-880), the
           // detailed per-continuum bf-rate (radfield.cc:204-233, weight
           // contrib / nu_cmf * doppler at the segment-start frequency) and
           // the continuum selection draw (rpkt.cc:469-474), one pass
-          const float nuc1 = fmaxf(nucmf1, 1e-30f);
-          const float w_bfr = contrib / nuc1 * doppler;
-          const float target = sel_u * chi_bf;
-          float cum = 0.0f;
+          const R nuc1 = r_max(nucmf1, R(1e-30));
+          const R w_bfr = contrib / nuc1 * doppler;
+          const R target = sel_u * chi_bf;
+          R cum = R(0.0);
           int bf_idx = -1;
           for (int c = bf_lo; c < bf_hi; ++c) {
-            const float edge = ld<GEN>(tb.cont_nu_edge + c);
-            const float sigma = bf_sigma<GEN>(tb.cont_phixs + (size_t)c * p.nphixs, p.nphixs, nu,
+            const R edge = ld<GEN>(tb.cont_nu_edge + c);
+            const R sigma = bf_sigma<GEN>(tb.cont_phixs + (size_t)c * p.nphixs, p.nphixs, nu,
                                               edge, p.phixs_dnu, p.last_nuovernuedge);
-            const float dep = ld<GEN>(tb.bf_dep + (size_t)smgi * p.ncont + c);
-            const float corr = fmaxf(0.0f, 1.0f - expf(fminf(fmaxf(dep - hnu_kt, -80.0f), 80.0f)));
+            const R dep = ld<GEN>(tb.bf_dep + (size_t)smgi * p.ncont + c);
+            const R corr = r_max(R(0.0), R(1.0) - r_exp(r_min(r_max(dep - hnu_kt, -R(80.0)), R(80.0))));
             cum += ld<GEN>(tb.bf_a + (size_t)smgi * p.ncont + c) * sigma * corr;
             if (bf_idx < 0 && cum > target) bf_idx = c;
             const int g = (lut_g || lut_h) ? ld<GEN>(tb.cont_gidx + c) : -1;
             if (g >= 0) {
-              const float de = contrib * sigma * corr * ld<GEN>(tb.cont_prob + c);
+              const R de = contrib * sigma * corr * ld<GEN>(tb.cont_prob + c);
               if (lut_g) atomicAdd(a_gam + mgi * ngam + g, de / nuc1);
               if (lut_h)
                 atomicAdd(a_bfh + mgi * nbfh + g,
-                          de * fmaxf(1.0f - ld<GEN>(tb.gc_nu_edge + g) / nuc1, 0.0f));
+                          de * r_max(R(1.0) - ld<GEN>(tb.gc_nu_edge + g) / nuc1, R(0.0)));
             }
             if (nbfr) atomicAdd(a_bfr + (size_t)mgi * nbfr + c,
                                 sigma * corr * ld<GEN>(tb.cont_prob + c) * w_bfr);
@@ -1031,21 +1138,26 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
       }
 
       // second half-move
-      const float fx = mx + dx * h, fy = my + dy * h, fz = mz + dz * h;
-      const float ft = mt + h / CLIGHT_PROP;
-      const float dop2 = doppler_at(dx, dy, dz, fx, fy, fz, ft, rel);
-      const float nucmf2 = fminf(nurf * dop2, nucmf1);
-      const float ecmf2 = erf * dop2;
-      // compensated t += dist/c: diffusion steps fall below the float32 ulp of t
-      const float kah_y = dist / CLIGHT_PROP - terr;
-      const float kah_t = tstart + kah_y;
-      const float kah_err = __fsub_rn(__fsub_rn(kah_t, tstart), kah_y);
-      if (take_tlimit) {
-        t = p.t2;
-        terr = 0.0f;
+      const R fx = mx + dx * h, fy = my + dy * h, fz = mz + dz * h;
+      const R ft = mt + h / K<R>::CLIGHT;
+      const R dop2 = doppler_at(dx, dy, dz, fx, fy, fz, ft, rel);
+      const R nucmf2 = r_min(nurf * dop2, nucmf1);
+      const R ecmf2 = erf * dop2;
+      if constexpr (is_f32<R>) {
+        // compensated t += dist/c: diffusion steps fall below the float32 ulp of t
+        const float kah_y = dist / K<R>::CLIGHT - terr;
+        const float kah_t = tstart + kah_y;
+        const float kah_err = __fsub_rn(__fsub_rn(kah_t, tstart), kah_y);
+        if (take_tlimit) {
+          t = p.t2;
+          terr = 0.0f;
+        } else {
+          t = kah_t;
+          terr = kah_err;
+        }
       } else {
-        t = kah_t;
-        terr = kah_err;
+        // float64: the two half-moves' time, as the XLA path's move_pkt
+        t = take_tlimit ? p.t2 : ft;
       }
       px = fx;
       py = fy;
@@ -1058,24 +1170,24 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
       if (crossing) cell = snext;
 
       if (scat) {  // isotropic cmf re-emission at the post-move position (rpkt.cc:945-970)
-        const float zmu = 2.0f * z1 - 1.0f;
-        const float zphi = 6.2831853071795862f * z2;
-        const float sinm = sqrtf(fmaxf(1.0f - zmu * zmu, 0.0f));
-        const float cdx = sinm * cosf(zphi), cdy = sinm * sinf(zphi), cdz = zmu;
-        const float inv_t = 1.0f / ft;
-        const float vx = -fx * inv_t, vy = -fy * inv_t, vz = -fz * inv_t;
-        const float vsqr = (vx * vx + vy * vy + vz * vz) / CLIGHTSQUARED;
-        const float grel = 1.0f / sqrtf(fmaxf(1.0f - vsqr, 1e-30f));
-        const float ndotv = cdx * vx + cdy * vy + cdz * vz;
-        const float fact1 = grel * (1.0f - ndotv / CLIGHT);
-        const float fact2 = (grel - grel * grel * ndotv / (grel + 1.0f) / CLIGHT) / CLIGHT;
-        float ndx = (cdx - vx * fact2) / fact1, ndy = (cdy - vy * fact2) / fact1,
+        const R zmu = R(2.0) * z1 - R(1.0);
+        const R zphi = R(6.2831853071795862) * z2;
+        const R sinm = r_sqrt(r_max(R(1.0) - zmu * zmu, R(0.0)));
+        const R cdx = sinm * r_cos(zphi), cdy = sinm * r_sin(zphi), cdz = zmu;
+        const R inv_t = R(1.0) / ft;
+        const R vx = -fx * inv_t, vy = -fy * inv_t, vz = -fz * inv_t;
+        const R vsqr = (vx * vx + vy * vy + vz * vz) / K<R>::CLIGHTSQUARED;
+        const R grel = R(1.0) / r_sqrt(r_max(R(1.0) - vsqr, R(1e-30)));
+        const R ndotv = cdx * vx + cdy * vy + cdz * vz;
+        const R fact1 = grel * (R(1.0) - ndotv / K<R>::CLIGHT);
+        const R fact2 = (grel - grel * grel * ndotv / (grel + R(1.0)) / K<R>::CLIGHT) / K<R>::CLIGHT;
+        R ndx = (cdx - vx * fact2) / fact1, ndy = (cdy - vy * fact2) / fact1,
               ndz = (cdz - vz * fact2) / fact1;
-        const float nlen = sqrtf(ndx * ndx + ndy * ndy + ndz * ndz);
+        const R nlen = r_sqrt(ndx * ndx + ndy * ndy + ndz * ndz);
         ndx /= nlen;
         ndy /= nlen;
         ndz /= nlen;
-        const float dop_sc = doppler_at(ndx, ndy, ndz, fx, fy, fz, ft, rel);
+        const R dop_sc = doppler_at(ndx, ndy, ndz, fx, fy, fz, ft, rel);
         dx = ndx;
         dy = ndy;
         dz = ndz;
@@ -1137,43 +1249,44 @@ __device__ __forceinline__ void crossing(RpktParams p, Lanes in, Tables tb, Outs
   __syncthreads();
   if (p.shared_rows) {
     for (int i = threadIdx.x; i < 4 * p.ncells; i += blockDim.x)
-      if (a_est[i] != 0.0f) atomicAdd(out.est + i, a_est[i]);
+      if (a_est[i] != R(0.0)) atomicAdd(out.est + i, a_est[i]);
     for (int i = threadIdx.x; i < p.ncells * ngam; i += blockDim.x)
-      if (a_gam[i] != 0.0f) atomicAdd(out.gamma + i, a_gam[i]);
+      if (a_gam[i] != R(0.0)) atomicAdd(out.gamma + i, a_gam[i]);
     for (int i = threadIdx.x; i < p.ncells * nbfh; i += blockDim.x)
-      if (a_bfh[i] != 0.0f) atomicAdd(out.bfheat + i, a_bfh[i]);
+      if (a_bfh[i] != R(0.0)) atomicAdd(out.bfheat + i, a_bfh[i]);
     for (int i = threadIdx.x; i < p.ncells * nbfr; i += blockDim.x)
-      if (a_bfr[i] != 0.0f) atomicAdd(out.bfrate + i, a_bfr[i]);
+      if (a_bfr[i] != R(0.0)) atomicAdd(out.bfrate + i, a_bfr[i]);
     for (int i = threadIdx.x; i < p.ncells * 3 * nrb; i += blockDim.x)
-      if (a_rb[i] != 0.0f) atomicAdd(out.radbin + i, a_rb[i]);
+      if (a_rb[i] != R(0.0)) atomicAdd(out.radbin + i, a_rb[i]);
     for (int i = threadIdx.x; i < p.ncells * 2 * njb; i += blockDim.x)
-      if (a_jb[i] != 0.0f) atomicAdd(out.jblue + i, a_jb[i]);
+      if (a_jb[i] != R(0.0)) atomicAdd(out.jblue + i, a_jb[i]);
   }
   for (int i = threadIdx.x; i < NMISC; i += blockDim.x)
     if (s_misc[i] != 0.0) atomicAdd(out.misc + i, s_misc[i]);
 }
 
-template <int GEOM, bool EXPO, bool NLTE>
-__global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParams p, Lanes in, Tables tb,
-                                                              Outs out) {
-  crossing<GEOM, EXPO, NLTE>(p, in, tb, out);
+template <typename R, int GEOM, bool EXPO, bool NLTE>
+__global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParamsT<R> p, Lanes<R> in,
+                                                              Tables<R> tb, Outs<R> out) {
+  crossing<R, GEOM, EXPO, NLTE>(p, in, tb, out);
 }
 
-// the redesigned 1D line walk, with a register bound of its own
+// the redesigned 1D line walk, with a register bound of its own (float32)
+template <typename R>
 __global__ void __launch_bounds__(BLOCK, K1_MIN_BLOCKS)
-    rpkt_crossing_kernel_1d(RpktParams p, Lanes in, Tables tb, Outs out) {
-  crossing<GEOM_SPH, false, false>(p, in, tb, out);
+    rpkt_crossing_kernel_1d(RpktParamsT<R> p, Lanes<R> in, Tables<R> tb, Outs<R> out) {
+  crossing<R, GEOM_SPH, false, false>(p, in, tb, out);
 }
 
-template <int GEOM, bool EXPO, bool NLTE>
-cudaError_t launch(const RpktParams& p, const Lanes& in, const Tables& tb, const Outs& out,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes<GEOM, EXPO, NLTE>(p);
+template <typename R, int GEOM, bool EXPO, bool NLTE>
+cudaError_t launch(const RpktParamsT<R>& p, const Lanes<R>& in, const Tables<R>& tb,
+                   const Outs<R>& out, cudaStream_t stream) {
+  const size_t smem = smem_bytes<R, GEOM, EXPO, NLTE>(p);
   // the largest dynamic shared memory this instantiation was allowed so far
   // (48 KB without asking): raised only when a launch needs more
-  void (*kern)(RpktParams, Lanes, Tables, Outs);
-  if constexpr (k1_redesign<GEOM, EXPO, NLTE>()) kern = rpkt_crossing_kernel_1d;
-  else kern = rpkt_crossing_kernel<GEOM, EXPO, NLTE>;
+  void (*kern)(RpktParamsT<R>, Lanes<R>, Tables<R>, Outs<R>);
+  if constexpr (k1_redesign<R, GEOM, EXPO, NLTE>()) kern = rpkt_crossing_kernel_1d<R>;
+  else kern = rpkt_crossing_kernel<R, GEOM, EXPO, NLTE>;
   static size_t allowed = 48 * 1024;
   if (smem > allowed) {
     const cudaError_t err =
@@ -1191,57 +1304,74 @@ cudaError_t launch(const RpktParams& p, const Lanes& in, const Tables& tb, const
 // compiled so it ran 30 % faster than without them on the same work (an
 // H100 at N=65536, max_inner=64, the 16^3 model's tables, in-kernel and
 // deferred scattering; chip_smoke.py --kernel-ab), while the 1D and
-// cylindrical line walks ran 40-55 % slower with them.
-template <int GEOM>
-cudaError_t launch_geom(const RpktParams& p, const Lanes& in, const Tables& tb, const Outs& out,
-                        cudaStream_t st) {
+// cylindrical line walks ran 40-55 % slower with them. The double forms
+// take the same eleven instantiations of the generic body.
+template <typename R, int GEOM>
+cudaError_t launch_geom(const RpktParamsT<R>& p, const Lanes<R>& in, const Tables<R>& tb,
+                        const Outs<R>& out, cudaStream_t st) {
   const bool nlte = p.nradbins || p.njblue || !p.want_gamma || !p.want_bfheat;
   if (p.expansion)
-    return nlte ? launch<GEOM, true, true>(p, in, tb, out, st)
-                : launch<GEOM, true, false>(p, in, tb, out, st);
+    return nlte ? launch<R, GEOM, true, true>(p, in, tb, out, st)
+                : launch<R, GEOM, true, false>(p, in, tb, out, st);
   if constexpr (GEOM == GEOM_CART) {
-    return launch<GEOM, false, true>(p, in, tb, out, st);
+    return launch<R, GEOM, false, true>(p, in, tb, out, st);
   } else {
-    return nlte ? launch<GEOM, false, true>(p, in, tb, out, st)
-                : launch<GEOM, false, false>(p, in, tb, out, st);
+    return nlte ? launch<R, GEOM, false, true>(p, in, tb, out, st)
+                : launch<R, GEOM, false, false>(p, in, tb, out, st);
+  }
+}
+
+// a launch in precision R from the entry point's pointer arrays
+template <typename R>
+int launch_real(const RpktParamsT<R>& p, void** lanes, void** tables, void** outs,
+                void* stream) {
+  const R* const* lf = reinterpret_cast<const R* const*>(lanes);
+  Lanes<R> in{lf[0], lf[1], lf[2], lf[3], lf[4], lf[5], lf[6], lf[7], lf[8], lf[9], lf[10],
+              reinterpret_cast<const int*>(lanes[11]), reinterpret_cast<const int*>(lanes[12]),
+              reinterpret_cast<const int*>(lanes[13]), reinterpret_cast<const int*>(lanes[14]),
+              lf[15], lf[16]};
+  const R* const* tf = reinterpret_cast<const R* const*>(tables);
+  Tables<R> tb{tf[0], tf[1], tf[2], tf[3], tf[4], tf[5], tf[6], tf[7], tf[8], tf[9], tf[10],
+               tf[11], tf[12], tf[13], tf[14], tf[15], reinterpret_cast<const int*>(tables[16]),
+               reinterpret_cast<const int*>(tables[17]), reinterpret_cast<const int*>(tables[18]),
+               reinterpret_cast<const int*>(tables[19]), tf[20]};
+  R* const* of = reinterpret_cast<R* const*>(outs);
+  int* const* oi = reinterpret_cast<int* const*>(outs + 19);
+  Outs<R> out{of[0], of[1], of[2], of[3], of[4], of[5], of[6], of[7], of[8], of[9], of[10],
+              of[11], of[12], of[13], of[14], of[15], of[16], of[17], of[18],
+              oi[0], oi[1], oi[2], oi[3], oi[4], oi[5], oi[6], oi[7], oi[8], oi[9], oi[10],
+              reinterpret_cast<R*>(outs[30]), reinterpret_cast<R*>(outs[31]),
+              reinterpret_cast<R*>(outs[32]), reinterpret_cast<R*>(outs[33]),
+              reinterpret_cast<R*>(outs[34]), reinterpret_cast<R*>(outs[35]),
+              reinterpret_cast<double*>(outs[36])};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (p.geom) {
+    case GEOM_SPH: return (int)launch_geom<R, GEOM_SPH>(p, in, tb, out, st);
+    case GEOM_CYL: return (int)launch_geom<R, GEOM_CYL>(p, in, tb, out, st);
+    case GEOM_CART: return (int)launch_geom<R, GEOM_CART>(p, in, tb, out, st);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes. Pointer arrays follow the order of
-// LANE_F32 + LANE_I32 + (test_tau, test_sel), TABLES_F32 + TABLES_I32 + (the bin edges) and
-// OUT_F32 + OUT_I32 + (est, gamma, bfheat, bfrate, radbin, jblue, misc) in
-// rpkt_kernel.py.
-// Launches on the given stream without synchronising; returns
-// cudaGetLastError() (cudaErrorInvalidValue for an unknown geometry).
-extern "C" int rpkt_crossing_launch(const RpktParams* prm, void** lanes, void** tables,
+// Plain C entry points, bound with ctypes: one library of float32
+// instantiations (rpkt_crossing_launch) and, built from this source with
+// -DRPKT_F64, one of their double forms (rpkt_crossing_launch_f64). Pointer
+// arrays follow the order of LANE_F32 + LANE_I32 + (test_tau, test_sel),
+// TABLES_F32 + TABLES_I32 + (the bin edges) and OUT_F32 + OUT_I32 + (est,
+// gamma, bfheat, bfrate, radbin, jblue, misc) in rpkt_kernel.py, the float
+// arrays in the launch's precision. Launches on the given stream without
+// synchronising; returns cudaGetLastError() (cudaErrorInvalidValue for an
+// unknown geometry).
+#ifndef RPKT_F64
+extern "C" int rpkt_crossing_launch(const RpktParamsT<float>* prm, void** lanes, void** tables,
                                     void** outs, void* stream) {
-  const RpktParams p = *prm;
-  const float* const* lf = reinterpret_cast<const float* const*>(lanes);
-  Lanes in{lf[0], lf[1], lf[2], lf[3], lf[4], lf[5], lf[6], lf[7], lf[8], lf[9], lf[10],
-           reinterpret_cast<const int*>(lanes[11]), reinterpret_cast<const int*>(lanes[12]),
-           reinterpret_cast<const int*>(lanes[13]), reinterpret_cast<const int*>(lanes[14]),
-           lf[15], lf[16]};
-  const float* const* tf = reinterpret_cast<const float* const*>(tables);
-  Tables tb{tf[0], tf[1], tf[2], tf[3], tf[4], tf[5], tf[6], tf[7], tf[8], tf[9], tf[10], tf[11],
-            tf[12], tf[13], tf[14], tf[15], reinterpret_cast<const int*>(tables[16]),
-            reinterpret_cast<const int*>(tables[17]), reinterpret_cast<const int*>(tables[18]),
-            reinterpret_cast<const int*>(tables[19]), tf[20]};
-  float* const* of = reinterpret_cast<float* const*>(outs);
-  int* const* oi = reinterpret_cast<int* const*>(outs + 19);
-  Outs out{of[0], of[1], of[2], of[3], of[4], of[5], of[6], of[7], of[8], of[9], of[10], of[11],
-           of[12], of[13], of[14], of[15], of[16], of[17], of[18],
-           oi[0], oi[1], oi[2], oi[3], oi[4], oi[5], oi[6], oi[7], oi[8], oi[9], oi[10],
-           reinterpret_cast<float*>(outs[30]), reinterpret_cast<float*>(outs[31]),
-           reinterpret_cast<float*>(outs[32]), reinterpret_cast<float*>(outs[33]),
-           reinterpret_cast<float*>(outs[34]), reinterpret_cast<float*>(outs[35]),
-           reinterpret_cast<double*>(outs[36])};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (p.geom) {
-    case GEOM_SPH: return (int)launch_geom<GEOM_SPH>(p, in, tb, out, st);
-    case GEOM_CYL: return (int)launch_geom<GEOM_CYL>(p, in, tb, out, st);
-    case GEOM_CART: return (int)launch_geom<GEOM_CART>(p, in, tb, out, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch_real<float>(*prm, lanes, tables, outs, stream);
 }
+#else
+extern "C" int rpkt_crossing_launch_f64(const RpktParamsT<double>* prm, void** lanes,
+                                        void** tables, void** outs, void* stream) {
+  return launch_real<double>(*prm, lanes, tables, outs, stream);
+}
+#endif

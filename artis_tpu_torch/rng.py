@@ -6,10 +6,11 @@ and each draw seeds a fresh ``torch.Generator`` from a hash of the tuple. A
 timestep's numbers therefore depend only on its counters, never on a running
 generator state, which is what makes checkpoint resume bit-exact.
 
-``philox_uniform`` is the in-kernel generator of the r-packet crossing
-kernel (Philox4x32-10 keyed by seed and lane, counter = draw index), written
-out in integer tensor arithmetic so the plain version draws the same numbers
-as the CUDA kernel.
+``philox_uniform4`` and ``philox_uniform2d`` are the in-kernel generator of
+the r-packet crossing kernel (Philox4x32-10 keyed by seed and lane, counter
+= draw index; four float32 or two float64 uniforms a draw), written out in
+integer tensor arithmetic so the plain version draws the same numbers as the
+CUDA kernel.
 """
 
 from __future__ import annotations
@@ -87,13 +88,27 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
     return c0, c1, c2, c3
 
 
-def philox_uniform4(seed: int, lane: torch.Tensor, draw: int, sub: int):
-    """Four uniforms in (0, 1) per lane for crossing ``draw`` and sub-stream
-    ``sub``: 24 high bits scaled by 2^-24, floored at 1e-12 (the kernel's
-    ``u01``)."""
+def _philox_words(seed: int, lane: torch.Tensor, draw: int, sub: int):
     lane = lane.to(torch.int64) & _U32
     z = torch.zeros_like(lane)
-    outs = philox4x32(lane, z + (draw & _U32), z + (sub & _U32), z,
+    return philox4x32(lane, z + (draw & _U32), z + (sub & _U32), z,
                       seed & _U32, (seed >> 32) & _U32)
+
+
+def philox_uniform4(seed: int, lane: torch.Tensor, draw: int, sub: int):
+    """Four float32 uniforms in (0, 1) per lane for crossing ``draw`` and
+    sub-stream ``sub``: 24 high bits scaled by 2^-24, floored at 1e-12 (the
+    kernel's ``uniform4``)."""
     return [torch.clamp((o >> 8).to(torch.float32) * (1.0 / (1 << 24)), min=1e-12)
-            for o in outs]
+            for o in _philox_words(seed, lane, draw, sub)]
+
+
+def philox_uniform2d(seed: int, lane: torch.Tensor, draw: int, sub: int):
+    """Two float64 uniforms in (0, 1) per lane for crossing ``draw`` and
+    sub-stream ``sub``: 53 bits from each pair of Philox words (the high 27
+    bits of the first, the high 26 of the second) scaled by 2^-53, floored
+    at 1e-300 as the JAX package floors its optical-depth draw (the
+    kernel's ``uniform2d``)."""
+    w = _philox_words(seed, lane, draw, sub)
+    return [torch.clamp((((w[i] >> 5) << 26) | (w[i + 1] >> 6)).to(torch.float64)
+                        * 2.0 ** -53, min=1e-300) for i in (0, 2)]

@@ -144,13 +144,14 @@ def crossing_estimators(opts: Options, est: Estimators) -> dict:
 
 
 def check_crossing_dtype(opts: Options) -> None:
-    """The crossing kernel and its plain version run in float32 only; a
-    float64 crossing (the JAX package's XLA path) is not ported. Setup and
-    the grid update still run in float64."""
-    if opts.transport_dtype != "float32":
+    """The crossing kernel and its plain version run in float32 (the Pallas
+    kernel's precision) and float64 (the XLA path's, the default); any other
+    transport dtype raises. Setup and the grid update run in float64 either
+    way."""
+    if opts.transport_dtype not in ("float32", "float64"):
         raise NotImplementedError(
             f"option transport_dtype={opts.transport_dtype!r} is not ported for the "
-            "r-packet crossing (float32 only)")
+            "r-packet crossing (float32 or float64 only)")
 
 
 def _uniform(key, tag: int, n: int, like):
@@ -765,22 +766,23 @@ def gamma_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gr
 
 def rpkt_lanes(st: PacketState, t2: float):
     """Compact the moving r-packets of ``st`` (``nonzero`` / index) into the
-    crossing kernel's float32 / int32 lane tensors. Returns (idx, lanes),
-    idx the packet indices of the lanes."""
+    crossing kernel's lane tensors: floats in the packets' dtype (float32
+    or float64, the launch's precision), int32. Returns (idx, lanes), idx
+    the packet indices of the lanes."""
     moving0 = (st.ptype == TYPE_RPKT) & (st.prop_time < t2)
     idx = torch.nonzero(moving0)[:, 0]
 
-    def g32(x):
-        return x[idx].to(torch.float32).contiguous()
+    def gf(x):
+        return x[idx].contiguous()
 
     def gi(x):
         return x[idx].to(torch.int32).contiguous()
 
     lanes = dict(
-        posx=g32(st.pos[:, 0]), posy=g32(st.pos[:, 1]), posz=g32(st.pos[:, 2]),
-        dirx=g32(st.dir[:, 0]), diry=g32(st.dir[:, 1]), dirz=g32(st.dir[:, 2]),
-        nu_rf=g32(st.nu_rf), nu_cmf=g32(st.nu_cmf), e_rf=g32(st.e_rf), e_cmf=g32(st.e_cmf),
-        prop_time=g32(st.prop_time), where=gi(st.where), next_trans=gi(st.next_trans),
+        posx=gf(st.pos[:, 0]), posy=gf(st.pos[:, 1]), posz=gf(st.pos[:, 2]),
+        dirx=gf(st.dir[:, 0]), diry=gf(st.dir[:, 1]), dirz=gf(st.dir[:, 2]),
+        nu_rf=gf(st.nu_rf), nu_cmf=gf(st.nu_cmf), e_rf=gf(st.e_rf), e_cmf=gf(st.e_cmf),
+        prop_time=gf(st.prop_time), where=gi(st.where), next_trans=gi(st.next_trans),
         moving=torch.ones(idx.numel(), dtype=torch.int32, device=idx.device),
         lane_id=gi(st.number))
     return idx, lanes
@@ -795,8 +797,9 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
     that reached their optical-depth target (the contract of the JAX
     package's rpkt_step / rpkt_step_pallas).
 
-    test_draws: optional (tau, sel) (N,) float32 arrays injected in place of
-    the kernel's random numbers (the JAX package's _PALLAS_TEST_INJECT).
+    test_draws: optional (tau, sel) (N,) arrays injected in place of the
+    kernel's random numbers (the JAX package's _PALLAS_TEST_INJECT), taken
+    in the packets' dtype.
     Returns (st, est, ma_mask, ma_level, ma_activating_line, nadv)."""
     check_crossing_dtype(opts)
     n = st.npkts
@@ -813,13 +816,13 @@ def rpkt_step(key, st: PacketState, est: Estimators, ctx: StepContext, grid: Gri
     if idx.numel() == 0:
         return (st, est) + none + (0,)
     if tables is None:
-        tables = rpkt_kernel.kernel_tables(dad, grid, cells, ctx)
+        tables = rpkt_kernel.kernel_tables(dad, grid, cells, ctx, dtype)
     test_mode = test_draws is not None
     if test_mode:
-        test_tau = test_draws[0].to(device=dev, dtype=torch.float32)[idx].contiguous()
-        test_sel = test_draws[1].to(device=dev, dtype=torch.float32)[idx].contiguous()
+        test_tau = test_draws[0].to(device=dev, dtype=dtype)[idx].contiguous()
+        test_sel = test_draws[1].to(device=dev, dtype=dtype)[idx].contiguous()
     else:
-        test_tau = test_sel = torch.zeros(idx.numel(), dtype=torch.float32, device=dev)
+        test_tau = test_sel = torch.zeros(idx.numel(), dtype=dtype, device=dev)
     ngc = max(dad.nbfcontinua_ground, 1)
     out = rpkt_kernel.propagate(
         rng.seed_of(rng.fold_in(key, 7777)), lanes, tables, test_tau, test_sel,
@@ -1184,8 +1187,8 @@ def transport_timestep(key, st: PacketState, est: Estimators, grid: GridData,
     check_crossing_dtype(opts)
     t_start = time.time()
     t2 = ctx.t2
-    tables = rpkt_kernel.kernel_tables(dad, grid, cells, ctx)
-    nsteps = 0
+    tables = rpkt_kernel.kernel_tables(dad, grid, cells, ctx, st.pos.dtype)
+    nsteps = 0  # a Python int: no overflow (the JAX package's int64 float64 count)
     it = 0
     while it < max_iters:
         active = (st.ptype != TYPE_ESCAPE) & (st.prop_time < t2)

@@ -17,6 +17,17 @@ sweeps (optional too), a Kahan-summed time and the boundary overshoot guard
 (reference: rpkt.cc:604-737 do_rpkt_step without the event application;
 radfield.cc:731-771).
 
+Two precisions: float32 lanes and tables (the Pallas kernel's) or float64
+ones (the JAX package's XLA ``_rpkt_propagate_once``, which it runs at
+``transport_dtype="float64"``, the default). A float64 launch runs the
+double instantiation of the kernel (``launch_f64``), whose crossing differs
+from the float32 one where the XLA path's does: no 3e-6 r boundary
+overshoot and no Kahan compensation of the time (t advances by the two
+half-moves, as ``geometry.move_pkt`` does), the float64 h/k, float64
+multibin edges (``radbin_edges``), the expansion-opacity bin edges computed
+in float64, and float64 uniforms (``rng.philox_uniform2d``: two a draw,
+three draws a crossing).
+
 It replaces the Pallas kernel ``propagate_blocked``
 (artis_tpu/transport/pallas_rpkt.py:1837, body ``_kernel`` :314-1822) in its
 resident-table configurations: 1D spherical (:863-942), ``cart3d``
@@ -31,8 +42,9 @@ CPU tensors it runs ``propagate_reference``, the same computation written
 as a per-crossing loop over tensors. There is no fallback between the two.
 
 Random numbers: Philox4x32-10 keyed by (seed, lane id) with the crossing
-index as counter, drawn identically by both versions (``rng.philox_uniform4``),
-so results do not depend on block size or on lane order. Test mode takes
+index as counter, drawn identically by both versions (``rng.philox_uniform4``
+in float32, ``rng.philox_uniform2d`` in float64), so results do not depend
+on block size or on lane order. Test mode takes
 ``test_tau`` (one optical depth per lane, reused every crossing) and
 ``test_sel`` (continuum selection and scatter split), and the fixed redirect
 uniforms z1=0.37, z2=0.81 — exactly the JAX kernel's injection contract
@@ -47,20 +59,26 @@ import math
 import os
 import subprocess
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import rng
-from ..constants import CLIGHT, CLIGHTSQUARED, CLIGHT_PROP, SIGMA_T
+from ..constants import CLIGHT, CLIGHTSQUARED, CLIGHT_PROP, HOVERKB, SIGMA_T
 from ..grid import BOUNDARY_ESCAPE, cell_boundary
 from ..plasma.radfield import NU_LOWER_FIRST, NU_UPPER_LAST, NU_UPPER_SUPERBIN
 from .expansionopacity import NBINS, bin_nu_lower, bin_walk
 
 F32 = torch.float32
+F64 = torch.float64
 I32 = torch.int32
+# "no event" distance: above any distance of either precision, and finite
+# in both
 BIG = 3.0e38
 HOVERKB_F32 = 4.799243681e-11
+# h/k of each precision's crossing (float64: the constant the XLA path uses)
+HOVERKB_OF = {F32: HOVERKB_F32, F64: HOVERKB}
 
 LANE_F32 = ("posx", "posy", "posz", "dirx", "diry", "dirz", "nu_rf", "nu_cmf",
             "e_rf", "e_cmf", "prop_time")
@@ -92,21 +110,22 @@ GEOM_SPH, GEOM_CYL, GEOM_CART = 1, 2, 3
 GEOM_NDIM = {GEOM_SPH: 1, GEOM_CYL: 2, GEOM_CART: 3}
 
 
-def radbin_edges(nradbins: int):
-    """The multibin layout as the kernel computes with it, in float32:
-    (first lower edge, NU_UPPER_LAST, superbin upper edge, bin width), each
-    rounded from the float64 constant (pallas_rpkt.py:1497-1503)."""
-    return tuple(float(np.float32(v)) for v in (
-        NU_LOWER_FIRST, NU_UPPER_LAST, NU_UPPER_SUPERBIN,
-        (NU_UPPER_LAST - NU_LOWER_FIRST) / max(nradbins - 1, 1)))
+def radbin_edges(nradbins: int, dtype=F32):
+    """The multibin layout as the kernel computes with it: (first lower
+    edge, NU_UPPER_LAST, superbin upper edge, bin width), in float32 each
+    rounded from the float64 constant (pallas_rpkt.py:1497-1503), in
+    float64 the constants (the XLA path's radfield.select_bin)."""
+    edges = (NU_LOWER_FIRST, NU_UPPER_LAST, NU_UPPER_SUPERBIN,
+             (NU_UPPER_LAST - NU_LOWER_FIRST) / max(nradbins - 1, 1))
+    return tuple(float(np.float32(v)) for v in edges) if dtype == F32 else edges
 
 
 def radbin_index(nu, nradbins: int):
-    """(bin, inside) of float32 frequencies with the kernel's float32
-    expression: floor((nu - lower) / width), nu >= NU_UPPER_LAST in the
+    """(bin, inside) of frequencies with the kernel's expression in their
+    precision: floor((nu - lower) / width), nu >= NU_UPPER_LAST in the
     last bin (the superbin), clipped; inside [lower, superbin upper)."""
-    lo, last, sup, delta = (torch.tensor(v, dtype=F32, device=nu.device)
-                            for v in radbin_edges(nradbins))
+    lo, last, sup, delta = (torch.tensor(v, dtype=nu.dtype, device=nu.device)
+                            for v in radbin_edges(nradbins, nu.dtype))
     b = torch.floor((nu - lo) / delta)
     b = torch.where(nu >= last, torch.full_like(b, nradbins - 1), b)
     b = torch.clamp(b, 0.0, float(nradbins - 1)).long()
@@ -153,7 +172,7 @@ def _bf_terms(nu, need_chi, tables, ngc, nphixs, phixs_dnu, last_nuovernuedge):
     in_w = (nu[:, None] >= edge) & (edge * last_nuovernuedge >= nu[:, None]) & need_chi[:, None]
     ireal = (nu[:, None] / edge - 1.0) / phixs_dnu
     i0 = torch.clamp(torch.floor(ireal), 0, nphixs - 2).long()
-    frac = ireal - i0.to(F32)
+    frac = ireal - i0.to(nu.dtype)
     phixs = tables["cont_phixs"]
     ncont = phixs.shape[0]
     rowsel = torch.arange(ncont, device=nu.device)[None, :]
@@ -203,8 +222,9 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
                         nradbins: int = 0, njblue: int = 0, want_gamma: bool = True,
                         want_bfheat: bool = True, ff_only: bool = False,
                         line_chunk: int = 128, walk_log: list | None = None) -> dict:
-    """The crossing kernel as a per-crossing loop over (N,) float32 tensors.
-    Same signature and outputs as ``propagate``. ``walk_log``, where given,
+    """The crossing kernel as a per-crossing loop over (N,) float32 or
+    float64 tensors, computing in their precision. Same signature and
+    outputs as ``propagate``. ``walk_log``, where given,
     gets one (model cell, first entry, end entry) triple of tensors per
     crossing: the lines (in expansion mode, the wavelength bins) each lane's
     walk read there."""
@@ -222,7 +242,10 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
     lane_id = lanes["lane_id"]
     n = px.shape[0]
     dev = px.device
-    zf = torch.zeros(n, dtype=F32, device=dev)
+    fd = px.dtype
+    f32 = fd == F32
+    hoverkb = HOVERKB_OF[fd]
+    zf = torch.zeros(n, dtype=fd, device=dev)
     zi = torch.zeros(n, dtype=torch.int64, device=dev)
     zb = torch.zeros(n, dtype=torch.bool, device=dev)
     terr = zf.clone()
@@ -234,12 +257,12 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
     nsc = zi.clone()
     inkscat = zb.clone()
     ncont = tables["cont_nu_edge"].shape[0]
-    est = torch.zeros((ncells, 4), dtype=F32, device=dev)
-    gam = torch.zeros((ncells, ngc if want_gamma else 0), dtype=F32, device=dev)
-    bfh = torch.zeros((ncells, ngc if want_bfheat else 0), dtype=F32, device=dev)
-    bfr = torch.zeros((ncells, ncont if want_bfrate else 0), dtype=F32, device=dev)
-    rb = torch.zeros((ncells, 3, nradbins), dtype=F32, device=dev)
-    jb = torch.zeros((ncells, 2, 0 if expansion else njblue), dtype=F32, device=dev)
+    est = torch.zeros((ncells, 4), dtype=fd, device=dev)
+    gam = torch.zeros((ncells, ngc if want_gamma else 0), dtype=fd, device=dev)
+    bfh = torch.zeros((ncells, ngc if want_bfheat else 0), dtype=fd, device=dev)
+    bfr = torch.zeros((ncells, ncont if want_bfrate else 0), dtype=fd, device=dev)
+    rb = torch.zeros((ncells, 3, nradbins), dtype=fd, device=dev)
+    jb = torch.zeros((ncells, 2, 0 if expansion else njblue), dtype=fd, device=dev)
     jb_of_line = tables["jblue_of_line"]
     misc = torch.zeros(NMISC, dtype=torch.float64, device=dev)
 
@@ -251,7 +274,7 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
     line_nu = tables["line_nu"]
     tau_factor = tables["tau_factor"]
     gidx = tables["cont_gidx"].long()
-    gmap = ((gidx[:, None] == torch.arange(ngc, device=dev)[None, :]) & (gidx[:, None] >= 0)).to(F32)
+    gmap = ((gidx[:, None] == torch.arange(ngc, device=dev)[None, :]) & (gidx[:, None] >= 0)).to(fd)
     cont_prob = tables["cont_prob"]
     gc_nu_edge = tables["gc_nu_edge"]
 
@@ -272,16 +295,19 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
 
         if test_mode:
             tau_next = test_tau
-            sel_u = test_sel
-            u_split = test_sel
+            sel_u = u_split = u_bb = test_sel
             z1 = torch.full_like(zf, 0.37)
             z2 = torch.full_like(zf, 0.81)
-        else:
+        elif f32:
             u = rng.philox_uniform4(seed, lane_id, it, 0)
             tau_next = -torch.log(u[0])
             sel_u, z1, z2 = u[1], u[2], u[3]
-            v = rng.philox_uniform4(seed, lane_id, it, 1)
-            u_split = v[0]
+            u_split, u_bb = rng.philox_uniform4(seed, lane_id, it, 1)[:2]
+        else:
+            u_tau, sel_u = rng.philox_uniform2d(seed, lane_id, it, 0)
+            tau_next = -torch.log(u_tau)
+            z1, z2 = rng.philox_uniform2d(seed, lane_id, it, 1)
+            u_split, u_bb = rng.philox_uniform2d(seed, lane_id, it, 2)
 
         pos2 = px * px + py * py + pz * pz
         sdist, snext = cell_boundary(geom, ncoord, cellmin[cell], cellmax[cell], cell,
@@ -300,7 +326,7 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         nu = torch.where(need_chi, nucmf, torch.full_like(nucmf, 1e15))
         chi_escat = zf if ff_only else SIGMA_T * nne_p
         nu3_scaled = (nu * 2.0 ** -50) ** 3
-        hnu_kt = HOVERKB_F32 * nu / te_p
+        hnu_kt = hoverkb * nu / te_p
         chi_ff = (chiffpart_p * 2.0 ** -75) * (nne_p * 2.0 ** -75) / nu3_scaled * (
             1.0 - torch.exp(-hnu_kt))
         if ncont > 0:
@@ -321,7 +347,7 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         else:
             chi_bf = zf
             bf_idx = zi
-            gamma_contr = torch.zeros((n, ngc), dtype=F32, device=dev)
+            gamma_contr = torch.zeros((n, ngc), dtype=fd, device=dev)
         chi_cont_cmf = chi_escat + chi_ff + chi_bf
         chi_cont = chi_cont_cmf * doppler
 
@@ -329,7 +355,7 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
             ev, first, walked = _expansion_event(
                 tables["expo_kappa"][safe_mgi] * (rho_p * doppler)[:, None], nu, tstart,
                 torch.clamp(chi_cont, min=1e-30), tau_next, abort_dist, dnudl, need_chi,
-                test_sel if test_mode else v[1], relativistic)
+                u_bb, relativistic)
         else:
             jblue = None
             if jb.shape[2]:
@@ -360,9 +386,11 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         take_boundary = mask & (sdist <= tdist) & (sdist <= edist)
         take_event = mask & ~take_boundary & (edist <= tdist)
         take_tlimit = mask & ~take_boundary & ~take_event
-        r_here = torch.sqrt(pos2)
-        dist = torch.where(take_boundary, sdist + 3e-6 * r_here,
-                           torch.where(take_event, edist, tdist))
+        # float32 overshoots a boundary by a few ulps of the radius, so the
+        # packet lands inside the next cell (the XLA path's float32-only
+        # term, artis_tpu/transport/engine.py:1486-1493)
+        over = sdist + 3e-6 * torch.sqrt(pos2) if f32 else sdist
+        dist = torch.where(take_boundary, over, torch.where(take_event, edist, tdist))
         dist = torch.clamp(dist, min=0.0)
 
         crossing_pre = take_boundary & (snext >= 0)
@@ -388,7 +416,7 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         rows = torch.stack([contrib, contrib * nucmf1,
                             torch.where(seg & ~thick, contrib * chi_ff, zf)], dim=1)
         est[:, :3].index_add_(0, safe_mgi, rows)
-        est[:, 3].index_add_(0, safe_mgi, (crossing_pre & nonempty).to(F32))
+        est[:, 3].index_add_(0, safe_mgi, (crossing_pre & nonempty).to(fd))
         seg_ok = seg & ~thick
         de = torch.where(seg_ok[:, None], contrib[:, None] * gamma_contr,
                          torch.zeros_like(gamma_contr))
@@ -421,13 +449,17 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
         dop2 = _doppler_at(dx, dy, dz, fx, fy, fz, ft, relativistic)
         nucmf2 = torch.minimum(nurf * dop2, nucmf1)
         ecmf2 = erf * dop2
-        # compensated t += dist/c (diffusion steps fall below the float32 ulp
-        # of t; without compensation such packets never advance)
-        kah_y = dist / CLIGHT_PROP - terr
-        kah_t = tstart + kah_y
-        kah_err = (kah_t - tstart) - kah_y
+        if f32:
+            # compensated t += dist/c (diffusion steps fall below the float32
+            # ulp of t; without compensation such packets never advance)
+            kah_y = dist / CLIGHT_PROP - terr
+            kah_t = tstart + kah_y
+            kah_err = (kah_t - tstart) - kah_y
+            terr = torch.where(take_tlimit, zf, torch.where(mask, kah_err, terr))
+        else:
+            # float64: the two half-moves' time, as the XLA path's move_pkt
+            kah_t = ft
         t_new = torch.where(take_tlimit, torch.full_like(t, t2), torch.where(mask, kah_t, t))
-        terr = torch.where(take_tlimit, zf, torch.where(mask, kah_err, terr))
         px, py, pz = torch.where(mask, fx, px), torch.where(mask, fy, py), torch.where(mask, fz, pz)
         nucmf_out = torch.where(mask, nucmf2, nucmf)
         ecmf_out = torch.where(mask, ecmf2, ecmf)
@@ -505,68 +537,92 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_HERE, "csrc", "rpkt_crossing.cu")
 _BUILD_DIR = os.path.join(_HERE, "_build")
+# the float32 and the float64 instantiations: one library each, built from
+# the one source by two nvcc processes at once (RPKT_F64 selects the double
+# ones and their entry point)
 _LIB = None
+_LIB64 = None
 BUILD_SECONDS = None
 
 
 def build() -> ctypes.CDLL:
     """Compile csrc/rpkt_crossing.cu for sm_90a into _build/ (once per
-    source hash) and load it. Raises if nvcc fails."""
-    global _LIB, BUILD_SECONDS
+    source hash), its float32 and its float64 instantiations into a library
+    each, in parallel, and load both. Returns the float32 library (the
+    float64 one is ``_LIB64``). Raises if nvcc fails."""
+    global _LIB, _LIB64, BUILD_SECONDS
     if _LIB is not None:
         return _LIB
     with open(_SOURCE, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    so = os.path.join(_BUILD_DIR, f"librpkt_crossing_{digest}.so")
+    nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        nvcc = "nvcc"
     t0 = time.time()
-    if not os.path.exists(so):
-        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        if not os.path.exists(nvcc):
-            nvcc = "nvcc"
-        tmp = so + f".tmp{os.getpid()}"
-        # -fmad=false: no multiply-add contraction, so the kernel rounds like
-        # the element-wise plain version it is checked against
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", tmp, _SOURCE]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        with open(os.path.join(_BUILD_DIR, f"ptxas_{digest}.log"), "w") as f:
-            f.write(res.stderr)
+    jobs = []
+    for tag, defs in (("", []), ("f64_", ["-DRPKT_F64"])):
+        so = os.path.join(_BUILD_DIR, f"librpkt_crossing_{tag}{digest}.so")
+        if not os.path.exists(so):
+            tmp = so + f".tmp{os.getpid()}"
+            # -fmad=false: no multiply-add contraction, so the kernel rounds
+            # like the element-wise plain version it is checked against
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                   "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *defs,
+                   "-o", tmp, _SOURCE]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+            jobs.append((proc, tmp, so, os.path.join(_BUILD_DIR, f"ptxas_{tag}{digest}.log")))
+    for proc, tmp, so, ptxas_log in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
+        with open(ptxas_log, "w") as f:
+            f.write(err)
         os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
-    fn = lib.rpkt_crossing_launch
-    fn.restype = ctypes.c_int
     ptrs = ctypes.POINTER(ctypes.c_void_p)
-    fn.argtypes = [ctypes.POINTER(_Params), ptrs, ptrs, ptrs, ctypes.c_void_p]
+    libs = []
+    for tag, entry, prm in (("", "rpkt_crossing_launch", _Params),
+                            ("f64_", "rpkt_crossing_launch_f64", _Params64)):
+        lib = ctypes.CDLL(os.path.join(_BUILD_DIR, f"librpkt_crossing_{tag}{digest}.so"))
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(prm), ptrs, ptrs, ptrs, ctypes.c_void_p]
+        libs.append(lib)
     BUILD_SECONDS = time.time() - t0
-    _LIB = lib
-    return lib
+    _LIB, _LIB64 = libs
+    return _LIB
+
+
+_INT_FIELDS = [
+    ("n", ctypes.c_int), ("ncells", ctypes.c_int), ("nprop", ctypes.c_int),
+    ("nlines", ctypes.c_int), ("ncont", ctypes.c_int), ("ngc", ctypes.c_int),
+    ("nphixs", ctypes.c_int), ("max_inner", ctypes.c_int),
+    ("relativistic", ctypes.c_int), ("test_mode", ctypes.c_int),
+    ("geom", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
+    ("nz", ctypes.c_int), ("want_bfrate", ctypes.c_int), ("shared_rows", ctypes.c_int),
+    ("expansion", ctypes.c_int), ("nbins", ctypes.c_int),
+    ("defer_scatter", ctypes.c_int), ("nradbins", ctypes.c_int), ("njblue", ctypes.c_int),
+    ("want_gamma", ctypes.c_int), ("want_bfheat", ctypes.c_int), ("nrow", ctypes.c_int),
+    ("stage", ctypes.c_int),
+    ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32)]
+# the real-valued fields, in the launch's precision (RpktParamsT<R> in the
+# .cu): t2 of about 7.8e5 s has a 0.06 s ulp in float32
+_REAL_FIELDS = ("t2", "tmin", "max_path_step", "phixs_dnu", "last_nuovernuedge", "rb_lo",
+                "rb_last", "rb_super", "rb_delta", "sigma_es")
 
 
 class _Params(ctypes.Structure):
-    """Scalar launch parameters; field order matches RpktParams in the .cu."""
+    """Scalar parameters of a float32 launch; field order matches
+    RpktParamsT<float> in the .cu."""
 
-    _fields_ = [
-        ("n", ctypes.c_int), ("ncells", ctypes.c_int), ("nprop", ctypes.c_int),
-        ("nlines", ctypes.c_int), ("ncont", ctypes.c_int), ("ngc", ctypes.c_int),
-        ("nphixs", ctypes.c_int), ("max_inner", ctypes.c_int),
-        ("relativistic", ctypes.c_int), ("test_mode", ctypes.c_int),
-        ("geom", ctypes.c_int), ("nx", ctypes.c_int), ("ny", ctypes.c_int),
-        ("nz", ctypes.c_int), ("want_bfrate", ctypes.c_int), ("shared_rows", ctypes.c_int),
-        ("expansion", ctypes.c_int), ("nbins", ctypes.c_int),
-        ("defer_scatter", ctypes.c_int), ("nradbins", ctypes.c_int), ("njblue", ctypes.c_int),
-        ("want_gamma", ctypes.c_int), ("want_bfheat", ctypes.c_int), ("nrow", ctypes.c_int),
-        ("stage", ctypes.c_int),
-        ("seed_lo", ctypes.c_uint32), ("seed_hi", ctypes.c_uint32),
-        ("t2", ctypes.c_float), ("tmin", ctypes.c_float),
-        ("max_path_step", ctypes.c_float), ("phixs_dnu", ctypes.c_float),
-        ("last_nuovernuedge", ctypes.c_float), ("rb_lo", ctypes.c_float),
-        ("rb_last", ctypes.c_float), ("rb_super", ctypes.c_float), ("rb_delta", ctypes.c_float),
-        ("sigma_es", ctypes.c_float),
-    ]
+    _fields_ = _INT_FIELDS + [(k, ctypes.c_float) for k in _REAL_FIELDS]
+
+
+class _Params64(ctypes.Structure):
+    """Scalar parameters of a float64 launch (RpktParamsT<double>)."""
+
+    _fields_ = _INT_FIELDS + [(k, ctypes.c_double) for k in _REAL_FIELDS]
 
 
 def _ptrs(names, d):
@@ -597,17 +653,18 @@ def row_floats(ngc: int, nbfr: int, nradbins: int = 0, njblue: int = 0,
             + 2 * njblue)
 
 
-def row_bytes(ncells: int, ngc: int, nbfr: int, **kw) -> int:
-    """Shared memory of one block's estimator rows plus the eight double
+def row_bytes(ncells: int, ngc: int, nbfr: int, elem: int = 4, **kw) -> int:
+    """Shared memory of one block's estimator rows (``elem`` bytes an
+    entry: 4 in a float32 launch, 8 in a float64 one) plus the eight double
     counters; ``kw`` as ``row_floats``."""
-    return 8 * NMISC + 4 * ncells * row_floats(ngc, nbfr, **kw)
+    return 8 * NMISC + elem * ncells * row_floats(ngc, nbfr, **kw)
 
 
-def pick_shared_rows(ncells: int, ngc: int, nbfr: int, **kw) -> bool:
+def pick_shared_rows(ncells: int, ngc: int, nbfr: int, elem: int = 4, **kw) -> bool:
     """Whether a launch keeps its estimator rows in shared memory (few
     cells) rather than adding straight into the global rows (many cells);
-    ``kw`` as ``row_floats``."""
-    return row_bytes(ncells, ngc, nbfr, **kw) <= SHARED_ROWS_MAX
+    ``elem`` and ``kw`` as ``row_bytes``."""
+    return row_bytes(ncells, ngc, nbfr, elem, **kw) <= SHARED_ROWS_MAX
 
 
 def nlte_fields(nradbins: int = 0, njblue: int = 0, want_gamma: bool = True,
@@ -616,11 +673,15 @@ def nlte_fields(nradbins: int = 0, njblue: int = 0, want_gamma: bool = True,
     return bool(nradbins or njblue or not want_gamma or not want_bfheat)
 
 
-def redesigned(geom: int, expansion: bool, nlte: bool) -> tuple[bool, bool, bool]:
+def redesigned(geom: int, expansion: bool, nlte: bool,
+               f64: bool = False) -> tuple[bool, bool, bool]:
     """(K1, K3, K4): whether a launch runs the redesigned 1D line walk, the
     redesigned cylindrical line walk or the redesigned bin walk (1D and
-    cylindrical grids), each without the NLTE fields (k1_redesign /
-    k3_redesign / k4_redesign in the .cu)."""
+    cylindrical grids), each without the NLTE fields and in float32 only
+    (k1_redesign / k3_redesign / k4_redesign in the .cu); a float64 launch
+    runs the generic body."""
+    if f64:
+        return False, False, False
     return (geom == GEOM_SPH and not expansion and not nlte,
             geom == GEOM_CYL and not expansion and not nlte,
             expansion and not nlte and geom != GEOM_CART)
@@ -657,41 +718,42 @@ def stage_plan(nprop: int, ncells: int, ncont: int, nphixs: int, ngc: int, nline
 
 
 def smem_bytes(ncells: int, ngc: int, nbfr: int, shared_rows: bool, k1: bool, k4: bool,
-               stage_bytes: int = 0, **kw) -> int:
+               stage_bytes: int = 0, elem: int = 4, **kw) -> int:
     """Dynamic shared memory of a launch (smem_bytes in the .cu): the
     counters, the estimator rows in shared mode, and the staged tables of
     the redesigned 1D walk (K1) or the bin edges of the redesigned bin walk
-    (K4); ``kw`` as ``row_floats``."""
-    rows = row_bytes(ncells, ngc, nbfr, **kw) if shared_rows else 8 * NMISC
+    (K4), both float32 only; ``elem`` and ``kw`` as ``row_bytes``."""
+    rows = row_bytes(ncells, ngc, nbfr, elem, **kw) if shared_rows else 8 * NMISC
     return rows + (stage_bytes if k1 else 0) + (4 * NBINS if k4 else 0)
 
 
 _EDGES = {}
 
 
-def expo_edges(device) -> torch.Tensor:
+def expo_edges(device, dtype=F32) -> torch.Tensor:
     """The lower frequency edges of the NBINS expansion-opacity bins as the
-    bin walk compares with them: computed in float64 and rounded to float32,
-    exactly as ``expansionopacity.bin_walk`` computes them (cached per
-    device). The kernel's bin walk reads them from this table."""
-    if device not in _EDGES:
+    bin walk compares with them: computed in float64 and rounded to the
+    launch's precision, exactly as ``expansionopacity.bin_walk`` computes
+    them (cached per device and dtype). The redesigned float32 bin walk
+    reads them from this table."""
+    if (device, dtype) not in _EDGES:
         b = torch.arange(NBINS, dtype=torch.float64)
-        _EDGES[device] = bin_nu_lower(b).to(F32).to(device).contiguous()
-    return _EDGES[device]
+        _EDGES[device, dtype] = bin_nu_lower(b).to(dtype).to(device).contiguous()
+    return _EDGES[device, dtype]
 
 
 def estimator_buffers(ncells: int, ngc: int, nbfr: int, nradbins: int = 0, njblue: int = 0,
                       want_gamma: bool = True, want_bfheat: bool = True,
-                      device=None) -> dict:
+                      device=None, dtype=F32) -> dict:
     """The zeroed outputs a launch accumulates into, as views of one buffer
     filled by one zero fill: misc (NMISC float64 counters) and the est,
-    gamma, bfheat, bfrate, radbin and jblue rows (float32, shapes as
-    ``propagate`` returns them)."""
+    gamma, bfheat, bfrate, radbin and jblue rows (in the launch's
+    precision ``dtype``, shapes as ``propagate`` returns them)."""
     shapes = {"est": (ncells, 4), "gamma": (ncells, ngc if want_gamma else 0),
               "bfheat": (ncells, ngc if want_bfheat else 0), "bfrate": (ncells, nbfr),
               "radbin": (ncells, 3, nradbins), "jblue": (ncells, 2, njblue)}
-    sizes = [2 * NMISC] + [math.prod(v) for v in shapes.values()]
-    parts = torch.zeros(sum(sizes), dtype=F32, device=device).split(sizes)
+    sizes = [NMISC * 8 // dtype.itemsize] + [math.prod(v) for v in shapes.values()]
+    parts = torch.zeros(sum(sizes), dtype=dtype, device=device).split(sizes)
     out = {"misc": parts[0].view(torch.float64)}
     out.update((k, part.view(shape)) for (k, shape), part in zip(shapes.items(), parts[1:]))
     return out
@@ -705,20 +767,28 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     lib = build()
     dev = lanes["posx"].device
     n = lanes["posx"].shape[0]
+    # the launch's precision: the lanes' float dtype, which every float
+    # input must share
+    fd = lanes["posx"].dtype
+    if fd not in (F32, F64):
+        raise ValueError(f"the crossing runs in float32 or float64, not {fd}")
+    f64 = fd == F64
+    if f64:
+        lib = _LIB64
     if ff_only:
         tables = ff_only_tables(tables, want_bfrate)
     ncont = tables["cont_nu_edge"].shape[0]
     nprop = tables["mgi_of_cell"].shape[0]
     for k in LANE_F32:
-        _check(lanes[k], F32, (n,), k)
+        _check(lanes[k], fd, (n,), k)
     for k in LANE_I32:
         _check(lanes[k], I32, (n,), k)
     for k in TABLES_F32:
-        _check(tables[k], F32, None, k)
+        _check(tables[k], fd, None, k)
     for k in TABLES_I32:
         _check(tables[k], I32, None, k)
-    _check(test_tau, F32, (n,), "test_tau")
-    _check(test_sel, F32, (n,), "test_sel")
+    _check(test_tau, fd, (n,), "test_tau")
+    _check(test_sel, fd, (n,), "test_sel")
     if tables["tau_factor"].shape != (ncells, tables["line_nu"].shape[0]):
         raise ValueError("tau_factor must be (ncells, nlines)")
     if expansion and tables["expo_kappa"].shape != (ncells, NBINS):
@@ -742,32 +812,33 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     nbfr = ncont if want_bfrate else 0
     rows_kw = dict(nradbins=nradbins, njblue=njblue, want_gamma=want_gamma,
                    want_bfheat=want_bfheat)
-    k1, _, k4 = redesigned(geom, expansion, nlte_fields(**rows_kw))
+    k1, _, k4 = redesigned(geom, expansion, nlte_fields(**rows_kw), f64)
     stage, stage_bytes = (stage_plan(nprop, ncells, ncont, nphixs, ngc, nlines) if k1
                           else (0, 0))
     # estimator rows in shared memory (pick_shared_rows), else atomics
     # straight into the global rows; a caller may force either mode to
     # measure it
+    elem = fd.itemsize
     if shared_rows is None:
-        shared_rows = pick_shared_rows(ncells, ngc, nbfr, **rows_kw)
-    smem = smem_bytes(ncells, ngc, nbfr, shared_rows, k1, k4, stage_bytes, **rows_kw)
+        shared_rows = pick_shared_rows(ncells, ngc, nbfr, elem, **rows_kw)
+    smem = smem_bytes(ncells, ngc, nbfr, shared_rows, k1, k4, stage_bytes, elem, **rows_kw)
     if smem > SMEM_LIMIT:
         raise ValueError(f"the launch needs {smem} bytes of shared memory (> 227 KB)")
     timing = propagate.timing
     if timing is not None and n > 0:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-    # the lane outputs as rows of one float32 and one int32 buffer, and the
+    # the lane outputs as rows of one float and one int32 buffer, and the
     # accumulated outputs from one zero fill
-    fbuf = torch.empty((len(OUT_F32), n), dtype=F32, device=dev)
+    fbuf = torch.empty((len(OUT_F32), n), dtype=fd, device=dev)
     ibuf = torch.empty((len(OUT_I32), n), dtype=I32, device=dev)
     out = dict(zip(OUT_F32, fbuf.unbind(0)))
     out.update(zip(OUT_I32, ibuf.unbind(0)))
-    out.update(estimator_buffers(ncells, ngc, nbfr, device=dev, **rows_kw))
+    out.update(estimator_buffers(ncells, ngc, nbfr, device=dev, dtype=fd, **rows_kw))
     if out["est"].data_ptr() % 16:  # K3's vector reductions need aligned rows
         raise RuntimeError("the estimator rows are not 16-byte aligned")
-    rb_lo, rb_last, rb_super, rb_delta = radbin_edges(max(nradbins, 2))
-    prm = _Params(n=n, ncells=ncells, nprop=nprop, nlines=nlines,
+    rb_lo, rb_last, rb_super, rb_delta = radbin_edges(max(nradbins, 2), fd)
+    prm = (_Params64 if f64 else _Params)(n=n, ncells=ncells, nprop=nprop, nlines=nlines,
                   ncont=ncont, ngc=ngc, nphixs=nphixs, max_inner=max_inner,
                   relativistic=int(relativistic), test_mode=int(test_mode), geom=geom,
                   nx=nx, ny=ny, nz=nz, want_bfrate=int(nbfr > 0), shared_rows=int(shared_rows),
@@ -782,15 +853,15 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     in_lanes = dict(lanes, test_tau=test_tau, test_sel=test_sel)
     lane_ptrs = _ptrs(LANE_F32 + LANE_I32 + ("test_tau", "test_sel"), in_lanes)
     table_ptrs = _ptrs(TABLES_F32 + TABLES_I32 + ("expo_nu_lo",),
-                       dict(tables, expo_nu_lo=expo_edges(dev)))
+                       dict(tables, expo_nu_lo=expo_edges(dev, fd)))
     out_ptrs = _ptrs(OUT_F32 + OUT_I32 + ("est", "gamma", "bfheat", "bfrate", "radbin", "jblue",
                                           "misc"), out)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if n > 0:
         if timing is not None:
             ev[1].record()
-        err = lib.rpkt_crossing_launch(ctypes.byref(prm), lane_ptrs, table_ptrs, out_ptrs,
-                                       ctypes.c_void_p(stream))
+        launch = lib.rpkt_crossing_launch_f64 if f64 else lib.rpkt_crossing_launch
+        err = launch(ctypes.byref(prm), lane_ptrs, table_ptrs, out_ptrs, ctypes.c_void_p(stream))
         if timing is not None:
             ev[2].record()
         if err != 0:
@@ -799,6 +870,8 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
             (CONFIG_BFRATE, nbfr), (CONFIG_EXPANSION, expansion),
             (CONFIG_DEFERRED, defer_scatter), (CONFIG_MULTIBIN, nradbins),
             (CONFIG_JBLUE, njblue), (CONFIG_FFONLY, ff_only)) if on]
+        if f64:
+            configs = [c + F64_SUFFIX for c in configs]
         for c in configs:
             propagate.launches[c] += 1
         if timing is not None:
@@ -820,8 +893,11 @@ def propagate(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: floa
               tmin: float, max_path_step: float, **kw) -> dict:
     """Advance moving r-packets through up to ``max_inner`` crossings.
 
-    lanes: LANE_F32 (N,) float32 and LANE_I32 (N,) int32 tensors; tables:
-    TABLES_F32 float32 / TABLES_I32 int32 tensors (see ``kernel_tables``);
+    lanes: LANE_F32 (N,) float32 or float64 and LANE_I32 (N,) int32
+    tensors; tables: TABLES_F32 tensors of the lanes' float dtype /
+    TABLES_I32 int32 tensors (see ``kernel_tables``), test_tau / test_sel
+    of the lanes' float dtype: float32 launches the float32 instantiation,
+    float64 the double one (the float outputs and rows then float64 too);
     ``geom`` / ``ncoord`` the grid (``kernel_geometry``; 1D shells by
     default, as many as ``mgi_of_cell`` has cells); ``want_bfrate``
     turns on the detailed bf-rate estimators; ``defer_scatter`` (K6, the
@@ -864,9 +940,11 @@ CONFIG_DEFERRED = "rpkt_crossing_deferred"
 CONFIG_MULTIBIN = "rpkt_crossing_multibin"
 CONFIG_JBLUE = "rpkt_crossing_jblue"
 CONFIG_FFONLY = "rpkt_crossing_ffonly"
-propagate.launches = dict.fromkeys((*CONFIG_OF_GEOM.values(), CONFIG_BFRATE,
-                                    CONFIG_EXPANSION, CONFIG_DEFERRED, CONFIG_MULTIBIN,
-                                    CONFIG_JBLUE, CONFIG_FFONLY), 0)
+CONFIGS_F32 = (*CONFIG_OF_GEOM.values(), CONFIG_BFRATE, CONFIG_EXPANSION, CONFIG_DEFERRED,
+               CONFIG_MULTIBIN, CONFIG_JBLUE, CONFIG_FFONLY)
+# a float64 launch counts for the double forms of its configurations
+F64_SUFFIX = "_f64"
+propagate.launches = dict.fromkeys(CONFIGS_F32 + tuple(c + F64_SUFFIX for c in CONFIGS_F32), 0)
 propagate.timing = None
 
 
@@ -913,6 +991,31 @@ VECTORS = {"pos": ("posx", "posy", "posz"), "dir": ("dirx", "diry", "dirz"),
            "em": ("em_x", "em_y", "em_z")}
 
 
+class Tolerance(NamedTuple):
+    diverged_min: int  # lanes that may end in another cell or packet type
+    diverged_frac: float  # or this share of the lanes, whichever is more
+    field_agree: float  # share of lanes whose every other output agrees
+    field_rtol: float  # a float output agrees within this
+    state_rtol: float  # max over lanes: prop_time, nu_cmf, e_cmf, position
+    est_rtol: dict  # per estimator, each cell
+    est_share: float  # plus this share of its column's total
+    misc_rtol: float  # counters, plus 3 packets
+
+
+TOL_F32 = Tolerance(DIVERGED_MIN, DIVERGED_FRAC, FIELD_AGREE, FIELD_RTOL, STATE_RTOL, EST_RTOL,
+                    1e-6, 0.02)
+# float64 launches: the kernel and its plain version evaluate the same
+# double expressions in the same order, so they differ by the last bits of
+# CUDA's math functions against torch's (lane outputs within 4.9e-13 on an
+# H100) and by the order of the estimator atomics, which round each of up
+# to some 1e7 adds an entry by 1.1e-16 (multibin entries within 5.9e-10):
+# every float output to 1e-9, every estimator cell to 1e-8, at most 4
+# lanes tipped by a near-tie, and the counters of the launch with those
+# lanes held still to 1e-9 (check_kernel)
+TOL_F64 = Tolerance(4, 0.0, 0.9999, 1e-9, 1e-9, dict.fromkeys(EST_RTOL, 1e-8), 1e-12, 1e-9)
+TOLERANCE = {F32: TOL_F32, F64: TOL_F64}
+
+
 def compare_outputs(k: dict, p: dict, est: tuple | None = None,
                     rows: tuple | None = None) -> tuple[bool, dict]:
     """Hold the kernel's outputs ``k`` to the plain version's ``p`` (same
@@ -921,7 +1024,10 @@ def compare_outputs(k: dict, p: dict, est: tuple | None = None,
     ``est`` when given, the multibin and J_b_lu rows from ``rows`` (else
     from ``est``; see ``check_kernel``). Returns (ok, report); ``report["nonzero"]`` says
     which plain estimator columns accumulated anything, so a caller can
-    require each to be exercised by at least one case."""
+    require each to be exercised by at least one case. The tolerances are
+    those of the outputs' precision (``TOLERANCE``); in float64 the
+    counters too come from ``est``."""
+    tol = TOLERANCE[p["posx"].dtype]
     gk = {f: v.detach().cpu().numpy() for f, v in k.items()}
     gp = {f: v.detach().cpu().numpy() for f, v in p.items()}
     rep, ok = {}, True
@@ -931,14 +1037,14 @@ def compare_outputs(k: dict, p: dict, est: tuple | None = None,
     rep["cell_agree"] = float(same_cell.mean())
     rep["ptype_agree"] = float(same_type.mean())
     rep["diverged_lanes"] = int((~both).sum())
-    ok &= rep["diverged_lanes"] <= max(DIVERGED_MIN, DIVERGED_FRAC * both.size)
+    ok &= rep["diverged_lanes"] <= max(tol.diverged_min, tol.diverged_frac * both.size)
     same = both.copy()
     for f in OUT_I32:
         if f in ("where", "escaped", "evented"):
             continue
         eq = gk[f][both] == gp[f][both]
         rep[f"{f}_agree"] = float(eq.mean()) if eq.size else 1.0
-        ok &= rep[f"{f}_agree"] >= FIELD_AGREE
+        ok &= rep[f"{f}_agree"] >= tol.field_agree
         same &= gk[f] == gp[f]
 
     def err(names):
@@ -953,10 +1059,10 @@ def compare_outputs(k: dict, p: dict, est: tuple | None = None,
     for name, names in groups.items():
         e = err(names)
         rep[f"{name}_maxrel"] = float(e.max()) if e.size else 0.0
-        rep[f"{name}_within"] = float((e <= FIELD_RTOL).mean()) if e.size else 1.0
-        ok &= rep[f"{name}_within"] >= FIELD_AGREE
+        rep[f"{name}_within"] = float((e <= tol.field_rtol).mean()) if e.size else 1.0
+        ok &= rep[f"{name}_within"] >= tol.field_agree
         if name in ("pos", "prop_time", "nu_cmf", "e_cmf"):
-            ok &= rep[f"{name}_maxrel"] <= STATE_RTOL
+            ok &= rep[f"{name}_maxrel"] <= tol.state_rtol
 
     def columns(g):
         return {"j": g["est"][:, 0], "nuj": g["est"][:, 1], "ffheating": g["est"][:, 2],
@@ -977,7 +1083,7 @@ def compare_outputs(k: dict, p: dict, est: tuple | None = None,
         if a.shape != b.shape:
             raise ValueError(f"{name}: kernel {b.shape} against plain {a.shape}")
         total = np.abs(a).sum(axis=0)
-        excess = np.abs(b - a) - EST_RTOL[name] * np.abs(a) - 1e-6 * total
+        excess = np.abs(b - a) - tol.est_rtol[name] * np.abs(a) - tol.est_share * total
         rep[f"{name}_cellmaxrel"] = (float(np.max(np.abs(b - a) / np.maximum(np.abs(a), 1e-300)))
                                      if a.size else 0.0)
         rep["nonzero"][name] = bool(total.sum() > 0)
@@ -990,67 +1096,71 @@ def compare_outputs(k: dict, p: dict, est: tuple | None = None,
             raise ValueError(f"{name}: kernel {b.shape} against plain {a.shape}")
         rep["nonzero"][name] = bool(np.abs(a).sum() > 0)
         if a.size:
-            ok_c, rep_c = fn(a, b)
+            ok_c, rep_c = fn(a, b, tol)
             rep.update(rep_c)
             ok &= ok_c
     # counters within 2% + 3 packets (the JAX package's crossing-count
-    # tolerance); the escaped energy within 2% + 3 packets' energy
+    # tolerance; float64: 1e-9 + 3 packets, with the tipped lanes held
+    # still); the escaped energy within as much + 3 packets' energy
     e_pkt = float(np.max(np.abs(gp["e_cmf"]))) if gp["e_cmf"].size else 0.0
+    mp, mk = (ge_p, ge_k) if p["posx"].dtype == F64 else (gp, gk)
     for i, name in enumerate(MISC):
-        a, b = float(gp["misc"][i]), float(gk["misc"][i])
+        a, b = float(mp["misc"][i]), float(mk["misc"][i])
         rep[f"{name}_plain"], rep[f"{name}_kernel"] = a, b
-        ok &= abs(b - a) <= 0.02 * abs(a) + 3 * (e_pkt if name == "cmf_lum" else 1.0)
+        ok &= abs(b - a) <= tol.misc_rtol * abs(a) + 3 * (e_pkt if name == "cmf_lum" else 1.0)
     return bool(ok), rep
 
 
-def _held_close(a, b, clean, axis, rtol):
+def _held_close(a, b, clean, axis, rtol, share):
     """Sums ``a`` (plain) and ``b`` (kernel) of one estimator: every entry
-    where ``clean`` to ``rtol`` plus a 1e-6 share of its column's total,
-    and the sums over ``axis`` to ``rtol`` plus a 1e-6 share of their
+    where ``clean`` to ``rtol`` plus a ``share`` of its column's total,
+    and the sums over ``axis`` to ``rtol`` plus a ``share`` of their
     total. Returns (ok, the largest relative difference of a clean entry)."""
     ta, tb = a.sum(axis=axis), b.sum(axis=axis)
-    ok = bool(np.all(np.abs(tb - ta) <= rtol * np.abs(ta) + 1e-6 * np.abs(ta).sum()))
-    excess = np.abs(b - a) - rtol * np.abs(a) - 1e-6 * np.abs(a).sum(axis=0)[None, :]
+    ok = bool(np.all(np.abs(tb - ta) <= rtol * np.abs(ta) + share * np.abs(ta).sum()))
+    excess = np.abs(b - a) - rtol * np.abs(a) - share * np.abs(a).sum(axis=0)[None, :]
     ok &= bool(np.all(excess[clean] <= 0))
     with np.errstate(over="ignore"):
         rel = np.abs(b - a) / np.maximum(np.abs(a), 1e-300)
     return ok, float(rel[clean].max()) if clean.any() else 0.0
 
 
-def _compare_radbins(a, b):
+def _compare_radbins(a, b, tol):
     """The multibin rows (ncells, 3, nbins: J, nuJ, count) of the kernel
-    ``b`` against the plain version's ``a`` (see EST_RTOL): the running sum
+    ``b`` against the plain version's ``a`` (see EST_RTOL; ``tol`` the
+    precision's Tolerance): the running sum
     over bins of a cell's count difference is nonzero exactly at its bin
-    flips; at most DIVERGED_MIN of them (with multiplicity), every cell's
+    flips; at most ``tol.diverged_min`` of them (with multiplicity), every cell's
     count over bins exact, every (cell, bin) entry that no flip touches
     exact in its count and within the rtol in J and nuJ, and every cell's J
     and nuJ over bins within the rtol."""
     rep = {}
     cum = np.cumsum(b[:, 2] - a[:, 2], axis=1)  # (ncells, nbins)
     rep["radbin_flips"] = int(np.abs(cum[:, :-1]).sum())
-    ok = rep["radbin_flips"] <= DIVERGED_MIN and bool(np.all(cum[:, -1] == 0))
+    ok = rep["radbin_flips"] <= tol.diverged_min and bool(np.all(cum[:, -1] == 0))
     prev = np.concatenate([np.zeros_like(cum[:, :1]), cum[:, :-1]], axis=1)
     clean = (cum == 0) & (prev == 0)
     for k, name in ((0, "radbin_j"), (1, "radbin_nuj")):
         ok_k, rep[f"{name}_cellmaxrel"] = _held_close(a[:, k], b[:, k], clean, 1,
-                                                      EST_RTOL["radbin"])
+                                                      tol.est_rtol["radbin"], tol.est_share)
         ok &= ok_k
     return bool(ok), rep
 
 
-def _compare_jblue(a, b):
+def _compare_jblue(a, b, tol):
     """The J_b_lu rows (ncells, 2, njblue: sum, count) of the kernel ``b``
-    against the plain version's ``a`` (see EST_RTOL): every line's count
-    over cells exact, at most DIVERGED_MIN moved passes (half the summed
+    against the plain version's ``a`` (see EST_RTOL; ``tol`` the
+    precision's Tolerance): every line's count over cells exact, at most
+    ``tol.diverged_min`` moved passes (half the summed
     count differences), every (cell, line) entry that no moved pass
     touches exact in its count and within the rtol in its sum, and every
     line's sum over cells within the rtol."""
     rep = {}
     diff = b[:, 1] - a[:, 1]
     rep["jblue_moved"] = int(np.abs(diff).sum()) // 2
-    ok = rep["jblue_moved"] <= DIVERGED_MIN and bool(np.all(diff.sum(axis=0) == 0))
+    ok = rep["jblue_moved"] <= tol.diverged_min and bool(np.all(diff.sum(axis=0) == 0))
     ok_s, rep["jblue_cellmaxrel"] = _held_close(a[:, 0], b[:, 0], diff == 0, 0,
-                                                EST_RTOL["jblue"])
+                                                tol.est_rtol["jblue"], tol.est_share)
     return bool(ok & ok_s), rep
 
 
@@ -1094,10 +1204,10 @@ def check_kernel(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: f
     return ok, rep, k, p
 
 
-def kernel_tables(dad, grid, cells, ctx) -> dict:
-    """The per-timestep table set of the kernel, float32/int32 contiguous on
-    the cells' device (the wrapper-side counterpart of rpkt_step_pallas's
-    table dict). The cell bounds are the grid's (ngrid, ndim) tables at
+def kernel_tables(dad, grid, cells, ctx, dtype=F32) -> dict:
+    """The per-timestep table set of the kernel, ``dtype`` (the run's
+    transport dtype, float32 or float64) / int32 contiguous on the cells'
+    device (the wrapper-side counterpart of rpkt_step_pallas's table dict). The cell bounds are the grid's (ngrid, ndim) tables at
     tmin; the model cell of each propagation cell is the grid's host-built
     ``nonemptymgi_of_cell``, so every model dimensionality maps as the XLA
     path maps it. ``expo_kappa`` is the context's (ncells, NBINS) expansion
@@ -1107,7 +1217,7 @@ def kernel_tables(dad, grid, cells, ctx) -> dict:
     ngc = max(dad.nbfcontinua_ground, 1)
 
     def f(x):
-        return x.to(device=dev, dtype=F32).contiguous()
+        return x.to(device=dev, dtype=dtype).contiguous()
 
     def i(x):
         return x.to(device=dev, dtype=I32).contiguous()
@@ -1122,11 +1232,11 @@ def kernel_tables(dad, grid, cells, ctx) -> dict:
             cont_prob=f(dad.cont_probability), cont_gidx=i(gidx))
     else:
         cont = dict(
-            cont_nu_edge=torch.zeros(0, dtype=F32, device=dev),
-            bf_a=torch.zeros((ncells, 0), dtype=F32, device=dev),
-            bf_dep=torch.zeros((ncells, 0), dtype=F32, device=dev),
-            cont_phixs=torch.zeros((0, dad.nphixspoints), dtype=F32, device=dev),
-            cont_prob=torch.zeros(0, dtype=F32, device=dev),
+            cont_nu_edge=torch.zeros(0, dtype=dtype, device=dev),
+            bf_a=torch.zeros((ncells, 0), dtype=dtype, device=dev),
+            bf_dep=torch.zeros((ncells, 0), dtype=dtype, device=dev),
+            cont_phixs=torch.zeros((0, dad.nphixspoints), dtype=dtype, device=dev),
+            cont_prob=torch.zeros(0, dtype=dtype, device=dev),
             cont_gidx=torch.zeros(0, dtype=I32, device=dev))
     return dict(
         mgi_of_cell=i(grid.nonemptymgi_of_cell),

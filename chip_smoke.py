@@ -6,7 +6,9 @@ Phases (any failure raises; the exit code is then non-zero and no result
 line is printed):
   1. device check: a CUDA device is required; prints nvidia-smi's name and
      power limit;
-  2. build: compiles the r-packet crossing kernel from csrc/ with nvcc;
+  2. build: compiles the r-packet crossing kernel from csrc/ with nvcc, its
+     float32 instantiations and their float64 forms, two nvcc processes
+     at once;
   3. kernel vs plain version on the card, injected and Philox draws, the
      tolerances of the JAX package's kernel parity tests
      (rpkt_kernel.compare_outputs, every estimator cell by cell):
@@ -45,13 +47,26 @@ line is printed):
        lane may take an electron-scattering or bound-free event and the
        kernel's electron-scattering and bound-free opacities and LUT rows
        must be zero, and free-free events must occur;
-     then the time of each kernel configuration against its plain version
-     at N=65536, max_inner=64 (plain, kernel, kernel, plain), the kernel in
-     both estimator-row modes (shared memory, global atomics) where the
-     rows fit shared memory;
+     the double form of every configuration (the float64 instantiations,
+     ``transport_dtype="float64"``) on the same cases in float64
+     (``as_f64``: K1's non-grey, ionised and captured lanes, ff-only, the
+     1D model on 50^3 and the big scene's captured lanes for K2 and
+     K5-bfrate, the cylinder, both K4 scenes, K6 with grey cells, the
+     nebular cases and the default scene with the K5 fields), held to the
+     float64 tolerances (rpkt_kernel.TOL_F64: 1e-9, estimators 1e-8);
+     then the time of each kernel configuration and of its double form
+     against its plain version at N=65536, max_inner=64 (plain, kernel,
+     kernel, plain), wrapper-inclusive and kernel-only, the kernel in both
+     estimator-row modes (shared memory, global atomics) where the rows
+     fit shared memory, each beside its bound (the double forms' in 8-byte
+     floats over the float64 peak);
   4. end to end through ``artis_tpu_torch.cli.main_sn3d``, each run with the
-     launch counts reset just before it and read just after: the default
-     1D scene (65536 packets), default_opacity3 (the default scene under
+     launch counts reset just before it and read just after (a float32
+     run must launch no double form, a run at the preset's float64 only
+     double forms): the default 1D scene (65536 packets), default_scene_f64
+     (this slice's path: the same at the preset's own transport_dtype,
+     float64, with no override; the double K1; every timestep's escaped
+     cmf luminosity within 4/sqrt(n) of the float32 default's), default_opacity3 (the default scene under
      grey opacity case 3 with rho_crit_para 5e-7 and the run diagnostics
      on: K1 with the free-free continuum; timestep 1 has shells on both
      sides of rho_crit, no electron-scattering or bound-free event is
@@ -59,8 +74,17 @@ line is printed):
      counters, macroatom_0000.out has rows, the lockfile is gone), the
      128-shell 1D scene (2^20 packets), the
      big 3D scene with detailed bf-rate estimators (2^20 packets,
-     timesteps 0-2), kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
-     timesteps 0-1), kilonova_2d_2dgrid_fe (the same cylinder with the
+     timesteps 0-1), kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
+     timesteps 0-1), the same two in float64 (kilonova_2d_2dgrid_f64: the
+     double K3; big_scene_f64: the double K2 with K5-bfrate), and the
+     other double forms each on a float64 run of its own main path at the
+     preset's dtype, cut in depth: default_opacity3_f64 (ff-only),
+     kilonova_2d_2dgrid_expansionopac_f64 (K4, timesteps 0-1),
+     nebular_1d_3dgrid_nont_f64 (K5-multibin and K5-jblue, timestep 0,
+     2^18 packets) and classic_3d_f64 (K6, timestep 0, 2^18 packets); each
+     float64 run's escaped
+     luminosity is logged beside its float32 twin's and 4/sqrt(n),
+     kilonova_2d_2dgrid_fe (the same cylinder with the
      101,010-line Fe atom, lines walked, timesteps 0-2),
      kilonova_2d_2dgrid_expansionopac at 25 x 50 with the
      Fe atom (2^18 packets, timesteps 0-2; macro-atom bound-bound
@@ -68,7 +92,8 @@ line is printed):
      and Guttman gamma thermalisation (gamma lines written for Ni56 and
      Co56; gamma packets must be emitted), nebular_1d_3dgrid_nont (the
      nebular scene, 2^20 packets, timesteps 0-3 with NLTE populations in
-     2-3, which stop at a wall budget: the log shows the NLTE outer loop,
+     2-3 (the CI's one NLTE outer iteration), which stop at a wall budget:
+     the log shows the NLTE outer loop,
      nlte_0000.out and radfield_0000.out are finite, a population
      departs from its Boltzmann value, the bin and J_b_lu estimators
      accumulated),
@@ -91,7 +116,8 @@ line is printed):
      electron-scattered since its emission, and the port's exspec must write a
      finite specpol.out whose Stokes I is spec.out) and classic_dense, the
      classic preset on a dense, hot 8-shell model on an 8^3 grid (8192
-     packets, timesteps 0-1; some escaped packet must have been
+     packets, timesteps 0-1, each stopped at a 20 s wall budget,
+     CLASSIC_DENSE_BUDGET_S; some escaped packet must have been
      electron-scattered since its emission, and every escaped packet
      carries Q or U exactly when it was), classic_3d_vpkt (classic_3d's
      scene and timestep grid with virtual packets, timesteps 0-1:
@@ -144,11 +170,13 @@ runs the named main-path scenes of phase 4 alone and logs their records
 (per-timestep grid-update seconds, wall, peak device memory, kernel
 share); prints no result line.
 
-    python3 chip_smoke.py --kernel-ab ROOT [ROOT...]
+    python3 chip_smoke.py --kernel-ab ROOT [ROOT...] [--replays NAME...]
 
-times this checkout's kernel against the kernels of other checkouts of the
-port (e.g. a parent commit unpacked with ``git archive`` into a gitignored
-directory) on the same inputs, configuration by configuration, with the
+compares the float32 kernels' SASS of other checkouts of the port (e.g. a
+parent commit unpacked with ``git archive`` into a gitignored directory)
+with this checkout's, instruction for instruction, then times this
+checkout's kernel against theirs
+on the same inputs, configuration by configuration, with the
 lanes in packet order (the main path's) and sorted by (model cell,
 cursor), in alternating rounds (``kernel_ab``): wrapper-inclusive and
 kernel-only CUDA-event times, ptxas registers and the work per crossing;
@@ -157,7 +185,8 @@ then the launches of the main paths in ``REPLAYS`` (the default and
 list, the expansion-opacity cylinder, nebular, classic_3d) replayed through
 each kernel in both orders, with each version's counters (advances and
 boundary crossings per lane, lines or bins walked and bf continua per
-advance); prints no result line.
+advance); with ``--replays`` only the named replays, without the timings
+at forced lanes; prints no result line.
 """
 
 from __future__ import annotations
@@ -166,6 +195,7 @@ import gc
 import glob
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -197,8 +227,13 @@ CONFIGS = {
     # package runs outside Pallas below case 4 (opacity.py:242-258)
     "rpkt_crossing_ffonly": ("ff-only", f"{PALLAS}:980"),
 }
+# the double form of each (transport_dtype float64, the default): the same
+# branch, the float64 instantiation of csrc/rpkt_crossing.cu
+F64 = "_f64"
+CONFIGS.update({k + F64: (f"{label} float64", where) for k, (label, where) in CONFIGS.items()})
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak rate
 FP32_OPS_PER_S = 67e12
+FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores (NVIDIA's H100 SXM data sheet)
 
 
 def log(msg):
@@ -240,12 +275,13 @@ def real_scene(d):
     write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
 
 
-def big_scene(d):
+def big_scene(d, ntimesteps=4):
     """The JAX package's bench `big` scene (bench.py:161-188): a 16^3 3D
-    model (2176 nonempty cells) with the 101,010-line Fe atom."""
+    model (2176 nonempty cells) with the 101,010-line Fe atom, timesteps 0
+    to ``ntimesteps`` - 2."""
     from artis_tpu_torch.synthdata import make_run, write_synthetic_atomicdata
 
-    make_run(d, ncells=16, ntimesteps=4, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
+    make_run(d, ncells=16, ntimesteps=ntimesteps, tmin_days=5.0, tmax_days=9.0, ngreyts=1,
              model_dim=3, logrho0=-9.0, logrho_slope=-0.15)
     write_synthetic_atomicdata(d, elements=((26, 3),), nlevels_per_ion=260)
 
@@ -306,16 +342,30 @@ def _grey_depth(d, grid_type, ncoord, nts):
     return kappa * model.rho_tmin[mgi] / tratmid ** 3 * dist
 
 
+def stop_after(d, last):
+    """Cuts the run of directory ``d`` after timestep ``last`` (input.txt's
+    timestep_finish), its timesteps and everything else unchanged."""
+    path = os.path.join(d, "input.txt")
+    lines = open(path).read().splitlines(True)
+    i = next(k for k, line in enumerate(lines) if "timestep_start timestep_finish" in line)
+    lines[i] = f"000 {last + 1:03d}                  # timestep_start timestep_finish\n"
+    open(path, "w").writelines(lines)
+
+
+def upto(make_scene, last):
+    """``make_scene`` with its run stopped after timestep ``last``."""
+    def make(d):
+        make_scene(d)
+        stop_after(d, last)
+    return make
+
+
 def classic_vpkt_scene(d):
     """classic_3d's scene (the same timesteps; the run stops after timestep
     1) with ``VPKT_TXT``: the deepest ``VPKT_THICK_SHARE`` of the cells by
     timestep 0's grey depth are vpkt-thick."""
     classic_scene(d)
-    path = os.path.join(d, "input.txt")
-    lines = open(path).read().splitlines(True)
-    i = next(k for k, line in enumerate(lines) if "timestep_start timestep_finish" in line)
-    lines[i] = "000 002                  # timestep_start timestep_finish\n"
-    open(path, "w").writelines(lines)
+    stop_after(d, 1)
     depth = _grey_depth(d, "CARTESIAN3D", (16, 16, 16), 0)
     thick = float(np.quantile(depth[depth > 0], 1.0 - VPKT_THICK_SHARE))
     with open(os.path.join(d, "vpkt.txt"), "w") as f:
@@ -380,9 +430,14 @@ def nebular_nt_scene(d):
 # (PERF.md, section 6). Timesteps 2-3 of both scenes stop at a wall budget,
 # and the macro-atoms still active go on in the next timestep. 20 s, not
 # 30 s: with 30 s the whole smoke took 1040 s of its 1200 s on one card
-# once the grey opacity cases and the run diagnostics were in it
+# once the grey opacity cases and the run diagnostics were in it (and
+# timestep 0 alone takes 12 s, so the budget must stay above that). Without
+# the solver the scene's NLTE outer loop never converges (30 iterations, 31-42
+# s a grid update): it runs the CI's one outer iteration
+# (tests/test_configmatrix.py), so that the smoke stays inside its limit
+# with the float64 phases
 NT_WALL_BUDGET_S = 20.0
-NEBULAR = dict(nt_on=False, nt_solve_spencerfano=False,
+NEBULAR = dict(nt_on=False, nt_solve_spencerfano=False, nlte_outer_iters=1,
                detailed_bf_estimators_usefromtimestep=2, first_nlte_radfield_timestep=3,
                transport_wall_budget=NT_WALL_BUDGET_S)
 NEBULAR_NT = dict(detailed_bf_estimators_usefromtimestep=2, first_nlte_radfield_timestep=3,
@@ -448,10 +503,13 @@ OPTS = dict(transport_dtype="float32", mintemp=1000.0, maxtemp=20000.0, tablesiz
 
 
 def cli_args(d, npkts, grid_type, preset="kilonova_lte", **extra):
+    """The CLI's arguments; an option set to None is not passed (the
+    preset's own value: ``transport_dtype=None`` runs the preset's float64)."""
     args = ["--rundir", d, "--device", "cuda", "--preset", preset, "--set", f"npkts={npkts}",
             "--set", f"grid_type={grid_type}"]
     for k, v in dict(OPTS, **extra).items():
-        args += ["--set", f"{k}={v!r}"]
+        if v is not None:
+            args += ["--set", f"{k}={v!r}"]
     return args
 
 
@@ -490,10 +548,60 @@ def _log_ptxas(mod, tag):
                 log(f"ptxas[{tag}]: {line.strip()}")
 
 
-def forced_lanes(sim, t0, n, seed):
+def _sass(source, workdir, tag):
+    """Each float32 kernel of a crossing-kernel source as its list of SASS
+    instructions: the source compiled with the wrapper's flags to a cubin
+    and disassembled (cuobjdump -sass); each kernel named by its template
+    arguments, with the real-type argument the float32 form gained in the
+    float64 slice left out, so that both versions' kernels match."""
+    cuda = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin")
+    cubin = os.path.join(workdir, f"sass_{tag}.cubin")
+    subprocess.run([os.path.join(cuda, "nvcc"), "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-fmad=false", "-cubin", "-o", cubin, source],
+                   check=True, capture_output=True)
+    dump = subprocess.run([os.path.join(cuda, "cuobjdump"), "-sass", cubin],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = re.sub(r"kernelIf", "kernelI", m.group(1))
+            key = re.sub(r"kernel_1d(If)?E.*", "kernel_1d", key)
+            key = re.sub(r"E(E)?v.*", "", key)
+            cur = funcs.setdefault(re.sub(r".*rpkt_crossing_", "", key), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if m and cur is not None:
+            cur.append(m.group(1).strip())
+    return funcs
+
+
+def _sass_compare(versions, workdir):
+    """Logs, for each other version of ``kernel_ab``, whether each float32
+    kernel's SASS is this checkout's instruction for instruction."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(versions)) as pool:
+        sass = list(pool.map(lambda iv: _sass(iv[1][1]._SOURCE, workdir, iv[0]),
+                             enumerate(versions)))
+    this = sass[0]
+    for (tag, _), funcs in zip(versions[1:], sass[1:]):
+        same = 0
+        for k in sorted(this):
+            a, b = this[k], funcs.get(k)
+            same += a == b
+            ndiff = (None if b is None
+                     else sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b)))
+            log(f"sass[{tag}, {k}]: this {len(a)} instructions, {tag} "
+                f"{None if b is None else len(b)}, identical {a == b}, differing {ndiff}")
+        log(f"sass[{tag}]: {same} of {len(this)} float32 kernels identical to this checkout's "
+            f"(kernels only in {tag}: {sorted(set(funcs) - set(this))})")
+
+
+def forced_lanes(sim, t0, n, seed, dtype=np.float32):
     """In-flight r-packets spread over the grid at time t0 (the JAX parity
     tests' _force_rpkt_state; shells for 1D, a volume for 2D/3D), as
-    float32/int32 CUDA lane tensors, with numpy-made injected draws."""
+    ``dtype`` / int32 CUDA lane tensors, with numpy-made injected draws."""
     import torch
 
     from artis_tpu_torch.grid import get_cellindex_from_pos
@@ -518,7 +626,7 @@ def forced_lanes(sim, t0, n, seed):
     dv = rng.normal(size=(n, 3))
     dv /= np.linalg.norm(dv, axis=1, keepdims=True)
     nu = 10 ** rng.uniform(14.2, 15.9, n)
-    f = lambda x: torch.as_tensor(np.asarray(x, np.float32)).cuda()
+    f = lambda x: torch.as_tensor(np.ascontiguousarray(x, dtype)).cuda()
     i = lambda x: torch.as_tensor(np.asarray(x, np.int32)).cuda()
     lanes = dict(posx=f(pos[:, 0]), posy=f(pos[:, 1]), posz=f(pos[:, 2]),
                  dirx=f(dv[:, 0]), diry=f(dv[:, 1]), dirz=f(dv[:, 2]), nu_rf=f(nu),
@@ -554,6 +662,17 @@ def dense_tables(tables):
     cell = torch.arange(t["nne"].numel(), device=t["nne"].device)
     factor = 10.0 ** (2.0 * (1 + cell % 3)).to(t["nne"].dtype)
     return dict(t, nne=t["nne"] * factor, chiffpart=t["chiffpart"] * factor)
+
+
+def as_f64(case):
+    """A phase-3 case (tag, lanes, tables, tau, sel, t2, max_inner) with its
+    float lanes, tables and draws in float64: the inputs of the double
+    form."""
+    import torch
+
+    tag, lanes, tables, tau, sel, t2, mi = case
+    up = lambda d: {k: v.double() if v.is_floating_point() else v for k, v in d.items()}
+    return (f"{tag} float64", up(lanes), up(tables), tau.double(), sel.double(), t2, mi)
 
 
 def _kernel_kw(sim, want_bfrate, expansion=False, defer=False, **extra):
@@ -763,7 +882,7 @@ def _walk_entries(walk_log, nentries):
     return _union_len(lo, hi), _union_len(base + lo, base + hi)
 
 
-def _bound_ms(out, walk_log, tables, kw, test_mode):
+def _bound_ms(out, walk_log, tables, kw, test_mode, elem=4):
     """The least time the card could take for one call with these inputs,
     each input read once and each output written once: the lane inputs the
     call reads (the injected draws only in test mode) and its lane outputs;
@@ -781,19 +900,22 @@ def _bound_ms(out, walk_log, tables, kw, test_mode):
     per crossing for the range test and 12 per midpoint that lands in a
     bin; with the J_b_lu estimators 2 more per line read for the column
     test and 6 per pass that adds to a selected line's row, the passes
-    this run's data made) over the float32 peak. Returns (ms, 'bytes' or
-    'operations', bytes)."""
+    this run's data made) over the float32 peak. ``elem`` 8 (a float64
+    launch): every float read and written takes 8 bytes, and the operations
+    go over the float64 peak outside the tensor cores. Returns (ms, 'bytes'
+    or 'operations', bytes)."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     misc = out["misc"].double().cpu().numpy()
     nadv, nwalk, nbfwin = misc[0], misc[6], misc[7]
     n = out["posx"].shape[0]
-    size = lambda *names: sum(4 * tables[k].numel() for k in names)
+    size = lambda *names: sum(tables[k].element_size() * tables[k].numel() for k in names)
     ndim = rpkt_kernel.GEOM_NDIM[kw["geom"]]
-    cell_row = 4 * (1 + 6 + 2 * ndim)  # mgi, six cell values, the cell's bounds
+    # mgi and the thick flag, five cell values, the cell's bounds
+    cell_row = 4 * 2 + elem * (5 + 2 * ndim)
     cell_tables = size("mgi_of_cell", "cellmin", "cellmax", "nne", "Te", "kappagrey", "rho",
                        "chiffpart", "thick")
-    bf_row = 4 * (1 + 2 + 3 + 1)  # edge, two phixs points, a/dep/prob, ground index
+    bf_row = elem * (1 + 2 + 3) + 4  # edge, two phixs points, a/dep/prob, ground index
     bf_tables = size("cont_nu_edge", "cont_phixs", "cont_prob", "cont_gidx", "bf_a", "bf_dep",
                      "gc_nu_edge")
     expansion = kw.get("expansion", False)
@@ -802,21 +924,25 @@ def _bound_ms(out, walk_log, tables, kw, test_mode):
         lines = 0  # the bin edges are computed, not read
     njb, nrb = out["jblue"].shape[2], out["radbin"].shape[2]
     rows = sum(out[k].numel() for k in ("est", "gamma", "bfheat", "bfrate", "radbin", "jblue"))
-    nbytes = (n * 4 * ((17 if test_mode else 15) + 30) + min(nadv * cell_row, cell_tables)
-              + min(nbfwin * bf_row, bf_tables) + 4 * (lines * (1 + (njb > 0)) + entries)
-              + 4 * rows + 8 * len(misc))
+    # a lane reads 11 floats (13 with the injected draws) and 4 ints, and
+    # writes 19 floats and 11 ints
+    lane_bytes = elem * (11 + (2 if test_mode else 0) + 19) + 4 * (4 + 11)
+    nbytes = (n * lane_bytes + min(nadv * cell_row, cell_tables)
+              + min(nbfwin * bf_row, bf_tables) + lines * (elem + 4 * (njb > 0))
+              + elem * (entries + rows) + 8 * len(misc))
     bin_adds = float(out["radbin"][:, 2].sum()) if nrb else 0.0
     jb_passes = float(out["jblue"][:, 1].sum()) if njb else 0.0
     ops = (400.0 * nadv + (30.0 if expansion else 20.0) * nwalk + 40.0 * nbfwin
            + (2.0 * nadv + 12.0 * bin_adds) * (nrb > 0)
            + (2.0 * nwalk + 6.0 * jb_passes) * (njb > 0))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    peak = FP64_OPS_PER_S if elem == 8 else FP32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (nbytes,)
 
 
 def _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion=False, defer=False,
-                   **extra):
-    lanes, tau, sel = forced_lanes(sim, t0, NPKTS_DEFAULT, seed)
+                   dtype=np.float32, **extra):
+    lanes, tau, sel = forced_lanes(sim, t0, NPKTS_DEFAULT, seed, dtype)
     args = (12345, lanes, tables, tau, sel, t2, float(sim.grid.tmin),
             float(sim.grid.max_path_step))
     return args, dict(_kernel_kw(sim, want_bfrate, expansion, defer, **extra), max_inner=64,
@@ -825,40 +951,59 @@ def _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion=False, defe
 
 def _time_modes(args, kw, modes):
     """CUDA-event means of the kernel in each estimator-row mode (True:
-    shared memory, False: global atomics), in turns and then in reverse;
-    also returns the last launch's outputs."""
+    shared memory, False: global atomics), in turns and then in reverse:
+    wrapper-inclusive (events around the wrapper calls), then kernel-only
+    (the wrapper's ``propagate.timing`` events right around each ctypes
+    call, in a pass of its own, so that their recording is not in the
+    first); also returns the last launch's outputs."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     times = {m: [] for m in modes}
+    konly = {m: [] for m in modes}
     for m in modes + modes[::-1]:
-        t, out = _timed(lambda: rpkt_kernel._launch(*args, shared_rows=m, **kw), 10)
+        launch = lambda: rpkt_kernel._launch(*args, shared_rows=m, **kw)
+        t, out = _timed(launch, 10)
         times[m].append(t)
-    return times, out
+        rpkt_kernel.propagate.timing = []
+        try:
+            _timed(launch, 10)
+            recs = rpkt_kernel.propagate.timing[1:]  # the 10 timed launches
+        finally:
+            rpkt_kernel.propagate.timing = None
+        konly[m].append(sum(r["kernel_events"][0].elapsed_time(r["kernel_events"][1])
+                            for r in recs) / len(recs))
+    return times, konly, out
 
 
 ROW_MODE = {True: "shared", False: "global"}
 
 
 def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7, expansion=False,
-                 defer=False, **extra):
+                 defer=False, f64=False, **extra):
     """Kernel against plain version at N=65536, max_inner=64, Philox draws:
     CUDA-event means in turns, plain, each estimator-row mode the rows
     allow (shared, global), the same in reverse, plain. ``ms`` is the mode
-    the wrapper picks; ``extra`` the K5-multibin / K5-jblue keywords."""
+    the wrapper picks (wrapper-inclusive; ``kernel_only_ms`` the same
+    launches' kernel alone); ``extra`` the K5-multibin / K5-jblue keywords.
+    ``f64``: the double form, on the same lanes and tables in float64, its
+    bound counted in 8-byte floats at the float64 peak."""
     from artis_tpu_torch.transport import rpkt_kernel
 
+    if f64:
+        tables = {k: v.double() if v.is_floating_point() else v for k, v in tables.items()}
     args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed, expansion, defer,
-                              **extra)
+                              np.float64 if f64 else np.float32, **extra)
+    elem = 8 if f64 else 4
     ncont = sim.dad.nbfcontinua if want_bfrate else 0
     rows_kw = {k: extra[k] for k in ("nradbins", "njblue", "want_gamma", "want_bfheat")
                if k in extra}
-    rows = rpkt_kernel.row_bytes(kw["ncells"], kw["ngc"], ncont, **rows_kw)
+    rows = rpkt_kernel.row_bytes(kw["ncells"], kw["ngc"], ncont, elem, **rows_kw)
     modes = [True, False] if rows <= rpkt_kernel.SMEM_LIMIT else [False]
-    picked = rpkt_kernel.pick_shared_rows(kw["ncells"], kw["ngc"], ncont, **rows_kw)
+    picked = rpkt_kernel.pick_shared_rows(kw["ncells"], kw["ngc"], ncont, elem, **rows_kw)
     before = dict(rpkt_kernel.propagate.launches)
     run_p = lambda: rpkt_kernel.propagate_reference(*args, **kw)
     p1, _ = _timed(run_p, 1)
-    times, out = _time_modes(args, kw, modes)
+    times, konly, out = _time_modes(args, kw, modes)
     p2, _ = _timed(run_p, 1)
     rpkt_kernel.propagate.launches.update(before)
     walk_log = []
@@ -867,17 +1012,18 @@ def _time_config(sim, tables, t0, t2, want_bfrate, label, seed=7, expansion=Fals
     # bf-rate rows: no continuum)
     launch_tables = (rpkt_kernel.ff_only_tables(tables, want_bfrate) if extra.get("ff_only")
                      else tables)
-    bound, by, nbytes = _bound_ms(out, walk_log, launch_tables, kw, test_mode=False)
+    bound, by, nbytes = _bound_ms(out, walk_log, launch_tables, kw, test_mode=False, elem=elem)
     misc = out["misc"].double().cpu().numpy()
     log(f"timing[{label}] (N={NPKTS_DEFAULT}, max_inner=64): "
         + ", ".join(f"kernel with {ROW_MODE[m]} rows "
-                    f"{' / '.join(f'{t:.4f}' for t in times[m])} ms" for m in modes)
+                    f"{' / '.join(f'{t:.4f}' for t in times[m])} ms (kernel-only "
+                    f"{' / '.join(f'{t:.4f}' for t in konly[m])} ms)" for m in modes)
         + f", plain version {p1:.4f} / {p2:.4f} ms, bound {bound:.6f} ms ({by}, {nbytes:.0f} "
         f"bytes); crossings {misc[0]:.0f}, {'bins' if expansion else 'lines'} read "
         f"{misc[6]:.0f}, bf continua "
         f"{misc[7]:.0f}, estimator rows {rows} bytes, the wrapper picks {ROW_MODE[picked]} rows")
-    rec = dict(ms=min(times[picked]), plain_ms=min(p1, p2), bound_ms=bound, bound_by=by,
-               library_ms=None, rows=ROW_MODE[picked])
+    rec = dict(ms=min(times[picked]), kernel_only_ms=min(konly[picked]), plain_ms=min(p1, p2),
+               bound_ms=bound, bound_by=by, library_ms=None, rows=ROW_MODE[picked])
     for m in modes:
         rec[f"{ROW_MODE[m]}_rows_ms"] = min(times[m])
     return rec
@@ -911,6 +1057,13 @@ def phase_kernel_vs_plain(workdir):
     cases.append(_captured_case(sim, seed=1))
     errs["rpkt_crossing_sph1d"] += _check_cases(sim, cases, nonzero)
     rec["rpkt_crossing_sph1d"] = _time_config(sim, *timing_1d, False, "K1 sph1d")
+    # the double form (K1's generic body in float64) on the same cases: the
+    # non-grey and ionised shells at max_inner 1 and 64, the captured lanes
+    f64_cases = [as_f64(c) for c in cases if c[0].split()[0] in ("nongrey", "ionised")
+                 and c[-1] in (1, 64)] + [as_f64(cases[-1])]
+    errs["rpkt_crossing_sph1d" + F64] += _check_cases(sim, f64_cases, nonzero)
+    rec["rpkt_crossing_sph1d" + F64] = _time_config(sim, *timing_1d, False, "K1 sph1d float64",
+                                                    f64=True)
     # the free-free continuum of the grey opacity cases 0-3 in K1's kernel:
     # the same lanes on the non-grey and the ionised, denser shells (where
     # free-free absorbs)
@@ -920,6 +1073,11 @@ def phase_kernel_vs_plain(workdir):
     errs["rpkt_crossing_ffonly"] += _check_cases(sim, ff_cases, nonzero, ff_only=True)
     rec["rpkt_crossing_ffonly"] = _time_config(sim, *timing_1d, False, "ff_only sph1d",
                                                ff_only=True)
+    errs["rpkt_crossing_ffonly" + F64] += _check_cases(
+        sim, [as_f64(c) for c in ff_cases if c[-1] in (1, 64)], nonzero, ff_only=True)
+    rec["rpkt_crossing_ffonly" + F64] = _time_config(sim, *timing_1d, False,
+                                                     "ff_only sph1d float64", ff_only=True,
+                                                     f64=True)
     real = _phase3_sim(workdir, "phase3_real", real_scene, NPKTS_REAL)
     log(f"phase 3 realistic shapes: ncells={real.cells.Te.shape[0]} "
         f"nlines={real.dad.nlines} ncont={real.dad.nbfcontinua}")
@@ -939,17 +1097,24 @@ def phase_kernel_vs_plain(workdir):
         ctx = sim.update_grid(0)
         _, tb = _nongrey_tables(sim, ctx)
         log(f"phase 3 {name}: grid {sim.grid.ncoordgrid} ncells={sim.cells.Te.shape[0]}")
-        e = _check_cases(sim, _cases(name, sim, tb, float(ctx.ts), float(ctx.t2), (1, 4, 64),
-                                     seed=3), nonzero, want_bfrate=True)
+        cases = _cases(name, sim, tb, float(ctx.ts), float(ctx.t2), (1, 4, 64), seed=3)
+        e = _check_cases(sim, cases, nonzero, want_bfrate=True)
         for k in cart:
             errs[k] += e
         if name == "1dmodel_50cube":
+            e = _check_cases(sim, [as_f64(c) for c in cases if c[-1] in (1, 64)], nonzero,
+                             want_bfrate=True)
+            for k in cart:
+                errs[k + F64] += e
+        if name == "1dmodel_50cube":
             # the free-free continuum in the 3D walk (<CART, false, true>),
             # whose bf-rate rows accumulate as in every case
-            errs["rpkt_crossing_ffonly"] += _check_cases(
-                sim, _cases(f"ff_only {name}", sim, dense_tables(tb), float(ctx.ts),
-                            float(ctx.t2), (1, 64), seed=17), nonzero, want_bfrate=True,
-                ff_only=True)
+            ff_cases = _cases(f"ff_only {name}", sim, dense_tables(tb), float(ctx.ts),
+                              float(ctx.t2), (1, 64), seed=17)
+            errs["rpkt_crossing_ffonly"] += _check_cases(sim, ff_cases, nonzero,
+                                                         want_bfrate=True, ff_only=True)
+            errs["rpkt_crossing_ffonly" + F64] += _check_cases(
+                sim, [as_f64(c) for c in ff_cases], nonzero, want_bfrate=True, ff_only=True)
         sim.close()
         del sim
         gc.collect()
@@ -970,9 +1135,19 @@ def phase_kernel_vs_plain(workdir):
     rec["rpkt_crossing_cart3d"] = _time_config(big, tables_ng, t0, t2, False, "K2 cart3d")
     rec["rpkt_crossing_bfrate"] = _time_config(big, tables_ng, t0, t2, True,
                                                "K5-bfrate cart3d")
-    e += _check_cases(big, [_captured_case(big, seed=5)], nonzero, want_bfrate=True)
+    rec["rpkt_crossing_cart3d" + F64] = _time_config(big, tables_ng, t0, t2, False,
+                                                     "K2 cart3d float64", f64=True)
+    rec["rpkt_crossing_bfrate" + F64] = _time_config(big, tables_ng, t0, t2, True,
+                                                     "K5-bfrate cart3d float64", f64=True)
+    captured = _captured_case(big, seed=5)
+    e += _check_cases(big, [captured], nonzero, want_bfrate=True)
     for k in cart:
         errs[k] += e
+    # the double form on the lanes the main path leaves in flight, with the
+    # big scene's 101,010 lines
+    e = _check_cases(big, [as_f64(captured)], nonzero, want_bfrate=True)
+    for k in cart:
+        errs[k + F64] += e
     # K4 on the same 16^3 model: its own opacity bins from timestep 1's
     # tables (the captured case ran timestep 0), with bf-rate estimators
     from artis_tpu_torch.transport.expansionopacity import build_expansion_opacities
@@ -1018,6 +1193,11 @@ def phase_kernel_vs_plain(workdir):
         nonzero, want_bfrate=True)
     rec["rpkt_crossing_cyl2d"] = _time_config(cyl, tb, float(ctx.ts), float(ctx.t2), False,
                                               "K3 cyl2d")
+    errs["rpkt_crossing_cyl2d" + F64] += _check_cases(
+        cyl, [as_f64(c) for c in _cases("cyl2d", cyl, tb, float(ctx.ts), float(ctx.t2), (1, 64),
+                                        seed=8)], nonzero, want_bfrate=True)
+    rec["rpkt_crossing_cyl2d" + F64] = _time_config(cyl, tb, float(ctx.ts), float(ctx.t2),
+                                                    False, "K3 cyl2d float64", f64=True)
     cyl.close()
     del cyl
     gc.collect()
@@ -1043,8 +1223,10 @@ def phase_kernel_vs_plain(workdir):
     tb = _nongrey_tables(dense, ctx)[1]
     log(f"phase 3 expansion 1D: ncells={dense.cells.Te.shape[0]} kappa table "
         f"{tuple(tb['expo_kappa'].shape)}")
-    errs[k4] += _check_cases(dense, _cases("expo_dense", dense, tb, float(ctx.ts), float(ctx.t2),
-                                           (1, 4, 64), seed=10), nonzero, expansion=True)
+    cases = _cases("expo_dense", dense, tb, float(ctx.ts), float(ctx.t2), (1, 4, 64), seed=10)
+    errs[k4] += _check_cases(dense, cases, nonzero, expansion=True)
+    errs[k4 + F64] += _check_cases(dense, [as_f64(c) for c in cases if c[-1] in (1, 64)],
+                                   nonzero, expansion=True)
     dense.close()
     del dense
     gc.collect()
@@ -1060,6 +1242,11 @@ def phase_kernel_vs_plain(workdir):
     errs[k4] += _check_cases(cylfe, _cases("expo_cyl_fe", cylfe, tb, t0, t2, (1, 64), seed=11),
                              nonzero, expansion=True)
     rec[k4] = _time_config(cylfe, tb, t0, t2, False, "K4 expansion cyl2d", expansion=True)
+    errs[k4 + F64] += _check_cases(
+        cylfe, [as_f64(c) for c in _cases("expo_cyl_fe", cylfe, tb, t0, t2, (64,), seed=11)],
+        nonzero, expansion=True)
+    rec[k4 + F64] = _time_config(cylfe, tb, t0, t2, False, "K4 expansion cyl2d float64",
+                                 expansion=True, f64=True)
     cylfe.close()
     del cylfe
     gc.collect()
@@ -1087,10 +1274,13 @@ def phase_kernel_vs_plain(workdir):
     cases = lambda table_sets: [(f"{name} max_inner={mi}", lanes, tables, tau, sel, t2, mi)
                                 for name, tables in table_sets for mi in (1, 4, 64)]
     errs[k6] += _check_cases(cls, cases([("classic", tb)]), nonzero, defer=True)
-    errs[k6] += _check_cases(cls, cases([("classic_dense", dense),
-                                         ("classic_dense_halfgrey", halfgrey)]),
-                             nonzero, defer=True, every_kind=True)
+    dense_cases = cases([("classic_dense", dense), ("classic_dense_halfgrey", halfgrey)])
+    errs[k6] += _check_cases(cls, dense_cases, nonzero, defer=True, every_kind=True)
     rec[k6] = _time_config(cls, tb, t0, t2, False, "K6 deferred cart3d", defer=True)
+    errs[k6 + F64] += _check_cases(cls, [as_f64(c) for c in dense_cases if c[-1] in (1, 64)],
+                                   nonzero, defer=True, every_kind=True)
+    rec[k6 + F64] = _time_config(cls, tb, t0, t2, False, "K6 deferred cart3d float64",
+                                 defer=True, f64=True)
     cls.close()
     del cls
     gc.collect()
@@ -1109,11 +1299,16 @@ def phase_kernel_vs_plain(workdir):
     log(f"phase 3 nebular: grid {neb.grid.ncoordgrid} ncells={neb.cells.Te.shape[0]} "
         f"nlines={neb.dad.nlines} radiation-field bins {nkw['nradbins']}, J_b_lu lines "
         f"{nkw['njblue']}, LUT estimators {nkw['want_gamma']}, estimator rows {rows} bytes")
-    e = _check_cases(neb, _cases("nebular", neb, tb, t0, t2, (1, 4, 64), seed=13), nonzero,
-                     want_bfrate=True, **nkw)
-    e += _check_cases(neb, [_captured_case(neb, seed=14)], nonzero, want_bfrate=True, **nkw)
+    cases = _cases("nebular", neb, tb, t0, t2, (1, 4, 64), seed=13)
+    e = _check_cases(neb, cases, nonzero, want_bfrate=True, **nkw)
+    captured = _captured_case(neb, seed=14)
+    e += _check_cases(neb, [captured], nonzero, want_bfrate=True, **nkw)
     for k in k5 + cart:
         errs[k] += e
+    e = _check_cases(neb, [as_f64(c) for c in cases if c[-1] in (1, 64)] + [as_f64(captured)],
+                     nonzero, want_bfrate=True, **nkw)
+    for k in k5 + cart:
+        errs[k + F64] += e
     # each estimator alone on the nebular tables (the geometry with bf-rate
     # estimators and without the LUT ones, as the nebular main path), then
     # all of it as the main path launches it
@@ -1123,6 +1318,12 @@ def phase_kernel_vs_plain(workdir):
                                                  **_k5_kw(neb, jblue=False))
     rec["rpkt_crossing_jblue"] = _time_config(neb, tb, t0, t2, True, "K5-jblue nebular",
                                               **_k5_kw(neb, multibin=False))
+    rec["rpkt_crossing_multibin" + F64] = _time_config(
+        neb, tb, t0, t2, True, "K5-multibin nebular float64", f64=True,
+        **_k5_kw(neb, jblue=False))
+    rec["rpkt_crossing_jblue" + F64] = _time_config(
+        neb, tb, t0, t2, True, "K5-jblue nebular float64", f64=True,
+        **_k5_kw(neb, multibin=False))
     _time_config(neb, tb, t0, t2, True, "nebular main path (K5-multibin + K5-jblue)", **nkw)
     neb.close()
     del neb
@@ -1131,11 +1332,14 @@ def phase_kernel_vs_plain(workdir):
                        multibin_radfield=True, detailed_line_estimators_on=True, jblue_elem_z=0)
     ctx = dflt.update_grid(0)
     tb = _nongrey_tables(dflt, ctx)[1]
-    e = _check_cases(dflt, _cases("k5_default", dflt, tb, float(ctx.ts), float(ctx.t2),
-                                  (1, 4, 64), seed=15), nonzero, **_k5_kw(dflt))
+    cases = _cases("k5_default", dflt, tb, float(ctx.ts), float(ctx.t2), (1, 4, 64), seed=15)
+    e = _check_cases(dflt, cases, nonzero, **_k5_kw(dflt))
     errs["rpkt_crossing_sph1d"] += e
     for k in k5:
         errs[k] += e
+    e = _check_cases(dflt, [as_f64(cases[-1])], nonzero, **_k5_kw(dflt))
+    for k in ("rpkt_crossing_sph1d",) + k5:
+        errs[k + F64] += e
     dflt.close()
     del dflt
     gc.collect()
@@ -1181,6 +1385,12 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
     for k in expect:
         if launches[k] <= 0:
             raise RuntimeError(f"{name}: the main path never launched {k}: {launches}")
+    # a run at the preset's transport dtype (float64) launches only double
+    # forms, a float32 run none: no demotion either way
+    f64_run = "transport_dtype" in extra and extra["transport_dtype"] is None
+    other = {k: v for k, v in launches.items() if v and k.endswith(F64) != f64_run}
+    if other:
+        raise RuntimeError(f"{name}: launched the other precision's kernels {other}")
     tlog = json.load(open(os.path.join(d, "transport_log.json")))
     # a timestep may stop short only at the run's wall budget
     budget = extra.get("transport_wall_budget", -1.0)
@@ -1453,7 +1663,7 @@ def rows_sweep(workdir):
         args, kw = _timing_inputs(sim, _nongrey_tables(sim, ctx)[1], float(ctx.ts),
                                   float(ctx.t2), False, seed=7)
         rows = rpkt_kernel.row_bytes(kw["ncells"], kw["ngc"], 0)
-        times, out = _time_modes(args, kw, [True, False])
+        times, _, out = _time_modes(args, kw, [True, False])
         shared, glob_ = min(times[True]), min(times[False])
         points.append(dict(geometry=geo, ncells=kw["ncells"], rows=rows, shared_ms=shared,
                            global_ms=glob_))
@@ -1563,7 +1773,11 @@ def kernel_ab(workdir, roots):
     within a round, each version's ptxas registers and spills, and each
     configuration's lines (bins) walked and bf continua per crossing. A
     version whose wrapper lacks a keyword a configuration needs is left out
-    of it. Then the main paths' launches are replayed (``_replay_main_path``)."""
+    of it. Then the main paths' launches are replayed (``_replay_main_path``).
+    First each version's float32 kernels are compared with this checkout's
+    in SASS (``_sass_compare``). ``--replays NAME...`` after the roots
+    replays only those main paths (REPLAYS), without the timings at forced
+    lanes."""
     import inspect
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1571,7 +1785,16 @@ def kernel_ab(workdir, roots):
 
     from artis_tpu_torch.transport import rpkt_kernel
 
+    only = None
+    if "--replays" in roots:
+        i = roots.index("--replays")
+        roots, only = roots[:i], roots[i + 1:]
+        unknown = set(only) - {r[0] for r in REPLAYS}
+        if unknown or not only:
+            raise SystemExit(f"--replays: unknown {sorted(unknown)}; replays: "
+                             f"{[r[0] for r in REPLAYS]}")
     versions = [("this", rpkt_kernel)] + [(r, _load_wrapper(r)) for r in roots]
+    _sass_compare(versions, workdir)
     t0 = time.time()
     with ThreadPoolExecutor(len(versions)) as pool:  # one nvcc per version at once
         libs = list(pool.map(lambda v: v[1].build(), versions))
@@ -1637,7 +1860,7 @@ def kernel_ab(workdir, roots):
          [(dict(nradbins=0, njblue=0, want_gamma=True, want_bfheat=True), True),
           ("k5", True)]),
     ]
-    for i, (label, sc, configs) in enumerate(scenes):
+    for i, (label, sc, configs) in enumerate(scenes if only is None else []):
         sim = _phase3_sim(workdir, f"ab{i}", **sc)
         ctx = sim.update_grid(0)
         tb = _nongrey_tables(sim, ctx)[1]
@@ -1649,6 +1872,8 @@ def kernel_ab(workdir, roots):
         del sim
         gc.collect()
     for name, npkts, timesteps in REPLAYS:
+        if only is not None and name not in only:
+            continue
         sc = {s[0]: s for s in SCENES}[name]
         _replay_main_path(workdir, name, dict(make_scene=sc[1], grid_type=sc[3], **sc[5]),
                           versions, launcher, npkts, timesteps)
@@ -2560,42 +2785,149 @@ def post_opacity3(rec):
     return {"opacity3": dict(rho_crit=above, lines=lines, malog_rows=len(malog) - 1)}
 
 
+def _escaped_by_timestep(d):
+    """Per timestep of a run's log: (escaped r-packets so far, escaped cmf
+    luminosity of the timestep in Lsun)."""
+    out = []
+    for line in open(os.path.join(d, "output_0-0.txt")):
+        if "escaped rpkts so far" in line:
+            n = int(line.split("so far ")[1].split()[0])
+            out.append((n, float(line.split("cmf_lum ")[1].split()[0])))
+    return out
+
+
+def _f64_against_f32(name, rec32, rec64):
+    """Logs each timestep's escaped cmf luminosity of the float64 run
+    ``name`` against its float32 run in the same call, for the timesteps
+    both ran, beside 4/sqrt(n), n the packets the float32 run saw escape in
+    that timestep, or the float64 run where that ran fewer packets (the
+    same physics at two precisions; tests/test_physics_validation.py's
+    rule). Returns the timesteps outside it."""
+    a, b = _escaped_by_timestep(rec32["dir"]), _escaped_by_timestep(rec64["dir"])
+    if not b or len(b) > len(a):
+        raise RuntimeError(f"{name}: {len(b)} timesteps logged against {len(a)}")
+    prev, bad = (0, 0), []
+    for ts, ((n32, l32), (n64, l64)) in enumerate(zip(a, b)):
+        n = n32 - prev[0] if rec64["npkts"] >= rec32["npkts"] else n64 - prev[1]
+        prev = (n32, n64)
+        tol = 4.0 / np.sqrt(max(n, 1))
+        rel = abs(l64 - l32) / max(abs(l32), 1e-300)
+        log(f"{name}: timestep {ts}: escaped cmf luminosity {l64} Lsun against "
+            f"float32 {l32} Lsun (rel {rel:.5f}, tol 4/sqrt({n}) = {tol:.5f}); escaped so far "
+            f"{n64} against {n32}")
+        if n <= 0 or rel > tol:
+            bad.append(ts)
+    log(f"{name}: wall {rec64['wall_s']:.1f} s against {rec32['wall_s']:.1f} s, "
+        f"work-weighted {rec64['steps_per_s']} against {rec32['steps_per_s']} rpkt steps/s "
+        f"(the float32 run over {len(a)} timesteps)")
+    return bad
+
+
+def check_f64_default(rec32, rec64):
+    """The default scene at the preset's float64 against its float32 run in
+    the same call: every timestep's escaped cmf luminosity within
+    4/sqrt(n) (``_f64_against_f32``)."""
+    bad = _f64_against_f32("default_scene_f64", rec32, rec64)
+    if bad:
+        raise RuntimeError(f"default_scene_f64: escaped luminosity of timesteps {bad} outside "
+                           f"4/sqrt(n) of the float32 run")
+
+
+# the other float64 runs and their float32 runs: their luminosities are
+# logged beside 4/sqrt(n) (not a gate: these runs are cut in depth, and
+# their float32 twins compare the same physics through other random
+# draws); each run's own checks (_run_scene) and phase 3 hold them
+F64_TWINS = {"default_opacity3_f64": "default_opacity3", "big_scene_f64": "big_scene",
+             "kilonova_2d_2dgrid_f64": "kilonova_2d_2dgrid",
+             "kilonova_2d_2dgrid_expansionopac_f64": "kilonova_2d_2dgrid_expansionopac",
+             "nebular_1d_3dgrid_nont_f64": "nebular_1d_3dgrid_nont",
+             "classic_3d_f64": "classic_3d"}
+
+
+def log_f64_twins(runs):
+    for name64, name32 in F64_TWINS.items():
+        if name64 in runs and name32 in runs:
+            bad = _f64_against_f32(name64, runs[name32], runs[name64])
+            log(f"{name64}: timesteps outside 4/sqrt(n) of the float32 run: {bad}")
+
+
 POST_RUN = {"classic_3d_vpkt": post_vpkt, "kilonova_2d_2dgrid_xcomgammaphotoion": post_xcom,
             "default_opacity3": post_opacity3}
 
 
 # the main-path runs of phase 4: name, scene, packets, grid, the kernel
-# configurations the run must launch, and its options
+# configurations the run must launch, and its options; transport_dtype
+# None: the preset's own, float64 (the other scenes run float32, OPTS)
 CART = ["rpkt_crossing_cart3d"]
+PRESET_DTYPE = dict(transport_dtype=None)
+EXPANSION = dict(expansionopacities_on=True, rpkt_boundbound_thermalisation_probability=-1.0)
+# classic_dense's timestep 0 took 106-180 s to complete (1306 iterations of
+# k-packet / macro-atom cycling, host-bound); at this budget the packets
+# still cycling go on in timestep 1, whose electron-scattered escapes the
+# check needs (timestep 0 scatters few: classic_3d's electron scatterings
+# come only in timestep 2). The smoke took 1335.9 s of its 1200 s on a slow
+# host with the float64 runs, so the budget makes room for them
+CLASSIC_DENSE_BUDGET_S = 20.0
 SCENES = [
     ("default_scene", default_scene, NPKTS_DEFAULT, "SPHERICAL1D", ["rpkt_crossing_sph1d"], {}),
+    # this slice's path: the default scene at the preset's float64, the
+    # double K1
+    ("default_scene_f64", default_scene, NPKTS_DEFAULT, "SPHERICAL1D",
+     ["rpkt_crossing_sph1d" + F64], PRESET_DTYPE),
     # the default scene under grey opacity case 3 with the run diagnostics:
     # K1 with the free-free continuum
     ("default_opacity3", default_opacity3_scene, NPKTS_DEFAULT, "SPHERICAL1D",
      ["rpkt_crossing_sph1d", "rpkt_crossing_ffonly"], DIAGNOSTICS),
+    # the same at the preset's float64: the double ff-only form
+    ("default_opacity3_f64", default_opacity3_scene, NPKTS_DEFAULT, "SPHERICAL1D",
+     ["rpkt_crossing_sph1d" + F64, "rpkt_crossing_ffonly" + F64],
+     dict(PRESET_DTYPE, **DIAGNOSTICS)),
     ("realistic_scene", real_scene, NPKTS_REAL, "SPHERICAL1D", ["rpkt_crossing_sph1d"], {}),
-    ("big_scene", big_scene, NPKTS_REAL, "CARTESIAN3D", CART + ["rpkt_crossing_bfrate"],
-     dict(detailed_bf_estimators_on=True)),
+    # timesteps 0-1 (0-2 until the float64 runs joined the smoke), as deep
+    # as big_scene_f64
+    ("big_scene", lambda d: big_scene(d, ntimesteps=3), NPKTS_REAL, "CARTESIAN3D",
+     CART + ["rpkt_crossing_bfrate"], dict(detailed_bf_estimators_on=True)),
     ("kilonova_2d_2dgrid", cyl_scene, NPKTS_2D, "CYLINDRICAL2D", ["rpkt_crossing_cyl2d"], {}),
+    ("kilonova_2d_2dgrid_f64", cyl_scene, NPKTS_2D, "CYLINDRICAL2D",
+     ["rpkt_crossing_cyl2d" + F64], PRESET_DTYPE),
+    # big in float64, timesteps 0-1: the double K2 with K5-bfrate
+    ("big_scene_f64", lambda d: big_scene(d, ntimesteps=3), NPKTS_REAL, "CARTESIAN3D",
+     ["rpkt_crossing_cart3d" + F64, "rpkt_crossing_bfrate" + F64],
+     dict(PRESET_DTYPE, detailed_bf_estimators_on=True)),
     # kilonova_2d_2dgrid at the production line list: the 25 x 50 cylinder
     # with the 101,010-line Fe atom, lines walked (no expansion opacities)
     ("kilonova_2d_2dgrid_fe", cyl_fe_scene, NPKTS_2D, "CYLINDRICAL2D", ["rpkt_crossing_cyl2d"],
      {}),
     ("kilonova_2d_2dgrid_expansionopac", cyl_fe_scene, NPKTS_2D, "CYLINDRICAL2D",
-     ["rpkt_crossing_cyl2d", "rpkt_crossing_expansion"],
-     dict(expansionopacities_on=True, rpkt_boundbound_thermalisation_probability=-1.0)),
+     ["rpkt_crossing_cyl2d", "rpkt_crossing_expansion"], EXPANSION),
+    # the same at the preset's float64, timesteps 0-1: the double K4
+    ("kilonova_2d_2dgrid_expansionopac_f64", upto(cyl_fe_scene, 1), NPKTS_2D, "CYLINDRICAL2D",
+     ["rpkt_crossing_cyl2d" + F64, "rpkt_crossing_expansion" + F64],
+     dict(PRESET_DTYPE, **EXPANSION)),
     ("default_scene_barnes_guttman", default_gamma_scene, NPKTS_DEFAULT, "SPHERICAL1D",
      ["rpkt_crossing_sph1d"],
      dict(particle_thermalisation_scheme="BARNES", gamma_thermalisation_scheme="GUTTMAN")),
     ("nebular_1d_3dgrid_nont", nebular_scene, NPKTS_REAL, "CARTESIAN3D",
      CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin", "rpkt_crossing_jblue"],
      dict(preset="nltenebular", **NEBULAR)),
+    # the same at the preset's float64, timestep 0, 2^18 packets (every
+    # launch of the scene carries the multibin and J_b_lu fields): the
+    # double K5 forms, with 8-byte estimator rows
+    ("nebular_1d_3dgrid_nont_f64", upto(nebular_scene, 0), NPKTS_2D, "CARTESIAN3D",
+     [k + F64 for k in CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin",
+                               "rpkt_crossing_jblue"]],
+     dict(PRESET_DTYPE, preset="nltenebular", **NEBULAR)),
     # the same with the non-thermal solver (the CI's nebular_1d_3dgrid)
     ("nebular_1d_3dgrid", nebular_nt_scene, NPKTS_REAL, "CARTESIAN3D",
      CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin", "rpkt_crossing_jblue"],
      dict(preset="nltenebular", **NEBULAR_NT)),
     ("classic_3d", classic_scene, NPKTS_REAL, "CARTESIAN3D", CART + ["rpkt_crossing_deferred"],
      dict(preset="classic")),
+    # the same at the preset's float64, timestep 0, 2^18 packets: the
+    # double K6
+    ("classic_3d_f64", upto(classic_scene, 0), NPKTS_2D, "CARTESIAN3D",
+     ["rpkt_crossing_cart3d" + F64, "rpkt_crossing_deferred" + F64],
+     dict(PRESET_DTYPE, preset="classic")),
     # classic_3d's scene with virtual packets, timesteps 0-1
     ("classic_3d_vpkt", classic_vpkt_scene, NPKTS_REAL, "CARTESIAN3D",
      CART + ["rpkt_crossing_deferred"], dict(preset="classic", vpkt_on=True)),
@@ -2603,10 +2935,12 @@ SCENES = [
     ("kilonova_2d_2dgrid_xcomgammaphotoion", xcom_scene, NPKTS_2D, "CYLINDRICAL2D",
      ["rpkt_crossing_cyl2d"], dict(use_xcom_gammaphotoion=True)),
     # the dense classic scene on an 8^3 grid, at few packets: its k-packets
-    # and macro-atoms cycle for about 1300 iterations in timestep 0
+    # and macro-atoms cycle for about 1300 iterations in timestep 0, which
+    # stops at a wall budget (CLASSIC_DENSE_BUDGET_S)
     ("classic_dense", classic_dense_scene, NPKTS_DENSE, "CARTESIAN3D",
      CART + ["rpkt_crossing_deferred"],
-     dict(preset="classic", ncoordgrid_x=8, ncoordgrid_y=8, ncoordgrid_z=8)),
+     dict(preset="classic", ncoordgrid_x=8, ncoordgrid_y=8, ncoordgrid_z=8,
+          transport_wall_budget=CLASSIC_DENSE_BUDGET_S)),
 ]
 
 
@@ -2626,19 +2960,24 @@ def scene_runs(workdir, names):
             phase_sf_card_vs_cpu(rec)
         if name == "nebular_1d_3dgrid_nont":
             check_nebular(rec)
+        if name == "classic_3d":
+            check_classic(rec)
         if name == "classic_dense":
             check_classic_dense(rec)
         if name == "default_opacity3":
             check_opacity_cases_differ(workdir)
     if "classic_3d" in runs and "classic_3d_vpkt" in runs:
         check_vpkt_ts0(runs["classic_3d"], runs["classic_3d_vpkt"])
+    if "default_scene" in runs and "default_scene_f64" in runs:
+        check_f64_default(runs["default_scene"], runs["default_scene_f64"])
+    log_f64_twins(runs)
 
 
 def main():
     if (sys.argv[1:] not in ([], ["--rows-sweep"], ["--repeat"])
             and sys.argv[1:2] not in (["--kernel-ab"], ["--scenes"])):
         raise SystemExit("usage: python3 chip_smoke.py [--rows-sweep | --repeat | "
-                         "--kernel-ab ROOT... | --scenes NAME...]")
+                         "--kernel-ab ROOT... [--replays NAME...] | --scenes NAME...]")
     card = phase_device()
     import torch
 
@@ -2671,6 +3010,8 @@ def main():
         check_classic(runs["classic_3d"])
         check_vpkt_ts0(runs["classic_3d"], runs["classic_3d_vpkt"])
         check_classic_dense(runs["classic_dense"])
+        check_f64_default(runs["default_scene"], runs["default_scene_f64"])
+        log_f64_twins(runs)
         check_diagnostics_observe(workdir)
         check_opacity_cases_differ(workdir)
     # bin events activated the macro-atom on lines of their bins, and the
@@ -2693,7 +3034,18 @@ def main():
                 "rpkt_crossing_deferred": "classic_3d",
                 "rpkt_crossing_multibin": "nebular_1d_3dgrid_nont",
                 "rpkt_crossing_jblue": "nebular_1d_3dgrid_nont",
-                "rpkt_crossing_ffonly": "default_opacity3"}
+                "rpkt_crossing_ffonly": "default_opacity3",
+                # the double forms, each from the float64 run of the main
+                # path that drives it at the preset's own dtype
+                "rpkt_crossing_sph1d" + F64: "default_scene_f64",
+                "rpkt_crossing_cyl2d" + F64: "kilonova_2d_2dgrid_f64",
+                "rpkt_crossing_cart3d" + F64: "big_scene_f64",
+                "rpkt_crossing_bfrate" + F64: "big_scene_f64",
+                "rpkt_crossing_expansion" + F64: "kilonova_2d_2dgrid_expansionopac_f64",
+                "rpkt_crossing_deferred" + F64: "classic_3d_f64",
+                "rpkt_crossing_multibin" + F64: "nebular_1d_3dgrid_nont_f64",
+                "rpkt_crossing_jblue" + F64: "nebular_1d_3dgrid_nont_f64",
+                "rpkt_crossing_ffonly" + F64: "default_opacity3_f64"}
     # K2's launches come from the classic run, the main path that launches
     # the cart3d geometry without bf-rate estimators (in the deferred mode);
     # its time is the big scene's in-kernel-scatter mode
@@ -2718,6 +3070,16 @@ def main():
     # the grey opacity case 3 (K1 with the free-free continuum)
     rec["rpkt_crossing_sph1d"]["launches_default_opacity3"] = \
         runs["default_opacity3"]["launches"]["rpkt_crossing_sph1d"]
+    rec["rpkt_crossing_cart3d" + F64]["note"] = ("ms, plain_ms and bound_ms: the big scene, "
+                                                 "in-kernel scattering; launches: big_scene_f64's, "
+                                                 "each also a K5-bfrate launch")
+    # the double forms' launches in the other float64 runs, beside the main
+    # path's
+    for key in CONFIGS:
+        if key.endswith(F64):
+            for name, run in runs.items():
+                if name.endswith(F64) and name != main_run[key] and run["launches"][key]:
+                    rec[key][f"launches_{name}"] = run["launches"][key]
     kernels = []
     for key, (label, replaces) in CONFIGS.items():
         r = rec[key]
@@ -2727,7 +3089,7 @@ def main():
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                             library_ms=r["library_ms"], build_s=build_s,
                             **{k: v for k, v in r.items()
-                               if k.endswith("rows_ms") or k == "note"
+                               if k.endswith("rows_ms") or k in ("note", "kernel_only_ms")
                                or k.startswith("launches_")}))
     # the virtual packets' trace is torch ops, not a kernel: its numbers
     # beside the kernels'

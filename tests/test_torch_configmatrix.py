@@ -1,6 +1,7 @@
 """The classic and kilonova configurations of the reference CI's matrix on
 the port, on the CPU (tests/test_configmatrix.py runs them on the JAX
-package): classicmode_1d_3dgrid and classicmode_3d (the classic preset:
+package), each with a float32 crossing (``test_config``) and at the
+default float64 transport (``test_config_float64``): classicmode_1d_3dgrid and classicmode_3d (the classic preset:
 dipole / polarised electron scattering through the deferred-event
 crossing, rate-balance ionisation), kilonova_1d_1dgrid, kilonova_1d_3dgrid,
 kilonova_2d_2dgrid (with Barnes particle thermalisation and with binned
@@ -90,6 +91,17 @@ CONFIGS = {
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_config(name, tmp_path):
+    _run_config(name, tmp_path)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_config_float64(name, tmp_path):
+    """The same at the default float64 transport, the precision
+    tests/test_configmatrix.py runs the configurations at."""
+    _run_config(name, tmp_path, transport_dtype="float64")
+
+
+def _run_config(name, tmp_path, **dtype_kw):
     from artis_tpu_torch import options as to
     from artis_tpu_torch.driver import Simulation
     from artis_tpu_torch.synthdata import (make_run, write_synthetic_gamma_lines,
@@ -97,7 +109,7 @@ def test_config(name, tmp_path):
                                            write_synthetic_xcom_data)
 
     preset, okw, model_dim, make_kw = CONFIGS[name]
-    okw = dict(okw, grid_type=to.GridType[okw["grid_type"]])
+    okw = dict(okw, grid_type=to.GridType[okw["grid_type"]], **dtype_kw)
     if "particle_thermalisation_scheme" in okw:
         okw["particle_thermalisation_scheme"] = to.ThermalisationScheme[
             okw["particle_thermalisation_scheme"]]

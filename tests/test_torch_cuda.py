@@ -12,7 +12,10 @@ call); the Spencer-Fano solve on the card against the CPU in float64,
 and a nebular timestep with the non-thermal solver on the card; the
 closed-form oracles of tests/test_torch_oracles.py through K1; two
 same-seed runs with virtual packets (the same virtual spectra bit for
-bit); and the XCOM photoelectric opacity on the card against the CPU.
+bit); the XCOM photoelectric opacity on the card against the CPU; and the
+double form of every configuration (``transport_dtype="float64"``, the
+default) against its plain version in float64, a float64 main path that
+launches only double forms, and two same-seed float64 runs.
 
 Every test here needs an NVIDIA GPU and skips where there is none. The file
 imports no jax, so it runs where only PyTorch is installed; the
@@ -69,7 +72,7 @@ def _opts(npkts, grid_type="SPHERICAL1D", **kw):
     from artis_tpu_torch.options import GridType, kilonova_lte
 
     return kilonova_lte(grid_type=GridType[grid_type], npkts=npkts, mintemp=1000.0,
-                        maxtemp=20000.0, tablesize=20, transport_dtype="float32", **kw)
+                        maxtemp=20000.0, tablesize=20, **{"transport_dtype": "float32", **kw})
 
 
 @pytest.fixture(scope="module")
@@ -114,15 +117,19 @@ def _forced_lanes(sim, ctx, seed, npkts=NPKTS):
 
 def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
            expansion=False, defer=False, nradbins=0, njblue=0, lut=True, order="packet",
-           n=None, grey=False, ff_only=False):
+           n=None, grey=False, ff_only=False, dtype=torch.float32):
     """Kernel against plain version on the scene's forced lanes (the first
     ``n`` of them where given; more than NPKTS drawn where ``n`` asks for
     them). ``grey``: every other cell thick, at a grey opacity that makes
-    thick-cell scatters in the kernel, which turn the lanes' directions."""
+    thick-cell scatters in the kernel, which turn the lanes' directions.
+    ``dtype`` float64: the double form, on the same lanes and tables in
+    float64 (the tolerances of rpkt_kernel.TOL_F64)."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
     lanes, tau, sel = _forced_lanes(sim, ctx, seed=max_inner, npkts=max(n or 0, NPKTS))
+    lanes = {k: v.to(dtype) if v.is_floating_point() else v for k, v in lanes.items()}
+    tau, sel = tau.to(dtype), sel.to(dtype)
     if n is not None:
         lanes = {k: v[:n].contiguous() for k, v in lanes.items()}
         tau, sel = tau[:n].contiguous(), sel[:n].contiguous()
@@ -132,7 +139,7 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
         perm = torch.sort(key, stable=True).indices
         lanes = {k: v[perm].contiguous() for k, v in lanes.items()}
         tau, sel = tau[perm].contiguous(), sel[perm].contiguous()
-    tables = rpkt_kernel.kernel_tables(dad, sim.grid, sim.cells, ctx)
+    tables = rpkt_kernel.kernel_tables(dad, sim.grid, sim.cells, ctx, dtype)
     # timestep 0 of these scenes is not grey; clear the flag regardless so
     # the continuum and the line walk run in every cell
     tables["thick"] = torch.zeros_like(tables["thick"])
@@ -150,15 +157,21 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
               want_bfrate=want_bfrate, expansion=expansion, defer_scatter=defer,
               nradbins=nradbins, njblue=njblue, want_gamma=lut, want_bfheat=lut,
               ff_only=ff_only, **rpkt_kernel.kernel_geometry(sim.grid))
-    before = sum(rpkt_kernel.propagate.launches.values())
+    f64 = dtype == torch.float64
+    counted = lambda: sum(v for k, v in rpkt_kernel.propagate.launches.items()
+                          if k.endswith(rpkt_kernel.F64_SUFFIX) == f64)
+    before, before_all = counted(), sum(rpkt_kernel.propagate.launches.values())
     ok, rep, _, plain = rpkt_kernel.check_kernel(
         99, lanes, tables, tau, sel, float(ctx.t2), float(ctx.tmin),
         float(sim.grid.max_path_step), shared_rows=shared_rows, **kw)
     torch.cuda.synchronize()
     launches = 1 + (rep["diverged_lanes"] > 0)
-    assert sum(rpkt_kernel.propagate.launches.values()) == (
-        before + launches * (1 + want_bfrate + expansion + defer + bool(nradbins)
-                             + bool(njblue) + ff_only))
+    # the launches count for the configurations of the launch's precision
+    # only
+    added = launches * (1 + want_bfrate + expansion + defer + bool(nradbins) + bool(njblue)
+                        + ff_only)
+    assert counted() == before + added
+    assert sum(rpkt_kernel.propagate.launches.values()) == before_all + added
     assert ok, rep
     # the estimators accumulated, so their comparison tested something (a
     # launch of a few lanes: they moved)
@@ -214,6 +227,104 @@ def test_ff_only_kernel_matches_plain_version(scenes, name, max_inner, test_mode
                    ff_only=True)
     for f in ("chi_escat", "chi_bf", "gamma", "bfheat"):
         assert not bool(plain[f].any()), f
+
+
+# the double form of each kernel configuration: (fixture, scene, _check
+# keywords); njblue None: every line a J_b_lu column
+DOUBLE_CASES = {
+    "k1": ("scenes", "sph1d", dict(want_bfrate=False)),
+    "k2_bfrate": ("scenes", "1dmodel_3dgrid", {}),
+    "k2_3dmodel_global_rows": ("scenes", "3dmodel", dict(shared_rows=False)),
+    "k3": ("scenes", "cyl2d", {}),
+    "k3_global_rows": ("scenes", "cyl2d", dict(shared_rows=False)),
+    "k4_sph1d": ("expo_scenes", "sph1d", dict(want_bfrate=False, expansion=True)),
+    "k4_cyl2d": ("expo_scenes", "cyl2d", dict(want_bfrate=False, expansion=True)),
+    "k4_3dmodel": ("expo_scenes", "3dmodel", dict(want_bfrate=False, expansion=True)),
+    "k6": ("defer_scenes", "1dmodel_3dgrid", dict(want_bfrate=False, defer=True)),
+    "k5_multibin_jblue": ("scenes", "1dmodel_3dgrid", dict(nradbins=64, njblue=None,
+                                                            lut=False)),
+    "k5_sph1d": ("scenes", "sph1d", dict(nradbins=64, njblue=None)),
+    "ff_only": ("scenes", "sph1d", dict(want_bfrate=False, ff_only=True)),
+    "ff_only_bfrate": ("scenes", "1dmodel_3dgrid", dict(ff_only=True)),
+    "k1_grey": ("scenes", "sph1d", dict(want_bfrate=False, grey=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("case", list(DOUBLE_CASES))
+def test_double_kernel_matches_plain_version(request, case, test_mode):
+    """The float64 instantiation of each configuration against its plain
+    version in float64 (rpkt_kernel.TOL_F64: 1e-9, at most 4 tipped
+    lanes); its launches count for the ``_f64`` configurations."""
+    fixture, name, kw = DOUBLE_CASES[case]
+    sim, ctx = request.getfixturevalue(fixture)[name]
+    if kw.get("njblue", 0) is None:
+        kw = dict(kw, njblue=sim.dad.nlines)
+    plain = _check(sim, ctx, 16, test_mode, dtype=torch.float64, **kw)
+    assert plain["posx"].dtype == torch.float64 and plain["est"].dtype == torch.float64
+
+
+@pytest.mark.cuda
+def test_main_path_float64_launches_the_double_forms(tmp_path):
+    """The default transport dtype (float64) through the CLI on the card:
+    only the double forms launch, and the run writes its outputs."""
+    _need_cuda()
+    from artis_tpu_torch.cli import main_sn3d
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    d = str(tmp_path)
+    make_run(d, ncells=8, ntimesteps=3, tmin_days=2.0, tmax_days=4.0, ngreyts=1)
+    rpkt_kernel.reset_launches()
+    assert main_sn3d(["--rundir", d, "--device", "cuda", "--set", "npkts=4000",
+                      "--set", "grid_type=SPHERICAL1D", "--set", "mintemp=1000.0",
+                      "--set", "maxtemp=20000.0", "--set", "tablesize=20"]) == 0
+    launched = rpkt_kernel.propagate.launches
+    assert launched["rpkt_crossing_sph1d_f64"] > 0
+    assert not any(v for k, v in launched.items() if not k.endswith("_f64")), launched
+    lc = np.loadtxt(os.path.join(d, "light_curve.out"), ndmin=2)
+    assert np.all(np.isfinite(lc)) and lc[:, 1].sum() > 0
+
+
+@pytest.mark.cuda
+def test_same_seed_float64_runs_repeat(tmp_path):
+    """Two float64 runs of the default slice's shells with the same seed:
+    after timestep 0 the rpkt steps, packet state, cells and every
+    estimator but the kernel's double-atomic sums (rpkt_kernel.ATOMIC_SUMS)
+    bitwise identical, and those sums within 1e-12."""
+    _need_cuda()
+    import dataclasses
+
+    from artis_tpu_torch.driver import Simulation
+    from artis_tpu_torch.transport.rpkt_kernel import ATOMIC_SUMS
+
+    sims = []
+    for i in range(2):
+        d = tmp_path / f"run{i}"
+        d.mkdir()
+        make_run(str(d), ncells=8, ntimesteps=3, tmin_days=2.0, tmax_days=4.0, ngreyts=0,
+                 logrho0=-8.0)
+        sims.append(Simulation(str(d), _opts(20000, transport_dtype="float64"),
+                               device="cuda"))
+    for sim in sims:
+        sim.do_timestep(0)
+    a, b = sims
+    assert a.state.pos.dtype == torch.float64
+    assert a.transport_log[-1]["steps"] == b.transport_log[-1]["steps"] > 0
+    for what in ("state", "est", "cells"):
+        for f in dataclasses.fields(getattr(a, what)):
+            x = getattr(getattr(a, what), f.name)
+            if not isinstance(x, torch.Tensor):
+                continue
+            y = getattr(getattr(b, what), f.name)
+            if what == "est" and f.name in ATOMIC_SUMS:
+                torch.testing.assert_close(y, x, rtol=1e-12, atol=1e-15 * float(x.abs().max()),
+                                           msg=f"{what}.{f.name}")
+            else:
+                torch.testing.assert_close(y, x, rtol=0, atol=0, equal_nan=True,
+                                           msg=f"{what}.{f.name}")
+    for sim in sims:
+        sim.close()
 
 
 @pytest.mark.cuda

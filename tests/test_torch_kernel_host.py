@@ -277,3 +277,70 @@ def test_ff_only_empty_window_matches_zero_bf_tables(tmp_path):
     for k in ("gamma", "bfheat"):
         assert not empty[k].any(), k
     torch.testing.assert_close(empty["misc"][:7], zero["misc"][:7], rtol=0, atol=0)
+
+
+# the double forms: the host side of a float64 launch
+
+
+@pytest.mark.parametrize("ngc,nbfr,nradbins,njblue,lut", ROWS)
+def test_float64_estimator_buffers(ngc, nbfr, nradbins, njblue, lut):
+    """A float64 launch's accumulated outputs: float64 rows after the
+    NMISC float64 counters, the rows 16-byte aligned as in float32, every
+    view zero and disjoint, 8 bytes an entry in the row budget."""
+    ncells = 5
+    kw = dict(nradbins=nradbins, njblue=njblue, want_gamma=lut, want_bfheat=lut)
+    bufs = rk.estimator_buffers(ncells, ngc, nbfr, dtype=torch.float64, **kw)
+    f32 = rk.estimator_buffers(ncells, ngc, nbfr, **kw)
+    assert bufs["misc"].dtype == torch.float64 and bufs["misc"].shape == (rk.NMISC,)
+    for k, v in bufs.items():
+        assert v.dtype == torch.float64 and v.shape == f32[k].shape and not v.any(), k
+    assert bufs["est"].data_ptr() % 16 == 0
+    ptrs = sorted((v.data_ptr(), v.data_ptr() + 8 * v.numel()) for v in bufs.values())
+    assert all(a[1] <= b[0] for a, b in zip(ptrs, ptrs[1:]))
+    assert rk.row_bytes(ncells, ngc, nbfr, 8, **kw) - 8 * rk.NMISC == 2 * (
+        rk.row_bytes(ncells, ngc, nbfr, **kw) - 8 * rk.NMISC)
+
+
+def test_float64_launches_take_the_generic_body():
+    """No redesigned walk has a double form: a float64 launch stages no
+    tables and reads no edge table, whatever its geometry."""
+    for geom in (rk.GEOM_SPH, rk.GEOM_CYL, rk.GEOM_CART):
+        for expansion in (False, True):
+            for nlte in (False, True):
+                assert rk.redesigned(geom, expansion, nlte, f64=True) == (False, False, False)
+    assert rk.redesigned(rk.GEOM_SPH, False, False) == (True, False, False)
+
+
+def test_float64_radbins_are_the_xla_paths():
+    """The multibin layout of a float64 launch is the JAX package's XLA
+    select_bin in float64: the same bin for frequencies across and beyond
+    the range (the float32 layout rounds each edge to float32)."""
+    from artis_tpu.plasma import radfield as jrad
+
+    nbins = 64
+    nu = torch.tensor(np.concatenate([10 ** np.linspace(13.5, 16.5, 4001),
+                                      np.array(rk.radbin_edges(nbins, torch.float64)[:3])]))
+    b, inside = rk.radbin_index(nu, nbins)
+    j = np.asarray(jrad.select_bin(nu.numpy(), nbins))
+    assert np.array_equal(np.where(inside.numpy(), b.numpy(), -1), j)
+    assert rk.radbin_edges(nbins, torch.float32) != rk.radbin_edges(nbins, torch.float64)
+
+
+def test_philox_uniform2d_bits():
+    """The float64 draws: 53 bits from each pair of Philox words, in (0, 1),
+    the words the float32 draws take their 24 high bits from."""
+    from artis_tpu_torch import rng
+
+    lane = torch.arange(20000)
+    u = rng.philox_uniform2d(0x1234_5678_9ABC, lane, 3, 2)
+    w = rng._philox_words(0x1234_5678_9ABC, lane, 3, 2)
+    v = rng.philox_uniform4(0x1234_5678_9ABC, lane, 3, 2)
+    for i in (0, 1):
+        assert u[i].dtype == torch.float64
+        assert bool((u[i] > 0).all()) and bool((u[i] < 1).all())
+        bits = (u[i] * 2.0 ** 53).long()
+        assert torch.equal(bits >> 26, w[2 * i] >> 5) and torch.equal(bits & ((1 << 26) - 1),
+                                                                       w[2 * i + 1] >> 6)
+        # the float32 uniform of the first word is its 24 high bits
+        assert torch.equal((u[i] * 2.0 ** 24).floor(), (v[2 * i] * 2.0 ** 24).double())
+        assert abs(float(u[i].mean()) - 0.5) < 0.01

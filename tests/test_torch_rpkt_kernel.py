@@ -87,8 +87,8 @@ def _port_inputs(sc, st):
     from artis_tpu_torch.plasma.cellstate import CellState
     from artis_tpu_torch.transport.engine import StepContext
 
-    # the port's crossing runs in float32 only: its state, estimators and
-    # tables are demoted as its driver demotes them; the grid stays float64
+    # the port's crossing in float32: its state, estimators and tables are
+    # demoted as its driver demotes them; the grid stays float64
     sim = sc["sim"]
     f32 = torch.float32
     return dict(
@@ -113,14 +113,26 @@ def _run_port(sc, st, tau, sel, max_inner):
 
 
 def test_float64_crossing_raises(scene):
-    """The crossing is ported in float32 only; float64 transport must raise,
-    not run in float32 behind the caller's back."""
+    """The crossing runs in float32 and in float64 (the default
+    transport_dtype): a float64 step runs in float64, not in float32 behind
+    the caller's back, and any other transport dtype still raises
+    (tests/test_torch_float64.py holds the float64 crossing to the XLA
+    path)."""
+    from artis_tpu_torch import interop
+    from artis_tpu_torch.packets import PacketState
     from artis_tpu_torch.transport import engine as teng
 
-    p = _port_inputs(scene, _forced_state(scene))
+    st0 = _forced_state(scene)
+    p = _port_inputs(scene, st0)
+    st64 = interop.from_numpy(PacketState, _np_fields(st0), dtype=torch.float64)
+    st, est, *_, nadv = teng.rpkt_step((7,), st64, p["est"], p["ctx"], p["grid"], p["dad"],
+                                       p["cells"], p["opts"].replace(transport_dtype="float64"),
+                                       4)
+    assert st.pos.dtype == torch.float64 and nadv > 0
+    assert (st.where != st64.where).any()
     with pytest.raises(NotImplementedError, match="transport_dtype"):
         teng.rpkt_step((7,), p["st"], p["est"], p["ctx"], p["grid"], p["dad"], p["cells"],
-                       p["opts"].replace(transport_dtype="float64"), 4)
+                       p["opts"].replace(transport_dtype="float16"), 4)
 
 
 def _run_pallas(sc, st, tau, sel, max_inner):

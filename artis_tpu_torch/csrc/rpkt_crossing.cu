@@ -115,7 +115,24 @@
 // loads, warp sums of a cell's rows, int64 fixed-point rows (order-
 // independent sums, 1.08x in K6 and 1.49x on the nebular main path), and
 // J_b_lu sums as column ranges of difference rows (1.16x over the nebular
-// main path's launches, most of them small). The caller compacts the moving
+// main path's launches, most of them small).
+// The double 3D and cylindrical line walks (the default transport dtype's)
+// are redesigned again for double arithmetic, which runs at half the
+// float32 rate and pays an IEEE divide as a reciprocal seed, a Newton
+// sequence and a slow-path test: (a) the line loop without a divide by a
+// divisor fixed for the crossing (line_walk_w64, chosen by w64_redesign in
+// their instantiations of the generic kernel), (b) 32-bit counters in every
+// double form, which leave both walks 168 registers (3 blocks an SM) and the
+// 3D walk no spill (K3 6 bytes; 22 and 18 before), and (c) the double
+// library built with contraction; K3 keeps its XYDir in double too. Against
+// the parent on the float64 replays of their main paths (chip_smoke.py
+// --kernel-ab, kernel-only, one call, an NVIDIA H100 80GB HBM3 at 700 W;
+// PERF.md section 6): big_scene_f64 0.82x, nebular_1d_3dgrid_nont_f64
+// 0.83x, classic_3d_f64 0.86x, kilonova_2d_2dgrid_f64 0.94x. Measured and
+// dropped: a kernel of their own with a register bound (3 blocks: 4 bytes
+// of spills in the 3D walk and within 1 % of no bound, ahead on one call
+// and behind on another; 2 blocks, no spill at 187 registers: 7-10 % slower
+// on the big, nebular and cylinder replays). The caller compacts the moving
 // lanes into one launch, in packet order. The estimator sums are float
 // atomics, so they depend on the order of the adds, and same-seed runs
 // differ in their last bits.
@@ -176,9 +193,16 @@
 // -DRPKT_F64 the same source gives their double forms
 // (rpkt_crossing_launch_f64), the crossing of transport_dtype="float64",
 // the default, which the JAX package runs on its XLA path
-// (_rpkt_propagate_once): the generic body in double, without K1's staged
-// tables, K3's vector reduction and K4's edge table (cp.async copies 4-byte
-// words, and PTX has no vector reduction of four doubles), and with the
+// (_rpkt_propagate_once): the body in double, without K1's staged tables,
+// K3's vector reduction and K4's edge table (cp.async copies 4-byte words,
+// and PTX has no vector reduction of doubles), with K3's XYDir, and the 3D
+// and cylindrical line walks redesigned for the card (w64_redesign): the
+// line loop without a divide by a divisor fixed for the crossing
+// (line_walk_w64), 32-bit counters, and the double library built with
+// multiply-add contraction (rpkt_kernel.build; the float32 one without).
+// Code that only the double forms run sits behind RPKT_F64, so the float32
+// unit compiles the float32 instantiations from unchanged source. The
+// double forms carry the
 // XLA path's float64 differences: no boundary overshoot and no 2e-6 r
 // ping-pong guard, no Kahan compensation (t advances by the two half-moves,
 // as geometry.move_pkt), h/k and the multibin edges in double, the bin edges
@@ -381,15 +405,16 @@ __device__ __forceinline__ void red_add_v4(float* p, float v0, float v1, float v
 #endif
 }
 
-// the double form has no vector reduction (PTX has none of four doubles);
-// only K3's float32 instantiation calls red_add_v4, this keeps the shared
-// body compiling in double
+// K3's double form: PTX has vector reductions of .f32 and of packed 16-bit
+// types only (ptxas refuses red.global.add.v2.f64 for sm_90a: "Vector
+// operand is not allowed for instruction 'red'"), so four scalar atomics,
+// the zero ones skipped as the generic body skips them
 __device__ __forceinline__ void red_add_v4(double* p, double v0, double v1, double v2,
                                            double v3) {
   atomicAdd(p + 0, v0);
   atomicAdd(p + 1, v1);
-  atomicAdd(p + 2, v2);
-  atomicAdd(p + 3, v3);
+  if (v2 != 0.0) atomicAdd(p + 2, v2);
+  if (v3 != 0.0) atomicAdd(p + 3, v3);
 }
 
 __device__ __forceinline__ void philox4x32(uint32_t c[4], uint32_t k0, uint32_t k1) {
@@ -635,15 +660,89 @@ __device__ __forceinline__ void boundary(const RpktParamsT<R>& p, const Tables<R
 
 // the redesigned instantiations: the 1D line walk (K1), the cylindrical
 // line walk (K3) and the bin walk of the 1D and cylindrical grids (K4), each
-// without the NLTE fields and in float32; the double forms run the generic
-// body
+// without the NLTE fields; K1 and K4 in float32 only, K3 in both precisions
+// (its XYDir; in double with four scalar atomics, red_add_v4). The double
+// line walks of the 3D and the cylindrical grids are w64_redesign
 template <typename R, int GEOM, bool EXPO, bool NLTE>
 __host__ __device__ constexpr bool k1_redesign() {
   return is_f32<R> && GEOM == GEOM_SPH && !EXPO && !NLTE;
 }
 template <typename R, int GEOM, bool EXPO, bool NLTE>
 __host__ __device__ constexpr bool k3_redesign() {
-  return is_f32<R> && GEOM == GEOM_CYL && !EXPO && !NLTE;
+  return GEOM == GEOM_CYL && !EXPO && !NLTE;
+}
+// the redesigned double line walks: the 3D walk, always with the NLTE fields
+// (K2, K5-bfrate, K5-multibin, K5-jblue and K6), and the cylindrical walk
+// (K3); their line loop is line_walk_w64
+template <typename R, int GEOM, bool EXPO, bool NLTE>
+__host__ __device__ constexpr bool w64_redesign() {
+  return !is_f32<R> && !EXPO && (GEOM == GEOM_CART ? NLTE : GEOM == GEOM_CYL && !NLTE);
+}
+
+// The Sobolev line walk of the redesigned double forms, from the packet's
+// cursor (cursor0 < nlines): the generic loop in crossing() without a divide
+// whose divisor is fixed for the crossing. 1/dnudl and 1/c are taken once;
+// the continuum test compares optical depths, rem <= safe_chi * D, where the
+// generic loop compares the distance rem / safe_chi with D, and shares the
+// product with the line test; the continuum distance is divided out only
+// where it ends the walk. Left in the loop: the non-relativistic nu / nu_k,
+// whose divisor is the line's. Sets the event outputs as the generic loop.
+template <typename R>
+__device__ __forceinline__ void line_walk_w64(const R* __restrict__ line_nu,
+                                              const R* __restrict__ taurow,
+                                              const int* __restrict__ jblue_of_line,
+                                              R* __restrict__ jbrow, int njb, int nlines,
+                                              int cursor0, bool rel, R nu, R dnudl, R tstart,
+                                              R safe_chi, R tau_next, R abort_dist,
+                                              R nu_cmf_abort, R e_over_nu, R& ev_edist,
+                                              int& ev_ntr, bool& ev_bb, int& ev_lact) {
+  constexpr R inv_c = R(1.0) / K<R>::CLIGHT;
+  const R inv_dnudl = R(1.0) / dnudl;
+  const R ct = K<R>::CLIGHT * tstart;
+  R tau_cum = R(0.0), prevD = R(0.0);
+  for (int l = cursor0;; ++l) {
+    const R rem = tau_next - tau_cum;
+    if (l > nlines - 1) {  // past the end of the list
+      const R cd = r_max(rem / safe_chi, R(0.0));
+      if (cd <= abort_dist) {
+        ev_edist = cd;
+        ev_ntr = nlines + 1;
+      } else {
+        ev_ntr = nlines - 1;
+      }
+      return;
+    }
+    const R nu_k = __ldg(line_nu + l);
+    R relD = rel ? (nu_k - nu) * inv_dnudl : ct * (nu / nu_k - R(1.0));
+    relD = r_min(r_max(relD, R(0.0)), R(1e30));
+    const R tau_line = __ldg(taurow + l) * (tstart + prevD * inv_c);
+    const R chi_d = safe_chi * relD;
+    if (rem <= chi_d) {  // the continuum event comes first
+      ev_edist = r_max(rem / safe_chi, R(0.0));
+      ev_ntr = l;
+      return;
+    }
+    if (nu_k < nu_cmf_abort) {
+      ev_ntr = l;
+      return;
+    }
+    if (njb) {  // a line passed, or the activating line (:1346-1363)
+      const int col = __ldg(jblue_of_line + l);
+      if (col >= 0 && col < njb) {
+        atomicAdd(jbrow + col, (tstart + relD * inv_c) * e_over_nu);
+        atomicAdd(jbrow + njb + col, R(1.0));
+      }
+    }
+    if (rem <= chi_d + tau_line) {  // the line event
+      ev_edist = relD;
+      ev_ntr = l + 1;
+      ev_bb = true;
+      ev_lact = l;
+      return;
+    }
+    tau_cum += tau_line;
+    prevD = relD;
+  }
 }
 template <typename R, int GEOM, bool EXPO, bool NLTE>
 __host__ __device__ constexpr bool k4_redesign() {
@@ -773,8 +872,18 @@ __device__ __forceinline__ void crossing(RpktParamsT<R> p, Lanes<R> in, Tables<R
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+#ifdef RPKT_F64
+  // the double forms count in 32-bit integers (a lane's counts stay below
+  // max_inner times the line list's length): seven registers fewer than
+  // the float32 form's double and 64-bit counters, which left the double
+  // forms spilling 14-42 bytes at 168 registers
+  int m_nadv = 0, m_nesc = 0, m_escat = 0, m_thick = 0, m_cross = 0;
+  int m_walk = 0, m_bfwin = 0;  // lines read by the walk, bf continua in windows
+  double m_lum = 0.0;
+#else
   double m_nadv = 0.0, m_nesc = 0.0, m_lum = 0.0, m_escat = 0.0, m_thick = 0.0, m_cross = 0.0;
   long long m_walk = 0, m_bfwin = 0;  // lines read by the walk, bf continua in windows
+#endif
   if (lane < p.n) {
     const bool rel = p.relativistic != 0;
     const int nlines = p.nlines;
@@ -983,6 +1092,15 @@ __device__ __forceinline__ void crossing(RpktParamsT<R> p, Lanes<R> in, Tables<R
             // c e_cmf / nu_cmf is invariant along the free flight
             // (pallas_rpkt.py:1255-1262)
             const R e_over_nu = njb ? K<R>::CLIGHT * ecmf / r_max(nu, R(1.0)) : R(0.0);
+#ifdef RPKT_F64
+            // the redesigned double walks take their own loop; the guard
+            // keeps the float32 unit's source, and so its SASS, the parent's
+            if constexpr (w64_redesign<R, GEOM, EXPO, NLTE>()) {
+              line_walk_w64(tb.line_nu, taurow, tb.jblue_of_line, jbrow, njb, nlines, cursor0, rel,
+                            nu, dnudl, tstart, safe_chi, tau_next, abort_dist, nu_cmf_abort,
+                            e_over_nu, ev_edist, ev_ntr, ev_bb, ev_lact);
+            } else {
+#endif
             R tau_cum = R(0.0), prevD = R(0.0);
             for (int l = cursor0;; ++l) {
               if (l > nlines - 1) {  // past the end of the list
@@ -1029,6 +1147,9 @@ __device__ __forceinline__ void crossing(RpktParamsT<R> p, Lanes<R> in, Tables<R
               tau_cum += tau_line;
               prevD = relD;
             }
+#ifdef RPKT_F64
+            }
+#endif
           }
           m_walk += max(0, min(ev_ntr, nlines) - cursor0);
         }
@@ -1214,6 +1335,16 @@ __device__ __forceinline__ void crossing(RpktParamsT<R> p, Lanes<R> in, Tables<R
       }
       escaped = escaped || escaping;
       moving = !take_event && !take_tlimit && !escaping;
+#ifdef RPKT_F64
+      ++m_nadv;
+      if (escaping) {
+        ++m_nesc;
+        m_lum += ecmf;
+      }
+      m_escat += is_escat;
+      m_thick += ev_thick_k;
+      m_cross += crossing;
+#else
       m_nadv += 1.0;
       if (escaping) {
         m_nesc += 1.0;
@@ -1222,6 +1353,7 @@ __device__ __forceinline__ void crossing(RpktParamsT<R> p, Lanes<R> in, Tables<R
       if (is_escat) m_escat += 1.0;
       if (ev_thick_k) m_thick += 1.0;
       if (crossing) m_cross += 1.0;
+#endif
     }
 
     out.px[lane] = px; out.py[lane] = py; out.pz[lane] = pz;
@@ -1305,7 +1437,7 @@ cudaError_t launch(const RpktParamsT<R>& p, const Lanes<R>& in, const Tables<R>&
 // H100 at N=65536, max_inner=64, the 16^3 model's tables, in-kernel and
 // deferred scattering; chip_smoke.py --kernel-ab), while the 1D and
 // cylindrical line walks ran 40-55 % slower with them. The double forms
-// take the same eleven instantiations of the generic body.
+// take the same eleven instantiations of the generic kernel.
 template <typename R, int GEOM>
 cudaError_t launch_geom(const RpktParamsT<R>& p, const Lanes<R>& in, const Tables<R>& tb,
                         const Outs<R>& out, cudaStream_t st) {

@@ -543,6 +543,11 @@ _BUILD_DIR = os.path.join(_HERE, "_build")
 _LIB = None
 _LIB64 = None
 BUILD_SECONDS = None
+# multiply-add contraction of each library: off in float32, so that the
+# kernel rounds like the element-wise plain version it is checked against
+# (a near-tie tips the other way less often); on in float64, whose
+# contracted roundings stay far inside TOL_F64
+FMAD = {"": "-fmad=false", "f64_": "-fmad=true"}
 
 
 def build() -> ctypes.CDLL:
@@ -554,7 +559,7 @@ def build() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        digest = hashlib.sha256(f.read() + repr(FMAD).encode()).hexdigest()[:16]
     os.makedirs(_BUILD_DIR, exist_ok=True)
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     if not os.path.exists(nvcc):
@@ -565,10 +570,8 @@ def build() -> ctypes.CDLL:
         so = os.path.join(_BUILD_DIR, f"librpkt_crossing_{tag}{digest}.so")
         if not os.path.exists(so):
             tmp = so + f".tmp{os.getpid()}"
-            # -fmad=false: no multiply-add contraction, so the kernel rounds
-            # like the element-wise plain version it is checked against
             cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                   "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *defs,
+                   FMAD[tag], "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *defs,
                    "-o", tmp, _SOURCE]
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                     text=True)
@@ -673,18 +676,46 @@ def nlte_fields(nradbins: int = 0, njblue: int = 0, want_gamma: bool = True,
     return bool(nradbins or njblue or not want_gamma or not want_bfheat)
 
 
-def redesigned(geom: int, expansion: bool, nlte: bool,
-               f64: bool = False) -> tuple[bool, bool, bool]:
-    """(K1, K3, K4): whether a launch runs the redesigned 1D line walk, the
-    redesigned cylindrical line walk or the redesigned bin walk (1D and
-    cylindrical grids), each without the NLTE fields and in float32 only
-    (k1_redesign / k3_redesign / k4_redesign in the .cu); a float64 launch
-    runs the generic body."""
-    if f64:
-        return False, False, False
-    return (geom == GEOM_SPH and not expansion and not nlte,
-            geom == GEOM_CYL and not expansion and not nlte,
-            expansion and not nlte and geom != GEOM_CART)
+class Redesigns(NamedTuple):
+    """Which redesign of the kernel a launch runs (``redesigned``)."""
+
+    k1: bool  # the 1D line walk: staged tables, warp sums (float32)
+    k3: bool  # the cylindrical line walk's XYDir and row reduction (both precisions)
+    k4: bool  # the bin walk's float32 edge table (float32)
+    w64: bool  # the double line loop without fixed divides: the 3D walk (K2 / K5 / K6) or K3
+
+
+def redesigned(geom: int, expansion: bool, nlte: bool, f64: bool = False) -> Redesigns:
+    """Whether a launch runs the redesigned 1D line walk (K1), the
+    redesigned cylindrical line walk (K3) or the redesigned bin walk of the
+    1D and cylindrical grids (K4), each without the NLTE fields
+    (k1_redesign / k3_redesign / k4_redesign in the .cu), and whether it
+    runs a redesigned double line walk (w64_redesign, line_walk_w64: the 3D
+    line walk, which always takes the NLTE instantiation, and the
+    cylindrical one).
+    K1's staged tables and K4's edge table are float32 only; a float64 1D
+    or bin walk runs the generic body."""
+    line = not expansion
+    k3 = geom == GEOM_CYL and line and not nlte
+    return Redesigns(k1=not f64 and geom == GEOM_SPH and line and not nlte, k3=k3,
+                     k4=not f64 and expansion and not nlte and geom != GEOM_CART,
+                     w64=f64 and (k3 or (geom == GEOM_CART and line)))
+
+
+_GEOM_NAME = {GEOM_SPH: "GEOM_SPH", GEOM_CYL: "GEOM_CYL", GEOM_CART: "GEOM_CART"}
+
+
+def kernel_name(geom: int, expansion: bool, nlte: bool, f64: bool = False) -> str:
+    """The CUDA kernel of csrc/rpkt_crossing.cu a launch runs (``launch`` /
+    ``launch_geom`` there): the redesigned 1D line walk's kernel of its own,
+    else the generic kernel's instantiation <real type, geometry, bin walk,
+    NLTE fields>; the 3D line walk always takes the NLTE fields."""
+    real = "double" if f64 else "float"
+    if redesigned(geom, expansion, nlte, f64).k1:
+        return f"rpkt_crossing_kernel_1d<{real}>"
+    nlte = nlte or (geom == GEOM_CART and not expansion)
+    return (f"rpkt_crossing_kernel<{real}, {_GEOM_NAME[geom]}, {str(expansion).lower()}, "
+            f"{str(nlte).lower()}>")
 
 
 # Table groups the redesigned 1D line walk copies into shared memory at block
@@ -812,7 +843,7 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     nbfr = ncont if want_bfrate else 0
     rows_kw = dict(nradbins=nradbins, njblue=njblue, want_gamma=want_gamma,
                    want_bfheat=want_bfheat)
-    k1, _, k4 = redesigned(geom, expansion, nlte_fields(**rows_kw), f64)
+    k1, _, k4, _ = redesigned(geom, expansion, nlte_fields(**rows_kw), f64)
     stage, stage_bytes = (stage_plan(nprop, ncells, ncont, nphixs, ngc, nlines) if k1
                           else (0, 0))
     # estimator rows in shared memory (pick_shared_rows), else atomics
@@ -872,8 +903,10 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
             (CONFIG_JBLUE, njblue), (CONFIG_FFONLY, ff_only)) if on]
         if f64:
             configs = [c + F64_SUFFIX for c in configs]
+        name = kernel_name(geom, expansion, nlte_fields(**rows_kw), f64)
         for c in configs:
             propagate.launches[c] += 1
+            propagate.kernels.setdefault(c, set()).add(name)
         if timing is not None:
             ev[3].record()
             timing.append(dict(configs=configs, n=n, events=(ev[0], ev[3]),
@@ -945,12 +978,16 @@ CONFIGS_F32 = (*CONFIG_OF_GEOM.values(), CONFIG_BFRATE, CONFIG_EXPANSION, CONFIG
 # a float64 launch counts for the double forms of its configurations
 F64_SUFFIX = "_f64"
 propagate.launches = dict.fromkeys(CONFIGS_F32 + tuple(c + F64_SUFFIX for c in CONFIGS_F32), 0)
+# the CUDA kernels (``kernel_name``) each configuration's launches ran since
+# the last reset
+propagate.kernels = {}
 propagate.timing = None
 
 
 def reset_launches() -> None:
     for k in propagate.launches:
         propagate.launches[k] = 0
+    propagate.kernels.clear()
 
 
 def kernel_geometry(grid) -> dict:
@@ -1016,13 +1053,11 @@ TOL_F64 = Tolerance(4, 0.0, 0.9999, 1e-9, 1e-9, dict.fromkeys(EST_RTOL, 1e-8), 1
 TOLERANCE = {F32: TOL_F32, F64: TOL_F64}
 
 
-def compare_outputs(k: dict, p: dict, est: tuple | None = None,
-                    rows: tuple | None = None) -> tuple[bool, dict]:
+def compare_outputs(k: dict, p: dict, est: tuple | None = None) -> tuple[bool, dict]:
     """Hold the kernel's outputs ``k`` to the plain version's ``p`` (same
     inputs, same draws): every lane output, every estimator cell and every
     counter. The estimators are taken from the (kernel, plain) outputs
-    ``est`` when given, the multibin and J_b_lu rows from ``rows`` (else
-    from ``est``; see ``check_kernel``). Returns (ok, report); ``report["nonzero"]`` says
+    ``est`` when given (see ``check_kernel``). Returns (ok, report); ``report["nonzero"]`` says
     which plain estimator columns accumulated anything, so a caller can
     require each to be exercised by at least one case. The tolerances are
     those of the outputs' precision (``TOLERANCE``); in float64 the
@@ -1088,10 +1123,9 @@ def compare_outputs(k: dict, p: dict, est: tuple | None = None,
                                      if a.size else 0.0)
         rep["nonzero"][name] = bool(total.sum() > 0)
         ok &= bool(np.all(excess <= 0))
-    gr_p, gr_k = host(est if rows is None else rows)
     for name, fn in (("radbin", _compare_radbins), ("jblue", _compare_jblue)):
-        a = gr_p[name].astype(np.float64)
-        b = gr_k[name].astype(np.float64)
+        a = ge_p[name].astype(np.float64)
+        b = ge_k[name].astype(np.float64)
         if a.shape != b.shape:
             raise ValueError(f"{name}: kernel {b.shape} against plain {a.shape}")
         rep["nonzero"][name] = bool(np.abs(a).sum() > 0)
@@ -1164,43 +1198,47 @@ def _compare_jblue(a, b, tol):
     return bool(ok & ok_s), rep
 
 
+def held_lanes(k: dict, p: dict) -> torch.Tensor:
+    """The lanes ``check_kernel`` holds still for its estimator comparison:
+    every lane on which any integer output of the kernel's outputs ``k``
+    differs from the plain version's ``p`` (cell, escape, event, cursor,
+    line, continuum, scatter counts...). A lane tipped by a near-tie adds
+    other crossings, scatters or line passes to the rows even where it ends
+    in the same cell as a packet of the same type."""
+    differs = torch.zeros(k["where"].shape, dtype=torch.bool, device=k["where"].device)
+    for f in OUT_I32:
+        differs |= k[f].to(differs.device) != p[f].to(differs.device)
+    return differs
+
+
 def check_kernel(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: float,
                  tmin: float, max_path_step: float, shared_rows=None, **kw):
     """Launch the kernel on CUDA lanes, run its plain version on the same
     inputs and compare them (``compare_outputs``). Float32 rounding (CUDA's
     math functions against torch's) can tip a near-tie, after which a lane
-    follows another path through other cells; ``compare_outputs`` allows
-    only a few such lanes (DIVERGED_MIN, DIVERGED_FRAC), but even those move
-    the estimators of cells that few lanes visit by more than their
-    rounding tolerance. The diverged lanes are therefore held still
+    follows another path, through other cells or with other events;
+    ``compare_outputs`` allows only a few lanes whose cell or packet type
+    differs (DIVERGED_MIN, DIVERGED_FRAC) and a small share with another
+    integer output, but even those move the estimators of cells that few
+    lanes visit by more than their rounding tolerance. Every lane with a
+    differing integer output (``held_lanes``) is therefore held still
     (``moving`` = 0) in a second launch of both versions, whose estimators
-    are compared cell by cell; lane outputs and counters come from the
-    first. A lane that ends in the same cell with another line, continuum
-    or cursor changes whole events of the multibin and J_b_lu counts, so
-    those rows come from a third launch pair that holds still every lane
-    with any integer output of its own; the other estimators keep the
-    lanes that only a diverged cell or packet type holds still. Returns
-    (ok, report, kernel outputs, plain outputs)."""
+    (and, in float64, counters) are compared cell by cell; lane outputs come
+    from the first. ``report["held_lanes"]`` counts them (the second launch
+    is made where it is not 0). Returns (ok, report, kernel outputs, plain
+    outputs)."""
     args = (seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step)
     k = _launch(*args, shared_rows=shared_rows, **kw)
     p = propagate_reference(*args, **kw)
-
-    def held(mask):
-        if not bool(mask.any()):
-            return None
+    mask = held_lanes(k, p)
+    est = None
+    if bool(mask.any()):
         still = dict(lanes, moving=torch.where(mask, torch.zeros_like(lanes["moving"]),
                                                lanes["moving"]).contiguous())
         a = (seed, still) + args[2:]
-        return _launch(*a, shared_rows=shared_rows, **kw), propagate_reference(*a, **kw)
-
-    diverged = (k["where"] != p["where"]) | (k["escaped"] != p["escaped"]) \
-        | (k["evented"] != p["evented"])
-    differs = diverged.clone()
-    for f in OUT_I32:
-        differs |= k[f] != p[f]
-    est = held(diverged)
-    rows = est if bool((differs == diverged).all()) else held(differs)
-    ok, rep = compare_outputs(k, p, est, rows)
+        est = _launch(*a, shared_rows=shared_rows, **kw), propagate_reference(*a, **kw)
+    ok, rep = compare_outputs(k, p, est)
+    rep["held_lanes"] = int(mask.sum())
     return ok, rep, k, p
 
 

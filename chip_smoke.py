@@ -176,13 +176,18 @@ compares the float32 kernels' SASS of other checkouts of the port (e.g. a
 parent commit unpacked with ``git archive`` into a gitignored directory)
 with this checkout's, instruction for instruction, then times this
 checkout's kernel against theirs
-on the same inputs, configuration by configuration, with the
+on the same inputs, configuration by configuration (the double 3D and
+cylindrical walks in float64 too, ``AB_F64``), with the
 lanes in packet order (the main path's) and sorted by (model cell,
 cursor), in alternating rounds (``kernel_ab``): wrapper-inclusive and
-kernel-only CUDA-event times, ptxas registers and the work per crossing;
+kernel-only CUDA-event times, ptxas registers, stack and spills of both
+libraries and the work per crossing;
 then the launches of the main paths in ``REPLAYS`` (the default and
 128-shell 1D scenes, the big 3D scene, the cylinder at the synthetic and at the Fe line
-list, the expansion-opacity cylinder, nebular, classic_3d) replayed through
+list, the expansion-opacity cylinder, nebular, classic_3d, and the float64
+runs big_scene_f64, nebular_1d_3dgrid_nont_f64, classic_3d_f64,
+kilonova_2d_2dgrid_f64, default_scene_f64 and the float64
+expansion-opacity cylinder) replayed through
 each kernel in both orders, with each version's counters (advances and
 boundary crossings per lane, lines or bins walked and bf continua per
 advance); with ``--replays`` only the named replays, without the timings
@@ -540,12 +545,15 @@ def phase_build():
 
 
 def _log_ptxas(mod, tag):
-    """Registers and spills of each instantiation of a wrapper's kernel
-    (nvcc -Xptxas -v, the ptxas log its build wrote)."""
-    for path in glob.glob(os.path.join(mod._BUILD_DIR, "ptxas_*.log")):
+    """Registers, stack frame and spills of each kernel of a wrapper's two
+    libraries (nvcc -Xptxas -v, the ptxas logs its build wrote), each line
+    tagged with its library's precision: f32, or f64 for the double forms
+    (their entry names carry ``Id`` where the float32 ones carry ``If``)."""
+    for path in sorted(glob.glob(os.path.join(mod._BUILD_DIR, "ptxas_*.log"))):
+        prec = "f64" if os.path.basename(path).startswith("ptxas_f64_") else "f32"
         for line in open(path):
             if "Compiling entry" in line or "registers" in line or "spill" in line:
-                log(f"ptxas[{tag}]: {line.strip()}")
+                log(f"ptxas[{tag}, {prec}]: {line.strip()}")
 
 
 def _sass(source, workdir, tag):
@@ -825,8 +833,10 @@ def _phase3_sim(workdir, name, make_scene, npkts, grid_type="SPHERICAL1D",
     d = os.path.join(workdir, name)
     os.makedirs(d)
     make_scene(d)
-    opts = getattr(options, preset)(npkts=npkts, grid_type=options.GridType[grid_type],
-                                    **dict(OPTS, **extra))
+    # an option set to None takes the preset's own value (transport_dtype
+    # None: the preset's float64), as cli_args passes none
+    kw = {k: v for k, v in dict(OPTS, **extra).items() if v is not None}
+    opts = getattr(options, preset)(npkts=npkts, grid_type=options.GridType[grid_type], **kw)
     return Simulation(d, opts, device="cuda")
 
 
@@ -1380,6 +1390,7 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
         timing, rpkt_kernel.propagate.timing = rpkt_kernel.propagate.timing, None
     wall = time.time() - t0
     launches = dict(rpkt_kernel.propagate.launches)
+    kernels = {k: sorted(v) for k, v in rpkt_kernel.propagate.kernels.items()}
     if rc != 0:
         raise RuntimeError(f"{name}: main_sn3d returned {rc}")
     for k in expect:
@@ -1433,8 +1444,8 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
         if sep and key.isidentifier() and val.isdigit():
             counters[key] = counters.get(key, 0) + int(val)
     dep = np.loadtxt(os.path.join(d, "deposition.out"), ndmin=2)
-    rec = dict(dir=d, npkts=npkts, launches=launches, wall_s=wall, steps=steps, transport_s=secs,
-               steps_per_s=steps / max(secs, 1e-12),
+    rec = dict(dir=d, npkts=npkts, launches=launches, kernels=kernels, wall_s=wall, steps=steps,
+               transport_s=secs, steps_per_s=steps / max(secs, 1e-12),
                peak_mem_bytes=max([torch.cuda.max_memory_allocated()] + probe.earlier_peaks),
                timesteps=tlog, counters=counters, gamma_emission_lsun=float(dep[:, 14].sum()),
                gamma_dep_lsun=float(dep[:, 5].sum()), probe=probe)
@@ -1702,39 +1713,48 @@ def _load_wrapper(root):
 
 
 class _EventLib:
-    """A wrapper's kernel library whose launches, while ``events`` is a
-    list, record a pair of CUDA events right around the ctypes call: the
-    kernel's own time, without the wrapper's allocations, zero fill and
-    host work."""
+    """A wrapper's kernel library (either precision's) whose launches, while
+    ``events`` is a list, record a pair of CUDA events right around the
+    ctypes call: the kernel's own time, without the wrapper's allocations,
+    zero fill and host work."""
 
     def __init__(self, lib):
         self.lib, self.events = lib, None
 
-    def rpkt_crossing_launch(self, *args):
-        if self.events is None:
-            return self.lib.rpkt_crossing_launch(*args)
-        import torch
+    def __getattr__(self, entry):
+        fn = getattr(self.lib, entry)
 
-        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        ev[0].record()
-        err = self.lib.rpkt_crossing_launch(*args)
-        ev[1].record()
-        self.events.append(ev)
-        return err
+        def launch(*args):
+            if self.events is None:
+                return fn(*args)
+            import torch
+
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            err = fn(*args)
+            ev[1].record()
+            self.events.append(ev)
+            return err
+        return launch
+
+
+def _event_libs(mod):
+    """Both kernel libraries of a built wrapper as ``_EventLib``s."""
+    mod._LIB, mod._LIB64 = _EventLib(mod._LIB), _EventLib(mod._LIB64)
 
 
 def _kernel_only(mod, fn):
     """The summed kernel-only ms of the launches ``fn`` makes through the
-    wrapper ``mod`` (its library an ``_EventLib``)."""
+    wrapper ``mod`` (its libraries ``_EventLib``s)."""
     import torch
 
-    mod._LIB.events = []
+    events = mod._LIB.events = mod._LIB64.events = []
     try:
         fn()
         torch.cuda.synchronize()
-        return sum(a.elapsed_time(b) for a, b in mod._LIB.events)
+        return sum(a.elapsed_time(b) for a, b in events)
     finally:
-        mod._LIB.events = None
+        mod._LIB.events = mod._LIB64.events = None
 
 
 def _work_per_crossing(misc):
@@ -1797,10 +1817,10 @@ def kernel_ab(workdir, roots):
     _sass_compare(versions, workdir)
     t0 = time.time()
     with ThreadPoolExecutor(len(versions)) as pool:  # one nvcc per version at once
-        libs = list(pool.map(lambda v: v[1].build(), versions))
+        list(pool.map(lambda v: v[1].build(), versions))
     log(f"ab: built {len(versions)} versions in {time.time() - t0:.2f} s")
-    for (tag, mod), lib in zip(versions, libs):
-        mod._LIB = _EventLib(lib)
+    for tag, mod in versions:
+        _event_libs(mod)
         _log_ptxas(mod, tag)
 
     def launcher(mod, args, kw):
@@ -1810,8 +1830,11 @@ def kernel_ab(workdir, roots):
         kw = {k: v for k, v in kw.items() if k in accepted}
         return lambda: mod._launch(*args, **kw)
 
-    def time_config(label, sim, tables, t0, t2, want_bfrate, **extra):
-        args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed=7, **extra)
+    def time_config(label, sim, tables, t0, t2, want_bfrate, f64=False, **extra):
+        if f64:  # the double form, on the same lanes and tables in float64
+            tables = {k: v.double() if v.is_floating_point() else v for k, v in tables.items()}
+        args, kw = _timing_inputs(sim, tables, t0, t2, want_bfrate, seed=7,
+                                  dtype=np.float64 if f64 else np.float32, **extra)
         # the forced lanes as drawn (packet order, the main path's) and
         # sorted by (model cell, cursor)
         for order, a in (("packet order", args),
@@ -1866,8 +1889,10 @@ def kernel_ab(workdir, roots):
         tb = _nongrey_tables(sim, ctx)[1]
         for extra, bfr in configs:
             extra = _k5_kw(sim) if extra == "k5" else extra
-            name = f"{label} {' '.join(f'{k}={v}' for k, v in extra.items())}".strip()
-            time_config(name, sim, tb, float(ctx.ts), float(ctx.t2), bfr, **extra)
+            for f64 in (False, True) if label in AB_F64 else (False,):
+                name = (f"{label}{' float64' if f64 else ''} "
+                        f"{' '.join(f'{k}={v}' for k, v in extra.items())}").strip()
+                time_config(name, sim, tb, float(ctx.ts), float(ctx.t2), bfr, f64=f64, **extra)
         sim.close()
         del sim
         gc.collect()
@@ -1883,12 +1908,25 @@ def kernel_ab(workdir, roots):
 # packets and timesteps; K1's (the default and 128-shell 1D scenes), K2 /
 # K5-bfrate's (the big 3D scene), K3's
 # (the cylinder at the synthetic and at the Fe line list), K4's (the
-# expansion-opacity cylinder) and the 3D line walk's (nebular, classic_3d)
+# expansion-opacity cylinder) and the 3D line walk's (nebular, classic_3d);
+# then the float64 runs of the smoke at their depth and packets: the double
+# 3D line walk's (big_scene_f64: K2 / K5-bfrate, nebular_1d_3dgrid_nont_f64:
+# K5-multibin / K5-jblue, classic_3d_f64: K6), the double K3's
+# (kilonova_2d_2dgrid_f64), K1's and K4's (default_scene_f64 and the
+# expansion-opacity cylinder at float64), whose library the double walks
+# share
 REPLAYS = (("default_scene", NPKTS_DEFAULT, 5), ("realistic_scene", NPKTS_REAL, 2),
            ("big_scene", NPKTS_REAL, 2),
            ("kilonova_2d_2dgrid", NPKTS_2D, 2), ("kilonova_2d_2dgrid_fe", NPKTS_2D, 3),
            ("kilonova_2d_2dgrid_expansionopac", NPKTS_2D, 3),
-           ("nebular_1d_3dgrid_nont", NPKTS_REAL, 2), ("classic_3d", NPKTS_REAL, 2))
+           ("nebular_1d_3dgrid_nont", NPKTS_REAL, 2), ("classic_3d", NPKTS_REAL, 2),
+           ("big_scene_f64", NPKTS_REAL, 2), ("nebular_1d_3dgrid_nont_f64", NPKTS_2D, 1),
+           ("classic_3d_f64", NPKTS_2D, 1), ("kilonova_2d_2dgrid_f64", NPKTS_2D, 2),
+           ("default_scene_f64", NPKTS_DEFAULT, 5),
+           ("kilonova_2d_2dgrid_expansionopac_f64", NPKTS_2D, 2))
+# the forced-lane configurations of --kernel-ab that are timed in float64
+# too: the redesigned double line walks (line_walk_w64)
+AB_F64 = ("K3 cyl2d", "K3 cyl2d Fe", "K2 / K6 classic cart3d", "K5 nebular cart3d")
 
 
 def _sorted_args(args, mgi_of_cell, sort=True):
@@ -1950,7 +1988,8 @@ def _replay_main_path(workdir, name, scene_kw, versions, launcher, npkts=NPKTS_R
                     + _work_per_crossing(out["misc"].double().cpu().numpy()))
         return out
 
-    record.launches, record.timing = propagate.launches, propagate.timing
+    record.launches, record.kernels, record.timing = (propagate.launches, propagate.kernels,
+                                                      propagate.timing)
     rpkt_kernel.propagate = record
     try:
         for nts in range(timesteps):
@@ -3084,6 +3123,7 @@ def main():
     for key, (label, replaces) in CONFIGS.items():
         r = rec[key]
         kernels.append(dict(name=f"{label} {key}", route="cuda", source=KERNEL_SOURCE,
+                            cuda_kernel=" / ".join(runs[main_run[key]]["kernels"].get(key, ())),
                             replaces=replaces, launches=runs[main_run[key]]["launches"][key],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],

@@ -14,8 +14,11 @@ closed-form oracles of tests/test_torch_oracles.py through K1; two
 same-seed runs with virtual packets (the same virtual spectra bit for
 bit); the XCOM photoelectric opacity on the card against the CPU; and the
 double form of every configuration (``transport_dtype="float64"``, the
-default) against its plain version in float64, a float64 main path that
-launches only double forms, and two same-seed float64 runs.
+default) against its plain version in float64 (the redesigned double 3D
+and cylindrical line walks with relativistic and non-relativistic Doppler
+factors, and the double K3 at 2^18 lanes), a float64 main path that
+launches only double forms, and two same-seed float64 runs; and
+check_kernel on a dense probe whose lanes scatter many times.
 
 Every test here needs an NVIDIA GPU and skips where there is none. The file
 imports no jax, so it runs where only PyTorch is installed; the
@@ -25,8 +28,8 @@ repository's tests/conftest.py configures jax, hence on the card:
 
 The comparison is rpkt_kernel.check_kernel (compare_outputs on the kernel's
 and the plain version's outputs; the estimators of a second launch in which
-the few lanes whose cell or packet type differ are held still), which holds
-every output:
+the few lanes with a differing integer output are held still,
+rpkt_kernel.held_lanes), which holds every output:
 cell and packet type differ on at most 16 lanes (or 2.5e-4 of them, if
 more); every other integer output (activating line, bf continuum, grey flag,
 cursor, scatter counts) on >= 99.9% of the agreeing lanes, and every float
@@ -117,13 +120,17 @@ def _forced_lanes(sim, ctx, seed, npkts=NPKTS):
 
 def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
            expansion=False, defer=False, nradbins=0, njblue=0, lut=True, order="packet",
-           n=None, grey=False, ff_only=False, dtype=torch.float32):
+           n=None, grey=False, ff_only=False, dtype=torch.float32, relativistic=None,
+           dense=False):
     """Kernel against plain version on the scene's forced lanes (the first
     ``n`` of them where given; more than NPKTS drawn where ``n`` asks for
     them). ``grey``: every other cell thick, at a grey opacity that makes
     thick-cell scatters in the kernel, which turn the lanes' directions.
-    ``dtype`` float64: the double form, on the same lanes and tables in
-    float64 (the tolerances of rpkt_kernel.TOL_F64)."""
+    ``dense``: the cells ionised at 1e4 K and at 1e2, 1e4 and 1e6 times
+    that electron density in turn (electron scattering and free-free take
+    the continuum). ``dtype`` float64: the double form, on the same lanes
+    and tables in float64 (the tolerances of rpkt_kernel.TOL_F64).
+    ``relativistic`` overrides the scene's Doppler factors."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
@@ -147,11 +154,18 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
         tables["thick"] = (torch.arange(tables["thick"].numel(), device="cuda") % 2).to(
             torch.int32)
         tables["kappagrey"] = 1e-14 / torch.clamp(tables["rho"], min=1e-30)
+    if dense:
+        te = torch.full_like(tables["Te"], 1.0e4)
+        factor = 10.0 ** (2.0 * (1 + torch.arange(te.numel(), device="cuda") % 3)).to(dtype)
+        nne = tables["rho"] / (56.0 * 1.66054e-24) * factor
+        tables.update(Te=te, nne=nne, chiffpart=nne * 3.69255e8 / torch.sqrt(te))
     if njblue:
         tables["jblue_of_line"] = torch.arange(dad.nlines, dtype=torch.int32, device="cuda")
     kw = dict(nlines=dad.nlines, ncells=sim.cells.Te.shape[0],
               ngc=max(dad.nbfcontinua_ground, 1), nphixs=dad.nphixspoints,
-              max_inner=max_inner, relativistic=sim.opts.use_relativistic_doppler_shift,
+              max_inner=max_inner,
+              relativistic=(sim.opts.use_relativistic_doppler_shift if relativistic is None
+                            else relativistic),
               phixs_dnu=float(dad.nphixsnuincrement),
               last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=test_mode,
               want_bfrate=want_bfrate, expansion=expansion, defer_scatter=defer,
@@ -165,7 +179,9 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
         99, lanes, tables, tau, sel, float(ctx.t2), float(ctx.tmin),
         float(sim.grid.max_path_step), shared_rows=shared_rows, **kw)
     torch.cuda.synchronize()
-    launches = 1 + (rep["diverged_lanes"] > 0)
+    # the second launch pair holds still every lane with a differing
+    # integer output
+    launches = 1 + (rep["held_lanes"] > 0)
     # the launches count for the configurations of the launch's precision
     # only
     added = launches * (1 + want_bfrate + expansion + defer + bool(nradbins) + bool(njblue)
@@ -263,6 +279,65 @@ def test_double_kernel_matches_plain_version(request, case, test_mode):
         kw = dict(kw, njblue=sim.dad.nlines)
     plain = _check(sim, ctx, 16, test_mode, dtype=torch.float64, **kw)
     assert plain["posx"].dtype == torch.float64 and plain["est"].dtype == torch.float64
+
+
+# the redesigned double line walks (line_walk_w64):
+# the 3D walk with bf-rate rows (K2 / K5-bfrate), with multibin and J_b_lu
+# rows (K5), deferred (K6), and the cylindrical walk K3 (XYDir, four scalar
+# row atomics) at the 2340-line Fe atom and with grey scatters that turn
+# its directions: (fixture, scene, _check keywords); njblue None: every line
+# a J_b_lu column
+W64_CASES = {
+    "k2_bfrate": ("scenes", "3dmodel", {}),
+    "k5_multibin_jblue": ("scenes", "3dmodel", dict(nradbins=64, njblue=None, lut=False)),
+    "k6": ("defer_scenes", "1dmodel_3dgrid", dict(want_bfrate=False, defer=True)),
+    "k3_fe": ("k3_cylinders", "fe", dict(want_bfrate=False)),
+    "k3_grey": ("k3_cylinders", "synthetic", dict(want_bfrate=False, grey=True,
+                                                  shared_rows=False)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relativistic", [True, False])
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("case", list(W64_CASES))
+def test_double_line_walks_match_plain_version(request, case, test_mode, relativistic):
+    """Each redesigned double line walk against its plain version in
+    float64 (rpkt_kernel.TOL_F64), with the relativistic Doppler factors of
+    kilonova_lte and the non-relativistic ones of the classic and nebular
+    presets (whose line loop keeps its divide by the line's frequency)."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    fixture, name, kw = W64_CASES[case]
+    sim, ctx = request.getfixturevalue(fixture)[name]
+    if kw.get("njblue", 0) is None:
+        kw = dict(kw, njblue=sim.dad.nlines)
+    geom = rpkt_kernel.kernel_geometry(sim.grid)["geom"]
+    assert rpkt_kernel.redesigned(geom, False, case.startswith("k5"), f64=True).w64
+    _check(sim, ctx, 16, test_mode, dtype=torch.float64, relativistic=relativistic, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("test_mode", [True, False])
+def test_double_k3_at_the_main_paths_lanes(k3_cylinders, test_mode):
+    """The double K3 at the 2^18 lanes of kilonova_2d_2dgrid_f64's
+    launches."""
+    _check(*k3_cylinders["synthetic"], 16, test_mode, want_bfrate=False, n=1 << 18,
+           dtype=torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("name", ["sph1d", "1dmodel_3dgrid"])
+def test_check_kernel_holds_tipped_lanes_on_a_dense_probe(scenes, name, test_mode, dtype):
+    """The 8 shells ionised and at 1e2-1e6 times the electron density,
+    64 crossings: lanes scatter on electrons many times, and a float32
+    near-tie that changes only a lane's scatter count, cursor or continuum
+    changes its cell's rows by a whole crossing; check_kernel holds every
+    lane with a differing integer output still for the estimator
+    comparison, which then holds at the unchanged tolerances."""
+    _check(*scenes[name], 64, test_mode, dense=True, dtype=dtype)
 
 
 @pytest.mark.cuda

@@ -138,23 +138,27 @@ def test_stage_plan_at_the_main_path_sizes():
 
 
 @pytest.mark.parametrize("geom,expansion,nlte,expect", [
-    (rk.GEOM_SPH, False, False, (True, False, False)),
-    (rk.GEOM_SPH, False, True, (False, False, False)),
-    (rk.GEOM_SPH, True, False, (False, False, True)),
-    (rk.GEOM_CYL, True, False, (False, False, True)),
-    (rk.GEOM_CART, True, False, (False, False, False)),
-    (rk.GEOM_CYL, False, False, (False, True, False)),
-    (rk.GEOM_CART, False, True, (False, False, False)),
-    (rk.GEOM_CYL, False, True, (False, False, False)),
-    (rk.GEOM_CYL, True, True, (False, False, False)),
-    (rk.GEOM_SPH, True, True, (False, False, False)),
-    (rk.GEOM_CART, True, True, (False, False, False))])
+    (rk.GEOM_SPH, False, False, (True, False, False, False)),
+    (rk.GEOM_SPH, False, True, (False, False, False, False)),
+    (rk.GEOM_SPH, True, False, (False, False, True, False)),
+    (rk.GEOM_CYL, True, False, (False, False, True, False)),
+    (rk.GEOM_CART, True, False, (False, False, False, False)),
+    (rk.GEOM_CYL, False, False, (False, True, False, False)),
+    (rk.GEOM_CART, False, True, (False, False, False, False)),
+    (rk.GEOM_CYL, False, True, (False, False, False, False)),
+    (rk.GEOM_CYL, True, True, (False, False, False, False)),
+    (rk.GEOM_SPH, True, True, (False, False, False, False)),
+    (rk.GEOM_CART, True, True, (False, False, False, False))])
 def test_redesigned_instantiations(geom, expansion, nlte, expect):
-    """(K1, K3, K4): the 1D line walk, the cylindrical line walk and the 1D
-    and cylindrical bin walks without the NLTE fields run the redesigned
-    code; the 3D walks and every instantiation with the NLTE fields keep
-    theirs (11 instantiations, the 3D line walk only with the fields)."""
+    """(K1, K3, K4, double walk) of a float32 launch: the 1D line walk, the
+    cylindrical line walk and the 1D and cylindrical bin walks without the
+    NLTE fields run the redesigned code; the 3D walks and every
+    instantiation with the NLTE fields keep theirs (11 instantiations, the
+    3D line walk only with the fields); no float32 launch runs a double
+    walk; the redesigned 1D line walk runs its kernel of its own."""
     assert rk.redesigned(geom, expansion, nlte) == expect
+    assert rk.kernel_name(geom, expansion, nlte).startswith(
+        "rpkt_crossing_kernel_1d<float>" if expect[0] else "rpkt_crossing_kernel<float, ")
 
 
 def test_shared_memory_of_the_main_path_launches():
@@ -187,7 +191,7 @@ def test_k3_row_mode_at_the_cylinders(ncells, ngc):
     rows = rk.row_bytes(ncells, ngc, 0)
     assert rows == 8 * rk.NMISC + 4 * ncells * (4 + 2 * ngc)
     assert not rk.pick_shared_rows(ncells, ngc, 0)
-    k1, k3, k4 = rk.redesigned(rk.GEOM_CYL, False, False)
+    k1, k3, k4, _ = rk.redesigned(rk.GEOM_CYL, False, False)
     assert k3 and not (k1 or k4)
     assert rk.smem_bytes(ncells, ngc, 0, True, k1, k4) == rows <= rk.SMEM_LIMIT
     assert rk.smem_bytes(ncells, ngc, 0, False, k1, k4) == 8 * rk.NMISC
@@ -301,14 +305,42 @@ def test_float64_estimator_buffers(ngc, nbfr, nradbins, njblue, lut):
         rk.row_bytes(ncells, ngc, nbfr, **kw) - 8 * rk.NMISC)
 
 
-def test_float64_launches_take_the_generic_body():
-    """No redesigned walk has a double form: a float64 launch stages no
-    tables and reads no edge table, whatever its geometry."""
-    for geom in (rk.GEOM_SPH, rk.GEOM_CYL, rk.GEOM_CART):
-        for expansion in (False, True):
-            for nlte in (False, True):
-                assert rk.redesigned(geom, expansion, nlte, f64=True) == (False, False, False)
-    assert rk.redesigned(rk.GEOM_SPH, False, False) == (True, False, False)
+# (K1, K3, K4, double walk) of a float64 launch, per geometry, walk (lines
+# or expansion-opacity bins) and NLTE fields, and the CUDA kernel it runs:
+# the 3D line walk (which always takes the NLTE instantiation) and the
+# cylindrical line walk without the fields run the redesigned double line
+# loop, K3 with its XYDir; the 1D walks and every bin walk run the generic
+# body (K1's staged tables and K4's edge table are float32 only); every
+# double form is an instantiation of the generic kernel
+_D = "rpkt_crossing_kernel<double, "
+F64_REDESIGNS = {
+    (rk.GEOM_SPH, False, False): ((False, False, False, False), _D + "GEOM_SPH, false, false>"),
+    (rk.GEOM_SPH, False, True): ((False, False, False, False), _D + "GEOM_SPH, false, true>"),
+    (rk.GEOM_SPH, True, False): ((False, False, False, False), _D + "GEOM_SPH, true, false>"),
+    (rk.GEOM_SPH, True, True): ((False, False, False, False), _D + "GEOM_SPH, true, true>"),
+    (rk.GEOM_CYL, False, False): ((False, True, False, True), _D + "GEOM_CYL, false, false>"),
+    (rk.GEOM_CYL, False, True): ((False, False, False, False), _D + "GEOM_CYL, false, true>"),
+    (rk.GEOM_CYL, True, False): ((False, False, False, False), _D + "GEOM_CYL, true, false>"),
+    (rk.GEOM_CYL, True, True): ((False, False, False, False), _D + "GEOM_CYL, true, true>"),
+    (rk.GEOM_CART, False, False): ((False, False, False, True), _D + "GEOM_CART, false, true>"),
+    (rk.GEOM_CART, False, True): ((False, False, False, True), _D + "GEOM_CART, false, true>"),
+    (rk.GEOM_CART, True, False): ((False, False, False, False), _D + "GEOM_CART, true, false>"),
+    (rk.GEOM_CART, True, True): ((False, False, False, False), _D + "GEOM_CART, true, true>"),
+}
+
+
+@pytest.mark.parametrize("geom,expansion,nlte", list(F64_REDESIGNS))
+def test_float64_launches_take_the_generic_body(geom, expansion, nlte):
+    """The redesigns a float64 launch runs and its kernel: the double 3D
+    and cylindrical line walks in the generic kernel; a double 1D or bin
+    walk stages no tables and reads no edge table (its shared memory is the
+    float32 form's without them)."""
+    r = rk.redesigned(geom, expansion, nlte, f64=True)
+    expect, kernel = F64_REDESIGNS[geom, expansion, nlte]
+    assert r == expect
+    assert not (r.k1 or r.k4)
+    assert rk.redesigned(geom, expansion, nlte).w64 is False
+    assert rk.kernel_name(geom, expansion, nlte, f64=True) == kernel
 
 
 def test_float64_radbins_are_the_xla_paths():
@@ -344,3 +376,24 @@ def test_philox_uniform2d_bits():
         # the float32 uniform of the first word is its 24 high bits
         assert torch.equal((u[i] * 2.0 ** 24).floor(), (v[2 * i] * 2.0 ** 24).double())
         assert abs(float(u[i].mean()) - 0.5) < 0.01
+
+
+@pytest.mark.parametrize("field", rk.OUT_I32)
+def test_held_lanes_are_every_lane_with_a_differing_integer_output(field):
+    """check_kernel holds still, for its estimator comparison, every lane on
+    which any integer output differs (``held_lanes``): a differing cell,
+    escape or event as much as a differing cursor, line, continuum or
+    scatter count; lanes that differ only in a float output stay moving."""
+    n = 64
+    gen = torch.Generator().manual_seed(3)
+    p = {f: torch.randint(-3, 50, (n,), generator=gen, dtype=torch.int32) for f in rk.OUT_I32}
+    p.update({f: torch.rand(n, generator=gen, dtype=torch.float64) for f in rk.OUT_F32})
+    k = {f: v.clone() for f, v in p.items()}
+    assert not bool(rk.held_lanes(k, p).any())
+    k[field][[5, 17, 40]] += 1
+    k["prop_time"][[2, 17, 60]] *= 1.5  # a float output alone holds no lane
+    mask = rk.held_lanes(k, p)
+    assert mask.dtype == torch.bool and mask.shape == (n,)
+    assert torch.nonzero(mask)[:, 0].tolist() == [5, 17, 40]
+    k["nsc"][9] += 2  # a second field adds its lanes
+    assert torch.nonzero(rk.held_lanes(k, p))[:, 0].tolist() == sorted({5, 9, 17, 40})

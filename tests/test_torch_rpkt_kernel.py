@@ -300,16 +300,19 @@ def _tiled(out, reps):
     return {f: (v.repeat(reps) if f in lane else v) for f, v in out.items()}
 
 
-def _faulty_launch(rpkt_kernel, bad_ids):
+def _faulty_launch(rpkt_kernel, bad_ids, j_ids):
     """A stand-in for the card's launch: the plain version, except that the
     moving lanes whose lane_id is in ``bad_ids`` end one line further on
-    and count their cell's J 5 % high (a fault confined to lanes that still
-    end in the same cell as the same packet type)."""
+    (a lane tipped by a near-tie, which check_kernel holds still), and the
+    moving lanes in ``j_ids`` count their cell's J 5 % high while every
+    integer output of theirs agrees (a fault that no lane output shows)."""
     def launch(seed, lanes, tables, *args, shared_rows=None, **kw):
         o = rpkt_kernel.propagate_reference(seed, lanes, tables, *args, **kw)
-        bad = torch.nonzero((lanes["moving"] > 0) & torch.isin(lanes["lane_id"], bad_ids))[:, 0]
+        moving = lanes["moving"] > 0
+        bad = torch.nonzero(moving & torch.isin(lanes["lane_id"], bad_ids))[:, 0]
         o["next_trans"][bad] += 1
-        mgi = tables["mgi_of_cell"][o["where"][bad].clamp(min=0).long()].long()
+        jl = torch.nonzero(moving & torch.isin(lanes["lane_id"], j_ids))[:, 0]
+        mgi = tables["mgi_of_cell"][o["where"][jl].clamp(min=0).long()].long()
         o["est"][mgi[mgi >= 0], 0] *= 1.05
         return o
     return launch
@@ -325,9 +328,10 @@ def test_compare_outputs_rejects_each_fault(scene, kind, monkeypatch):
     1% of 65536 lanes sent to a wrong cell (a geometry fault that a 97% cell
     agreement would let pass), a wrong radiation-field bin, a wrong J_b_lu
     column and J_b_lu sums that miss the activating line of bound-bound
-    events (every line is a J_b_lu column here); and check_kernel rejects a
-    J error confined to a few lanes that also end on another line (those
-    lanes are held still only for the multibin and J_b_lu rows)."""
+    events (every line is a J_b_lu column here); and check_kernel accepts
+    a few lanes that end on another line (held still for the estimator
+    comparison, ``held_lanes``) but rejects, beside them, a J error of a
+    few lanes whose every integer output agrees."""
     from artis_tpu_torch.transport import engine as teng
     from artis_tpu_torch.transport import rpkt_kernel
 
@@ -355,12 +359,16 @@ def test_compare_outputs_rejects_each_fault(scene, kind, monkeypatch):
         big = {f: v.repeat(8) for f, v in lanes.items()}
         big["lane_id"] = torch.arange(8 * n, dtype=torch.int32)
         args = args[:1] + (big, tables, args[3].repeat(8), args[4].repeat(8)) + args[5:]
-        bad_ids = big["lane_id"][big["moving"] > 0][:2]
-        monkeypatch.setattr(rpkt_kernel, "_launch", _faulty_launch(rpkt_kernel, bad_ids))
-        ok, rep, k, out = rpkt_kernel.check_kernel(*args, **kw)
-        assert int((k["next_trans"] != out["next_trans"]).sum()) == 2
-        assert rep["diverged_lanes"] == 0 and rep["next_trans_agree"] >= 0.999
-        assert not ok, rep
+        moving_ids = big["lane_id"][big["moving"] > 0]
+        bad_ids, j_ids = moving_ids[:2], moving_ids[2:4]
+        for faulty_j, expect_ok in ((j_ids[:0], True), (j_ids, False)):
+            monkeypatch.setattr(rpkt_kernel, "_launch",
+                                _faulty_launch(rpkt_kernel, bad_ids, faulty_j))
+            ok, rep, k, out = rpkt_kernel.check_kernel(*args, **kw)
+            assert int((k["next_trans"] != out["next_trans"]).sum()) == 2
+            assert rep["diverged_lanes"] == 0 and rep["next_trans_agree"] >= 0.999
+            assert rep["held_lanes"] == 2
+            assert ok == expect_ok, rep
         return
     out = rpkt_kernel.propagate_reference(*args, **kw)
     assert int((out["is_bb"] > 0).sum()) > 0 and float(out["gamma"].sum()) > 0

@@ -74,7 +74,7 @@
 // The 1D walk, the cylindrical line walk and the bin walk of the 1D and
 // cylindrical grids, without the NLTE fields, are redesigned for that
 // (k1_redesign, k3_redesign, k4_redesign: 4 of the 11 instantiations; the
-// other 7 keep their registers and spills):
+// other 7 keep their registers and spills; the double forms below):
 // (1) the 1D walk copies its tables into shared memory at block start with
 //     cp.async, as many groups as fit rpkt_kernel.STAGE_MAX (stage_plan):
 //     the default scene's cell, bf and line tables (16.5 KB), the 128-shell
@@ -132,7 +132,27 @@
 // dropped: a kernel of their own with a register bound (3 blocks: 4 bytes
 // of spills in the 3D walk and within 1 % of no bound, ahead on one call
 // and behind on another; 2 blocks, no spill at 187 registers: 7-10 % slower
-// on the big, nebular and cylinder replays). The caller compacts the moving
+// on the big, nebular and cylinder replays). The double 1D line walk (K1,
+// and with it the ff-only form) and the double bin walk of the 1D and
+// cylindrical grids (K4), the last double forms on the generic body, take
+// their float32 redesigns in double: K1 its tables staged in shared memory
+// in 8-byte slots (stage_copy's 8-byte cp.async, rpkt_kernel.STAGE_MAX_F64:
+// the default scene's 33,120 bytes), its rows summed across the warp
+// (est_add_warp in double) and line_walk_w64; K4 the staged table of its
+// double edges, its first bin found on it, 1/dnudl once a crossing
+// (bin_walk_w64). Against the parent on their replayed main paths
+// (kernel-only, one call, an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section
+// 6): default_scene_f64 0.885x, default_opacity3_f64 0.892x, the float64
+// expansion-opacity cylinder 0.952x. The double K1 runs in the generic
+// kernel (192 registers, 2 blocks an SM): its main paths launch at most 189
+// blocks, and a kernel of its own bounded to 3 blocks (156 registers) was
+// 0.3-1.0 % slower on default_scene_f64's replay in three calls (on
+// default_opacity3_f64's 0.6-1.0 % slower in two, 1.1 % faster in one),
+// though 6 % faster on a forced launch of 512 blocks; at 4 blocks (128
+// registers, 270 bytes of spills) 5 % slower on both replays. Measured and
+// dropped: a staged table of reciprocal edges for the non-relativistic bin
+// walk (0.5-2.4 % faster on forced non-relativistic launches, 0.4 % slower
+// on the relativistic main path's replay). The caller compacts the moving
 // lanes into one launch, in packet order. The estimator sums are float
 // atomics, so they depend on the order of the adds, and same-seed runs
 // differ in their last bits.
@@ -142,8 +162,8 @@
 // lane at every crossing (a one-hot MXU gather of the kappa rows and a
 // triangular-matmul cumsum), each thread here walks only the bins its path
 // crosses: from the bin of its comoving frequency toward the red (the
-// edges from the float32 table, above, in the 1D and cylindrical walks;
-// computed in double and rounded in the 3D one), reading
+// edges from the table in the launch's precision, above, in the 1D and
+// cylindrical walks; computed in double and rounded in the 3D one), reading
 // kappa[mgi, b] from the global (ncells, 970) table, adding
 // (chi_cont + kappa rho doppler) * (path length in the bin) until the
 // optical-depth target is reached. A bin is 35.5 A, about 0.7 % in
@@ -193,21 +213,22 @@
 // -DRPKT_F64 the same source gives their double forms
 // (rpkt_crossing_launch_f64), the crossing of transport_dtype="float64",
 // the default, which the JAX package runs on its XLA path
-// (_rpkt_propagate_once): the body in double, without K1's staged tables,
-// K3's vector reduction and K4's edge table (cp.async copies 4-byte words,
-// and PTX has no vector reduction of doubles), with K3's XYDir, and the 3D
-// and cylindrical line walks redesigned for the card (w64_redesign): the
-// line loop without a divide by a divisor fixed for the crossing
-// (line_walk_w64), 32-bit counters, and the double library built with
-// multiply-add contraction (rpkt_kernel.build; the float32 one without).
+// (_rpkt_propagate_once): the body in double, without K3's vector
+// reduction (PTX has no vector reduction of doubles), with K1's staged
+// tables and warp sums, K3's XYDir and K4's edge table, the 1D, 3D and
+// cylindrical line walks redesigned for the card (w64_redesign): the line
+// loop without a divide by a divisor fixed for the crossing
+// (line_walk_w64), the bin walk likewise (bin_walk_w64), 32-bit counters,
+// and the double library built with multiply-add contraction
+// (rpkt_kernel.build; the float32 one without).
 // Code that only the double forms run sits behind RPKT_F64, so the float32
 // unit compiles the float32 instantiations from unchanged source. The
 // double forms carry the
 // XLA path's float64 differences: no boundary overshoot and no 2e-6 r
 // ping-pong guard, no Kahan compensation (t advances by the two half-moves,
 // as geometry.move_pkt), h/k and the multibin edges in double, the bin edges
-// computed in double, and 53-bit uniforms (uniform2d: two a draw, three
-// draws a crossing). The two precisions build into two libraries in
+// in double (computed in double in the 3D bin walk), and 53-bit uniforms
+// (uniform2d: two a draw, three draws a crossing). The two precisions build into two libraries in
 // parallel; each has eleven instantiations.
 //
 // Random numbers: counter-based Philox4x32-10 keyed by (seed, lane id), with
@@ -335,15 +356,19 @@ __device__ __forceinline__ T ld(const T* p) {
   else return __ldg(p);
 }
 
-// asynchronous 4-byte copies of a table into shared memory (cp.async); the
-// block waits for all of them with cp_async_wait_all and a barrier
+// asynchronous copies of a table into shared memory (cp.async), one
+// element each: 4 bytes (floats, ints) or 8 (doubles); the block waits for
+// all of them with cp_async_wait_all and a barrier
 template <typename T>
 __device__ __forceinline__ void stage_copy(T* dst, const T* src, int n) {
-  static_assert(sizeof(T) == 4, "4-byte elements");
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4- or 8-byte elements");
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
 #ifdef __CUDA_ARCH__
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst + i);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src + i) : "memory");
+    if constexpr (sizeof(T) == 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src + i) : "memory");
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src + i) : "memory");
 #else
     dst[i] = src[i];
 #endif
@@ -356,11 +381,12 @@ __device__ __forceinline__ void cp_async_wait_all() {
 #endif
 }
 
-// adds (v0, v1, v2, v3) to the 4-float row of this lane's cell: the lanes of
-// a warp on the same cell (key) sum their values by pointer jumping over
-// shuffles, and the lowest of them adds the sums with one atomic each
-__device__ __forceinline__ void est_add_warp(float* row, int key, float v0, float v1, float v2,
-                                             float v3) {
+// adds (v0, v1, v2, v3) to the 4-entry row of this lane's cell (float or
+// double): the lanes of a warp on the same cell (key) sum their values by
+// pointer jumping over shuffles, and the lowest of them adds the sums with
+// one atomic each
+template <typename R>
+__device__ __forceinline__ void est_add_warp(R* row, int key, R v0, R v1, R v2, R v3) {
   const unsigned m = __activemask();
   const unsigned peers = __match_any_sync(m, key);
   const int ln = threadIdx.x & 31;
@@ -370,8 +396,8 @@ __device__ __forceinline__ void est_add_warp(float* row, int key, float v0, floa
   // peers above it; the lowest peer ends with the group's sum
   while (__any_sync(m, nxt >= 0)) {
     const int src = nxt >= 0 ? nxt : ln;
-    const float o0 = __shfl_sync(m, v0, src), o1 = __shfl_sync(m, v1, src);
-    const float o2 = __shfl_sync(m, v2, src), o3 = __shfl_sync(m, v3, src);
+    const R o0 = __shfl_sync(m, v0, src), o1 = __shfl_sync(m, v1, src);
+    const R o2 = __shfl_sync(m, v2, src), o3 = __shfl_sync(m, v3, src);
     const int on = __shfl_sync(m, nxt, src);
     if (nxt >= 0) {
       v0 += o0;
@@ -384,8 +410,8 @@ __device__ __forceinline__ void est_add_warp(float* row, int key, float v0, floa
   if ((peers & ((1u << ln) - 1u)) == 0u) {
     atomicAdd(row + 0, v0);
     atomicAdd(row + 1, v1);
-    if (v2 != 0.0f) atomicAdd(row + 2, v2);
-    if (v3 != 0.0f) atomicAdd(row + 3, v3);
+    if (v2 != R(0.0)) atomicAdd(row + 2, v2);
+    if (v3 != R(0.0)) atomicAdd(row + 3, v3);
   }
 }
 
@@ -660,23 +686,24 @@ __device__ __forceinline__ void boundary(const RpktParamsT<R>& p, const Tables<R
 
 // the redesigned instantiations: the 1D line walk (K1), the cylindrical
 // line walk (K3) and the bin walk of the 1D and cylindrical grids (K4), each
-// without the NLTE fields; K1 and K4 in float32 only, K3 in both precisions
-// (its XYDir; in double with four scalar atomics, red_add_v4). The double
-// line walks of the 3D and the cylindrical grids are w64_redesign
+// without the NLTE fields, in both precisions (K1's tables staged in 4- or
+// 8-byte elements, K4's edge table in the launch's precision, K3's XYDir; in
+// double K3 adds four scalar atomics, red_add_v4). The double line walks of
+// the 1D, 3D and cylindrical grids are w64_redesign
 template <typename R, int GEOM, bool EXPO, bool NLTE>
 __host__ __device__ constexpr bool k1_redesign() {
-  return is_f32<R> && GEOM == GEOM_SPH && !EXPO && !NLTE;
+  return GEOM == GEOM_SPH && !EXPO && !NLTE;
 }
 template <typename R, int GEOM, bool EXPO, bool NLTE>
 __host__ __device__ constexpr bool k3_redesign() {
   return GEOM == GEOM_CYL && !EXPO && !NLTE;
 }
 // the redesigned double line walks: the 3D walk, always with the NLTE fields
-// (K2, K5-bfrate, K5-multibin, K5-jblue and K6), and the cylindrical walk
-// (K3); their line loop is line_walk_w64
+// (K2, K5-bfrate, K5-multibin, K5-jblue and K6), the cylindrical walk (K3)
+// and the 1D walk (K1); their line loop is line_walk_w64
 template <typename R, int GEOM, bool EXPO, bool NLTE>
 __host__ __device__ constexpr bool w64_redesign() {
-  return !is_f32<R> && !EXPO && (GEOM == GEOM_CART ? NLTE : GEOM == GEOM_CYL && !NLTE);
+  return !is_f32<R> && !EXPO && (GEOM == GEOM_CART ? NLTE : !NLTE);
 }
 
 // The Sobolev line walk of the redesigned double forms, from the packet's
@@ -687,7 +714,8 @@ __host__ __device__ constexpr bool w64_redesign() {
 // product with the line test; the continuum distance is divided out only
 // where it ends the walk. Left in the loop: the non-relativistic nu / nu_k,
 // whose divisor is the line's. Sets the event outputs as the generic loop.
-template <typename R>
+// GEN: the 1D walk's generic loads (its line tables may lie in shared memory)
+template <bool GEN, typename R>
 __device__ __forceinline__ void line_walk_w64(const R* __restrict__ line_nu,
                                               const R* __restrict__ taurow,
                                               const int* __restrict__ jblue_of_line,
@@ -712,10 +740,10 @@ __device__ __forceinline__ void line_walk_w64(const R* __restrict__ line_nu,
       }
       return;
     }
-    const R nu_k = __ldg(line_nu + l);
+    const R nu_k = ld<GEN>(line_nu + l);
     R relD = rel ? (nu_k - nu) * inv_dnudl : ct * (nu / nu_k - R(1.0));
     relD = r_min(r_max(relD, R(0.0)), R(1e30));
-    const R tau_line = __ldg(taurow + l) * (tstart + prevD * inv_c);
+    const R tau_line = ld<GEN>(taurow + l) * (tstart + prevD * inv_c);
     const R chi_d = safe_chi * relD;
     if (rem <= chi_d) {  // the continuum event comes first
       ev_edist = r_max(rem / safe_chi, R(0.0));
@@ -746,10 +774,60 @@ __device__ __forceinline__ void line_walk_w64(const R* __restrict__ line_nu,
 }
 template <typename R, int GEOM, bool EXPO, bool NLTE>
 __host__ __device__ constexpr bool k4_redesign() {
-  return is_f32<R> && EXPO && !NLTE && GEOM != GEOM_CART;
+  return EXPO && !NLTE && GEOM != GEOM_CART;
 }
 
-// 4-byte words of the table groups in ``stage`` (the 1D grid: one bound per cell)
+#ifdef RPKT_F64
+// The bin walk of the redesigned double forms (K4 in double), from the
+// packet's comoving frequency nu toward the red over the staged edge table
+// (the plain version's float64 values, rpkt_kernel.expo_edges): the first
+// bin found from a float estimate and corrected on the table, as the
+// float32 walk finds it, and no divide by a divisor fixed for the crossing
+// (1/dnudl taken once). Left in the loop: the non-relativistic nu / nu_lo,
+// whose divisor is the bin's (a staged table of reciprocal edges won 0.5-2.4
+// % on forced non-relativistic launches but cost the relativistic main
+// path's replay 0.4 %: dropped, PERF.md section 6). Sets the event distance
+// and the bound-bound split as the generic walk; counts the bins read into
+// nwalk.
+template <typename R>
+__device__ __forceinline__ void bin_walk_w64(const R* __restrict__ edge,
+                                             const R* __restrict__ krow, int nbins, bool rel,
+                                             R nu, R dnudl, R tstart, R safe_chi, R rho_dop,
+                                             R tau_next, R u_bb, R abort_dist, R& ev_edist,
+                                             bool& ev_bb, int& nwalk) {
+  const R inv_dnudl = R(1.0) / dnudl;
+  const R ct = K<R>::CLIGHT * tstart;
+  const float lam = __fdividef(2.99792458e18f, (float)nu);  // [A], an estimate
+  int b = (int)fminf(fmaxf(floorf((lam - 534.5f) * (1.0f / 35.5f)), 0.0f), (float)nbins);
+  while (b > 0 && edge[b - 1] < nu) --b;
+  while (b < nbins && edge[b] >= nu) ++b;
+  R cum = R(0.0), dprev = R(0.0);
+  for (; b < nbins; ++b) {
+    const R nu_lo = edge[b];
+    R de = rel ? (nu_lo - nu) * inv_dnudl : ct * (nu / nu_lo - R(1.0));
+    de = r_min(r_max(de, R(0.0)), R(1e30));
+    const R seg = r_max(de - dprev, R(0.0));
+    if (seg > R(0.0)) {
+      ++nwalk;
+      const R chi_bb = __ldg(krow + b) * rho_dop;
+      const R chi_t = safe_chi + chi_bb;
+      const R dtau = chi_t * seg;
+      if (cum + dtau >= tau_next) {
+        ev_edist = r_max(dprev + (tau_next - cum) / r_max(chi_t, R(1e-30)), R(0.0));
+        ev_bb = u_bb <= chi_bb / r_max(chi_t, R(1e-30));
+        return;
+      }
+      cum += dtau;
+    }
+    dprev = de;
+    if (dprev > abort_dist) return;
+  }
+}
+#endif
+
+// elements of the table groups in ``stage`` (the 1D grid: one bound per
+// cell), each in a slot of the launch's precision (an int table's entries
+// too, 4-byte copies in 8-byte slots in double)
 template <typename R>
 __host__ __device__ inline int stage_words(const RpktParamsT<R>& p) {
   return ((p.stage & STAGE_CELL) ? 3 * p.nprop + 6 * p.ncells : 0) +
@@ -1002,6 +1080,10 @@ __device__ __forceinline__ void crossing(RpktParamsT<R> p, Lanes<R> in, Tables<R
           const R rho_dop = rho_p * doppler;
           const R* __restrict__ krow = tb.expo_kappa + (size_t)smgi * p.nbins;
           if constexpr (R4) {
+#ifdef RPKT_F64
+            bin_walk_w64(tb.expo_nu_lo, krow, p.nbins, rel, nu, dnudl, tstart, safe_chi,
+                         rho_dop, tau_next, u_bb, abort_dist, ev_edist, ev_bb, m_walk);
+#else
             // the edges from the staged table (the plain version's float32
             // values); the walk starts at the first bin whose lower edge lies
             // below nu, found from a float estimate and corrected on the table:
@@ -1033,6 +1115,7 @@ __device__ __forceinline__ void crossing(RpktParamsT<R> p, Lanes<R> in, Tables<R
               dprev = de;
               if (dprev > abort_dist) break;
             }
+#endif
           } else {
           // start one bin bluer than the packet's own (a guard against the
           // rounding of the estimate): bins bluer than the packet have no path
@@ -1096,9 +1179,9 @@ __device__ __forceinline__ void crossing(RpktParamsT<R> p, Lanes<R> in, Tables<R
             // the redesigned double walks take their own loop; the guard
             // keeps the float32 unit's source, and so its SASS, the parent's
             if constexpr (w64_redesign<R, GEOM, EXPO, NLTE>()) {
-              line_walk_w64(tb.line_nu, taurow, tb.jblue_of_line, jbrow, njb, nlines, cursor0, rel,
-                            nu, dnudl, tstart, safe_chi, tau_next, abort_dist, nu_cmf_abort,
-                            e_over_nu, ev_edist, ev_ntr, ev_bb, ev_lact);
+              line_walk_w64<GEN>(tb.line_nu, taurow, tb.jblue_of_line, jbrow, njb, nlines,
+                                 cursor0, rel, nu, dnudl, tstart, safe_chi, tau_next, abort_dist,
+                                 nu_cmf_abort, e_over_nu, ev_edist, ev_ntr, ev_bb, ev_lact);
             } else {
 #endif
             R tau_cum = R(0.0), prevD = R(0.0);
@@ -1403,7 +1486,9 @@ __global__ void __launch_bounds__(BLOCK) rpkt_crossing_kernel(RpktParamsT<R> p, 
   crossing<R, GEOM, EXPO, NLTE>(p, in, tb, out);
 }
 
-// the redesigned 1D line walk, with a register bound of its own (float32)
+// the redesigned 1D line walk, with a register bound of its own (float32;
+// the double form runs in the generic kernel, which its replayed main paths
+// ran fastest)
 template <typename R>
 __global__ void __launch_bounds__(BLOCK, K1_MIN_BLOCKS)
     rpkt_crossing_kernel_1d(RpktParamsT<R> p, Lanes<R> in, Tables<R> tb, Outs<R> out) {
@@ -1417,7 +1502,7 @@ cudaError_t launch(const RpktParamsT<R>& p, const Lanes<R>& in, const Tables<R>&
   // the largest dynamic shared memory this instantiation was allowed so far
   // (48 KB without asking): raised only when a launch needs more
   void (*kern)(RpktParamsT<R>, Lanes<R>, Tables<R>, Outs<R>);
-  if constexpr (k1_redesign<R, GEOM, EXPO, NLTE>()) kern = rpkt_crossing_kernel_1d<R>;
+  if constexpr (k1_redesign<R, GEOM, EXPO, NLTE>() && is_f32<R>) kern = rpkt_crossing_kernel_1d<R>;
   else kern = rpkt_crossing_kernel<R, GEOM, EXPO, NLTE>;
   static size_t allowed = 48 * 1024;
   if (smem > allowed) {

@@ -221,10 +221,13 @@ def propagate_reference(seed: int, lanes: dict, tables: dict, test_tau, test_sel
                         expansion: bool = False, defer_scatter: bool = False,
                         nradbins: int = 0, njblue: int = 0, want_gamma: bool = True,
                         want_bfheat: bool = True, ff_only: bool = False,
-                        line_chunk: int = 128, walk_log: list | None = None) -> dict:
+                        line_chunk: int = 128, walk_log: list | None = None,
+                        stage: int | None = None) -> dict:
     """The crossing kernel as a per-crossing loop over (N,) float32 or
     float64 tensors, computing in their precision. Same signature and
-    outputs as ``propagate``. ``walk_log``, where given,
+    outputs as ``propagate``; ``stage``, the table groups a launch of the
+    1D walk stages in shared memory, changes no result and is not read
+    here. ``walk_log``, where given,
     gets one (model cell, first entry, end entry) triple of tensors per
     crossing: the lines (in expansion mode, the wavelength bins) each lane's
     walk read there."""
@@ -679,10 +682,10 @@ def nlte_fields(nradbins: int = 0, njblue: int = 0, want_gamma: bool = True,
 class Redesigns(NamedTuple):
     """Which redesign of the kernel a launch runs (``redesigned``)."""
 
-    k1: bool  # the 1D line walk: staged tables, warp sums (float32)
+    k1: bool  # the 1D line walk: staged tables, warp sums (both precisions)
     k3: bool  # the cylindrical line walk's XYDir and row reduction (both precisions)
-    k4: bool  # the bin walk's float32 edge table (float32)
-    w64: bool  # the double line loop without fixed divides: the 3D walk (K2 / K5 / K6) or K3
+    k4: bool  # the bin walk's edge table in shared memory (both precisions)
+    w64: bool  # the double line loop without fixed divides: K1, the 3D walk (K2 / K5 / K6), K3
 
 
 def redesigned(geom: int, expansion: bool, nlte: bool, f64: bool = False) -> Redesigns:
@@ -690,16 +693,16 @@ def redesigned(geom: int, expansion: bool, nlte: bool, f64: bool = False) -> Red
     redesigned cylindrical line walk (K3) or the redesigned bin walk of the
     1D and cylindrical grids (K4), each without the NLTE fields
     (k1_redesign / k3_redesign / k4_redesign in the .cu), and whether it
-    runs a redesigned double line walk (w64_redesign, line_walk_w64: the 3D
-    line walk, which always takes the NLTE instantiation, and the
-    cylindrical one).
-    K1's staged tables and K4's edge table are float32 only; a float64 1D
-    or bin walk runs the generic body."""
+    runs a redesigned double line walk (w64_redesign, line_walk_w64: the 1D
+    and cylindrical line walks and the 3D one, which always takes the NLTE
+    instantiation). The double bin walk of the 1D and cylindrical grids is
+    K4's (bin_walk_w64); the 3D bin walk and the NLTE instantiations of the
+    1D and cylindrical grids run the generic body."""
     line = not expansion
+    k1 = geom == GEOM_SPH and line and not nlte
     k3 = geom == GEOM_CYL and line and not nlte
-    return Redesigns(k1=not f64 and geom == GEOM_SPH and line and not nlte, k3=k3,
-                     k4=not f64 and expansion and not nlte and geom != GEOM_CART,
-                     w64=f64 and (k3 or (geom == GEOM_CART and line)))
+    return Redesigns(k1=k1, k3=k3, k4=expansion and not nlte and geom != GEOM_CART,
+                     w64=f64 and (k1 or k3 or (geom == GEOM_CART and line)))
 
 
 _GEOM_NAME = {GEOM_SPH: "GEOM_SPH", GEOM_CYL: "GEOM_CYL", GEOM_CART: "GEOM_CART"}
@@ -707,44 +710,53 @@ _GEOM_NAME = {GEOM_SPH: "GEOM_SPH", GEOM_CYL: "GEOM_CYL", GEOM_CART: "GEOM_CART"
 
 def kernel_name(geom: int, expansion: bool, nlte: bool, f64: bool = False) -> str:
     """The CUDA kernel of csrc/rpkt_crossing.cu a launch runs (``launch`` /
-    ``launch_geom`` there): the redesigned 1D line walk's kernel of its own,
-    else the generic kernel's instantiation <real type, geometry, bin walk,
-    NLTE fields>; the 3D line walk always takes the NLTE fields."""
+    ``launch_geom`` there): the redesigned float32 1D line walk's kernel of
+    its own, else the generic kernel's instantiation <real type, geometry,
+    bin walk, NLTE fields> (the redesigned double 1D walk's too); the 3D
+    line walk always takes the NLTE fields."""
     real = "double" if f64 else "float"
-    if redesigned(geom, expansion, nlte, f64).k1:
-        return f"rpkt_crossing_kernel_1d<{real}>"
+    if redesigned(geom, expansion, nlte, f64).k1 and not f64:
+        return "rpkt_crossing_kernel_1d<float>"
     nlte = nlte or (geom == GEOM_CART and not expansion)
     return (f"rpkt_crossing_kernel<{real}, {_GEOM_NAME[geom]}, {str(expansion).lower()}, "
             f"{str(nlte).lower()}>")
 
 
 # Table groups the redesigned 1D line walk copies into shared memory at block
-# start, in the order they fill STAGE_MAX (STAGE_* in the .cu): the cell
+# start, in the order they fill the budget (STAGE_* in the .cu): the cell
 # tables, the per-continuum bf tables, the per-(cell, continuum) bf tables,
-# the line list with its tau_factor rows. The default scene's tables take
-# about 16.5 KB; the 101,010-line list does not fit, and that walk reads it from
-# global memory.
+# the line list with its tau_factor rows. Every entry takes a slot of the
+# launch's precision (an int table's too). The default scene's tables take
+# 16,560 bytes in float32 and 33,120 in float64, which STAGE_MAX and
+# STAGE_MAX_F64 hold; the 101,010-line list fits neither, and that walk reads
+# it from global memory. At the double 1D walk's 2 blocks an SM (192
+# registers) 40 KB a block leaves most of the SM's shared memory to the L1
+# cache.
 STAGE_CELL, STAGE_BF, STAGE_BFCELL, STAGE_LINES = 1, 2, 4, 8
 STAGE_MAX = 32 * 1024
+STAGE_MAX_F64 = 40 * 1024
 
 
 def stage_words(nprop: int, ncells: int, ncont: int, nphixs: int, ngc: int,
                 nlines: int) -> dict:
-    """4-byte words of each staged table group of a 1D launch."""
+    """Slots (elements) of each staged table group of a 1D launch, 4 bytes
+    each in a float32 launch and 8 in a float64 one."""
     return {STAGE_CELL: 3 * nprop + 6 * ncells, STAGE_BF: ncont * (3 + nphixs) + ngc,
             STAGE_BFCELL: 2 * ncells * ncont, STAGE_LINES: nlines * (1 + ncells)}
 
 
 def stage_plan(nprop: int, ncells: int, ncont: int, nphixs: int, ngc: int, nlines: int,
-               budget: int = None) -> tuple[int, int]:
-    """(groups, bytes) a 1D launch stages: each group in order that still
-    fits ``budget`` (STAGE_MAX) bytes, the others read from global memory."""
-    budget = STAGE_MAX if budget is None else budget
+               budget: int = None, elem: int = 4) -> tuple[int, int]:
+    """(groups, bytes) a 1D launch with ``elem``-byte floats stages: each
+    group in order that still fits ``budget`` bytes (STAGE_MAX, in float64
+    STAGE_MAX_F64), the others read from global memory."""
+    if budget is None:
+        budget = STAGE_MAX_F64 if elem == 8 else STAGE_MAX
     mask, used = 0, 0
     for g, words in stage_words(nprop, ncells, ncont, nphixs, ngc, nlines).items():
-        if used + 4 * words <= budget:
+        if used + elem * words <= budget:
             mask |= g
-            used += 4 * words
+            used += elem * words
     return mask, used
 
 
@@ -752,10 +764,11 @@ def smem_bytes(ncells: int, ngc: int, nbfr: int, shared_rows: bool, k1: bool, k4
                stage_bytes: int = 0, elem: int = 4, **kw) -> int:
     """Dynamic shared memory of a launch (smem_bytes in the .cu): the
     counters, the estimator rows in shared mode, and the staged tables of
-    the redesigned 1D walk (K1) or the bin edges of the redesigned bin walk
-    (K4), both float32 only; ``elem`` and ``kw`` as ``row_bytes``."""
+    the redesigned 1D walk (K1, ``stage_bytes`` from ``stage_plan``) or the
+    bin edges of the redesigned bin walk (K4, ``expo_edges``), in
+    ``elem``-byte floats; ``elem`` and ``kw`` as ``row_bytes``."""
     rows = row_bytes(ncells, ngc, nbfr, elem, **kw) if shared_rows else 8 * NMISC
-    return rows + (stage_bytes if k1 else 0) + (4 * NBINS if k4 else 0)
+    return rows + (stage_bytes if k1 else 0) + (elem * NBINS if k4 else 0)
 
 
 _EDGES = {}
@@ -765,8 +778,8 @@ def expo_edges(device, dtype=F32) -> torch.Tensor:
     """The lower frequency edges of the NBINS expansion-opacity bins as the
     bin walk compares with them: computed in float64 and rounded to the
     launch's precision, exactly as ``expansionopacity.bin_walk`` computes
-    them (cached per device and dtype). The redesigned float32 bin walk
-    reads them from this table."""
+    them (cached per device and dtype). The redesigned bin walk of either
+    precision reads them from this table in shared memory."""
     if (device, dtype) not in _EDGES:
         b = torch.arange(NBINS, dtype=torch.float64)
         _EDGES[device, dtype] = bin_nu_lower(b).to(dtype).to(device).contiguous()
@@ -794,7 +807,7 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
             ncells, ngc, nphixs, max_inner, relativistic, phixs_dnu, last_nuovernuedge,
             test_mode, geom=GEOM_SPH, ncoord=None, want_bfrate=False, expansion=False,
             defer_scatter=False, nradbins=0, njblue=0, want_gamma=True, want_bfheat=True,
-            ff_only=False, shared_rows=None):
+            ff_only=False, shared_rows=None, stage=None):
     lib = build()
     dev = lanes["posx"].device
     n = lanes["posx"].shape[0]
@@ -844,12 +857,19 @@ def _launch(seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step, *,
     rows_kw = dict(nradbins=nradbins, njblue=njblue, want_gamma=want_gamma,
                    want_bfheat=want_bfheat)
     k1, _, k4, _ = redesigned(geom, expansion, nlte_fields(**rows_kw), f64)
-    stage, stage_bytes = (stage_plan(nprop, ncells, ncont, nphixs, ngc, nlines) if k1
-                          else (0, 0))
+    elem = fd.itemsize
+    # the staged table groups (stage_plan); a caller may force a mask to
+    # test it
+    if not k1:
+        stage, stage_bytes = 0, 0
+    elif stage is None:
+        stage, stage_bytes = stage_plan(nprop, ncells, ncont, nphixs, ngc, nlines, elem=elem)
+    else:
+        words = stage_words(nprop, ncells, ncont, nphixs, ngc, nlines)
+        stage_bytes = elem * sum(w for g, w in words.items() if stage & g)
     # estimator rows in shared memory (pick_shared_rows), else atomics
     # straight into the global rows; a caller may force either mode to
     # measure it
-    elem = fd.itemsize
     if shared_rows is None:
         shared_rows = pick_shared_rows(ncells, ngc, nbfr, elem, **rows_kw)
     smem = smem_bytes(ncells, ngc, nbfr, shared_rows, k1, k4, stage_bytes, elem, **rows_kw)
@@ -1212,7 +1232,7 @@ def held_lanes(k: dict, p: dict) -> torch.Tensor:
 
 
 def check_kernel(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: float,
-                 tmin: float, max_path_step: float, shared_rows=None, **kw):
+                 tmin: float, max_path_step: float, shared_rows=None, stage=None, **kw):
     """Launch the kernel on CUDA lanes, run its plain version on the same
     inputs and compare them (``compare_outputs``). Float32 rounding (CUDA's
     math functions against torch's) can tip a near-tie, after which a lane
@@ -1228,7 +1248,7 @@ def check_kernel(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: f
     is made where it is not 0). Returns (ok, report, kernel outputs, plain
     outputs)."""
     args = (seed, lanes, tables, test_tau, test_sel, t2, tmin, max_path_step)
-    k = _launch(*args, shared_rows=shared_rows, **kw)
+    k = _launch(*args, shared_rows=shared_rows, stage=stage, **kw)
     p = propagate_reference(*args, **kw)
     mask = held_lanes(k, p)
     est = None
@@ -1236,7 +1256,8 @@ def check_kernel(seed: int, lanes: dict, tables: dict, test_tau, test_sel, t2: f
         still = dict(lanes, moving=torch.where(mask, torch.zeros_like(lanes["moving"]),
                                                lanes["moving"]).contiguous())
         a = (seed, still) + args[2:]
-        est = _launch(*a, shared_rows=shared_rows, **kw), propagate_reference(*a, **kw)
+        est = (_launch(*a, shared_rows=shared_rows, stage=stage, **kw),
+               propagate_reference(*a, **kw))
     ok, rep = compare_outputs(k, p, est)
     rep["held_lanes"] = int(mask.sum())
     return ok, rep, k, p

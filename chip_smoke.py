@@ -170,14 +170,14 @@ runs the named main-path scenes of phase 4 alone and logs their records
 (per-timestep grid-update seconds, wall, peak device memory, kernel
 share); prints no result line.
 
-    python3 chip_smoke.py --kernel-ab ROOT [ROOT...] [--replays NAME...]
+    python3 chip_smoke.py --kernel-ab ROOT [ROOT...] [--replays NAME...] [--forced LABEL...]
 
 compares the float32 kernels' SASS of other checkouts of the port (e.g. a
 parent commit unpacked with ``git archive`` into a gitignored directory)
 with this checkout's, instruction for instruction, then times this
 checkout's kernel against theirs
-on the same inputs, configuration by configuration (the double 3D and
-cylindrical walks in float64 too, ``AB_F64``), with the
+on the same inputs, configuration by configuration (``AB_SCENES``, each
+in float32 and float64), with the
 lanes in packet order (the main path's) and sorted by (model cell,
 cursor), in alternating rounds (``kernel_ab``): wrapper-inclusive and
 kernel-only CUDA-event times, ptxas registers, stack and spills of both
@@ -186,12 +186,13 @@ then the launches of the main paths in ``REPLAYS`` (the default and
 128-shell 1D scenes, the big 3D scene, the cylinder at the synthetic and at the Fe line
 list, the expansion-opacity cylinder, nebular, classic_3d, and the float64
 runs big_scene_f64, nebular_1d_3dgrid_nont_f64, classic_3d_f64,
-kilonova_2d_2dgrid_f64, default_scene_f64 and the float64
-expansion-opacity cylinder) replayed through
+kilonova_2d_2dgrid_f64, default_scene_f64, default_opacity3_f64 and the
+float64 expansion-opacity cylinder) replayed through
 each kernel in both orders, with each version's counters (advances and
 boundary crossings per lane, lines or bins walked and bf continua per
-advance); with ``--replays`` only the named replays, without the timings
-at forced lanes; prints no result line.
+advance); with ``--replays`` and / or ``--forced`` only the named replays
+and forced-lane configurations (the labels of ``AB_SCENES``); prints no
+result line.
 """
 
 from __future__ import annotations
@@ -686,13 +687,15 @@ def as_f64(case):
 def _kernel_kw(sim, want_bfrate, expansion=False, defer=False, **extra):
     """The crossing's keywords for a phase-3 simulation; ``extra`` (the
     K5-multibin / K5-jblue ones: nradbins, njblue, want_gamma,
-    want_bfheat) on top."""
+    want_bfheat; ff_only) on top; ``relativistic`` in ``extra`` overrides
+    the scene's Doppler factors."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
+    rel = extra.pop("relativistic", sim.opts.use_relativistic_doppler_shift)
     return dict(extra, nlines=dad.nlines, ncells=sim.cells.Te.shape[0],
                 ngc=max(dad.nbfcontinua_ground, 1), nphixs=dad.nphixspoints,
-                relativistic=sim.opts.use_relativistic_doppler_shift,
+                relativistic=rel,
                 phixs_dnu=float(dad.nphixsnuincrement),
                 last_nuovernuedge=float(dad.last_phixs_nuovernuedge),
                 want_bfrate=want_bfrate, expansion=expansion, defer_scatter=defer,
@@ -1067,7 +1070,7 @@ def phase_kernel_vs_plain(workdir):
     cases.append(_captured_case(sim, seed=1))
     errs["rpkt_crossing_sph1d"] += _check_cases(sim, cases, nonzero)
     rec["rpkt_crossing_sph1d"] = _time_config(sim, *timing_1d, False, "K1 sph1d")
-    # the double form (K1's generic body in float64) on the same cases: the
+    # the double form (the redesigned double K1) on the same cases: the
     # non-grey and ionised shells at max_inner 1 and 64, the captured lanes
     f64_cases = [as_f64(c) for c in cases if c[0].split()[0] in ("nongrey", "ionised")
                  and c[-1] in (1, 64)] + [as_f64(cases[-1])]
@@ -1091,7 +1094,12 @@ def phase_kernel_vs_plain(workdir):
     real = _phase3_sim(workdir, "phase3_real", real_scene, NPKTS_REAL)
     log(f"phase 3 realistic shapes: ncells={real.cells.Te.shape[0]} "
         f"nlines={real.dad.nlines} ncont={real.dad.nbfcontinua}")
-    errs["rpkt_crossing_sph1d"] += _check_cases(real, [_captured_case(real, seed=2)], nonzero)
+    captured = _captured_case(real, seed=2)
+    errs["rpkt_crossing_sph1d"] += _check_cases(real, [captured], nonzero)
+    # the double K1 on the same lanes: its cell and bf tables staged, its
+    # 101,010 lines beyond the double budget in global memory
+    errs["rpkt_crossing_sph1d" + F64] += _check_cases(real, [as_f64(captured)], nonzero)
+    del captured
     for s in (sim, real):
         s.close()
     del sim, real
@@ -1237,6 +1245,10 @@ def phase_kernel_vs_plain(workdir):
     errs[k4] += _check_cases(dense, cases, nonzero, expansion=True)
     errs[k4 + F64] += _check_cases(dense, [as_f64(c) for c in cases if c[-1] in (1, 64)],
                                    nonzero, expansion=True)
+    # the double bin walk with the non-relativistic Doppler factors (nu /
+    # nu_lo a bin) too
+    errs[k4 + F64] += _check_cases(dense, [as_f64(c) for c in cases if c[-1] == 64], nonzero,
+                                   expansion=True, relativistic=False)
     dense.close()
     del dense
     gc.collect()
@@ -1252,9 +1264,10 @@ def phase_kernel_vs_plain(workdir):
     errs[k4] += _check_cases(cylfe, _cases("expo_cyl_fe", cylfe, tb, t0, t2, (1, 64), seed=11),
                              nonzero, expansion=True)
     rec[k4] = _time_config(cylfe, tb, t0, t2, False, "K4 expansion cyl2d", expansion=True)
-    errs[k4 + F64] += _check_cases(
-        cylfe, [as_f64(c) for c in _cases("expo_cyl_fe", cylfe, tb, t0, t2, (64,), seed=11)],
-        nonzero, expansion=True)
+    f64_cases = [as_f64(c) for c in _cases("expo_cyl_fe", cylfe, tb, t0, t2, (64,), seed=11)]
+    errs[k4 + F64] += _check_cases(cylfe, f64_cases, nonzero, expansion=True)
+    errs[k4 + F64] += _check_cases(cylfe, f64_cases, nonzero, expansion=True,
+                                   relativistic=False)
     rec[k4 + F64] = _time_config(cylfe, tb, t0, t2, False, "K4 expansion cyl2d float64",
                                  expansion=True, f64=True)
     cylfe.close()
@@ -1796,8 +1809,9 @@ def kernel_ab(workdir, roots):
     of it. Then the main paths' launches are replayed (``_replay_main_path``).
     First each version's float32 kernels are compared with this checkout's
     in SASS (``_sass_compare``). ``--replays NAME...`` after the roots
-    replays only those main paths (REPLAYS), without the timings at forced
-    lanes."""
+    replays only those main paths (REPLAYS), ``--forced LABEL...`` times
+    only those forced-lane configurations (AB_SCENES); with either, nothing
+    the other does not name."""
     import inspect
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1805,14 +1819,26 @@ def kernel_ab(workdir, roots):
 
     from artis_tpu_torch.transport import rpkt_kernel
 
-    only = None
-    if "--replays" in roots:
-        i = roots.index("--replays")
-        roots, only = roots[:i], roots[i + 1:]
-        unknown = set(only) - {r[0] for r in REPLAYS}
-        if unknown or not only:
-            raise SystemExit(f"--replays: unknown {sorted(unknown)}; replays: "
-                             f"{[r[0] for r in REPLAYS]}")
+    # the roots, then the names after each option
+    opts, names, args = {}, None, roots
+    roots = []
+    for a in args:
+        if a.startswith("--"):
+            names = opts.setdefault(a, [])
+        else:
+            (roots if names is None else names).append(a)
+    for opt, known in (("--replays", [r[0] for r in REPLAYS]),
+                       ("--forced", [sc[0] for sc in AB_SCENES])):
+        given = opts.get(opt)
+        if given is not None and (not given or set(given) - set(known)):
+            raise SystemExit(f"{opt}: unknown {sorted(set(given) - set(known))}; "
+                             f"known: {known}")
+    if set(opts) - {"--replays", "--forced"}:
+        raise SystemExit(f"--kernel-ab: unknown options {sorted(set(opts))}")
+    # without either option every forced configuration and every replay;
+    # with one or both only the named ones
+    only = opts.get("--replays", [] if opts else None)
+    forced = opts.get("--forced", [] if opts else None)
     versions = [("this", rpkt_kernel)] + [(r, _load_wrapper(r)) for r in roots]
     _sass_compare(versions, workdir)
     t0 = time.time()
@@ -1864,32 +1890,15 @@ def kernel_ab(workdir, roots):
                                   "bins" if extra.get("expansion") else "lines"))
             torch.cuda.synchronize()
 
-    scenes = [
-        ("K1 sph1d", dict(make_scene=default_scene, npkts=NPKTS_DEFAULT), [({}, False)]),
-        ("K3 cyl2d", dict(make_scene=cyl_scene, npkts=NPKTS_DEFAULT,
-                          grid_type="CYLINDRICAL2D"), [({}, False)]),
-        ("K3 cyl2d Fe", dict(make_scene=cyl_fe_scene, npkts=NPKTS_DEFAULT,
-                             grid_type="CYLINDRICAL2D"), [({}, False)]),
-        ("K4 expansion sph1d", dict(make_scene=expo_dense_scene, npkts=NPKTS_DEFAULT,
-                                    expansionopacities_on=True), [(dict(expansion=True), False)]),
-        ("K4 expansion cyl2d", dict(make_scene=cyl_fe_scene, npkts=NPKTS_DEFAULT,
-                                    grid_type="CYLINDRICAL2D", expansionopacities_on=True),
-         [(dict(expansion=True), False)]),
-        ("K2 / K6 classic cart3d", dict(make_scene=classic_scene, npkts=NPKTS_REAL,
-                                        grid_type="CARTESIAN3D", preset="classic"),
-         [({}, False), (dict(defer=True), False)]),
-        ("K5 nebular cart3d", dict(make_scene=nebular_scene, npkts=NPKTS_DEFAULT,
-                                   grid_type="CARTESIAN3D", preset="nltenebular", **NEBULAR),
-         [(dict(nradbins=0, njblue=0, want_gamma=True, want_bfheat=True), True),
-          ("k5", True)]),
-    ]
-    for i, (label, sc, configs) in enumerate(scenes if only is None else []):
+    for i, (label, sc, configs) in enumerate(AB_SCENES):
+        if forced is not None and label not in forced:
+            continue
         sim = _phase3_sim(workdir, f"ab{i}", **sc)
         ctx = sim.update_grid(0)
         tb = _nongrey_tables(sim, ctx)[1]
         for extra, bfr in configs:
             extra = _k5_kw(sim) if extra == "k5" else extra
-            for f64 in (False, True) if label in AB_F64 else (False,):
+            for f64 in (False, True):
                 name = (f"{label}{' float64' if f64 else ''} "
                         f"{' '.join(f'{k}={v}' for k, v in extra.items())}").strip()
                 time_config(name, sim, tb, float(ctx.ts), float(ctx.t2), bfr, f64=f64, **extra)
@@ -1904,6 +1913,32 @@ def kernel_ab(workdir, roots):
                           versions, launcher, npkts, timesteps)
 
 
+# the forced-lane configurations of --kernel-ab, each timed in float32 and
+# float64: label, scene keywords (_phase3_sim) and (keywords, bf-rate rows)
+# of each configuration timed on the scene; the non-relativistic bin walks
+# (the classic and nebular presets' Doppler factors) beside kilonova_lte's
+# relativistic ones
+AB_SCENES = [
+    ("K1 sph1d", dict(make_scene=default_scene, npkts=NPKTS_DEFAULT),
+     [({}, False), (dict(ff_only=True), False)]),
+    ("K3 cyl2d", dict(make_scene=cyl_scene, npkts=NPKTS_DEFAULT,
+                      grid_type="CYLINDRICAL2D"), [({}, False)]),
+    ("K3 cyl2d Fe", dict(make_scene=cyl_fe_scene, npkts=NPKTS_DEFAULT,
+                         grid_type="CYLINDRICAL2D"), [({}, False)]),
+    ("K4 expansion sph1d", dict(make_scene=expo_dense_scene, npkts=NPKTS_DEFAULT,
+                                expansionopacities_on=True),
+     [(dict(expansion=True), False), (dict(expansion=True, relativistic=False), False)]),
+    ("K4 expansion cyl2d", dict(make_scene=cyl_fe_scene, npkts=NPKTS_DEFAULT,
+                                grid_type="CYLINDRICAL2D", expansionopacities_on=True),
+     [(dict(expansion=True), False), (dict(expansion=True, relativistic=False), False)]),
+    ("K2 / K6 classic cart3d", dict(make_scene=classic_scene, npkts=NPKTS_REAL,
+                                    grid_type="CARTESIAN3D", preset="classic"),
+     [({}, False), (dict(defer=True), False)]),
+    ("K5 nebular cart3d", dict(make_scene=nebular_scene, npkts=NPKTS_DEFAULT,
+                               grid_type="CARTESIAN3D", preset="nltenebular", **NEBULAR),
+     [(dict(nradbins=0, njblue=0, want_gamma=True, want_bfheat=True), True),
+      ("k5", True)]),
+]
 # the main paths whose kernel launches --kernel-ab replays: scene (SCENES),
 # packets and timesteps; K1's (the default and 128-shell 1D scenes), K2 /
 # K5-bfrate's (the big 3D scene), K3's
@@ -1912,9 +1947,9 @@ def kernel_ab(workdir, roots):
 # then the float64 runs of the smoke at their depth and packets: the double
 # 3D line walk's (big_scene_f64: K2 / K5-bfrate, nebular_1d_3dgrid_nont_f64:
 # K5-multibin / K5-jblue, classic_3d_f64: K6), the double K3's
-# (kilonova_2d_2dgrid_f64), K1's and K4's (default_scene_f64 and the
-# expansion-opacity cylinder at float64), whose library the double walks
-# share
+# (kilonova_2d_2dgrid_f64), K1's (default_scene_f64, and with the
+# free-free continuum default_opacity3_f64) and K4's (the expansion-opacity
+# cylinder at float64)
 REPLAYS = (("default_scene", NPKTS_DEFAULT, 5), ("realistic_scene", NPKTS_REAL, 2),
            ("big_scene", NPKTS_REAL, 2),
            ("kilonova_2d_2dgrid", NPKTS_2D, 2), ("kilonova_2d_2dgrid_fe", NPKTS_2D, 3),
@@ -1922,11 +1957,8 @@ REPLAYS = (("default_scene", NPKTS_DEFAULT, 5), ("realistic_scene", NPKTS_REAL, 
            ("nebular_1d_3dgrid_nont", NPKTS_REAL, 2), ("classic_3d", NPKTS_REAL, 2),
            ("big_scene_f64", NPKTS_REAL, 2), ("nebular_1d_3dgrid_nont_f64", NPKTS_2D, 1),
            ("classic_3d_f64", NPKTS_2D, 1), ("kilonova_2d_2dgrid_f64", NPKTS_2D, 2),
-           ("default_scene_f64", NPKTS_DEFAULT, 5),
+           ("default_scene_f64", NPKTS_DEFAULT, 5), ("default_opacity3_f64", NPKTS_DEFAULT, 5),
            ("kilonova_2d_2dgrid_expansionopac_f64", NPKTS_2D, 2))
-# the forced-lane configurations of --kernel-ab that are timed in float64
-# too: the redesigned double line walks (line_walk_w64)
-AB_F64 = ("K3 cyl2d", "K3 cyl2d Fe", "K2 / K6 classic cart3d", "K5 nebular cart3d")
 
 
 def _sorted_args(args, mgi_of_cell, sort=True):
@@ -2983,6 +3015,23 @@ SCENES = [
 ]
 
 
+def _redesigns(kernel):
+    """The redesigns (the fields of rpkt_kernel.Redesigns that are on: k1,
+    k3, k4, w64) of the code a kernel named by rpkt_kernel.kernel_name
+    runs."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    m = re.fullmatch(r"rpkt_crossing_kernel(_1d)?<(float|double)(?:, GEOM_(\w+), (\w+), (\w+))?>",
+                     kernel)
+    if m.group(1):  # the float32 1D line walk's kernel of its own
+        geom, expansion, nlte = rpkt_kernel.GEOM_SPH, False, False
+    else:
+        geom = getattr(rpkt_kernel, f"GEOM_{m.group(3)}")
+        expansion, nlte = m.group(4) == "true", m.group(5) == "true"
+    r = rpkt_kernel.redesigned(geom, expansion, nlte, m.group(2) == "double")
+    return [field for field, on in r._asdict().items() if on]
+
+
 def scene_runs(workdir, names):
     """Runs the named main-path scenes (SCENES) and logs their records
     (``_run_scene``: per-timestep grid-update seconds, wall, peak device
@@ -3016,7 +3065,8 @@ def main():
     if (sys.argv[1:] not in ([], ["--rows-sweep"], ["--repeat"])
             and sys.argv[1:2] not in (["--kernel-ab"], ["--scenes"])):
         raise SystemExit("usage: python3 chip_smoke.py [--rows-sweep | --repeat | "
-                         "--kernel-ab ROOT... [--replays NAME...] | --scenes NAME...]")
+                         "--kernel-ab ROOT... [--replays NAME...] [--forced LABEL...] | "
+                         "--scenes NAME...]")
     card = phase_device()
     import torch
 
@@ -3122,8 +3172,10 @@ def main():
     kernels = []
     for key, (label, replaces) in CONFIGS.items():
         r = rec[key]
+        ran = runs[main_run[key]]["kernels"].get(key, ())
         kernels.append(dict(name=f"{label} {key}", route="cuda", source=KERNEL_SOURCE,
-                            cuda_kernel=" / ".join(runs[main_run[key]]["kernels"].get(key, ())),
+                            cuda_kernel=" / ".join(ran),
+                            redesigns=sorted({t for k in ran for t in _redesigns(k)}),
                             replaces=replaces, launches=runs[main_run[key]]["launches"][key],
                             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                             bound_ms=r["bound_ms"], bound_by=r["bound_by"],

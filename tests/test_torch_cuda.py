@@ -14,9 +14,11 @@ closed-form oracles of tests/test_torch_oracles.py through K1; two
 same-seed runs with virtual packets (the same virtual spectra bit for
 bit); the XCOM photoelectric opacity on the card against the CPU; and the
 double form of every configuration (``transport_dtype="float64"``, the
-default) against its plain version in float64 (the redesigned double 3D
-and cylindrical line walks with relativistic and non-relativistic Doppler
-factors, and the double K3 at 2^18 lanes), a float64 main path that
+default) against its plain version in float64 (the redesigned double 1D,
+3D and cylindrical line walks and the double bin walk with relativistic
+and non-relativistic Doppler factors, the double 1D walk with every subset
+of its tables staged and with a line list beyond its staging budget, the
+double K3 at 2^18 lanes), a float64 main path that
 launches only double forms, and two same-seed float64 runs; and
 check_kernel on a dense probe whose lanes scatter many times.
 
@@ -121,7 +123,7 @@ def _forced_lanes(sim, ctx, seed, npkts=NPKTS):
 def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
            expansion=False, defer=False, nradbins=0, njblue=0, lut=True, order="packet",
            n=None, grey=False, ff_only=False, dtype=torch.float32, relativistic=None,
-           dense=False):
+           dense=False, stage=None):
     """Kernel against plain version on the scene's forced lanes (the first
     ``n`` of them where given; more than NPKTS drawn where ``n`` asks for
     them). ``grey``: every other cell thick, at a grey opacity that makes
@@ -130,7 +132,8 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
     that electron density in turn (electron scattering and free-free take
     the continuum). ``dtype`` float64: the double form, on the same lanes
     and tables in float64 (the tolerances of rpkt_kernel.TOL_F64).
-    ``relativistic`` overrides the scene's Doppler factors."""
+    ``relativistic`` overrides the scene's Doppler factors; ``stage`` forces
+    the table groups a 1D line walk stages (rpkt_kernel.STAGE_*)."""
     from artis_tpu_torch.transport import rpkt_kernel
 
     dad = sim.dad
@@ -177,7 +180,7 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
     before, before_all = counted(), sum(rpkt_kernel.propagate.launches.values())
     ok, rep, _, plain = rpkt_kernel.check_kernel(
         99, lanes, tables, tau, sel, float(ctx.t2), float(ctx.tmin),
-        float(sim.grid.max_path_step), shared_rows=shared_rows, **kw)
+        float(sim.grid.max_path_step), shared_rows=shared_rows, stage=stage, **kw)
     torch.cuda.synchronize()
     # the second launch pair holds still every lane with a differing
     # integer output
@@ -639,6 +642,100 @@ def test_k1_line_walk_beyond_the_staging(long_list_scene, max_inner, test_mode):
                                       dad.nlines)
     assert not stage & rpkt_kernel.STAGE_LINES and stage & rpkt_kernel.STAGE_CELL
     _check(*long_list_scene, max_inner, test_mode, want_bfrate=False)
+
+
+# the redesigned double 1D line walk (K1 in float64: its tables staged in
+# 8-byte slots, warp-summed rows, line_walk_w64) and
+# the redesigned double bin walk (K4 in float64: the staged double edge
+# table, 1/dnudl once a crossing)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("stage", range(16))
+def test_double_k1_staging_masks(scenes, stage, test_mode):
+    """The double K1 with every subset of its table groups in shared
+    memory (the others read from global memory) against its plain version
+    in float64 (rpkt_kernel.TOL_F64)."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    assert rpkt_kernel.redesigned(rpkt_kernel.GEOM_SPH, False, False, f64=True).k1
+    _check(*scenes["sph1d"], 16, test_mode, want_bfrate=False, dtype=torch.float64,
+           stage=stage)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("max_inner", [1, 16])
+def test_double_k1_line_walk_beyond_the_staging(long_list_scene, max_inner, test_mode):
+    """The double K1 on the 2340-line Fe atom, whose line tables exceed the
+    double staging budget: the walk reads them from global memory, the
+    other groups from shared memory."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    sim = long_list_scene[0]
+    dad = sim.dad
+    stage, _ = rpkt_kernel.stage_plan(sim.grid.nonemptymgi_of_cell.shape[0],
+                                      sim.cells.Te.shape[0], dad.nbfcontinua,
+                                      dad.nphixspoints, max(dad.nbfcontinua_ground, 1),
+                                      dad.nlines, elem=8)
+    assert not stage & rpkt_kernel.STAGE_LINES and stage & rpkt_kernel.STAGE_CELL
+    _check(*long_list_scene, max_inner, test_mode, want_bfrate=False, dtype=torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relativistic", [True, False])
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("dense", [False, True])
+def test_double_ff_only_k1(scenes, dense, test_mode, relativistic):
+    """The double ff-only form (the free-free continuum of the grey opacity
+    cases 0-3 in the double K1) on the scene's shells and on ionised,
+    denser ones where free-free absorbs, with both Doppler factors: no
+    electron-scattering or bound-free opacity and no LUT row."""
+    plain = _check(*scenes["sph1d"], 16, test_mode, want_bfrate=False, ff_only=True,
+                   dtype=torch.float64, dense=dense, relativistic=relativistic)
+    for f in ("chi_escat", "chi_bf", "gamma", "bfheat"):
+        assert not bool(plain[f].any()), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("relativistic", [True, False])
+@pytest.mark.parametrize("test_mode", [True, False])
+@pytest.mark.parametrize("max_inner", [1, 16])
+@pytest.mark.parametrize("name", ["sph1d", "cyl2d"])
+def test_double_bin_walks_match_plain_version(expo_scenes, name, max_inner, test_mode,
+                                              relativistic):
+    """The double K4 on the 1D grid's and the cylinder's lanes, with the
+    relativistic Doppler factors of kilonova_lte (1/dnudl once a crossing)
+    and the non-relativistic ones (nu / nu_lo a bin), against its plain
+    version in float64; bound-bound bin events occur."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    geom = rpkt_kernel.kernel_geometry(expo_scenes[name][0].grid)["geom"]
+    assert rpkt_kernel.redesigned(geom, True, False, f64=True).k4
+    plain = _check(*expo_scenes[name], max_inner, test_mode, want_bfrate=False, expansion=True,
+                   dtype=torch.float64, relativistic=relativistic)
+    assert int(((plain["is_bb"] > 0) & (plain["evented"] > 0)).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 129])
+@pytest.mark.parametrize("kernel", ["k1", "k4_sph1d", "k4_cyl2d"])
+def test_double_redesigned_walks_partial_warps(scenes, expo_scenes, kernel, n):
+    """The double K1 and K4 at a partial warp, one lane past a warp and one
+    past a block: the warp-summed double rows and the staged tables with
+    lanes missing."""
+    sc, kw = _redesigned_case(kernel, scenes, expo_scenes)
+    _check(*sc, 16, False, n=n, dtype=torch.float64, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_rows", [True, False])
+@pytest.mark.parametrize("kernel", ["k1", "k4_sph1d", "k4_cyl2d"])
+def test_double_redesigned_walks_row_modes(scenes, expo_scenes, kernel, shared_rows):
+    """Both estimator-row modes of the double K1 and K4."""
+    sc, kw = _redesigned_case(kernel, scenes, expo_scenes)
+    _check(*sc, 16, True, shared_rows=shared_rows, dtype=torch.float64, **kw)
 
 
 # the deferred-event scenes (K6): dense and hot enough for electron

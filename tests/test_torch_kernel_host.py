@@ -1,8 +1,9 @@
 """The host helpers of the crossing kernel's wrapper, on the CPU: the bin
-edge table the redesigned bin walk (K4) reads, against the plain version's
-and the JAX package's edges bitwise; the packed estimator outputs of a
-launch, against the shapes the plain version returns; the shared-memory
-staging plan of the redesigned 1D line walk (K1) at the main path's sizes;
+edge tables (float32 and float64) the redesigned bin walk (K4) reads,
+against the plain version's and the JAX package's edges bitwise; the packed
+estimator outputs of a launch, against the shapes the plain version
+returns; the shared-memory staging plan of the redesigned 1D line walk (K1)
+at the main path's sizes in both precisions;
 the row mode of the redesigned cylindrical walk (K3) at both cylinders'
 sizes and the alignment its vector reductions need; and each launch's
 shared memory within the card's limit."""
@@ -45,6 +46,38 @@ def test_expo_edges_match_the_plain_and_jax_edges():
                  False, 3e38)
     assert torch.equal(w["j"][:2], probe[:2] + 1)
     assert w["anyhit"].tolist() == [True, True, False]
+
+
+@pytest.mark.parametrize("relativistic", [True, False])
+def test_expo_edges_float64_match_the_plain_and_jax_edges(relativistic):
+    """The double bin walk's edge table: the float64 edges themselves, bit
+    for bit the ones the plain version's float64 bin walk compares with,
+    within an ulp of the JAX package's (torch divides a scalar by a tensor
+    through the reciprocal, which rounds 272 of the 970 edges one ulp away
+    from the quotient), strictly descending; the first bin with path
+    length of a packet just above edge b is b, of one exactly on it b + 1,
+    in the relativistic and the non-relativistic walk."""
+    from artis_tpu.transport import expansionopacity as jexpo
+
+    edges = rk.expo_edges(torch.device("cpu"), torch.float64)
+    assert edges.dtype == torch.float64 and edges.shape == (NBINS,) and edges.is_contiguous()
+    b = np.arange(NBINS, dtype=np.float64)
+    jax_edges = np.asarray(jexpo.bin_nu_lower(b), dtype=np.float64)
+    assert np.all(np.abs(edges.numpy().view(np.int64) - jax_edges.view(np.int64)) <= 1)
+    from artis_tpu_torch.transport.expansionopacity import bin_nu_lower
+
+    plain = bin_nu_lower(torch.arange(NBINS, dtype=torch.float64))
+    assert torch.equal(edges.view(torch.int64), plain.view(torch.int64))
+    assert bool((edges[1:] < edges[:-1]).all())
+    probe = torch.tensor([0, 3, 250, 968])
+    one = torch.ones(probe.shape[0], dtype=torch.float64)
+    walk = lambda nu: bin_walk(torch.zeros((nu.shape[0], NBINS), dtype=torch.float64), nu,
+                               1e5 * one, one, torch.full_like(one, 1e-300), -one,
+                               torch.ones(nu.shape[0], dtype=bool), relativistic, 3e38)
+    w = walk(torch.nextafter(edges[probe], torch.tensor(np.inf, dtype=torch.float64)))
+    assert torch.equal(w["j"], probe) and bool(w["anyhit"].all())
+    w = walk(edges[probe])
+    assert torch.equal(w["j"], probe + 1) and bool(w["anyhit"].all())
 
 
 # (ngc, nbfr, nradbins, njblue, LUT estimators) of the launches the main
@@ -135,6 +168,43 @@ def test_stage_plan_at_the_main_path_sizes():
     assert w[rk.STAGE_BF] > w[rk.STAGE_BFCELL] + w[rk.STAGE_LINES]
     assert rk.stage_plan(*dims, budget=budget) == (
         rk.STAGE_CELL | rk.STAGE_BFCELL | rk.STAGE_LINES, budget)
+
+
+ALL_GROUPS = rk.STAGE_CELL | rk.STAGE_BF | rk.STAGE_BFCELL | rk.STAGE_LINES
+
+
+@pytest.mark.parametrize("dims,expect", [(DEFAULT, ALL_GROUPS),
+                                         (REALISTIC, ALL_GROUPS & ~rk.STAGE_LINES)])
+def test_stage_plan_in_double(dims, expect):
+    """A float64 launch counts 8 bytes a slot against STAGE_MAX_F64: the
+    default scene stages all four groups (33,120 bytes, beyond the float32
+    budget), the 128-shell scene all but its lines; the bytes are 8 a slot,
+    twice the float32 plan's for the same groups, and the launch's shared
+    memory holds them beside the rows."""
+    words = rk.stage_words(*dims)
+    mask, used = rk.stage_plan(*dims, elem=8)
+    assert mask == expect
+    assert used == 8 * sum(w for g, w in words.items() if mask & g) <= rk.STAGE_MAX_F64
+    if dims == DEFAULT:
+        assert used == 33120 > rk.STAGE_MAX
+        assert rk.stage_plan(*dims)[1] == used // 2
+    nprop, ncells, ncont, nphixs, ngc, nlines = dims
+    shared = rk.pick_shared_rows(ncells, ngc, 0, 8)
+    smem = rk.smem_bytes(ncells, ngc, 0, shared, True, False, used, 8)
+    assert smem == (rk.row_bytes(ncells, ngc, 0, 8) if shared else 8 * rk.NMISC) + used
+    # even three blocks of the double walk fit an SM's shared memory
+    assert 3 * smem <= rk.SMEM_LIMIT
+    assert rk.stage_plan(*dims, budget=0, elem=8) == (0, 0)
+
+
+def test_double_edge_table_bytes():
+    """A float64 expansion launch's edge table takes 8 * NBINS bytes of
+    shared memory after the rows (4 * NBINS in float32)."""
+    for shared in (True, False):
+        rows = rk.row_bytes(16, 7, 0, 8) if shared else 8 * rk.NMISC
+        assert rk.smem_bytes(16, 7, 0, shared, False, True, elem=8) == rows + 8 * NBINS
+    assert (rk.smem_bytes(1250, 3, 0, False, False, True, elem=8)
+            - rk.smem_bytes(1250, 3, 0, False, False, True)) == 4 * NBINS
 
 
 @pytest.mark.parametrize("geom,expansion,nlte,expect", [
@@ -307,20 +377,23 @@ def test_float64_estimator_buffers(ngc, nbfr, nradbins, njblue, lut):
 
 # (K1, K3, K4, double walk) of a float64 launch, per geometry, walk (lines
 # or expansion-opacity bins) and NLTE fields, and the CUDA kernel it runs:
-# the 3D line walk (which always takes the NLTE instantiation) and the
-# cylindrical line walk without the fields run the redesigned double line
-# loop, K3 with its XYDir; the 1D walks and every bin walk run the generic
-# body (K1's staged tables and K4's edge table are float32 only); every
-# double form is an instantiation of the generic kernel
+# the 1D line walk (staged tables, warp sums), the 3D line walk (which
+# always takes the NLTE instantiation) and the cylindrical line walk
+# without the fields run the redesigned double line loop, K3 with its
+# XYDir; the bin walks of the 1D and cylindrical grids without the fields
+# read the staged double edge table (K4); the 3D bin walk and the other
+# NLTE instantiations run the generic body; every double form is an
+# instantiation of the generic kernel (the float32 K1 has a kernel of its
+# own)
 _D = "rpkt_crossing_kernel<double, "
 F64_REDESIGNS = {
-    (rk.GEOM_SPH, False, False): ((False, False, False, False), _D + "GEOM_SPH, false, false>"),
+    (rk.GEOM_SPH, False, False): ((True, False, False, True), _D + "GEOM_SPH, false, false>"),
     (rk.GEOM_SPH, False, True): ((False, False, False, False), _D + "GEOM_SPH, false, true>"),
-    (rk.GEOM_SPH, True, False): ((False, False, False, False), _D + "GEOM_SPH, true, false>"),
+    (rk.GEOM_SPH, True, False): ((False, False, True, False), _D + "GEOM_SPH, true, false>"),
     (rk.GEOM_SPH, True, True): ((False, False, False, False), _D + "GEOM_SPH, true, true>"),
     (rk.GEOM_CYL, False, False): ((False, True, False, True), _D + "GEOM_CYL, false, false>"),
     (rk.GEOM_CYL, False, True): ((False, False, False, False), _D + "GEOM_CYL, false, true>"),
-    (rk.GEOM_CYL, True, False): ((False, False, False, False), _D + "GEOM_CYL, true, false>"),
+    (rk.GEOM_CYL, True, False): ((False, False, True, False), _D + "GEOM_CYL, true, false>"),
     (rk.GEOM_CYL, True, True): ((False, False, False, False), _D + "GEOM_CYL, true, true>"),
     (rk.GEOM_CART, False, False): ((False, False, False, True), _D + "GEOM_CART, false, true>"),
     (rk.GEOM_CART, False, True): ((False, False, False, True), _D + "GEOM_CART, false, true>"),
@@ -331,15 +404,19 @@ F64_REDESIGNS = {
 
 @pytest.mark.parametrize("geom,expansion,nlte", list(F64_REDESIGNS))
 def test_float64_launches_take_the_generic_body(geom, expansion, nlte):
-    """The redesigns a float64 launch runs and its kernel: the double 3D
-    and cylindrical line walks in the generic kernel; a double 1D or bin
-    walk stages no tables and reads no edge table (its shared memory is the
-    float32 form's without them)."""
+    """The redesigns a float64 launch runs and its kernel: the double 1D,
+    3D and cylindrical line walks and the 1D and cylindrical bin walks
+    without the NLTE fields run redesigned code, only the 3D bin walk and
+    the other NLTE instantiations the generic body; K1 and K4 are the same
+    redesigns as in float32 (the staged tables, the edge table), which no
+    double walk of another geometry or with the NLTE fields takes; no
+    float32 launch runs a double line loop."""
     r = rk.redesigned(geom, expansion, nlte, f64=True)
     expect, kernel = F64_REDESIGNS[geom, expansion, nlte]
     assert r == expect
-    assert not (r.k1 or r.k4)
-    assert rk.redesigned(geom, expansion, nlte).w64 is False
+    f32 = rk.redesigned(geom, expansion, nlte)
+    assert (r.k1, r.k3, r.k4) == (f32.k1, f32.k3, f32.k4)
+    assert f32.w64 is False
     assert rk.kernel_name(geom, expansion, nlte, f64=True) == kernel
 
 

@@ -64,6 +64,7 @@ import time as _time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from . import decay as decay_mod
 from . import grid as grid_mod
@@ -80,6 +81,7 @@ from .io import inputparams as inputparams_io
 from .io import model as model_io
 from .options import Options, kilonova_lte
 from .packets import TYPE_ESCAPE, TYPE_RPKT
+from .parallel import mesh as mesh_mod
 from .plasma import cellstate as cellstate_mod
 from .plasma import ltepop as ltepop_mod
 from .plasma import nltepop as nltepop_mod
@@ -93,6 +95,7 @@ from .transport import linewalk as linewalk_mod
 from .transport import macroatom as macroatom_mod
 from .transport import expansionopacity as expo_mod
 from .transport import opacity as opacity_mod
+from .transport import rpkt_kernel
 from .transport import thermalisation as therm_mod
 from .transport import vpkt as vpkt_mod
 
@@ -554,21 +557,25 @@ class Simulation:
     """Owns all static data and the evolving state of one run."""
 
     def __init__(self, rundir: str, opts: Options | None = None, datadir: str | None = None,
-                 device="cuda", lockfile: bool = False):
+                 device="cuda", lockfile: bool = False, mesh=None):
         self.device = torch.device(device)
         self.rundir = rundir
         self.datadir = datadir or os.path.join(rundir, "data")
         if not os.path.isdir(self.datadir):
             self.datadir = rundir
+        self.mesh = self._setup_mesh(mesh)
+        # on a mesh rank 0 alone writes the run directory's files
+        self._writes = self.mesh is None or self.mesh.rank == 0
         self._lockpath = None
-        if lockfile:
+        if lockfile and self._writes:
             self._acquire_lockfile()
-        self.logfile = open(os.path.join(rundir, "output_0-0.txt"), "w")
-        self.log = lambda msg: printout(self.logfile, msg)
+        self.logfile = open(os.path.join(rundir, "output_0-0.txt"), "w") if self._writes else None
+        self.log = (lambda msg: printout(self.logfile, msg)) if self._writes else (lambda msg: None)
         p = inputparams_io.read_parameterfile(os.path.join(rundir, "input.txt"))
         self.params = p
         self.opts = opts if opts is not None else kilonova_lte()
         engine_mod.check_supported(self.opts, p.opacity_case)
+        self._check_mesh()
         if self.opts.transport_dtype not in ("float64", "float32"):
             raise ValueError(f"transport_dtype must be 'float64' or 'float32', "
                              f"got {self.opts.transport_dtype!r}")
@@ -644,9 +651,15 @@ class Simulation:
         self.log("building rate coefficient tables...")
         _rc_cache = os.environ.get("ARTIS_RATECOEFF_CACHE_DIR") or rundir
         os.makedirs(_rc_cache, exist_ok=True)
+        # on a mesh rank 0 builds (and caches) the tables before the other
+        # ranks read them
+        if not self._writes:
+            mesh_mod.barrier(self.mesh)
         self.rc = ratecoeff_mod.build_tables(
             self.dad, self.opts.tablesize, self.opts.mintemp, self.opts.maxtemp,
             self.opts.use_lut_photoion, self.opts.use_lut_bfheating, cache_dir=_rc_cache)
+        if self.mesh is not None and self._writes:
+            mesh_mod.barrier(self.mesh)
         self.aux = macroatom_mod.build_aux(self.dad)
         if self._f32:
             self.rc = demote_to_f32(self.rc)
@@ -675,21 +688,15 @@ class Simulation:
         # packet energies live in units of e0 (erg values overflow float32)
         self._e0 = float(self.pellet_tables.e0)
         self.seed = p.pre_zseed if p.pre_zseed > 0 else 42
-        self.state = packets_mod.packet_init((self.seed, 0), self.grid, self.pellet_tables,
-                                             self.opts, device=dev)
+        # every rank builds the global initial packets and keeps its shard
+        self.state = self._shard(packets_mod.packet_init((self.seed, 0), self.grid,
+                                                         self.pellet_tables, self.opts,
+                                                         device=dev))
         self.log(f"packets {self.opts.npkts} etot {self.pellet_tables.norm:g} erg")
 
-        with open(os.path.join(rundir, "timesteps.out"), "w") as f:
-            f.write("#timestep tstart_days tmid_days twidth_days\n")
-            for n in range(p.ntimesteps):
-                f.write(f"{n} {self.ts.start[n] / DAY:g} {self.ts.mid[n] / DAY:g} "
-                        f"{self.ts.width[n] / DAY:g}\n")
-        with open(os.path.join(rundir, "grid.out"), "w") as f:
-            mgi_all = self.grid_host.mgi_of_cell
-            for n in range(int(self.grid.ngrid)):
-                if mgi_all[n] != self.model.npts_model:
-                    f.write(f"{n} {int(mgi_all[n])}\n")
-        if not p.simulation_continued_from_saved:
+        if self._writes:
+            self._write_gridfiles()
+        if self._writes and not p.simulation_continued_from_saved:
             self._write_listfiles()
             if self.opts.record_linestat:
                 self._write_linestat_header()
@@ -765,7 +772,8 @@ class Simulation:
             "alpha_emission")}
         self.spec = spectrum_mod.init_spectra(self.opts.nu_min_r, self.opts.nu_max_r,
                                               p.ntimesteps)
-        self._escaped_counted = np.zeros(self.opts.npkts, dtype=bool)
+        # per packet of this rank's shard
+        self._escaped_counted = np.zeros(self.state.npkts, dtype=bool)
         vol_tmin_all = grid_mod.get_cell_volume_tmin(self.grid, self.grid_host)
         assoc_vol_mgi = np.zeros(self.grid.npts_model + 1)
         np.add.at(assoc_vol_mgi, self.grid_host.mgi_of_cell, vol_tmin_all)
@@ -789,6 +797,13 @@ class Simulation:
         self.total_rpkt_steps = 0
         self.total_transport_seconds = 0.0
         self.transport_log = []
+        # the grid update, split over the mesh's ranks on a mesh (the JAX
+        # driver swaps _plasma_jit for the cell-domain dispatch); the mesh's
+        # collective seconds of the timestep
+        self._mesh_timing = {}
+        self._plasma_fn = (_plasma_update_device if self.mesh is None else
+                           mesh_mod.make_plasma_dispatch(self.mesh, _plasma_update_device,
+                                                         timing=self._mesh_timing))
         if p.simulation_continued_from_saved:
             self.log(f"resuming from checkpoint at timestep {p.timestep_start}")
             self.load_checkpoint(p.timestep_start)
@@ -796,8 +811,70 @@ class Simulation:
     def close(self):
         """Close the run's log file (output_0-0.txt) and release the run
         directory's lockfile, if this run took it."""
-        self.logfile.close()
+        if self.logfile is not None:
+            self.logfile.close()
         self._release_lockfile()
+
+    def _setup_mesh(self, req):
+        """The mesh of the run (reference: MPI inside every timestep,
+        sn3d.cc:197-348; artis_tpu/driver.py:1106-1162): ``None`` runs on
+        this process alone; ``"auto"`` the world the
+        launcher started (``parallel.distributed``), if it has more than
+        one rank; an int ``n`` a world of ``n`` ranks, which must have been
+        started (``cli.main_sn3d --mesh n`` starts one; 1 or fewer: off);
+        a ``parallel.mesh.Mesh`` is used as it is. A Simulation starts no
+        process itself."""
+
+        if req is None:
+            return None
+        if isinstance(req, mesh_mod.Mesh):
+            dev = self.device
+            if req.device.type != dev.type or (dev.index is not None
+                                               and req.device.index != dev.index):
+                raise ValueError(f"mesh on {req.device}, Simulation on {dev}")
+            return req
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if req == "auto":
+            return mesh_mod.make_mesh(self.device) if world > 1 else None
+        n = int(req)
+        if n <= 1:
+            return None
+        if n != world:
+            raise ValueError(f"mesh={n} ranks requested but the world has {world} "
+                             f"(start it with cli.main_sn3d --mesh {n}, torchrun or the "
+                             f"ARTIS_* variables)")
+        return mesh_mod.make_mesh(self.device)
+
+    def _check_mesh(self):
+        """The mesh run's conditions on the options
+        (artis_tpu/driver.py:1140-1153)."""
+        if self.mesh is None:
+            return
+        world = self.mesh.world
+        if self.opts.npkts % world != 0:
+            raise ValueError(f"npkts={self.opts.npkts} must divide the mesh size {world}")
+        if self.opts.log_macroatom:
+            # the event-row buffer is positional: a sum over ranks would add
+            # unrelated rows (the reference's log is per rank too)
+            self.opts = self.opts.replace(log_macroatom=False)
+            self.log("WARNING: log_macroatom is single-device only; disabled for the mesh run")
+        self.log(f"mesh: {world} ranks, packet axis {self.opts.npkts // world} packets/rank "
+                 f"({self.mesh.backend}, rank 0 on {self.mesh.device})")
+
+    def _shard(self, st):
+        """This rank's shard of a global packet state (all of it off a
+        mesh)."""
+        return st if self.mesh is None else mesh_mod.shard_packets(st, self.mesh)
+
+    def _global_packets(self):
+        """(packet state, escaped-counted flags) in global packet order: on
+        a mesh gathered to rank 0 (None on the others)."""
+        if self.mesh is None:
+            return self.state, self._escaped_counted
+        st = mesh_mod.gather_packets(self.state, self.mesh)
+        esc = mesh_mod.all_gather_rows(self.mesh, [torch.as_tensor(self._escaped_counted)],
+                                       self.opts.npkts)[0].numpy()
+        return st, (esc if st is not None else None)
 
     def _acquire_lockfile(self):
         """Guard against two drivers on one run directory (reference:
@@ -863,6 +940,20 @@ class Simulation:
                 for k, ci in enumerate(np.argsort(lower_unique, kind="stable")):
                     f.write(f"{k} {int(ad.cont_element[ci])} {int(ad.cont_ion[ci])} "
                             f"{int(ad.cont_level[ci])} {int(ad.cont_upperlevel[ci])}\n")
+
+    def _write_gridfiles(self):
+        """timesteps.out and grid.out."""
+        p = self.params
+        with open(os.path.join(self.rundir, "timesteps.out"), "w") as f:
+            f.write("#timestep tstart_days tmid_days twidth_days\n")
+            for n in range(p.ntimesteps):
+                f.write(f"{n} {self.ts.start[n] / DAY:g} {self.ts.mid[n] / DAY:g} "
+                        f"{self.ts.width[n] / DAY:g}\n")
+        with open(os.path.join(self.rundir, "grid.out"), "w") as f:
+            mgi_all = self.grid_host.mgi_of_cell
+            for n in range(int(self.grid.ngrid)):
+                if mgi_all[n] != self.model.npts_model:
+                    f.write(f"{n} {int(mgi_all[n])}\n")
 
     def _write_linestat_header(self):
         """linestat.out's five header rows, one column per line: wavelength
@@ -1022,7 +1113,7 @@ class Simulation:
                 gammaest_norm = prev_est.gammaestimator * self._t(norm4pi * FOURPI / H)[:, None]
             lte_mode = nts < p.num_lte_timesteps
             mode = "lte" if lte_mode or bool(np.all(_np(self.cells.thick) == 1)) else "nlte"
-        results = _plasma_update_device(
+        results = self._plasma_fn(
             self.dad_f64, self.rc, self.cells, self.opts, j_norm, nuj_norm,
             float(self.ts.mid[nts]), ffheating_norm, dep_heating, mode=mode,
             gammaest_norm=gammaest_norm, binj_norm=binj_norm, binnuj_norm=binnuj_norm,
@@ -1087,9 +1178,12 @@ class Simulation:
             fdmax = float(extra["nlte_fracdiff"].max())
             self.nlte_iters = int(extra["nlte_iters"].max())
             tol = self.opts.nlte_convergence_tol
+            # a cell stops short of tol only at the iteration cap
             self.log(f"timestep {nts}: NLTE outer loop max fracdiff {fdmax:.4g} after <= "
                      f"{self.nlte_iters} iterations"
-                     + ("" if fdmax <= tol else f" (NOT converged to {tol})"))
+                     + ("" if fdmax <= tol else
+                        f" (stopped at the nlte_outer_iters cap "
+                        f"({max(self.opts.nlte_outer_iters, 1)}), not converged to {tol})"))
 
         # grey optical depth and thick flags (update_grid.cc:1007-1035)
         assoc_cells = self.grid_host.numpropcells_mgi[mgi]
@@ -1167,7 +1261,7 @@ class Simulation:
             torch.cuda.synchronize(self.device)
 
     def do_timestep(self, nts: int):
-        p = self.params
+        self._mesh_timing.clear()
         t0 = _time.time()
         ctx = self.update_grid(nts)
         self._sync()
@@ -1176,27 +1270,49 @@ class Simulation:
         self.est = self._zero_est()
         t0 = _time.time()
         n_act0 = int((self.state.ptype != TYPE_ESCAPE).sum())
-        self.state, self.est, iters, nsteps = engine_mod.transport_timestep(
-            (self.seed, 1000 + nts), self.state, self.est, self.grid, self.dad, self.aux,
-            self.rc, self.rates, self.cells, ctx, self.opts,
-            wall_budget=self.opts.transport_wall_budget, **self._transport_kwargs(nts))
+        args = ((self.seed, 1000 + nts), self.state, self.est, self.grid, self.dad, self.aux,
+                self.rc, self.rates, self.cells, ctx, self.opts)
+        kw = dict(wall_budget=self.opts.transport_wall_budget, **self._transport_kwargs(nts))
+        if self.mesh is None:
+            self.state, self.est, iters, nsteps = engine_mod.transport_timestep(*args, **kw)
+        else:
+            # each rank stops at its own wall budget or iteration cap; the
+            # log and the record count the world's packets
+            launched = dict(rpkt_kernel.propagate.launches)
+            self.state, self.est, iters, nsteps = mesh_mod.transport_timestep_sharded(
+                self.mesh, *args, timing=self._mesh_timing, **kw)
+            launched = {k: v - launched[k] for k, v in rpkt_kernel.propagate.launches.items()
+                        if v != launched[k]}
         n_act = int(((self.state.prop_time < ctx.t2) & (self.state.ptype != TYPE_ESCAPE)).sum())
+        self._sync()
+        dt_transport = _time.time() - t0
+        n_act0, n_act, n_escaped = self._bin_timestep([n_act0, n_act])
         completed = n_act == 0
         if not completed:
             self.log(f"timestep {nts}: transport stopped after {iters} iterations with {n_act} "
                      f"packets still active (wall budget or iteration cap)")
-        self._sync()
-        dt_transport = _time.time() - t0
         self.log(f"timestep {nts}: transport took {dt_transport:.1f}s ({iters} wavefront "
                  f"iterations, {nsteps} rpkt steps, "
                  f"{nsteps / max(dt_transport, 1e-9):.3g} rpkt steps/s)")
         self.total_rpkt_steps += nsteps
         self.total_transport_seconds += dt_transport
-        self.transport_log.append(dict(nts=nts, steps=nsteps, seconds=dt_transport,
-                                       iters=iters, active_start=n_act0,
-                                       completed=completed, grid_mode=self.plasma_mode,
-                                       grid_seconds=dt_grid, nlte_iters=self.nlte_iters,
-                                       sf_solves=self.sf_solves, sf_seconds=self.sf_seconds))
+        rec = dict(nts=nts, steps=nsteps, seconds=dt_transport, iters=iters,
+                   active_start=n_act0, completed=completed, grid_mode=self.plasma_mode,
+                   grid_seconds=dt_grid, nlte_iters=self.nlte_iters, sf_solves=self.sf_solves,
+                   sf_seconds=self.sf_seconds)
+        if self.mesh is not None:
+            # the collectives' wall seconds on rank 0: the estimators'
+            # all-reduce (with the transport) and the grid update's gather;
+            # each rank's kernel launches in its transport, by configuration
+            rank_launches = [None] * self.mesh.world
+            dist.all_gather_object(rank_launches, launched, group=self.mesh.group)
+            rec.update(ranks=self.mesh.world,
+                       allreduce_seconds=self._mesh_timing.get("allreduce_seconds", 0.0),
+                       allgather_seconds=self._mesh_timing.get("allgather_seconds", 0.0),
+                       rank_launches=rank_launches)
+            self.log(f"timestep {nts}: mesh of {self.mesh.world} ranks: all-reduce "
+                     f"{rec['allreduce_seconds']}s, all-gather {rec['allgather_seconds']}s")
+        self.transport_log.append(rec)
         self.prev_est = self.est
         e = self.est
         if self.vpkt_cfg is not None:
@@ -1214,22 +1330,8 @@ class Simulation:
                      ("alpha_emission", e.alpha_emission)):
             self.dep_ts[k][nts] = float(v) * self._e0
 
-        st = self.state
-        esc = ((_np(st.ptype) == TYPE_ESCAPE) & (_np(st.escape_type) == TYPE_RPKT)
-               & ~self._escaped_counted)
-        if esc.any():
-            pos = _np(st.pos).astype(np.float64)[esc]
-            dirv = _np(st.dir).astype(np.float64)[esc]
-            esct = _np(st.escape_time).astype(np.float64)[esc]
-            nurf = _np(st.nu_rf).astype(np.float64)[esc]
-            erf = _np(st.e_rf).astype(np.float64)[esc] * self._e0
-            ecmf = _np(st.e_cmf).astype(np.float64)[esc] * self._e0
-            spectrum_mod.add_packets_to_lightcurve(
-                self.lc_lum, self.lc_lumcmf, pos, dirv, esct, erf, ecmf,
-                self.ts.start[:-1], p.tmin, p.tmax, self.grid.vmax)
-            spectrum_mod.add_packets_to_spectra(self.spec, pos, dirv, esct, nurf, erf,
-                                                self.ts.start[:-1], p.tmin, p.tmax)
-            self._escaped_counted |= esc
+        if not self._writes:
+            return
         if self.opts.write_estimator_files:
             self.write_estimators(nts)
             if self.opts.nlte_enabled:
@@ -1247,8 +1349,49 @@ class Simulation:
         counter_txt = stats_mod.format_counters(self.est.counters)
         if counter_txt:
             self.log(f"timestep {nts} event counters:\n{counter_txt}")
-        self.log(f"timestep {nts}: escaped rpkts so far {int(self._escaped_counted.sum())} "
+        self.log(f"timestep {nts}: escaped rpkts so far {n_escaped} "
                  f"(cmf_lum {self.cmf_lum_ts[nts] / LSUN / max(float(self.ts.width[nts]), 1e-30):.3e} Lsun)")
+
+    def _bin_timestep(self, counts):
+        """Bin the packets that escaped this timestep into the light curve
+        and spectra, and count the escaped packets so far. Returns
+        ``counts`` and that count. On a mesh each rank bins its own escapes
+        into deltas, which are summed over the ranks with ``counts`` and
+        the escaped count in one reduction, so every rank holds the world's
+        light curve, spectra and counts."""
+        st = self.state
+        esc = ((_np(st.ptype) == TYPE_ESCAPE) & (_np(st.escape_type) == TYPE_RPKT)
+               & ~self._escaped_counted)
+        lum, lumcmf = np.zeros_like(self.lc_lum), np.zeros_like(self.lc_lumcmf)
+        spec = spectrum_mod.init_spectra(self.opts.nu_min_r, self.opts.nu_max_r,
+                                         self.params.ntimesteps)
+        if esc.any():
+            self._bin_escaped(esc, lum, lumcmf, spec)
+        parts = [torch.from_numpy(a) for a in (lum, lumcmf, spec.flux)] + [
+            torch.tensor(list(counts) + [int(self._escaped_counted.sum())])]
+        if self.mesh is not None:
+            parts = mesh_mod.all_reduce(self.mesh, parts)
+        for arr, delta in zip((self.lc_lum, self.lc_lumcmf, self.spec.flux), parts):
+            arr += delta.numpy()
+        return [int(v) for v in parts[-1]]
+
+    def _bin_escaped(self, esc, lum, lumcmf, spec):
+        """Bin the packets ``esc`` picks (escaped this timestep) into the
+        light curve ``lum`` / ``lumcmf`` and the spectra ``spec``, and count
+        them as escaped."""
+        p, st = self.params, self.state
+        pos = _np(st.pos).astype(np.float64)[esc]
+        dirv = _np(st.dir).astype(np.float64)[esc]
+        esct = _np(st.escape_time).astype(np.float64)[esc]
+        nurf = _np(st.nu_rf).astype(np.float64)[esc]
+        erf = _np(st.e_rf).astype(np.float64)[esc] * self._e0
+        ecmf = _np(st.e_cmf).astype(np.float64)[esc] * self._e0
+        spectrum_mod.add_packets_to_lightcurve(lum, lumcmf, pos, dirv, esct, erf, ecmf,
+                                               self.ts.start[:-1], p.tmin, p.tmax,
+                                               self.grid.vmax)
+        spectrum_mod.add_packets_to_spectra(spec, pos, dirv, esct, nurf, erf,
+                                            self.ts.start[:-1], p.tmin, p.tmax)
+        self._escaped_counted |= esc
 
     # ------------------------------------------------------------------
     def run(self, walltime_hours: float = -1.0):
@@ -1266,7 +1409,12 @@ class Simulation:
                 self.save_checkpoint(nts + 1)
             if walltime_hours > 0:
                 remaining = walltime_hours * 3600 - (_time.time() - start_wall)
-                if remaining < 1.5 * max(ts_durations):
+                stop = remaining < 1.5 * max(ts_durations)
+                if self.mesh is not None:
+                    # every rank stops when one would
+                    stop = bool(mesh_mod.all_reduce(self.mesh, [torch.tensor([int(stop)])],
+                                                    dist.ReduceOp.MAX)[0])
+                if stop:
                     self.log(f"RESTART_NEEDED: walltime insufficient for timestep {nts + 1}")
                     return
         self.finish()
@@ -1278,13 +1426,18 @@ class Simulation:
         gridsave_ts<n>.npz). The packet file is written up to three times,
         each read back and compared (sn3d.cc:356-375 write retry loop,
         packet.cc:205-233 VERIFY_WRITTEN_PACKETS_FILES;
-        artis_tpu/driver.py:2009-2025); the third failure raises."""
+        artis_tpu/driver.py:2009-2025); the third failure raises. On a mesh
+        rank 0 writes the packets in global order (the other ranks' shards
+        gathered to it) and the escaped-packet flags likewise."""
+        st, escaped = self._global_packets()
+        if not self._writes:
+            return
         pktpath = os.path.join(self.rundir, f"packets_0000_ts{next_nts}.npz")
         for attempt in range(CHECKPOINT_ATTEMPTS):
             try:
-                packets_mod.save_packets_npz(pktpath, self.state)
+                packets_mod.save_packets_npz(pktpath, st)
                 reread = packets_mod.load_packets_npz(pktpath)
-                if np.array_equal(_np(reread.e_cmf), _np(self.state.e_cmf)):
+                if np.array_equal(_np(reread.e_cmf), _np(st.e_cmf)):
                     break
                 raise IOError("packet file read-back mismatch")
             except Exception as exc:  # noqa: BLE001 - a full disk or a network file system
@@ -1306,7 +1459,7 @@ class Simulation:
         np.savez_compressed(
             os.path.join(self.rundir, f"gridsave_ts{next_nts}.npz"),
             lc_lum=self.lc_lum, lc_lumcmf=self.lc_lumcmf, gamma_dep_ts=self.gamma_dep_ts,
-            cmf_lum_ts=self.cmf_lum_ts, escaped_counted=self._escaped_counted,
+            cmf_lum_ts=self.cmf_lum_ts, escaped_counted=escaped,
             spec_flux=self.spec.flux, vspec_total=self._vspec_total,
             vgrid_total=self._vgrid_total, **blob)
         inputparams_io.update_parameterfile(os.path.join(self.rundir, "input.txt"), next_nts,
@@ -1318,10 +1471,11 @@ class Simulation:
 
     def load_checkpoint(self, nts: int):
         """Resume from a checkpoint (reference: grid.cc:825-916); with the
-        counter-derived random numbers the resumed run is bit-exact."""
+        counter-derived random numbers the resumed run is bit-exact. On a
+        mesh every rank takes its shard of the packets."""
         dev = self.device
-        self.state = packets_mod.load_packets_npz(
-            os.path.join(self.rundir, f"packets_0000_ts{nts}.npz"), device=dev)
+        self.state = self._shard(packets_mod.load_packets_npz(
+            os.path.join(self.rundir, f"packets_0000_ts{nts}.npz"), device=dev))
         g = np.load(os.path.join(self.rundir, f"gridsave_ts{nts}.npz"))
 
         def t(a, like):
@@ -1339,7 +1493,9 @@ class Simulation:
         self.lc_lumcmf = g["lc_lumcmf"]
         self.gamma_dep_ts = g["gamma_dep_ts"]
         self.cmf_lum_ts = g["cmf_lum_ts"]
-        self._escaped_counted = g["escaped_counted"]
+        escaped = g["escaped_counted"]
+        self._escaped_counted = (escaped if self.mesh is None
+                                 else escaped[mesh_mod.shard_slice(escaped.shape[0], self.mesh)])
         self.spec.flux[:] = g["spec_flux"]
         for k in self.dep_ts:
             if f"dep_ts_{k}" in g:
@@ -1352,9 +1508,13 @@ class Simulation:
             self._sf_carry = {k[len("sfcarry_"):]: torch.as_tensor(g[k]).to(dev) for k in sfkeys}
 
     def finish(self):
-        """Final outputs: packets file for exspec (reference: sn3d.cc:860-877)."""
+        """Final outputs: packets file for exspec (reference: sn3d.cc:860-877),
+        on a mesh rank 0's of the gathered packets, in global order."""
+        st, _ = self._global_packets()
+        if not self._writes:
+            return
         packets_mod.write_packets_text(os.path.join(self.rundir, "packets00_0000.out"),
-                                       self.state, e_scale=self._e0)
+                                       st, e_scale=self._e0)
         if self.vpkt_cfg is not None:
             vpkt_mod.write_vspecpol(os.path.join(self.rundir, "specpol_virtual.out"),
                                     self.vpkt_cfg, self._vspec_total * self._e0)
@@ -1541,6 +1701,8 @@ class Simulation:
     def write_outputs(self, partial: bool):
         import json
 
+        if not self._writes:
+            return
         width = np.asarray(self.ts.width[:-1])
         # per-timestep transport record (rpkt crossing steps and wall
         # seconds, unrounded) for tools that measure the run

@@ -92,6 +92,20 @@ def zero_estimators(ncells: int, nbfcontinua_ground: int, dtype=torch.float64,
     )
 
 
+def all_reduce_estimators(est: Estimators, est0: Estimators, mesh) -> Estimators:
+    """The estimators of a mesh's ranks summed (the reference's
+    MPI_Allreduce of its estimators, sn3d.cc:263-348; the JAX package's
+    ``psum_estimators``): every field is ``est0``, the accumulator every
+    rank started from, plus the sum over the ranks of ``est - est0``, so
+    what ``est0`` held is counted once. One collective per dtype; integer
+    fields add exactly."""
+    from .parallel.mesh import all_reduce
+
+    names = [f.name for f in dataclasses.fields(est)]
+    deltas = all_reduce(mesh, [getattr(est, k) - getattr(est0, k) for k in names])
+    return est.replace(**{k: getattr(est0, k) + d for k, d in zip(names, deltas)})
+
+
 def cell_add(array, nonemptymgi, contrib, active):
     """Segment-sum per-packet contributions into a per-cell tensor
     (replaces the reference's atomicadd, sn3d.h:164-184)."""

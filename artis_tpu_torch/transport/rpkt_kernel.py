@@ -104,6 +104,18 @@ NMISC = 8
 # exact)
 ATOMIC_SUMS = ("j", "nuj", "ffheating", "gammaestimator", "bfheatingestimator", "bfrate",
                "radfieldbin_j", "radfieldbin_nuj", "jblue_raw", "cmf_lum")
+# how far two float64 runs on the same inputs may differ in ATOMIC_SUMS:
+# relative to each entry, and absolute relative to the field's largest
+ATOMIC_RTOL_F64 = 1e-12
+ATOMIC_ATOL_F64 = 1e-15
+
+
+def atomic_sums_agree(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Whether a float64 ATOMIC_SUMS field ``got`` agrees with ``want``
+    within ATOMIC_RTOL_F64 / ATOMIC_ATOL_F64."""
+    scale = float(want.abs().max().clamp(min=1e-300)) if want.numel() else 0.0
+    return bool(torch.allclose(got.to(want.device), want, rtol=ATOMIC_RTOL_F64,
+                               atol=ATOMIC_ATOL_F64 * scale))
 # grid geometry of a launch (the GridType values): the kernel is compiled
 # once per geometry
 GEOM_SPH, GEOM_CYL, GEOM_CART = 1, 2, 3

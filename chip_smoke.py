@@ -72,27 +72,31 @@ line is printed):
      sides of rho_crit, no electron-scattering or bound-free event is
      counted, linestat.out's counts of each timestep equal its bound-bound
      counters, macroatom_0000.out has rows, the lockfile is gone), the
-     128-shell 1D scene (2^20 packets), the
+     128-shell 1D scene (2^20 packets, timestep 0), the
      big 3D scene with detailed bf-rate estimators (2^20 packets,
-     timesteps 0-1), kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
+     timestep 0), kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
      timesteps 0-1), the same two in float64 (kilonova_2d_2dgrid_f64: the
      double K3; big_scene_f64: the double K2 with K5-bfrate), and the
      other double forms each on a float64 run of its own main path at the
      preset's dtype, cut in depth: default_opacity3_f64 (ff-only),
      kilonova_2d_2dgrid_expansionopac_f64 (K4, timesteps 0-1),
      nebular_1d_3dgrid_nont_f64 (K5-multibin and K5-jblue, timestep 0,
-     2^18 packets) and classic_3d_f64 (K6, timestep 0, 2^18 packets); each
+     2^18 packets) and classic_3d_f64 (K6, timestep 0, 2^18 packets; then
+     the port's exspec through its CLI in its default mode, the 100
+     direction bins of a 3D run with the emission breakdown, on the run's
+     timestep: specpol.out finite with spec.out as its Stokes I, every
+     direction bin's spectrum finite and their mean spec.out); each
      float64 run's escaped
      luminosity is logged beside its float32 twin's and 4/sqrt(n),
      kilonova_2d_2dgrid_fe (the same cylinder with the
-     101,010-line Fe atom, lines walked, timesteps 0-2),
+     101,010-line Fe atom, lines walked, timesteps 0-1),
      kilonova_2d_2dgrid_expansionopac at 25 x 50 with the
-     Fe atom (2^18 packets, timesteps 0-2; macro-atom bound-bound
+     Fe atom (2^18 packets, timesteps 0-1; macro-atom bound-bound
      activations must occur), the default scene with Barnes particle
      and Guttman gamma thermalisation (gamma lines written for Ni56 and
      Co56; gamma packets must be emitted), nebular_1d_3dgrid_nont (the
-     nebular scene, 2^20 packets, timesteps 0-3 with NLTE populations in
-     2-3 (the CI's one NLTE outer iteration), which stop at a wall budget:
+     nebular scene, 2^20 packets, timesteps 0-2 with NLTE populations in
+     2 (the CI's one NLTE outer iteration), each stopped at a wall budget:
      the log shows the NLTE outer loop,
      nlte_0000.out and radfield_0000.out are finite, a population
      departs from its Boltzmann value, the bin and J_b_lu estimators
@@ -113,25 +117,24 @@ line is printed):
      timesteps 0-2, the last two with the non-LTE grid update; the event
      pass must count electron scatterings, T_e must leave T_J in some cell,
      an escaped packet must carry Q or U exactly when it was
-     electron-scattered since its emission, and the port's exspec must write a
-     finite specpol.out whose Stokes I is spec.out) and classic_dense, the
+     electron-scattered since its emission) and classic_dense, the
      classic preset on a dense, hot 8-shell model on an 8^3 grid (8192
-     packets, timesteps 0-1, each stopped at a 20 s wall budget,
+     packets, timesteps 0-1, each stopped at a 12 s wall budget,
      CLASSIC_DENSE_BUDGET_S; some escaped packet must have been
      electron-scattered since its emission, and every escaped packet
      carries Q or U exactly when it was), classic_3d_vpkt (classic_3d's
-     scene and timestep grid with virtual packets, timesteps 0-1:
+     scene and timestep grid with virtual packets, timestep 0:
      ``VPKT_TXT``'s three observers, six exclusion channels, vpkt-thick
      cells and velocity-grid maps; timestep 0's rpkt steps and packets are
      classic_3d's bit for bit, the Stokes spectra and maps are finite,
      every observer's I is non-zero, every channel's I is at least channel
-     0's in every bin, one spawn of timestep 1 traced again on the card and
+     0's in every bin, one spawn of timestep 0 traced again on the card and
      on the CPU agrees, and the float32-table error of the closed-form
      segment tau is measured; the trace's seconds per timestep, share of
      transport, rays, crossings per ray and the run's peak memory are
      logged) and kilonova_2d_2dgrid_xcomgammaphotoion (kilonova_2d_2dgrid
      with XCOM gamma photoionisation on the synthetic table and gamma
-     lines, 2^18 packets, timesteps 0-1: every XCOM opacity finite, every
+     lines, 2^18 packets, timestep 0: every XCOM opacity finite, every
      timestep's gamma deposition finite, one call's opacities on the card
      and on the CPU within rtol 1e-12); every timestep
      completes, every output is finite and packets escape; each run also
@@ -147,6 +150,24 @@ line is printed):
      (``check_opacity_cases_differ``): the diagnostics leave case 4's
      packets and cells bitwise, case 4 scatters on electrons and case 3
      does not, both absorb in lines and count them as their counters do;
+     then the mesh (``phase_mesh``, this slice's path on
+     ``artis_tpu_torch.parallel``): default_scene_f64, timesteps 0-3,
+     through ``cli.main_sn3d --mesh 2``, whose two ranks share the card
+     over gloo, 32768 packets each: timesteps 0-1, the run continued from
+     its checkpoint of timestep 1 to timestep 3, and a copy resumed from
+     its checkpoint of timestep 3; each rank's launch counts in every
+     timestep (the double K1 alone, ``rank_launches`` of
+     transport_log.json), the world's escaped cmf luminosity within
+     4/sqrt(n) of default_scene_f64's in every timestep, timestep 0's
+     all-reduced estimators equal to the two shards run one after another
+     in this process with the keys fold_in(key, 0) and fold_in(key, 1)
+     (bitwise but for rpkt_kernel.ATOMIC_SUMS, which agree within
+     rpkt_kernel.atomic_sums_agree), each resume repeating its first
+     timestep, and the collectives' seconds per timestep; then a one-rank NCCL world
+     in this process, timesteps 0-1, each held to one shard with the key
+     fold_in(key, 0) from the same state (``--scenes
+     mesh_default_scene_f64`` runs the phase alone, after
+     default_scene_f64);
   5. prints the kernel records, the card and, last, the device record.
 
     python3 chip_smoke.py --rows-sweep
@@ -168,7 +189,7 @@ line.
 
 runs the named main-path scenes of phase 4 alone and logs their records
 (per-timestep grid-update seconds, wall, peak device memory, kernel
-share); prints no result line.
+share), ``mesh_default_scene_f64`` the mesh phase; prints no result line.
 
     python3 chip_smoke.py --kernel-ab ROOT [ROOT...] [--replays NAME...] [--forced LABEL...]
 
@@ -202,6 +223,7 @@ import glob
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -318,6 +340,9 @@ VPKT_TXT = ("3\n1 0 -1\n0 90 0\n1\n6\n0 -1 -2 -3 -4 26\n0 0 0\n0\n1 {thick!r}\n1
 # the share of classic_3d_vpkt's nonempty cells made vpkt-thick in
 # timestep 0: the deepest tenth by grey depth
 VPKT_THICK_SHARE = 0.1
+# classic_3d_vpkt's last timestep, whose one spawn is traced again on the
+# CPU (1 until the smoke was cut in depth: timestep 1 cost 35 s of its 72)
+VPKT_SPAWN_TS = 0
 
 
 def _grey_depth(d, grid_type, ncoord, nts):
@@ -368,10 +393,11 @@ def upto(make_scene, last):
 
 def classic_vpkt_scene(d):
     """classic_3d's scene (the same timesteps; the run stops after timestep
-    1) with ``VPKT_TXT``: the deepest ``VPKT_THICK_SHARE`` of the cells by
-    timestep 0's grey depth are vpkt-thick."""
+    ``VPKT_SPAWN_TS``, 0, since the smoke's cut in depth) with ``VPKT_TXT``:
+    the deepest ``VPKT_THICK_SHARE`` of the cells by timestep 0's grey
+    depth are vpkt-thick."""
     classic_scene(d)
-    stop_after(d, 1)
+    stop_after(d, VPKT_SPAWN_TS)
     depth = _grey_depth(d, "CARTESIAN3D", (16, 16, 16), 0)
     thick = float(np.quantile(depth[depth > 0], 1.0 - VPKT_THICK_SHARE))
     with open(os.path.join(d, "vpkt.txt"), "w") as f:
@@ -828,19 +854,24 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=
     return errs
 
 
-def _phase3_sim(workdir, name, make_scene, npkts, grid_type="SPHERICAL1D",
-                preset="kilonova_lte", **extra):
+def _scene_opts(npkts, grid_type="SPHERICAL1D", preset="kilonova_lte", **extra):
+    """The options ``cli_args`` gives the CLI: an option set to None takes
+    the preset's own value (transport_dtype None: the preset's float64)."""
     from artis_tpu_torch import options
+
+    kw = {k: v for k, v in dict(OPTS, **extra).items() if v is not None}
+    return getattr(options, preset)(npkts=npkts, grid_type=options.GridType[grid_type], **kw)
+
+
+def _phase3_sim(workdir, name, make_scene, npkts, grid_type="SPHERICAL1D",
+                preset="kilonova_lte", mesh=None, **extra):
     from artis_tpu_torch.driver import Simulation
 
     d = os.path.join(workdir, name)
     os.makedirs(d)
     make_scene(d)
-    # an option set to None takes the preset's own value (transport_dtype
-    # None: the preset's float64), as cli_args passes none
-    kw = {k: v for k, v in dict(OPTS, **extra).items() if v is not None}
-    opts = getattr(options, preset)(npkts=npkts, grid_type=options.GridType[grid_type], **kw)
-    return Simulation(d, opts, device="cuda")
+    return Simulation(d, _scene_opts(npkts, grid_type, preset, **extra), device="cuda",
+                      mesh=mesh)
 
 
 def _cases(name, sim, tables, t0, t2, mis, seed, n=NPKTS_DEFAULT):
@@ -1482,7 +1513,7 @@ class _RunProbe:
     inputs and outputs, copied to the CPU (the first solve's, for phase 5)
     and its frac_heating range; with ``keep_ts0`` the packets after
     timestep 0; the virtual packets' seconds per timestep (a synchronised
-    wall around each spawn), one spawn of timestep 1 and the trace's
+    wall around each spawn), one spawn of timestep ``VPKT_SPAWN_TS`` and the trace's
     ``STATS``, and the run's Stokes totals; the XCOM opacities' non-finite
     count and first call."""
 
@@ -1502,10 +1533,11 @@ class _RunProbe:
         self.sf_first, self.sf_fh = None, []
         self.nts = None
         # classic_3d / classic_3d_vpkt: the packets after timestep 0; the
-        # virtual packets' seconds per timestep, one spawn of timestep 1
-        # (its sites' inputs and the tables it read) and timestep 1's line
-        # opacity factors; XCOM: non-finite opacities and the first call
-        self.state_ts0, self.vpkt_s, self.vpkt_spawn, self.tau_sob_ts1 = None, {}, None, None
+        # virtual packets' seconds per timestep, one spawn of timestep
+        # VPKT_SPAWN_TS (its sites' inputs and the tables it read) and that
+        # timestep's line opacity factors; XCOM: non-finite opacities and
+        # the first call
+        self.state_ts0, self.vpkt_s, self.vpkt_spawn, self.tau_sob_spawn = None, {}, None, None
         self.xcom_nonfinite, self.xcom_first = 0, None
         vpkt.reset_stats()
         probe = self
@@ -1580,11 +1612,12 @@ class _RunProbe:
                         opacity_case)
             torch.cuda.synchronize()
             probe.vpkt_s[probe.nts] = probe.vpkt_s.get(probe.nts, 0.0) + time.time() - t0
-            if probe.nts == 1:
-                probe.tau_sob_ts1 = (ctx.tau_sob_factor, ctx.t_mid)
-            # one spawn of timestep 1, an electron-scattering one if any
+            if probe.nts == VPKT_SPAWN_TS:
+                probe.tau_sob_spawn = (ctx.tau_sob_factor, ctx.t_mid)
+            # one spawn of timestep VPKT_SPAWN_TS, an electron-scattering one
+            # if any
             first = probe.vpkt_spawn
-            if (probe.nts == 1 and bool(mask.any())
+            if (probe.nts == VPKT_SPAWN_TS and bool(mask.any())
                     and (first is None or (is_scatter and not first["is_scatter"]))):
                 idx = torch.nonzero(mask)[:, 0]
                 probe.vpkt_spawn = dict(
@@ -2379,24 +2412,28 @@ def check_opacity_cases_differ(workdir, npkts=NPKTS_DEFAULT):
 
 def check_nebular(rec, name="nebular_1d_3dgrid_nont"):
     """What a nebular run must show beyond _run_scene's checks:
-    timesteps 2-3 took the nlte update and the log shows the NLTE outer
+    timesteps 2 on (2-3, or 2 alone for the _nont scene since the smoke's
+    cut in depth) took the nlte update and the log shows the NLTE outer
     loop's iterations and max fracdiff; nlte_0000.out and
     radfield_0000.out are finite; some NLTE population departs from its
     Boltzmann value by more than 1e-3; the bin and J_b_lu estimators
-    accumulated (the checkpoint of timestep 3 carries timestep 2's)."""
+    accumulated (the run's last checkpoint carries the timestep before its
+    last)."""
     d = rec["dir"]
     modes = [r["grid_mode"] for r in rec["timesteps"]]
+    last = len(modes) - 1
     for r in rec["timesteps"]:
         log(f"{name}: timestep {r['nts']}: grid update ({r['grid_mode']}) "
             f"{r['grid_seconds']} s, NLTE outer iterations {r['nlte_iters']}")
-    if modes != ["first", "lte", "nlte", "nlte"]:
+    if len(modes) < 3 or modes != ["first", "lte"] + ["nlte"] * (last - 1):
         raise RuntimeError(f"{name}: grid updates {modes}")
     loop = [line.strip() for line in open(os.path.join(d, "output_0-0.txt"))
             if "NLTE outer loop" in line]
     for line in loop:
         log(f"{name}: {line}")
-    if len(loop) != 2:
-        raise RuntimeError(f"{name}: the log does not show the NLTE outer loop of timesteps 2-3")
+    if len(loop) != last - 1:
+        raise RuntimeError(f"{name}: the log does not show the NLTE outer loop of timesteps "
+                           f"2-{last}")
     rows = {}
     for fname in ("nlte_0000.out", "radfield_0000.out"):
         with open(os.path.join(d, fname)) as f:
@@ -2408,12 +2445,12 @@ def check_nebular(rec, name="nebular_1d_3dgrid_nont"):
     sel = (nl[:, 0] >= 2) & (nl[:, 5] > 1e-30)
     dep = float(np.max(np.abs(nl[sel, 6] / nl[sel, 5] - 1.0))) if sel.any() else 0.0
     rb = rows["radfield_0000.out"]
-    g = np.load(os.path.join(d, "gridsave_ts3.npz"))
+    g = np.load(os.path.join(d, f"gridsave_ts{last}.npz"))
     sums = {k: float(g[f"est_{k}"].sum()) for k in ("radfieldbin_count", "radfieldbin_j",
                                                     "jblue_count", "jblue_raw")}
-    log(f"{name}: max |n_NLTE / n_LTE - 1| in timesteps 2-3 {dep}; "
-        f"radfield_0000.out contributions {float(rb[rb[:, 2] >= 0, 8].sum())}; timestep-2 "
-        f"estimator sums {sums}")
+    log(f"{name}: max |n_NLTE / n_LTE - 1| in timesteps 2-{last} {dep}; "
+        f"radfield_0000.out contributions {float(rb[rb[:, 2] >= 0, 8].sum())}; timestep-"
+        f"{last - 1} estimator sums {sums}")
     if dep <= 1e-3:
         raise RuntimeError(f"{name}: no NLTE population departs from LTE")
     if min(sums.values()) <= 0:
@@ -2512,13 +2549,10 @@ def phase_sf_card_vs_cpu(rec):
 def check_classic(rec):
     """What the classic run must show beyond _run_scene's checks: the event
     pass counted electron scatterings; timesteps 1-2 took the non-LTE grid
-    update and its thermal balance left T_e away from T_J in some cell; the
-    port's exspec wrote a finite specpol.out whose Stokes I is spec.out;
+    update and its thermal balance left T_e away from T_J in some cell;
     ``check_polarisation`` holds (the scene is cold: its escaped packets
     may all be unscattered, which ``check_classic_dense`` does not allow).
     Returns the escaped packets that were electron-scattered."""
-    from artis_tpu_torch.cli import main_exspec
-
     d = rec["dir"]
     n_es = rec["counters"].get("escounter", 0)
     modes = [r["grid_mode"] for r in rec["timesteps"]]
@@ -2537,20 +2571,85 @@ def check_classic(rec):
     log(f"classic_3d: max |T_e / T_J - 1| over cells, timesteps 1-2: {te_tj}")
     if max(te_tj) <= 0.0:
         raise RuntimeError("classic_3d: T_e equals T_J in every cell (no thermal balance)")
+    return check_polarisation("classic_3d", d)
+
+
+def exspec_input(d, last):
+    """A copy of the run directory ``d`` for exspec that holds the
+    timesteps the run ran, 0 to ``last``: input.txt's ntimesteps cut to
+    them and tmax_days to the end of timestep ``last``, which leaves those
+    timesteps' grid as it was (the spectra of the timesteps the run never
+    reached are not written). Returns the copy's path."""
+    from artis_tpu_torch import options
+    from artis_tpu_torch.constants import DAY
+    from artis_tpu_torch.io import inputparams
+
+    out = d + "_exspec"
+    shutil.copytree(d, out, ignore=shutil.ignore_patterns("*.npz", "artis.pid"))
+    path = os.path.join(out, "input.txt")
+    p = inputparams.read_parameterfile(path)
+    method = options.classic().timestep_size_method
+    ts = inputparams.time_init(p.tmin, p.tmax, p.ntimesteps, method)
+    tmax_days = float(ts.start[last + 1]) / DAY
+    lines, k = open(path).read().splitlines(True), -1
+    for i, line in enumerate(lines):
+        if line.strip() and not line.strip().startswith("#"):
+            k += 1
+            if k in (1, 3):
+                comment = line[line.index("#"):] if "#" in line else "\n"
+                value = (f"{last + 1}" if k == 1 else
+                         f"{p.tmin / DAY!r} {tmax_days!r}")
+                lines[i] = f"{value}  {comment}"
+    open(path, "w").writelines(lines)
+    q = inputparams.read_parameterfile(path)
+    cut = inputparams.time_init(q.tmin, q.tmax, q.ntimesteps, method)
+    if q.ntimesteps != last + 1 or not np.allclose(cut.start[:last + 2], ts.start[:last + 2],
+                                                   rtol=1e-12, atol=0.0):
+        raise RuntimeError(f"exspec input: the cut timestep grid {cut.start} is not the run's "
+                           f"{ts.start}")
+    return out
+
+
+def check_exspec_classic(rec):
+    """The port's exspec, through its CLI with its default mode, on the
+    classic float64 run (a 3D run with the emission breakdown, so exspec
+    also writes the ``mabins`` direction bins, exspec.py:122-125), its
+    input cut to the timestep the run ran (``exspec_input``): spec.out and
+    specpol.out finite, specpol.out's Stokes I is spec.out, and every
+    direction bin's spectrum is written and finite, their mean spec.out
+    within the files' 6 digits."""
+    from artis_tpu_torch import options
+    from artis_tpu_torch.cli import main_exspec
+
+    name = "classic_3d_f64"
+    last = max(r["nts"] for r in rec["timesteps"])
     t0 = time.time()
+    d = exspec_input(rec["dir"], last)
     if main_exspec(["--rundir", d, "--preset", "classic"]) != 0:
-        raise RuntimeError("classic_3d: exspec failed")
+        raise RuntimeError(f"{name}: exspec failed")
+    took = time.time() - t0
     spec = np.loadtxt(os.path.join(d, "spec.out"))
     sp = np.loadtxt(os.path.join(d, "specpol.out"))
     nts = spec.shape[1] - 1
     if sp.shape != (spec.shape[0], 1 + 3 * nts) or not np.all(np.isfinite(sp)):
-        raise RuntimeError(f"classic_3d: specpol.out malformed or not finite {sp.shape}")
+        raise RuntimeError(f"{name}: specpol.out malformed or not finite {sp.shape}")
     if not np.allclose(sp[1:, 1:1 + nts], spec[1:, 1:], rtol=1e-5, atol=1e-30):
-        raise RuntimeError("classic_3d: the Stokes I of specpol.out is not spec.out")
-    npol = check_polarisation("classic_3d", d)
-    log(f"classic_3d: exspec took {time.time() - t0:.1f} s; specpol Q/U flux sum "
+        raise RuntimeError(f"{name}: the Stokes I of specpol.out is not spec.out")
+    nbins = options.classic().mabins
+    res = [np.loadtxt(os.path.join(d, f"spec_res_{b:02d}.out")) for b in range(nbins)]
+    if any(r.shape != spec.shape or not np.all(np.isfinite(r)) for r in res):
+        raise RuntimeError(f"{name}: a direction bin's spectrum is malformed or not finite")
+    mean = np.mean([r[1:, 1:] for r in res], axis=0)
+    scale = float(np.abs(spec[1:, 1:]).max())
+    worst = float(np.abs(mean - spec[1:, 1:]).max() / max(scale, 1e-300))
+    log(f"{name}: exspec of timesteps 0-{last} ({nts} written) with {nbins} direction bins "
+        f"took {took:.1f} s; the direction bins' mean against spec.out, worst difference "
+        f"{worst} of the largest bin; specpol Q/U flux sum "
         f"{float(np.abs(sp[1:, 1 + nts:]).sum())}")
-    return npol
+    if nts != last + 1 or scale <= 0 or not np.allclose(mean, spec[1:, 1:], rtol=1e-4,
+                                                        atol=1e-5 * scale):
+        raise RuntimeError(f"{name}: the direction bins' mean is not spec.out ({worst})")
+    return took
 
 
 def check_polarisation(name, d):
@@ -2612,7 +2711,7 @@ def _f32_table_error(tau_sob, t_mid, nsamples=4096, maxlen=2048, seed=5):
     with float32 tables: the difference of two running sums over the
     nu-descending list) against float64 per-line sums, on the card, for
     ``nsamples`` random (cell, first line, length <= maxlen) segments of
-    timestep 1's tau factors: returns (segments with tau in [0.01, 10],
+    the captured timestep's tau factors: returns (segments with tau in [0.01, 10],
     their largest and median relative error, the share above
     ``VPKT_F32_TABLE_TOL``)."""
     import torch
@@ -2646,7 +2745,7 @@ def post_vpkt(rec):
     ray; the Stokes spectra finite, every observer's I non-zero and every
     exclusion channel's I at least channel 0's in every bin
     (``VPKT_CHANNEL_RTOL``), the maps finite and non-zero; the captured
-    spawn of timestep 1 traced again on the card and on the CPU from the
+    spawn of timestep ``VPKT_SPAWN_TS`` traced again on the card and on the CPU from the
     same inputs, the worst difference within ``VPKT_CARD_CPU_TOL`` of the
     largest bin; the float32-table error (``_f32_table_error``). Returns
     the record's additions and drops the probe's references to the run's
@@ -2699,7 +2798,7 @@ def post_vpkt(rec):
             raise RuntimeError(f"{name}: non-finite values in {fname}")
     cap = probe.vpkt_spawn
     if cap is None:
-        raise RuntimeError(f"{name}: no spawn captured in timestep 1")
+        raise RuntimeError(f"{name}: no spawn captured in timestep {VPKT_SPAWN_TS}")
     sites = cap["sites"]
     n = sites["pos"].shape[0]
     ctx = cap["ctx"]
@@ -2732,20 +2831,21 @@ def post_vpkt(rec):
     out["vpkt"].update(card_vs_cpu=diff, card_vs_cpu_totals=tot_diff, captured_sites=n,
                        captured_is_scatter=cap["is_scatter"], card_trace_s=card_s,
                        cpu_trace_s=cpu_s)
-    log(f"{name}: captured spawn of timestep 1 ({n} sites, electron scattering "
+    log(f"{name}: captured spawn of timestep {VPKT_SPAWN_TS} ({n} sites, electron scattering "
         f"{cap['is_scatter']}): card {card_s:.3f} s, CPU {cpu_s:.3f} s; worst bin difference "
         f"{diff} of the largest bin, worst (observer, channel) I total {tot_diff}; Stokes I "
         f"{float(cpu_v[..., 0].sum())}")
     if not cpu_v[..., 0].sum() > 0 or diff > VPKT_CARD_CPU_TOL:
         raise RuntimeError(f"{name}: the card's trace differs from the CPU's ({diff})")
-    tau_sob, t_mid = probe.tau_sob_ts1
+    tau_sob, t_mid = probe.tau_sob_spawn
     nseg, worst32, med32, over = _f32_table_error(tau_sob, float(t_mid))
     out["vpkt"].update(f32_table_segments=nseg, f32_table_max_rel=worst32,
                        f32_table_median_rel=med32, f32_table_share_over_tol=over)
     log(f"{name}: float32 cumulative line tables against float64 per-line sums, {nseg} "
-        f"segments with tau in [0.01, 10] of timestep 1: max rel {worst32}, median {med32}, "
+        f"segments with tau in [0.01, 10] of timestep {VPKT_SPAWN_TS}: max rel {worst32}, "
+        f"median {med32}, "
         f"share above {VPKT_F32_TABLE_TOL}: {over}")
-    probe.vpkt_spawn = probe.tau_sob_ts1 = None
+    probe.vpkt_spawn = probe.tau_sob_spawn = None
     return out
 
 
@@ -2867,14 +2967,17 @@ def _escaped_by_timestep(d):
     return out
 
 
-def _f64_against_f32(name, rec32, rec64):
+def _f64_against_f32(name, rec32, rec64, against="float32"):
     """Logs each timestep's escaped cmf luminosity of the float64 run
-    ``name`` against its float32 run in the same call, for the timesteps
-    both ran, beside 4/sqrt(n), n the packets the float32 run saw escape in
-    that timestep, or the float64 run where that ran fewer packets (the
-    same physics at two precisions; tests/test_physics_validation.py's
-    rule). Returns the timesteps outside it."""
-    a, b = _escaped_by_timestep(rec32["dir"]), _escaped_by_timestep(rec64["dir"])
+    ``name`` against its float32 run in the same call (or the run
+    ``against`` names), for the timesteps both ran, beside 4/sqrt(n), n the
+    packets the float32 run saw escape in that timestep, or the float64 run
+    where that ran fewer packets (the same physics at two precisions;
+    tests/test_physics_validation.py's rule; the float64 run's escapes by
+    timestep are ``rec64["escaped"]`` where its log does not hold them all).
+    Returns the timesteps outside it."""
+    a = _escaped_by_timestep(rec32["dir"])
+    b = rec64["escaped"] if "escaped" in rec64 else _escaped_by_timestep(rec64["dir"])
     if not b or len(b) > len(a):
         raise RuntimeError(f"{name}: {len(b)} timesteps logged against {len(a)}")
     prev, bad = (0, 0), []
@@ -2884,13 +2987,13 @@ def _f64_against_f32(name, rec32, rec64):
         tol = 4.0 / np.sqrt(max(n, 1))
         rel = abs(l64 - l32) / max(abs(l32), 1e-300)
         log(f"{name}: timestep {ts}: escaped cmf luminosity {l64} Lsun against "
-            f"float32 {l32} Lsun (rel {rel:.5f}, tol 4/sqrt({n}) = {tol:.5f}); escaped so far "
-            f"{n64} against {n32}")
+            f"{against} {l32} Lsun (rel {rel:.5f}, tol 4/sqrt({n}) = {tol:.5f}); escaped so "
+            f"far {n64} against {n32}")
         if n <= 0 or rel > tol:
             bad.append(ts)
     log(f"{name}: wall {rec64['wall_s']:.1f} s against {rec32['wall_s']:.1f} s, "
         f"work-weighted {rec64['steps_per_s']} against {rec32['steps_per_s']} rpkt steps/s "
-        f"(the float32 run over {len(a)} timesteps)")
+        f"(the {against} run over {len(a)} timesteps)")
     return bad
 
 
@@ -2922,6 +3025,242 @@ def log_f64_twins(runs):
             log(f"{name64}: timesteps outside 4/sqrt(n) of the float32 run: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# the mesh: this slice's path (default_scene_f64, timesteps 0-3) through
+# cli.main_sn3d --mesh 2, which starts two ranks sharing the one card over
+# gloo (32768 packets each), then a one-rank NCCL world
+
+MESH_RANKS = 2
+MESH_SCENE = "mesh_default_scene_f64"
+# the first run's last timestep, its resume's first; and the run's last
+# timestep, the second resume's
+MESH_FIRST_LAST_TS = 1
+MESH_RESUME_TS = 3
+
+
+def _held_to(name, got, want, exact=()):
+    """Every tensor field of ``want`` against ``got`` ({field: tensor}):
+    bitwise, but for the float fields of rpkt_kernel.ATOMIC_SUMS (not
+    named in ``exact``), which two runs on the same inputs add in other
+    orders: those within rpkt_kernel.atomic_sums_agree. Returns the
+    ATOMIC_SUMS fields that are not bitwise equal."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    loose = []
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        if _same_bits(g, w):
+            continue
+        if k not in rpkt_kernel.ATOMIC_SUMS or k in exact or not w.is_floating_point():
+            raise RuntimeError(f"{name}: {k} differs: {int((g != w).sum())} elements")
+        loose.append(k)
+        if not rpkt_kernel.atomic_sums_agree(g, w):
+            raise RuntimeError(f"{name}: {k} differs beyond rtol {rpkt_kernel.ATOMIC_RTOL_F64}: "
+                               f"{float((g - w).abs().max())}")
+    return loose
+
+
+def _ts_records(d):
+    """Per timestep of a run directory: its transport_log.json record, the
+    escaped count of its log, its event counters, its escaped cmf
+    luminosity (light_curve.out's second block, 6 digits) and its
+    estimators file."""
+    tlog = {r["nts"]: r for r in json.load(open(os.path.join(d, "transport_log.json")))}
+    esc = dict(enumerate(_escaped_by_timestep(d)))
+    counters = _counters_by_timestep(d)
+    lc = np.loadtxt(os.path.join(d, "light_curve.out"), ndmin=2)
+    cmf = lc[lc.shape[0] // 2:, 2]
+    return {nts: dict(log=r, escaped=esc.get(nts - min(tlog))[0], counters=counters.get(nts),
+                      cmf_lum=float(cmf[nts]),
+                      estimators=open(os.path.join(d, f"estimators_{nts:04d}.out")).read())
+            for nts, r in tlog.items()}
+
+
+def _mesh_cli_run(d, label, key):
+    """``cli.main_sn3d --mesh 2 --device cuda`` on the run directory ``d``
+    (the CLI starts the ranks, each on card r % device_count, joined through
+    a file store): (its records by timestep, its escapes by timestep, each
+    rank's kernel launches from transport_log.json's ``rank_launches``,
+    its wall seconds). Raises unless every rank launched ``key`` and no
+    other kernel in every timestep."""
+    from artis_tpu_torch.cli import main_sn3d
+
+    argv = cli_args(d, NPKTS_DEFAULT, "SPHERICAL1D", **PRESET_DTYPE) + ["--mesh", str(MESH_RANKS)]
+    t0 = time.time()
+    rc = main_sn3d(argv)
+    wall = time.time() - t0
+    recs = _ts_records(d)
+    per_rank = [0] * MESH_RANKS
+    for nts, r in recs.items():
+        launched = r["log"]["rank_launches"]
+        if rc or len(launched) != MESH_RANKS or any(set(x) != {key} for x in launched):
+            raise RuntimeError(f"{MESH_SCENE} {label}: timestep {nts}: rc {rc}, launches by rank "
+                               f"{launched}")
+        per_rank = [n + x[key] for n, x in zip(per_rank, launched)]
+        log(f"{MESH_SCENE} {label}: timestep {nts}: {r['log']['steps']} rpkt steps in "
+            f"{r['log']['seconds']} s = {r['log']['steps'] / max(r['log']['seconds'], 1e-12)} "
+            f"rpkt steps/s ({r['log']['iters']} iterations, {r['log']['ranks']} ranks, launches "
+            f"by rank {launched}); all-reduce {r['log']['allreduce_seconds']} s, all-gather "
+            f"{r['log']['allgather_seconds']} s; grid update {r['log']['grid_seconds']} s")
+    log(f"{MESH_SCENE} {label}: wall {wall:.1f} s, {key} launches by rank {per_rank}")
+    return recs, _escaped_by_timestep(d), per_rank, wall
+
+
+def _same_timestep(name, a, b):
+    """A resumed run's timestep ``b`` against the run's ``a``: rpkt steps,
+    iterations, active packets, escapes and event counters equal, the
+    estimators file bitwise, the cmf luminosity within the file's 6
+    digits."""
+    same = {k: a["log"][k] == b["log"][k] for k in ("steps", "iters", "active_start")}
+    same.update(escaped=a["escaped"] == b["escaped"], counters=a["counters"] == b["counters"],
+                estimators=a["estimators"] == b["estimators"])
+    lum_rel = abs(a["cmf_lum"] - b["cmf_lum"]) / max(abs(a["cmf_lum"]), 1e-300)
+    log(f"{name}: equal {same}; cmf luminosity {b['cmf_lum']} against {a['cmf_lum']} Lsun (rel "
+        f"{lum_rel}, the file's 6 digits)")
+    if not all(same.values()) or lum_rel > 1e-5:
+        raise RuntimeError(f"{name}: the resume differs: {same}, cmf rel {lum_rel}")
+
+
+def phase_mesh(workdir, ref):
+    """The mesh on the card. (a) ``cli.main_sn3d --mesh 2 --device cuda`` on
+    default_scene_f64, as a user runs it: timesteps 0-1; then the run
+    continued from its checkpoint of timestep 1 to timestep 3 (input.txt's
+    timestep_finish raised); then a copy of it resumed from its checkpoint
+    of timestep 3. Every rank of every run launched the double K1 and no
+    other kernel in every timestep; the world's escaped cmf luminosity is
+    within 4/sqrt(n) of default_scene_f64's (``ref``) in timesteps 0-3;
+    timestep 0's all-reduced estimators (the checkpoint of timestep 1)
+    equal the two shards run one after another in this process with the
+    keys fold_in(key, 0) and fold_in(key, 1) (``_held_to``); each resume
+    repeats its first timestep as the run before it did
+    (``_same_timestep``). (b) a one-rank NCCL world passed to the
+    Simulation as a Mesh, timesteps 0-1, each held to one shard with the
+    key fold_in(key, 0) in this process from the same state. Returns the
+    kernel records' additions."""
+    import torch
+    import torch.distributed as dist
+
+    from artis_tpu_torch import rng
+    from artis_tpu_torch.devutil import map_tensors
+    from artis_tpu_torch.io.inputparams import update_parameterfile
+    from artis_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_packets
+    from artis_tpu_torch.transport import engine, rpkt_kernel
+
+    t_start = time.time()
+    # the ranks' processes share the card with this one: free its cached
+    # memory of the earlier phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    key = "rpkt_crossing_sph1d" + F64
+    d = os.path.join(workdir, MESH_SCENE)
+    os.makedirs(d)
+    default_scene(d)
+    stop_after(d, MESH_FIRST_LAST_TS)
+    rpkt_kernel.reset_launches()
+    first, esc_first, launches_first, wall_first = _mesh_cli_run(d, "ts0-1", key)
+    g = np.load(os.path.join(d, f"gridsave_ts{MESH_FIRST_LAST_TS}.npz"))
+    world_est = {k[len("est_"):]: torch.as_tensor(g[k]) for k in g.files if k.startswith("est_")}
+    update_parameterfile(os.path.join(d, "input.txt"), MESH_FIRST_LAST_TS, MESH_RESUME_TS + 1, 1)
+    cont, esc_cont, launches_cont, wall_cont = _mesh_cli_run(d, "ts1-3", key)
+    shutil.copytree(d, d + "_resume")
+    again, _, launches_again, wall_again = _mesh_cli_run(d + "_resume", "ts3", key)
+    if rpkt_kernel.propagate.launches[key]:
+        raise RuntimeError(f"{MESH_SCENE}: this process launched the kernel during the mesh runs")
+    tlog = [first[0]["log"]] + [cont[nts]["log"] for nts in sorted(cont)]
+    if not all(r["completed"] for r in tlog):
+        raise RuntimeError(f"{MESH_SCENE}: not every timestep completed: {tlog}")
+    steps, secs = sum(r["steps"] for r in tlog), sum(r["seconds"] for r in tlog)
+    log(f"{MESH_SCENE}: {MESH_RANKS} ranks of {NPKTS_DEFAULT // MESH_RANKS} packets on one card "
+        f"(gloo), walls {wall_first:.1f} / {wall_cont:.1f} / {wall_again:.1f} s, "
+        f"work-weighted over timesteps 0-3 {steps / max(secs, 1e-12)} rpkt steps/s against "
+        f"default_scene_f64's {ref['steps_per_s']}")
+    bad = _f64_against_f32(MESH_SCENE, ref, dict(
+        dir=d, escaped=esc_first[:1] + esc_cont, npkts=NPKTS_DEFAULT,
+        wall_s=wall_first + wall_cont, steps_per_s=steps / max(secs, 1e-12)),
+        against="default_scene_f64")
+    if bad:
+        raise RuntimeError(f"{MESH_SCENE}: escaped luminosity of timesteps {bad} outside "
+                           f"4/sqrt(n) of default_scene_f64")
+    # timestep 0 against two shards run one after another in this process
+    sim = _phase3_sim(workdir, "mesh_shards", default_scene, NPKTS_DEFAULT, **PRESET_DTYPE)
+    ctx = sim.update_grid(0)
+    summed, nsteps = None, 0
+    for r in range(MESH_RANKS):
+        fake = Mesh(group=None, rank=r, world=MESH_RANKS, device=sim.device, backend="gloo")
+        _, e, _, n = engine.transport_timestep(
+            rng.fold_in((sim.seed, 1000), r), shard_packets(sim.state, fake), sim._zero_est(),
+            sim.grid, sim.dad, sim.aux, sim.rc, sim.rates, sim.cells, ctx, sim.opts,
+            wall_budget=sim.opts.transport_wall_budget, **sim._transport_kwargs(0))
+        nsteps += n
+        e = _tensor_fields(e)
+        summed = e if summed is None else {k: summed[k] + v for k, v in e.items()}
+    sim.close()
+    loose = _held_to(f"{MESH_SCENE} timestep 0", world_est, summed)
+    log(f"{MESH_SCENE}: timestep 0's all-reduced estimators against the {MESH_RANKS} shards "
+        f"summed: {tlog[0]['steps']} against {nsteps} rpkt steps; ATOMIC_SUMS fields not "
+        f"bitwise (within rtol {rpkt_kernel.ATOMIC_RTOL_F64}): {loose}")
+    if tlog[0]["steps"] != nsteps:
+        raise RuntimeError(f"{MESH_SCENE}: timestep 0's rpkt steps {tlog[0]['steps']} against "
+                           f"the shards' {nsteps}")
+    # each resume repeats its first timestep
+    _same_timestep(f"{MESH_SCENE}: the run continued from the checkpoint of timestep "
+                   f"{MESH_FIRST_LAST_TS}", first[MESH_FIRST_LAST_TS], cont[MESH_FIRST_LAST_TS])
+    _same_timestep(f"{MESH_SCENE}: the copy resumed from the checkpoint of timestep "
+                   f"{MESH_RESUME_TS}", cont[MESH_RESUME_TS], again[MESH_RESUME_TS])
+    rec = dict(launches_mesh_default_scene_f64={"ts0-1": launches_first, "ts1-3": launches_cont,
+                                                "ts3": launches_again},
+               mesh_allreduce_s=[r["allreduce_seconds"] for r in tlog],
+               mesh_allgather_s=[r["allgather_seconds"] for r in tlog])
+    # (b) a one-rank NCCL world, in this process
+    store = os.path.join(workdir, "nccl_store")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + store, world_size=1, rank=0)
+    try:
+        mesh = make_mesh("cuda")
+        msim = _phase3_sim(workdir, "mesh_nccl", default_scene, NPKTS_DEFAULT, mesh=mesh,
+                           **PRESET_DTYPE)
+        twin = _phase3_sim(workdir, "mesh_nccl_twin", default_scene, NPKTS_DEFAULT,
+                           **PRESET_DTYPE)
+        nccl, launched = [], 0
+        for nts in range(2):
+            # the twin starts the timestep from the mesh run's state
+            twin.state, twin.cells, twin.prev_est = (
+                map_tensors(torch.clone, x) for x in (msim.state, msim.cells, msim.prev_est))
+            # the world's launches alone (the twin's compare)
+            rpkt_kernel.reset_launches()
+            msim.do_timestep(nts)
+            launched += rpkt_kernel.propagate.launches[key]
+            tctx = twin.update_grid(nts)
+            st, e, _, n = engine.transport_timestep(
+                rng.fold_in((twin.seed, 1000 + nts), 0), twin.state, twin._zero_est(),
+                twin.grid, twin.dad, twin.aux, twin.rc, twin.rates, twin.cells, tctx,
+                twin.opts, wall_budget=twin.opts.transport_wall_budget,
+                **twin._transport_kwargs(nts))
+            r = msim.transport_log[-1]
+            _held_to(f"NCCL world timestep {nts}", _tensor_fields(msim.state),
+                     _tensor_fields(st), exact=tuple(_tensor_fields(st)))
+            loose = _held_to(f"NCCL world timestep {nts}", _tensor_fields(msim.est),
+                             _tensor_fields(e))
+            nccl.append(dict(nts=nts, steps=r["steps"], allreduce_s=r["allreduce_seconds"],
+                             allgather_s=r["allgather_seconds"]))
+            log(f"{MESH_SCENE}: one-rank NCCL world, timestep {nts}: {r['steps']} rpkt steps "
+                f"(the shard {n}), packets bitwise, ATOMIC_SUMS fields not bitwise (within rtol "
+                f"{rpkt_kernel.ATOMIC_RTOL_F64}): {loose}; all-reduce {r['allreduce_seconds']} s, "
+                f"all-gather {r['allgather_seconds']} s")
+            if r["steps"] != n:
+                raise RuntimeError(f"NCCL world timestep {nts}: {r['steps']} against {n} steps")
+        if mesh.backend != "nccl" or launched <= 0:
+            raise RuntimeError(f"NCCL world: backend {mesh.backend}, {launched} launches")
+        rec["launches_mesh_nccl_world"] = launched
+        rec["mesh_nccl"] = nccl
+        for s_ in (msim, twin):
+            s_.close()
+    finally:
+        dist.destroy_process_group()
+    log(f"{MESH_SCENE}: mesh phase {time.time() - t_start:.1f} s")
+    return rec
+
+
 POST_RUN = {"classic_3d_vpkt": post_vpkt, "kilonova_2d_2dgrid_xcomgammaphotoion": post_xcom,
             "default_opacity3": post_opacity3}
 
@@ -2937,8 +3276,10 @@ EXPANSION = dict(expansionopacities_on=True, rpkt_boundbound_thermalisation_prob
 # still cycling go on in timestep 1, whose electron-scattered escapes the
 # check needs (timestep 0 scatters few: classic_3d's electron scatterings
 # come only in timestep 2). The smoke took 1335.9 s of its 1200 s on a slow
-# host with the float64 runs, so the budget makes room for them
-CLASSIC_DENSE_BUDGET_S = 20.0
+# host with the float64 runs, so the budget makes room for them: 20 s
+# until the smoke was cut in depth for the mesh phase (timestep 1 then
+# ran 265 iterations and 232 of its 2400 escapes were electron-scattered)
+CLASSIC_DENSE_BUDGET_S = 12.0
 SCENES = [
     ("default_scene", default_scene, NPKTS_DEFAULT, "SPHERICAL1D", ["rpkt_crossing_sph1d"], {}),
     # this slice's path: the default scene at the preset's float64, the
@@ -2953,23 +3294,27 @@ SCENES = [
     ("default_opacity3_f64", default_opacity3_scene, NPKTS_DEFAULT, "SPHERICAL1D",
      ["rpkt_crossing_sph1d" + F64, "rpkt_crossing_ffonly" + F64],
      dict(PRESET_DTYPE, **DIAGNOSTICS)),
-    ("realistic_scene", real_scene, NPKTS_REAL, "SPHERICAL1D", ["rpkt_crossing_sph1d"], {}),
-    # timesteps 0-1 (0-2 until the float64 runs joined the smoke), as deep
-    # as big_scene_f64
-    ("big_scene", lambda d: big_scene(d, ntimesteps=3), NPKTS_REAL, "CARTESIAN3D",
+    # timestep 0 (0-1 until the smoke was cut in depth; phase 3 holds the
+    # kernel on the lanes its timestep 0 leaves in flight)
+    ("realistic_scene", upto(real_scene, 0), NPKTS_REAL, "SPHERICAL1D",
+     ["rpkt_crossing_sph1d"], {}),
+    # timestep 0 (0-2 until the float64 runs joined the smoke, 0-1 until it
+    # was cut in depth), as deep as big_scene_f64
+    ("big_scene", upto(lambda d: big_scene(d, ntimesteps=3), 0), NPKTS_REAL, "CARTESIAN3D",
      CART + ["rpkt_crossing_bfrate"], dict(detailed_bf_estimators_on=True)),
     ("kilonova_2d_2dgrid", cyl_scene, NPKTS_2D, "CYLINDRICAL2D", ["rpkt_crossing_cyl2d"], {}),
     ("kilonova_2d_2dgrid_f64", cyl_scene, NPKTS_2D, "CYLINDRICAL2D",
      ["rpkt_crossing_cyl2d" + F64], PRESET_DTYPE),
-    # big in float64, timesteps 0-1: the double K2 with K5-bfrate
-    ("big_scene_f64", lambda d: big_scene(d, ntimesteps=3), NPKTS_REAL, "CARTESIAN3D",
+    # big in float64, timestep 0: the double K2 with K5-bfrate
+    ("big_scene_f64", upto(lambda d: big_scene(d, ntimesteps=3), 0), NPKTS_REAL, "CARTESIAN3D",
      ["rpkt_crossing_cart3d" + F64, "rpkt_crossing_bfrate" + F64],
      dict(PRESET_DTYPE, detailed_bf_estimators_on=True)),
     # kilonova_2d_2dgrid at the production line list: the 25 x 50 cylinder
-    # with the 101,010-line Fe atom, lines walked (no expansion opacities)
-    ("kilonova_2d_2dgrid_fe", cyl_fe_scene, NPKTS_2D, "CYLINDRICAL2D", ["rpkt_crossing_cyl2d"],
-     {}),
-    ("kilonova_2d_2dgrid_expansionopac", cyl_fe_scene, NPKTS_2D, "CYLINDRICAL2D",
+    # with the 101,010-line Fe atom, lines walked (no expansion opacities);
+    # timesteps 0-1 (0-2 until the smoke was cut in depth)
+    ("kilonova_2d_2dgrid_fe", upto(cyl_fe_scene, 1), NPKTS_2D, "CYLINDRICAL2D",
+     ["rpkt_crossing_cyl2d"], {}),
+    ("kilonova_2d_2dgrid_expansionopac", upto(cyl_fe_scene, 1), NPKTS_2D, "CYLINDRICAL2D",
      ["rpkt_crossing_cyl2d", "rpkt_crossing_expansion"], EXPANSION),
     # the same at the preset's float64, timesteps 0-1: the double K4
     ("kilonova_2d_2dgrid_expansionopac_f64", upto(cyl_fe_scene, 1), NPKTS_2D, "CYLINDRICAL2D",
@@ -2978,7 +3323,9 @@ SCENES = [
     ("default_scene_barnes_guttman", default_gamma_scene, NPKTS_DEFAULT, "SPHERICAL1D",
      ["rpkt_crossing_sph1d"],
      dict(particle_thermalisation_scheme="BARNES", gamma_thermalisation_scheme="GUTTMAN")),
-    ("nebular_1d_3dgrid_nont", nebular_scene, NPKTS_REAL, "CARTESIAN3D",
+    # timesteps 0-2 (0-3 until the smoke was cut in depth; the scene with
+    # the solver runs timestep 3, the binned field's first)
+    ("nebular_1d_3dgrid_nont", upto(nebular_scene, 2), NPKTS_REAL, "CARTESIAN3D",
      CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin", "rpkt_crossing_jblue"],
      dict(preset="nltenebular", **NEBULAR)),
     # the same at the preset's float64, timestep 0, 2^18 packets (every
@@ -2999,11 +3346,12 @@ SCENES = [
     ("classic_3d_f64", upto(classic_scene, 0), NPKTS_2D, "CARTESIAN3D",
      ["rpkt_crossing_cart3d" + F64, "rpkt_crossing_deferred" + F64],
      dict(PRESET_DTYPE, preset="classic")),
-    # classic_3d's scene with virtual packets, timesteps 0-1
+    # classic_3d's scene with virtual packets, timestep VPKT_SPAWN_TS
     ("classic_3d_vpkt", classic_vpkt_scene, NPKTS_REAL, "CARTESIAN3D",
      CART + ["rpkt_crossing_deferred"], dict(preset="classic", vpkt_on=True)),
-    # kilonova_2d_2dgrid with XCOM gamma photoionisation (timesteps 0-1)
-    ("kilonova_2d_2dgrid_xcomgammaphotoion", xcom_scene, NPKTS_2D, "CYLINDRICAL2D",
+    # kilonova_2d_2dgrid with XCOM gamma photoionisation (timestep 0; 0-1
+    # until the smoke was cut in depth)
+    ("kilonova_2d_2dgrid_xcomgammaphotoion", upto(xcom_scene, 0), NPKTS_2D, "CYLINDRICAL2D",
      ["rpkt_crossing_cyl2d"], dict(use_xcom_gammaphotoion=True)),
     # the dense classic scene on an 8^3 grid, at few packets: its k-packets
     # and macro-atoms cycle for about 1300 iterations in timestep 0, which
@@ -3039,8 +3387,16 @@ def scene_runs(workdir, names):
     table = {sc[0]: sc for sc in SCENES}
     runs = {}
     for name in names:
+        if name == MESH_SCENE:
+            # the mesh phase against default_scene_f64's run
+            if "default_scene_f64" not in runs:
+                runs["default_scene_f64"] = _run_scene(workdir, "default_scene_f64",
+                                                       *table["default_scene_f64"][1:5],
+                                                       **table["default_scene_f64"][5])
+            phase_mesh(workdir, runs["default_scene_f64"])
+            continue
         if name not in table:
-            raise SystemExit(f"unknown scene {name}; scenes: {sorted(table)}")
+            raise SystemExit(f"unknown scene {name}; scenes: {sorted(table) + [MESH_SCENE]}")
         _, make, npkts, grid, expect, extra = table[name]
         runs[name] = rec = _run_scene(workdir, name, make, npkts, grid, expect, **extra)
         if name == "nebular_1d_3dgrid":
@@ -3050,6 +3406,8 @@ def scene_runs(workdir, names):
             check_nebular(rec)
         if name == "classic_3d":
             check_classic(rec)
+        if name == "classic_3d_f64":
+            check_exspec_classic(rec)
         if name == "classic_dense":
             check_classic_dense(rec)
         if name == "default_opacity3":
@@ -3097,12 +3455,14 @@ def main():
         check_nebular_nt(runs["nebular_1d_3dgrid"])
         phase_sf_card_vs_cpu(runs["nebular_1d_3dgrid"])
         check_classic(runs["classic_3d"])
+        check_exspec_classic(runs["classic_3d_f64"])
         check_vpkt_ts0(runs["classic_3d"], runs["classic_3d_vpkt"])
         check_classic_dense(runs["classic_dense"])
         check_f64_default(runs["default_scene"], runs["default_scene_f64"])
         log_f64_twins(runs)
         check_diagnostics_observe(workdir)
         check_opacity_cases_differ(workdir)
+        mesh_rec = phase_mesh(workdir, runs["default_scene_f64"])
     # bin events activated the macro-atom on lines of their bins, and the
     # analytic schemes resolved gamma packets
     n_bb = runs["kilonova_2d_2dgrid_expansionopac"]["counters"].get("ma_stat_activation_bb", 0)
@@ -3159,6 +3519,10 @@ def main():
     # the grey opacity case 3 (K1 with the free-free continuum)
     rec["rpkt_crossing_sph1d"]["launches_default_opacity3"] = \
         runs["default_opacity3"]["launches"]["rpkt_crossing_sph1d"]
+    # this slice's path on the mesh: the double K1's launches on each rank
+    # of the two-rank world and in the one-rank NCCL world, and the
+    # collectives' seconds per timestep (rank 0)
+    rec["rpkt_crossing_sph1d" + F64].update(mesh_rec)
     rec["rpkt_crossing_cart3d" + F64]["note"] = ("ms, plain_ms and bound_ms: the big scene, "
                                                  "in-kernel scattering; launches: big_scene_f64's, "
                                                  "each also a K5-bfrate launch")
@@ -3182,7 +3546,7 @@ def main():
                             library_ms=r["library_ms"], build_s=build_s,
                             **{k: v for k, v in r.items()
                                if k.endswith("rows_ms") or k in ("note", "kernel_only_ms")
-                               or k.startswith("launches_")}))
+                               or k.startswith(("launches_", "mesh_"))}))
     # the virtual packets' trace is torch ops, not a kernel: its numbers
     # beside the kernels'
     log("trace_vpkts: " + json.dumps(runs["classic_3d_vpkt"]["vpkt"]))

@@ -19,8 +19,11 @@ default) against its plain version in float64 (the redesigned double 1D,
 and non-relativistic Doppler factors, the double 1D walk with every subset
 of its tables staged and with a line list beyond its staging budget, the
 double K3 at 2^18 lanes), a float64 main path that
-launches only double forms, and two same-seed float64 runs; and
-check_kernel on a dense probe whose lanes scatter many times.
+launches only double forms, and two same-seed float64 runs;
+check_kernel on a dense probe whose lanes scatter many times; and the
+mesh's collectives (artis_tpu_torch/parallel) with two ranks sharing the
+card over gloo and in a one-rank NCCL world, whose timestep 0 equals one
+shard run in the test's process.
 
 Every test here needs an NVIDIA GPU and skips where there is none. The file
 imports no jax, so it runs where only PyTorch is installed; the
@@ -1191,3 +1194,107 @@ def test_polarised_vpkt_spawn_card_matches_cpu(tmp_path):
     assert np.all(np.isfinite(card)) and card[..., 0].sum() > 0
     assert np.abs(card[..., 1:]).sum() > 0, "no Q or U from the electron scatterings"
     assert np.abs(card - cpu).max() <= 1e-5 * np.abs(cpu).max()
+
+
+# ---------------------------------------------------------------------------
+# the mesh on the card (artis_tpu_torch/parallel): two ranks sharing the one
+# card over gloo, and a one-rank NCCL world; each collective held bitwise to
+# the same sums and concatenations of the ranks' tables on the CPU (a sum
+# of two float64 values is the same in either order)
+
+
+def _mesh_expected(world, ncells=6):
+    """Every rank's tables of parallel.record.rank_tables, summed and
+    concatenated on the CPU as the collectives must."""
+    import dataclasses
+
+    from artis_tpu_torch.parallel.record import rank_tables
+
+    tabs = [rank_tables(r, ncells) for r in range(world)]
+    est = {f.name: sum(getattr(t[0], f.name) for t in tabs)
+           for f in dataclasses.fields(tabs[0][0])}
+    rows = [torch.cat([t[i] for t in tabs])[:2 * world - 1] for i in (1, 2)]
+    return est, rows
+
+
+def _mesh_check(path, world):
+    import dataclasses
+
+    got = torch.load(path, weights_only=False)
+    assert got["device"].startswith("cuda")
+    est, rows = _mesh_expected(world)
+    for f in dataclasses.fields(got["est"]):
+        assert torch.equal(getattr(got["est"], f.name), est[f.name]), f.name
+    for g, w in zip(got["rows"], rows):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_mesh_gloo_collectives_of_cuda_tables(tmp_path):
+    """Two ranks on the one card (gloo): the all-reduce of CUDA estimators
+    and the all-gather of CUDA per-cell rows against the CPU's sums and
+    concatenation."""
+    _need_cuda()
+    from artis_tpu_torch.parallel import mesh as mesh_mod
+    from artis_tpu_torch.parallel.record import record_collectives
+
+    out = str(tmp_path / "coll.pt")
+    mesh_mod.spawn(record_collectives, 2, "file://" + str(tmp_path / "store"), device="cuda",
+                   args=(out,))
+    _mesh_check(out, 2)
+
+
+@pytest.mark.cuda
+def test_mesh_nccl_one_rank_world(tmp_path):
+    """A one-rank NCCL world in this process: its collectives give back the
+    rank's own tables, and timestep 0 of a Simulation on it equals one
+    shard with the key fold_in(key, 0) (packets and estimators bitwise but
+    for the kernel's float atomic sums, rpkt_kernel.ATOMIC_SUMS, held by
+    rpkt_kernel.atomic_sums_agree)."""
+    _need_cuda()
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from artis_tpu_torch import rng
+    from artis_tpu_torch.driver import Simulation
+    from artis_tpu_torch.parallel import make_mesh
+    from artis_tpu_torch.parallel.record import record_collectives
+    from artis_tpu_torch.transport import engine, rpkt_kernel
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method="file://" + str(tmp_path / "store"),
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh("cuda")
+        assert mesh.backend == "nccl" and mesh.world == 1
+        record_collectives(mesh, str(tmp_path / "coll.pt"))
+        _mesh_check(str(tmp_path / "coll.pt"), 1)
+        sims = []
+        for name, m in (("mesh", mesh), ("alone", None)):
+            d = tmp_path / name
+            d.mkdir()
+            make_run(str(d), ncells=8, ntimesteps=3, tmin_days=2.0, tmax_days=4.0, ngreyts=0,
+                     logrho0=-8.0)
+            sims.append(Simulation(str(d), _opts(8192, transport_dtype="float64"),
+                                   device="cuda", mesh=m))
+        a, b = sims
+        a.do_timestep(0)
+        ctx = b.update_grid(0)
+        st, est, _, n = engine.transport_timestep(
+            rng.fold_in((b.seed, 1000), 0), b.state, b._zero_est(), b.grid, b.dad, b.aux, b.rc,
+            b.rates, b.cells, ctx, b.opts, **b._transport_kwargs(0))
+        assert a.transport_log[0]["steps"] == n > 0
+        for f in dataclasses.fields(st):
+            x, y = getattr(a.state, f.name), getattr(st, f.name)
+            assert torch.equal(torch.nan_to_num(x), torch.nan_to_num(y)), f.name
+        for f in dataclasses.fields(est):
+            x, y = getattr(a.est, f.name), getattr(est, f.name)
+            if f.name in rpkt_kernel.ATOMIC_SUMS:
+                assert rpkt_kernel.atomic_sums_agree(x, y), f.name
+            else:
+                torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True, msg=f.name)
+        for s in sims:
+            s.close()
+    finally:
+        dist.destroy_process_group()

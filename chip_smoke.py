@@ -51,9 +51,19 @@ line is printed):
      ``transport_dtype="float64"``) on the same cases in float64
      (``as_f64``: K1's non-grey, ionised and captured lanes, ff-only, the
      1D model on 50^3 and the big scene's captured lanes for K2 and
-     K5-bfrate, the cylinder, both K4 scenes, K6 with grey cells, the
-     nebular cases and the default scene with the K5 fields), held to the
-     float64 tolerances (rpkt_kernel.TOL_F64: 1e-9, estimators 1e-8);
+     K5-bfrate, the cylinder, the Fe-atom cylinder's cases and captured
+     lanes (the 101,010-line list), the three K4 scenes (the big scene's:
+     the double 3D bin walk), K6 with grey cells, the nebular cases and
+     the default scene with the K5 fields), held to the float64 tolerances
+     (rpkt_kernel.TOL_F64: 1e-9, estimators 1e-8); the NLTE instantiations
+     of the bin walks (the dense 1D scene, the Fe-atom and the big scene's
+     bins) and of the cylindrical line walk, with the multibin rows (and
+     the J_b_lu rows on the line walk), max_inner 1 and 64 on ionised
+     cells, in both precisions, every estimator accumulating; phase 3 logs
+     the kernels it held (rpkt_kernel.kernel_name, as the wrapper recorded
+     its launches) and raises unless they are every kernel the dispatcher
+     can launch (rpkt_kernel.dispatchable_kernels: 21 instantiations of the
+     generic kernel and the float32 1D walk's kernel);
      then the time of each kernel configuration and of its double form
      against its plain version at N=65536, max_inner=64 (plain, kernel,
      kernel, plain), wrapper-inclusive and kernel-only, the kernel in both
@@ -63,109 +73,100 @@ line is printed):
   4. end to end through ``artis_tpu_torch.cli.main_sn3d``, each run with the
      launch counts reset just before it and read just after (a float32
      run must launch no double form, a run at the preset's float64 only
-     double forms): the default 1D scene (65536 packets), default_scene_f64
-     (this slice's path: the same at the preset's own transport_dtype,
-     float64, with no override; the double K1; every timestep's escaped
-     cmf luminosity within 4/sqrt(n) of the float32 default's), default_opacity3 (the default scene under
-     grey opacity case 3 with rho_crit_para 5e-7 and the run diagnostics
-     on: K1 with the free-free continuum; timestep 1 has shells on both
-     sides of rho_crit, no electron-scattering or bound-free event is
-     counted, linestat.out's counts of each timestep equal its bound-bound
-     counters, macroatom_0000.out has rows, the lockfile is gone), the
-     128-shell 1D scene (2^20 packets, timestep 0), the
-     big 3D scene with detailed bf-rate estimators (2^20 packets,
-     timestep 0), kilonova_2d_2dgrid at 25 x 50 (2^18 packets,
-     timesteps 0-1), the same two in float64 (kilonova_2d_2dgrid_f64: the
-     double K3; big_scene_f64: the double K2 with K5-bfrate), and the
-     other double forms each on a float64 run of its own main path at the
-     preset's dtype, cut in depth: default_opacity3_f64 (ff-only),
-     kilonova_2d_2dgrid_expansionopac_f64 (K4, timesteps 0-1),
-     nebular_1d_3dgrid_nont_f64 (K5-multibin and K5-jblue, timestep 0,
-     2^18 packets) and classic_3d_f64 (K6, timestep 0, 2^18 packets; then
-     the port's exspec through its CLI in its default mode, the 100
-     direction bins of a 3D run with the emission breakdown, on the run's
-     timestep: specpol.out finite with spec.out as its Stokes I, every
-     direction bin's spectrum finite and their mean spec.out); each
-     float64 run's escaped
-     luminosity is logged beside its float32 twin's and 4/sqrt(n),
-     kilonova_2d_2dgrid_fe (the same cylinder with the
-     101,010-line Fe atom, lines walked, timesteps 0-1),
-     kilonova_2d_2dgrid_expansionopac at 25 x 50 with the
-     Fe atom (2^18 packets, timesteps 0-1; macro-atom bound-bound
-     activations must occur), the default scene with Barnes particle
-     and Guttman gamma thermalisation (gamma lines written for Ni56 and
-     Co56; gamma packets must be emitted), nebular_1d_3dgrid_nont (the
-     nebular scene, 2^20 packets, timesteps 0-2 with NLTE populations in
-     2 (the CI's one NLTE outer iteration), each stopped at a wall budget:
-     the log shows the NLTE outer loop,
-     nlte_0000.out and radfield_0000.out are finite, a population
-     departs from its Boltzmann value, the bin and J_b_lu estimators
-     accumulated),
-     nebular_1d_3dgrid (the same with the non-thermal solver: the
-     synthetic non-thermal files for the Fe atom, the Spencer-Fano solve
-     at 256 points with Auger electrons in timestep 3; the same checks,
-     and the NT outcome counters of every timestep sum to the leptons that
-     reached the deposition split, as many go to ionisation as the
-     split's fractions make likely, every solve's
-     frac_heating lies in (0, 1]; timesteps 2-3 stop at a wall budget,
-     leaving only macro-atoms active; each grid update's solves, seconds
-     and peak device memory are logged), then the scene's first
-     Spencer-Fano solve again on the CPU from its captured float64 inputs,
-     every output within rtol 1e-9 of the card's, and
-     classic_3d, the classic
-     preset on the big scene's 16^3 model and Fe atom (2^20 packets,
-     timesteps 0-2, the last two with the non-LTE grid update; the event
-     pass must count electron scatterings, T_e must leave T_J in some cell,
-     an escaped packet must carry Q or U exactly when it was
-     electron-scattered since its emission) and classic_dense, the
-     classic preset on a dense, hot 8-shell model on an 8^3 grid (8192
-     packets, timesteps 0-1, each stopped at a 12 s wall budget,
-     CLASSIC_DENSE_BUDGET_S; some escaped packet must have been
-     electron-scattered since its emission, and every escaped packet
-     carries Q or U exactly when it was), classic_3d_vpkt (classic_3d's
-     scene and timestep grid with virtual packets, timestep 0:
-     ``VPKT_TXT``'s three observers, six exclusion channels, vpkt-thick
-     cells and velocity-grid maps; timestep 0's rpkt steps and packets are
-     classic_3d's bit for bit, the Stokes spectra and maps are finite,
-     every observer's I is non-zero, every channel's I is at least channel
-     0's in every bin, one spawn of timestep 0 traced again on the card and
-     on the CPU agrees, and the float32-table error of the closed-form
-     segment tau is measured; the trace's seconds per timestep, share of
-     transport, rays, crossings per ray and the run's peak memory are
-     logged) and kilonova_2d_2dgrid_xcomgammaphotoion (kilonova_2d_2dgrid
-     with XCOM gamma photoionisation on the synthetic table and gamma
-     lines, 2^18 packets, timestep 0: every XCOM opacity finite, every
-     timestep's gamma deposition finite, one call's opacities on the card
-     and on the CPU within rtol 1e-12); every timestep
-     completes, every output is finite and packets escape; each run also
-     logs its kernel launches, their summed CUDA-event ms (the wrapper's
-     ``propagate.timing``), the lane-count range and their share of the
-     run's transport seconds; then the default scene's timesteps 0-1
-     without and with the run diagnostics, in lockstep: packet states and
-     cells bitwise, and every estimator but the kernel's float-atomic sums
-     and the diagnostics' own (``check_diagnostics_observe``); then
-     timestep 0 of the default scene's shells at 1e4 times the density
-     with no grey timestep, cut after 32 transport iterations, under case 4
-     without and with the diagnostics and under case 3 with them
-     (``check_opacity_cases_differ``): the diagnostics leave case 4's
-     packets and cells bitwise, case 4 scatters on electrons and case 3
-     does not, both absorb in lines and count them as their counters do;
-     then the mesh (``phase_mesh``, this slice's path on
-     ``artis_tpu_torch.parallel``): default_scene_f64, timesteps 0-3,
-     through ``cli.main_sn3d --mesh 2``, whose two ranks share the card
-     over gloo, 32768 packets each: timesteps 0-1, the run continued from
-     its checkpoint of timestep 1 to timestep 3, and a copy resumed from
-     its checkpoint of timestep 3; each rank's launch counts in every
-     timestep (the double K1 alone, ``rank_launches`` of
+     double forms; ``SCENES``); the presets' float64 (``_f64``, no
+     transport_dtype override) carries the depth and the checks, and each
+     float32 twin (the same name without ``_f64``) runs its path at its
+     cheapest depth (timestep 0, or 0-1 where timestep 0 is grey, 0-3 for
+     the Spencer-Fano solve; NPKTS_TWIN packets where its float64 run has
+     more; ``TWIN_BUDGET_S`` where that run stops at a wall budget) with
+     the checks that hold at that depth: the default 1D scene (65536
+     packets, timesteps 0-4) and default_scene_f64 (this slice's path,
+     the double K1; every timestep's escaped cmf luminosity within
+     4/sqrt(n) of the float32 default's), default_opacity3 (grey opacity
+     case 3 with rho_crit_para 5e-7 and the run diagnostics: K1 with the
+     free-free continuum; timestep 1 has shells on both sides of
+     rho_crit, no electron-scattering or bound-free event is counted,
+     linestat.out's counts equal the bound-bound counters,
+     macroatom_0000.out has rows, the lockfile is gone) and its float64
+     run, realistic_scene_f64 (the 128-shell / 101,010-line scene, 2^20
+     packets, timesteps 0-1; the twin timestep 0), kilonova_2d_2dgrid at
+     25 x 50 (2^18 packets, timesteps 0-1) and its float64 run,
+     big_scene_f64 (the 16^3 model with bf-rate estimators, timestep 0,
+     2^20 packets; the twin the same), kilonova_2d_2dgrid_fe_f64 (the
+     cylinder with the Fe atom's lines walked, 2^18 packets, timesteps
+     0-1; the twin the same), the cylinder with expansion opacities in
+     both precisions (timesteps 0-1; macro-atom bound-bound activations
+     must occur), the default scene with Barnes particle and Guttman
+     gamma thermalisation (gamma lines for Ni56 and Co56, gamma packets
+     must be emitted: the float64 run timesteps 0-4, the twin 0-1),
+     nebular_1d_3dgrid_nont_f64 (nltenebular without the non-thermal
+     solver on the 128-shell profile on 50^3 with the Fe atom, 2^20
+     packets, timesteps 0-2, NLTE populations in 2 with the CI's one NLTE
+     outer iteration: the log shows the NLTE outer loop, nlte_0000.out and
+     radfield_0000.out are finite, a population departs from its
+     Boltzmann value, the bin and J_b_lu estimators accumulated; the twin
+     timestep 0), nebular_1d_3dgrid_f64 (the same with the non-thermal
+     solver, timesteps 0-3, the Spencer-Fano solve at 256 points with
+     Auger electrons in 3: the same checks, the NT outcome counters of
+     every timestep sum to the leptons that reached the deposition split,
+     as many go to ionisation as its fractions make likely, every
+     frac_heating in (0, 1]; then the first solve again on the CPU from
+     its captured inputs, every output within rtol 1e-9; the twin the
+     same timesteps, its NLTE checks and the CPU solve), classic_3d_f64
+     (the classic preset on the 16^3 model, 2^20 packets, timesteps 0-2,
+     the last two with the nlte update: electron scatterings are counted,
+     T_e leaves T_J in some cell, an escaped packet carries Q or U
+     exactly when it was electron-scattered since its emission; the twin
+     timestep 0, its polarisation, then exspec through its CLI in its
+     default mode, the 100 direction bins: specpol.out finite with
+     spec.out as its Stokes I, every direction bin's spectrum finite and
+     their mean spec.out), classic_3d_vpkt_f64 (its scene with virtual
+     packets, timestep 0, 2^20 packets: ``VPKT_TXT``'s three observers,
+     six exclusion channels, vpkt-thick cells and velocity-grid maps;
+     timestep 0's rpkt steps and packets are classic_3d_f64's bit for
+     bit, the spectra and maps are finite, every observer's I non-zero,
+     every channel's I at least channel 0's, one spawn traced again on
+     the card and the CPU agrees, the float32-table error of the
+     closed-form segment tau is measured; the twin the same checks against
+     classic_3d), kilonova_2d_2dgrid_xcomgammaphotoion_f64 (XCOM on the
+     synthetic table and gamma lines, 2^18 packets, timestep 0: every
+     opacity and deposition finite, one call's opacities on the card and
+     the CPU within rtol 1e-12; the twin the same) and classic_dense_f64
+     (a dense, hot 8-shell classic scene on 8^3, 8192 packets, timesteps
+     0-1 each at the ``CLASSIC_DENSE_BUDGET_S`` wall budget: some escaped
+     packet was electron-scattered and carries the Q / U it gave it; the
+     twin timestep 0, its polarisation); the checks of each run are
+     ``POST_RUN``; every timestep completes or stops at its run's wall
+     budget (flagged in the log), every output is finite and packets
+     escape; each run logs its kernel launches, their summed CUDA-event ms
+     (``propagate.timing``), the lane-count range and their
+     share of the run's transport seconds, and every float64 run its
+     escaped luminosity beside its twin's and 4/sqrt(n); then the default
+     scene's timesteps 0-1 without and with the run diagnostics, in
+     lockstep: packet states and cells bitwise, and every estimator but
+     the kernel's float-atomic sums and the diagnostics' own
+     (``check_diagnostics_observe``); then timestep 0 of the default
+     scene's shells at 1e4 times the density with no grey timestep, cut
+     after 32 transport iterations, under case 4 without and with the
+     diagnostics and under case 3 with them (``check_opacity_cases_differ``:
+     the diagnostics leave case 4's packets and cells bitwise, case 4
+     scatters on electrons and case 3 does not, both absorb in lines and
+     count them as their counters do); then the mesh (``phase_mesh``,
+     this slice's path on ``artis_tpu_torch.parallel``): default_scene_f64,
+     timesteps 0-3, through ``cli.main_sn3d --mesh 2``, whose two ranks
+     share the card over gloo, 32768 packets each: timesteps 0-1, the run
+     continued from its checkpoint of timestep 1 to timestep 3, and a copy
+     resumed from its checkpoint of timestep 3; each rank's launch counts
+     in every timestep (the double K1 alone, ``rank_launches`` of
      transport_log.json), the world's escaped cmf luminosity within
      4/sqrt(n) of default_scene_f64's in every timestep, timestep 0's
      all-reduced estimators equal to the two shards run one after another
      in this process with the keys fold_in(key, 0) and fold_in(key, 1)
      (bitwise but for rpkt_kernel.ATOMIC_SUMS, which agree within
      rpkt_kernel.atomic_sums_agree), each resume repeating its first
-     timestep, and the collectives' seconds per timestep; then a one-rank NCCL world
-     in this process, timesteps 0-1, each held to one shard with the key
-     fold_in(key, 0) from the same state (``--scenes
+     timestep, and the collectives' seconds per timestep; then a one-rank
+     NCCL world in this process, timesteps 0-1, each held to one shard
+     with the key fold_in(key, 0) from the same state (``--scenes
      mesh_default_scene_f64`` runs the phase alone, after
      default_scene_f64);
   5. prints the kernel records, the card and, last, the device record.
@@ -238,6 +239,9 @@ NPKTS_DEFAULT = 65536
 NPKTS_REAL = 1 << 20
 NPKTS_2D = 1 << 18
 NPKTS_DENSE = 8192
+# the float32 twins of the deep float64 runs of phase 4 (classic_3d,
+# classic_3d_vpkt, nebular_1d_3dgrid_nont)
+NPKTS_TWIN = 1 << 16
 KERNEL_SOURCE = "artis_tpu_torch/csrc/rpkt_crossing.cu"
 PALLAS = "artis_tpu/transport/pallas_rpkt.py"
 # kernel configuration -> (record name, the Pallas branch it replaces)
@@ -384,11 +388,19 @@ def stop_after(d, last):
 
 
 def upto(make_scene, last):
-    """``make_scene`` with its run stopped after timestep ``last``."""
+    """``make_scene`` with its run stopped after timestep ``last`` (the
+    scene itself is the maker's ``scene``)."""
     def make(d):
         make_scene(d)
         stop_after(d, last)
+    make.scene = make_scene
     return make
+
+
+def uncut(make_scene):
+    """A scene maker without its ``upto`` cut, for a caller that runs its
+    own timesteps (``REPLAYS``, ``REPEAT_SCENES``)."""
+    return getattr(make_scene, "scene", make_scene)
 
 
 def classic_vpkt_scene(d):
@@ -766,6 +778,11 @@ def _event_kinds(p, sel):
                 ff=int(ff.sum()), bf=int((cont & ~escat & ~ff).sum()))
 
 
+# the options of a phase-3 simulation whose main path has the multibin and
+# J_b_lu estimators (every line a J_b_lu column)
+K5 = dict(multibin_radfield=True, detailed_line_estimators_on=True, jblue_elem_z=0)
+
+
 def _k5_kw(sim, multibin=True, jblue=True):
     """The multibin and J_b_lu keywords of a simulation's main path (the
     LUT estimators as its options have them)."""
@@ -776,12 +793,23 @@ def _k5_kw(sim, multibin=True, jblue=True):
                 njblue=kw["njblue"] if jblue else 0)
 
 
+# the kernels (rpkt_kernel.kernel_name) that phase 3 held against their
+# plain version, as the wrapper recorded its launches, and the comparisons
+# that held lanes still for a J_b_lu pass tied with a boundary to a cell
+# that counts nothing (rpkt_kernel.moved_to_nothing): (case, lanes)
+HELD = set()
+COUNT_HELD = []
+
+
 def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=False,
-                 every_kind=False, **extra):
+                 every_kind=False, require=False, **extra):
     """Kernel against plain version on each case, injected and Philox draws
-    (rpkt_kernel.compare_outputs); raises on any disagreement. Marks in
+    (rpkt_kernel.compare_outputs); raises on any disagreement. Adds the
+    kernels it launched to ``HELD``. Marks in
     ``nonzero`` each estimator the plain version accumulated (and, for the
-    expansion mode, whether a bound-bound bin event occurred). In the
+    expansion mode, whether a bound-bound bin event occurred); with
+    ``require`` every estimator the launches allocate must accumulate on the
+    plain side in one of the cases. In the
     deferred mode (K6) each case's event kinds are logged and the kernel's
     in-kernel scatter counters must stay 0; with ``every_kind`` each case
     must send events of every kind to the pass: bound-bound,
@@ -799,19 +827,28 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=
     kw = _kernel_kw(sim, want_bfrate, expansion, defer, **extra)
     tmin, mps = float(sim.grid.tmin), float(sim.grid.max_path_step)
     before = dict(rpkt_kernel.propagate.launches)
-    ok_all, errs = True, []
+    kernels_before = {c: set(v) for c, v in rpkt_kernel.propagate.kernels.items()}
+    rpkt_kernel.propagate.kernels.clear()
+    ok_all, errs, accumulated = True, [], {}
     for tag, ln, tb, ta, se, t2, max_inner in cases:
         for test_mode in (True, False):
             ok, rep, k, p = rpkt_kernel.check_kernel(
                 12345, ln, tb, ta, se, t2, tmin, mps,
                 max_inner=max_inner, test_mode=test_mode, **kw)
             torch.cuda.synchronize()
+            # the estimators this launch allocates (rows of zero width are off)
+            on = {"j", "nuj", "ffheating", "ncross"} | {
+                f for f in ("gamma", "bfheat", "bfrate", "radbin", "jblue") if p[f].numel()}
+            for name in on:
+                accumulated[name] = accumulated.get(name, False) or rep["nonzero"][name]
             both = (k["where"] == p["where"]) & (k["escaped"] == p["escaped"])
             err = float((k["prop_time"].double() - p["prop_time"].double())[both].abs().max()) \
                 if bool(both.any()) else 0.0
             rep["prop_time_max_abs_err_s"] = err
-            log(f"compare[{tag} {'injected' if test_mode else 'philox'}] ok={ok}: "
-                f"{json.dumps(rep)}")
+            case = f"{tag} {'injected' if test_mode else 'philox'}"
+            log(f"compare[{case}] ok={ok}: {json.dumps(rep)}")
+            if rep["count_held_lanes"]:
+                COUNT_HELD.append((case, rep["count_held_lanes"]))
             if "nradbins" in extra:
                 log(f"compare[{tag}]: radbin count {float(p['radbin'][:, 2].sum())}, J_b_lu "
                     f"count {float(p['jblue'][:, 1].sum())}, bin flips "
@@ -849,9 +886,47 @@ def _check_cases(sim, cases, nonzero, want_bfrate=False, expansion=False, defer=
     # comparison launches (and the timesteps run to capture lanes) are not
     # main-path launches
     rpkt_kernel.propagate.launches.update(before)
+    held = set().union(*rpkt_kernel.propagate.kernels.values())
+    HELD.update(held)
+    rpkt_kernel.propagate.kernels.clear()
+    rpkt_kernel.propagate.kernels.update(kernels_before)
     if not ok_all:
         raise RuntimeError(f"kernel disagrees with its plain version ({sim.rundir})")
+    if require and not all(accumulated.values()):
+        raise RuntimeError(f"{cases[0][0]}: {sorted(held)}: an estimator never accumulated "
+                           f"on the plain side: {accumulated}")
     return errs
+
+
+# the lanes of the NLTE instantiations' phase-3 cases: no main path of
+# phase 4 launches them, and the plain version's time grows with the lanes
+NLTE_FORM_LANES = 1 << 14
+
+
+def _check_nlte_forms(sim, cases, errs, nonzero, keys, f32_lanes=NLTE_FORM_LANES, **kw):
+    """The NLTE instantiation of a walk (the estimator fields of the
+    simulation's main path, ``_k5_kw``: the multibin rows, and the J_b_lu
+    rows where the walk has lines) on ``cases`` in float32 and, ``as_f64``,
+    in float64, every estimator accumulating (``_check_cases``): the first
+    ``f32_lanes`` lanes of each case in float32 (None: all of them) and the
+    first ``NLTE_FORM_LANES`` in float64, those at max_inner 64 on their
+    cells ionised (``ionised_tables``: at timestep 0's temperatures
+    free-free heating underflows float32); the errors go to the ``keys``
+    rows and the K5 rows of the fields."""
+    def cut(n):
+        return [(f"{tag} N={ta[:n].numel()}{' ionised' * (mi == 64)}",
+                 {k: v[:n] for k, v in ln.items()}, ionised_tables(tb) if mi == 64 else tb,
+                 ta[:n], se[:n], t2, mi)
+                for tag, ln, tb, ta, se, t2, mi in cases]
+
+    nkw = _k5_kw(sim)
+    keys = tuple(keys) + ("rpkt_crossing_multibin",) * bool(nkw["nradbins"]) + (
+        "rpkt_crossing_jblue",) * bool(nkw["njblue"] and not kw.get("expansion"))
+    for f64 in (False, True):
+        held = [as_f64(c) for c in cut(NLTE_FORM_LANES)] if f64 else cut(f32_lanes)
+        e = _check_cases(sim, held, nonzero, require=True, **kw, **nkw)
+        for k in keys:
+            errs[k + F64 * f64] += e
 
 
 def _scene_opts(npkts, grid_type="SPHERICAL1D", preset="kilonova_lte", **extra):
@@ -1081,8 +1156,13 @@ def phase_kernel_vs_plain(workdir):
     rec = {k: {} for k in CONFIGS}
     errs = {k: [] for k in CONFIGS}
     nonzero = {}
+    HELD.clear()
+    COUNT_HELD.clear()
+    t_start = time.time()
+    lap = lambda what: log(f"phase 3: {what} at {time.time() - t_start:.1f} s")
 
     # --- K1: 1D spherical ---
+    lap("K1")
     sim = _phase3_sim(workdir, "phase3", default_scene, NPKTS_DEFAULT)
     ctx = sim.update_grid(0)
     tables, tables_ng = _nongrey_tables(sim, ctx)
@@ -1137,6 +1217,7 @@ def phase_kernel_vs_plain(workdir):
     gc.collect()
 
     # --- K2 + K5-bfrate: the 3D Cartesian grid ---
+    lap("K2 + K5-bfrate")
     cart = ("rpkt_crossing_cart3d", "rpkt_crossing_bfrate")
     for name, scene, ncoord in (("1dmodel_50cube", default_scene, 50),
                                 ("2dmodel_12cube", model2d_scene, 12)):
@@ -1169,7 +1250,7 @@ def phase_kernel_vs_plain(workdir):
         gc.collect()
 
     big = _phase3_sim(workdir, "phase3_big", big_scene, NPKTS_REAL, "CARTESIAN3D",
-                      detailed_bf_estimators_on=True)
+                      detailed_bf_estimators_on=True, multibin_radfield=True)
     ctx = big.update_grid(0)
     tables, tables_ng = _nongrey_tables(big, ctx)
     ncells = big.cells.Te.shape[0]
@@ -1205,9 +1286,16 @@ def phase_kernel_vs_plain(workdir):
     kappa, _ = build_expansion_opacities(ctx1.tau_sob_factor, big.dad.line_nu, big.cells.rho,
                                          big.cells.TR, ctx1.t_mid)
     tb = dict(_nongrey_tables(big, ctx1)[1], expo_kappa=kappa.float().contiguous())
-    errs["rpkt_crossing_expansion"] += _check_cases(
-        big, _cases("big_expansion", big, tb, float(ctx1.ts), float(ctx1.t2), (1, 64), seed=9),
-        nonzero, want_bfrate=True, expansion=True)
+    lap("K4 on the big model")
+    k4 = "rpkt_crossing_expansion"
+    expo_cases = _cases("big_expansion", big, tb, float(ctx1.ts), float(ctx1.t2), (1, 64), seed=9)
+    errs[k4] += _check_cases(big, expo_cases, nonzero, want_bfrate=True, expansion=True)
+    # the double 3D bin walk (the generic body: kilonova_*_3dgrid with
+    # expansion opacities at the default float64) on the same cases
+    errs[k4 + F64] += _check_cases(big, [as_f64(c) for c in expo_cases], nonzero,
+                                   want_bfrate=True, expansion=True, require=True)
+    # the NLTE forms of the 3D bin walk: the same cases with the multibin rows
+    _check_nlte_forms(big, expo_cases, errs, nonzero, (k4,), want_bfrate=True, expansion=True)
     big.close()
     del big
     gc.collect()
@@ -1232,14 +1320,21 @@ def phase_kernel_vs_plain(workdir):
     gc.collect()
 
     # --- K3: the 2D cylindrical grid ---
+    lap("K3")
     cyl = _phase3_sim(workdir, "phase3_cyl", cyl_scene, NPKTS_DEFAULT, "CYLINDRICAL2D",
-                      detailed_bf_estimators_on=True)
+                      detailed_bf_estimators_on=True, **K5)
     ctx = cyl.update_grid(0)
     _, tb = _nongrey_tables(cyl, ctx)
     log(f"phase 3 cylindrical: grid {cyl.grid.ncoordgrid} ncells={cyl.cells.Te.shape[0]}")
-    errs["rpkt_crossing_cyl2d"] += _check_cases(
-        cyl, _cases("cyl2d", cyl, tb, float(ctx.ts), float(ctx.t2), (1, 4, 64), seed=8),
-        nonzero, want_bfrate=True)
+    cases = _cases("cyl2d", cyl, tb, float(ctx.ts), float(ctx.t2), (1, 4, 64), seed=8)
+    errs["rpkt_crossing_cyl2d"] += _check_cases(cyl, cases, nonzero, want_bfrate=True)
+    lap("the cylinder's NLTE forms")
+    # the NLTE forms of the cylindrical line walk (multibin on a cylinder,
+    # or nltenebular's LUT-off estimators): the multibin and J_b_lu rows,
+    # the float32 form on every lane (where a J_b_lu pass tied with a
+    # boundary into an empty cell, rpkt_kernel.moved_to_nothing)
+    _check_nlte_forms(cyl, [c for c in cases if c[-1] in (1, 64)], errs, nonzero,
+                      ("rpkt_crossing_cyl2d",), f32_lanes=None, want_bfrate=True)
     rec["rpkt_crossing_cyl2d"] = _time_config(cyl, tb, float(ctx.ts), float(ctx.t2), False,
                                               "K3 cyl2d")
     errs["rpkt_crossing_cyl2d" + F64] += _check_cases(
@@ -1251,23 +1346,32 @@ def phase_kernel_vs_plain(workdir):
     del cyl
     gc.collect()
     # the same cylinder with the 101,010-line Fe atom (kilonova_2d_2dgrid_fe)
+    lap("K3 on the Fe atom")
     cylfe = _phase3_sim(workdir, "phase3_cyl_fe", cyl_fe_scene, NPKTS_DEFAULT, "CYLINDRICAL2D")
     ctx = cylfe.update_grid(0)
     _, tb = _nongrey_tables(cylfe, ctx)
     log(f"phase 3 cylindrical, Fe atom: grid {cylfe.grid.ncoordgrid} "
         f"ncells={cylfe.cells.Te.shape[0]} nlines={cylfe.dad.nlines}")
     t0, t2 = float(ctx.ts), float(ctx.t2)
-    errs["rpkt_crossing_cyl2d"] += _check_cases(
-        cylfe, _cases("cyl2d_fe", cylfe, tb, t0, t2, (1, 64), seed=16), nonzero)
+    fe_cases = _cases("cyl2d_fe", cylfe, tb, t0, t2, (1, 64), seed=16)
+    errs["rpkt_crossing_cyl2d"] += _check_cases(cylfe, fe_cases, nonzero)
     _time_config(cylfe, tb, t0, t2, False, "K3 cyl2d Fe")
+    # the double K3 on the 101,010-line list (kilonova_2d_2dgrid_fe_f64):
+    # the same cases and the lanes the scene's timestep 0 leaves in flight
+    captured = _captured_case(cylfe, seed=18)
+    errs["rpkt_crossing_cyl2d"] += _check_cases(cylfe, [captured], nonzero)
+    errs["rpkt_crossing_cyl2d" + F64] += _check_cases(
+        cylfe, [as_f64(c) for c in fe_cases + [captured]], nonzero, require=True)
+    del captured
     cylfe.close()
     del cylfe
     gc.collect()
 
     # --- K4: binned expansion opacities ---
+    lap("K4")
     k4 = "rpkt_crossing_expansion"
     dense = _phase3_sim(workdir, "phase3_expo_dense", expo_dense_scene, NPKTS_DEFAULT,
-                        expansionopacities_on=True)
+                        expansionopacities_on=True, multibin_radfield=True)
     ctx = dense.update_grid(0)
     tb = _nongrey_tables(dense, ctx)[1]
     log(f"phase 3 expansion 1D: ncells={dense.cells.Te.shape[0]} kappa table "
@@ -1280,11 +1384,14 @@ def phase_kernel_vs_plain(workdir):
     # nu_lo a bin) too
     errs[k4 + F64] += _check_cases(dense, [as_f64(c) for c in cases if c[-1] == 64], nonzero,
                                    expansion=True, relativistic=False)
+    # the NLTE forms of the 1D bin walk: the multibin rows
+    _check_nlte_forms(dense, [c for c in cases if c[-1] in (1, 64)], errs, nonzero, (k4,),
+                      expansion=True)
     dense.close()
     del dense
     gc.collect()
     cylfe = _phase3_sim(workdir, "phase3_expo_cyl", cyl_fe_scene, NPKTS_DEFAULT, "CYLINDRICAL2D",
-                        expansionopacities_on=True)
+                        expansionopacities_on=True, multibin_radfield=True)
     ctx = cylfe.update_grid(0)
     tb = _nongrey_tables(cylfe, ctx)[1]
     log(f"phase 3 expansion cylinder: grid {cylfe.grid.ncoordgrid} "
@@ -1292,8 +1399,11 @@ def phase_kernel_vs_plain(workdir):
         f"{tb['expo_kappa'].numel() * 4} bytes, line cumulative "
         f"{ctx.expopac_wcum.numel() * ctx.expopac_wcum.element_size()} bytes")
     t0, t2 = float(ctx.ts), float(ctx.t2)
-    errs[k4] += _check_cases(cylfe, _cases("expo_cyl_fe", cylfe, tb, t0, t2, (1, 64), seed=11),
-                             nonzero, expansion=True)
+    cases = _cases("expo_cyl_fe", cylfe, tb, t0, t2, (1, 64), seed=11)
+    errs[k4] += _check_cases(cylfe, cases, nonzero, expansion=True)
+    # the NLTE forms of the cylindrical bin walk: the multibin rows
+    _check_nlte_forms(cylfe, cases, errs, nonzero, (k4,), expansion=True)
+    del cases
     rec[k4] = _time_config(cylfe, tb, t0, t2, False, "K4 expansion cyl2d", expansion=True)
     f64_cases = [as_f64(c) for c in _cases("expo_cyl_fe", cylfe, tb, t0, t2, (64,), seed=11)]
     errs[k4 + F64] += _check_cases(cylfe, f64_cases, nonzero, expansion=True)
@@ -1306,6 +1416,7 @@ def phase_kernel_vs_plain(workdir):
     gc.collect()
 
     # --- K6: the deferred events of the classic preset, on its 16^3 model ---
+    lap("K6")
     k6 = "rpkt_crossing_deferred"
     cls = _phase3_sim(workdir, "phase3_classic", classic_scene, NPKTS_REAL, "CARTESIAN3D",
                       preset="classic")
@@ -1341,6 +1452,7 @@ def phase_kernel_vs_plain(workdir):
 
     # --- K5-multibin and K5-jblue: the nebular scene's own tables and
     # in-flight lanes, then the default scene with both estimators ---
+    lap("K5-multibin and K5-jblue")
     k5 = ("rpkt_crossing_multibin", "rpkt_crossing_jblue")
     neb = _phase3_sim(workdir, "phase3_nebular", nebular_scene, NPKTS_DEFAULT, "CARTESIAN3D",
                       preset="nltenebular", **NEBULAR)
@@ -1382,8 +1494,7 @@ def phase_kernel_vs_plain(workdir):
     neb.close()
     del neb
     gc.collect()
-    dflt = _phase3_sim(workdir, "phase3_k5_default", default_scene, NPKTS_DEFAULT,
-                       multibin_radfield=True, detailed_line_estimators_on=True, jblue_elem_z=0)
+    dflt = _phase3_sim(workdir, "phase3_k5_default", default_scene, NPKTS_DEFAULT, **K5)
     ctx = dflt.update_grid(0)
     tb = _nongrey_tables(dflt, ctx)[1]
     cases = _cases("k5_default", dflt, tb, float(ctx.ts), float(ctx.t2), (1, 4, 64), seed=15)
@@ -1398,9 +1509,17 @@ def phase_kernel_vs_plain(workdir):
     del dflt
     gc.collect()
 
+    lap("done")
     # a comparison of estimators that stayed zero on both sides tests nothing
     if not all(nonzero.values()):
         raise RuntimeError(f"an estimator never accumulated in phase 3: {nonzero}")
+    # every kernel the dispatcher can launch was held, so that a change to
+    # it cannot leave an instantiation unchecked
+    missing = rpkt_kernel.dispatchable_kernels() - HELD
+    log(f"phase 3 held {len(HELD)} kernels: {json.dumps(sorted(HELD))}")
+    log(f"phase 3: comparisons that held J_b_lu near-tie lanes still: {json.dumps(COUNT_HELD)}")
+    if missing:
+        raise RuntimeError(f"phase 3 held no case of {sorted(missing)}")
     for k in CONFIGS:
         rec[k]["max_abs_err"] = max(errs[k])
     torch.cuda.synchronize()
@@ -1475,9 +1594,13 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
         raise RuntimeError(f"{name}: no packet escaped (light curve is zero)")
     steps = sum(r["steps"] for r in tlog)
     secs = sum(r["seconds"] for r in tlog)
+    # the timesteps stopped at the wall budget: their steps/s are not
+    # comparable with those of timesteps that ran to their end
+    stopped = [r["nts"] for r in tlog if not r["completed"]]
     for r in tlog:
         log(f"{name}: timestep {r['nts']}: {r['steps']} rpkt steps in {r['seconds']} s = "
-            f"{r['steps'] / max(r['seconds'], 1e-12)} rpkt steps/s ({r['iters']} iterations); "
+            f"{r['steps'] / max(r['seconds'], 1e-12)} rpkt steps/s ({r['iters']} iterations"
+            f"{f', stopped at the {budget} s wall budget' if r['nts'] in stopped else ''}); "
             f"grid update ({r['grid_mode']}) {r['grid_seconds']} s, Spencer-Fano "
             f"{r['sf_solves']} solves in {r['sf_seconds']} s, grid-update peak memory "
             f"{probe.update_peak.get(r['nts'])} bytes")
@@ -1488,17 +1611,22 @@ def _run_scene(workdir, name, make_scene, npkts, grid_type, expect, **extra):
         if sep and key.isidentifier() and val.isdigit():
             counters[key] = counters.get(key, 0) + int(val)
     dep = np.loadtxt(os.path.join(d, "deposition.out"), ndmin=2)
-    rec = dict(dir=d, npkts=npkts, launches=launches, kernels=kernels, wall_s=wall, steps=steps,
-               transport_s=secs, steps_per_s=steps / max(secs, 1e-12),
+    rec = dict(name=name, dir=d, npkts=npkts, launches=launches, kernels=kernels, wall_s=wall,
+               steps=steps, transport_s=secs, steps_per_s=steps / max(secs, 1e-12),
                peak_mem_bytes=max([torch.cuda.max_memory_allocated()] + probe.earlier_peaks),
-               timesteps=tlog, counters=counters, gamma_emission_lsun=float(dep[:, 14].sum()),
+               timesteps=tlog, budget_stopped=stopped, counters=counters,
+               gamma_emission_lsun=float(dep[:, 14].sum()),
                gamma_dep_lsun=float(dep[:, 5].sum()), probe=probe)
     log(f"{name}: {npkts} packets, {len(tlog)} timesteps, kernel launches {launches}, "
         f"work-weighted {rec['steps_per_s']} rpkt steps/s, wall {wall:.1f} s, peak memory "
-        f"{rec['peak_mem_bytes']} bytes")
+        f"{rec['peak_mem_bytes']} bytes, timesteps stopped at the wall budget {stopped}")
     rec["kernel"] = _kernel_share(name, timing, secs)
     if name in POST_RUN:
-        rec.update(POST_RUN[name](rec))
+        more = POST_RUN[name](rec)
+        if isinstance(more, dict):
+            rec.update(more)
+    # the captured spawn holds the run's tables on the card
+    probe.vpkt_spawn = probe.tau_sob_spawn = None
     return rec
 
 
@@ -1942,7 +2070,7 @@ def kernel_ab(workdir, roots):
         if only is not None and name not in only:
             continue
         sc = {s[0]: s for s in SCENES}[name]
-        _replay_main_path(workdir, name, dict(make_scene=sc[1], grid_type=sc[3], **sc[5]),
+        _replay_main_path(workdir, name, dict(make_scene=uncut(sc[1]), grid_type=sc[3], **sc[5]),
                           versions, launcher, npkts, timesteps)
 
 
@@ -1972,12 +2100,12 @@ AB_SCENES = [
      [(dict(nradbins=0, njblue=0, want_gamma=True, want_bfheat=True), True),
       ("k5", True)]),
 ]
-# the main paths whose kernel launches --kernel-ab replays: scene (SCENES),
-# packets and timesteps; K1's (the default and 128-shell 1D scenes), K2 /
+# the main paths whose kernel launches --kernel-ab replays: scene (SCENES,
+# ``uncut``), packets and timesteps; K1's (the default and 128-shell 1D scenes), K2 /
 # K5-bfrate's (the big 3D scene), K3's
 # (the cylinder at the synthetic and at the Fe line list), K4's (the
 # expansion-opacity cylinder) and the 3D line walk's (nebular, classic_3d);
-# then the float64 runs of the smoke at their depth and packets: the double
+# then float64 runs at their own packets and timesteps: the double
 # 3D line walk's (big_scene_f64: K2 / K5-bfrate, nebular_1d_3dgrid_nont_f64:
 # K5-multibin / K5-jblue, classic_3d_f64: K6), the double K3's
 # (kilonova_2d_2dgrid_f64), K1's (default_scene_f64, and with the
@@ -2217,7 +2345,7 @@ def repeat_runs(workdir):
 
     table = {sc[0]: sc for sc in SCENES}
     _, make, npkts, grid, _, extra = table["nebular_1d_3dgrid_nont"]
-    sim = _phase3_sim(workdir, "repeat_probe", make, npkts, grid, **extra)
+    sim = _phase3_sim(workdir, "repeat_probe", uncut(make), npkts, grid, **extra)
     bad = {}
     for nts in range(3):
         sites = _index_add_probe(lambda: sim.do_timestep(nts))
@@ -2232,7 +2360,7 @@ def repeat_runs(workdir):
     differing = []
     for name, nsteps in REPEAT_SCENES:
         _, make, npkts, grid, _, extra = table[name]
-        sims = [_phase3_sim(workdir, f"repeat_{name}_{i}", make, npkts, grid, **extra)
+        sims = [_phase3_sim(workdir, f"repeat_{name}_{i}", uncut(make), npkts, grid, **extra)
                 for i in range(2)]
         for nts in range(nsteps):
             for sim in sims:
@@ -2410,7 +2538,7 @@ def check_opacity_cases_differ(workdir, npkts=NPKTS_DEFAULT):
     return rec
 
 
-def check_nebular(rec, name="nebular_1d_3dgrid_nont"):
+def check_nebular(rec):
     """What a nebular run must show beyond _run_scene's checks:
     timesteps 2 on (2-3, or 2 alone for the _nont scene since the smoke's
     cut in depth) took the nlte update and the log shows the NLTE outer
@@ -2419,7 +2547,7 @@ def check_nebular(rec, name="nebular_1d_3dgrid_nont"):
     Boltzmann value by more than 1e-3; the bin and J_b_lu estimators
     accumulated (the run's last checkpoint carries the timestep before its
     last)."""
-    d = rec["dir"]
+    d, name = rec["dir"], rec["name"]
     modes = [r["grid_mode"] for r in rec["timesteps"]]
     last = len(modes) - 1
     for r in rec["timesteps"]:
@@ -2470,8 +2598,8 @@ def check_nebular_nt(rec):
     budget left only macro-atoms and packets they made active. Logs each
     update's solves, seconds and peak memory, and the packets each
     timestep left active."""
-    name = "nebular_1d_3dgrid"
-    check_nebular(rec, name)
+    name = rec["name"]
+    check_nebular(rec)
     probe = rec["probe"]
     for r in rec["timesteps"]:
         left = probe.left_active.get(r["nts"], {})
@@ -2553,25 +2681,25 @@ def check_classic(rec):
     ``check_polarisation`` holds (the scene is cold: its escaped packets
     may all be unscattered, which ``check_classic_dense`` does not allow).
     Returns the escaped packets that were electron-scattered."""
-    d = rec["dir"]
+    d, name = rec["dir"], rec["name"]
     n_es = rec["counters"].get("escounter", 0)
     modes = [r["grid_mode"] for r in rec["timesteps"]]
-    log(f"classic_3d: {n_es} electron scatterings counted by the event pass; grid updates "
+    log(f"{name}: {n_es} electron scatterings counted by the event pass; grid updates "
         f"{modes}")
     if n_es <= 0:
-        raise RuntimeError("classic_3d: the event pass counted no electron scattering")
+        raise RuntimeError(f"{name}: the event pass counted no electron scattering")
     if modes[1:] != ["nlte", "nlte"]:
-        raise RuntimeError(f"classic_3d: timesteps 1-2 did not take the nlte update: {modes}")
+        raise RuntimeError(f"{name}: timesteps 1-2 did not take the nlte update: {modes}")
     te_tj = []
     for nts in (1, 2):
         rows = [line.split() for line in open(os.path.join(d, f"estimators_{nts:04d}.out"))]
         te = np.array([float(r[r.index("Te") + 1]) for r in rows])
         tj = np.array([float(r[r.index("TJ") + 1]) for r in rows])
         te_tj.append(float(np.max(np.abs(te / tj - 1.0))))
-    log(f"classic_3d: max |T_e / T_J - 1| over cells, timesteps 1-2: {te_tj}")
+    log(f"{name}: max |T_e / T_J - 1| over cells, timesteps 1-2: {te_tj}")
     if max(te_tj) <= 0.0:
-        raise RuntimeError("classic_3d: T_e equals T_J in every cell (no thermal balance)")
-    return check_polarisation("classic_3d", d)
+        raise RuntimeError(f"{name}: T_e equals T_J in every cell (no thermal balance)")
+    return check_polarisation(name, d)
 
 
 def exspec_input(d, last):
@@ -2611,18 +2739,20 @@ def exspec_input(d, last):
 
 
 def check_exspec_classic(rec):
-    """The port's exspec, through its CLI with its default mode, on the
-    classic float64 run (a 3D run with the emission breakdown, so exspec
-    also writes the ``mabins`` direction bins, exspec.py:122-125), its
-    input cut to the timestep the run ran (``exspec_input``): spec.out and
-    specpol.out finite, specpol.out's Stokes I is spec.out, and every
+    """The port's exspec, through its CLI with its default mode, on a
+    classic run (a 3D run with the emission breakdown, so exspec also
+    writes the ``mabins`` direction bins, exspec.py:122-125), its input
+    cut to the timesteps the run ran (``exspec_input``; the smoke gives it
+    classic_3d's timestep 0 at NPKTS_TWIN packets: the direction bins'
+    files took 66 s on three timesteps of 2^20 packets, 51.5 s on one):
+    spec.out and specpol.out finite, specpol.out's Stokes I is spec.out,
+    and every
     direction bin's spectrum is written and finite, their mean spec.out
     within the files' 6 digits."""
     from artis_tpu_torch import options
     from artis_tpu_torch.cli import main_exspec
 
-    name = "classic_3d_f64"
-    last = max(r["nts"] for r in rec["timesteps"])
+    name, last = rec["name"], max(r["nts"] for r in rec["timesteps"])
     t0 = time.time()
     d = exspec_input(rec["dir"], last)
     if main_exspec(["--rundir", d, "--preset", "classic"]) != 0:
@@ -2675,12 +2805,12 @@ def check_classic_dense(rec):
     """The dense classic run: the event pass counted electron scatterings,
     and some escaped packet was electron-scattered since its emission and
     carries the Q / U that dipole scattering gave it."""
-    n_es = rec["counters"].get("escounter", 0)
-    log(f"classic_dense: {n_es} electron scatterings counted by the event pass")
+    name, n_es = rec["name"], rec["counters"].get("escounter", 0)
+    log(f"{name}: {n_es} electron scatterings counted by the event pass")
     if n_es <= 0:
-        raise RuntimeError("classic_dense: the event pass counted no electron scattering")
-    if check_polarisation("classic_dense", rec["dir"]) <= 0:
-        raise RuntimeError("classic_dense: no escaped packet was electron-scattered since its "
+        raise RuntimeError(f"{name}: the event pass counted no electron scattering")
+    if check_polarisation(name, rec["dir"]) <= 0:
+        raise RuntimeError(f"{name}: no escaped packet was electron-scattered since its "
                            "emission (its Stokes vector is untested)")
 
 
@@ -2757,8 +2887,7 @@ def post_vpkt(rec):
     from artis_tpu_torch.devutil import map_tensors
     from artis_tpu_torch.transport import vpkt
 
-    name = "classic_3d_vpkt"
-    probe = rec["probe"]
+    name, probe = rec["name"], rec["probe"]
     out = {}
     per_ts = []
     for r in rec["timesteps"]:
@@ -2845,7 +2974,6 @@ def post_vpkt(rec):
         f"segments with tau in [0.01, 10] of timestep {VPKT_SPAWN_TS}: max rel {worst32}, "
         f"median {med32}, "
         f"share above {VPKT_F32_TABLE_TOL}: {over}")
-    probe.vpkt_spawn = probe.tau_sob_spawn = None
     return out
 
 
@@ -2858,8 +2986,7 @@ def post_xcom(rec):
 
     from artis_tpu_torch.transport.engine import xcom_photoion_chi
 
-    name = "kilonova_2d_2dgrid_xcomgammaphotoion"
-    probe = rec["probe"]
+    name, probe = rec["name"], rec["probe"]
     dep = np.loadtxt(os.path.join(rec["dir"], "deposition.out"), ndmin=2)[:, 5]
     log(f"{name}: {probe.xcom_nonfinite} non-finite XCOM opacities; gamma deposition per "
         f"timestep {dep.tolist()} Lsun")
@@ -2879,22 +3006,22 @@ def post_xcom(rec):
 
 
 def check_vpkt_ts0(classic, vrec):
-    """Timestep 0 of classic_3d_vpkt is classic_3d's: the same rpkt steps
+    """Timestep 0 of the vpkt run is the classic run's: the same rpkt steps
     and every packet field bit for bit (only the kernel's float-atomic
     estimator sums may differ between two runs; the packets do not)."""
     a, b = classic["probe"].state_ts0, vrec["probe"].state_ts0
     sa, sb = classic["timesteps"][0]["steps"], vrec["timesteps"][0]["steps"]
     bad = [f for f in a if not _same_bits(a[f], b[f])]
-    log(f"classic_3d_vpkt: timestep 0 rpkt steps {sb} (classic_3d {sa}); packet fields that "
-        f"differ from classic_3d's: {bad}")
+    log(f"{vrec['name']}: timestep 0 rpkt steps {sb} ({classic['name']} {sa}); packet fields "
+        f"that differ from {classic['name']}'s: {bad}")
     if sa != sb or bad:
-        raise RuntimeError(f"classic_3d_vpkt: timestep 0 differs from classic_3d's: steps {sa} "
-                           f"{sb}, fields {bad}")
+        raise RuntimeError(f"{vrec['name']}: timestep 0 differs from {classic['name']}'s: "
+                           f"steps {sa} {sb}, fields {bad}")
 
 
 # the runs whose packets after timestep 0 are kept, and what runs right
 # after a run (before the next frees its memory)
-KEEP_TS0 = {"classic_3d", "classic_3d_vpkt"}
+KEEP_TS0 = {"classic_3d", "classic_3d_vpkt", "classic_3d_f64", "classic_3d_vpkt_f64"}
 def _counters_by_timestep(d):
     """{timestep: {counter: value}} from a run's output_0-0.txt."""
     out, cur = {}, None
@@ -2972,13 +3099,14 @@ def _f64_against_f32(name, rec32, rec64, against="float32"):
     ``name`` against its float32 run in the same call (or the run
     ``against`` names), for the timesteps both ran, beside 4/sqrt(n), n the
     packets the float32 run saw escape in that timestep, or the float64 run
-    where that ran fewer packets (the same physics at two precisions;
+    where that ran fewer packets (the same physics at two precisions; the
+    float64 run may run more timesteps than its float32 twin;
     tests/test_physics_validation.py's rule; the float64 run's escapes by
     timestep are ``rec64["escaped"]`` where its log does not hold them all).
     Returns the timesteps outside it."""
     a = _escaped_by_timestep(rec32["dir"])
     b = rec64["escaped"] if "escaped" in rec64 else _escaped_by_timestep(rec64["dir"])
-    if not b or len(b) > len(a):
+    if not a or not b:
         raise RuntimeError(f"{name}: {len(b)} timesteps logged against {len(a)}")
     prev, bad = (0, 0), []
     for ts, ((n32, l32), (n64, l64)) in enumerate(zip(a, b)):
@@ -2993,7 +3121,7 @@ def _f64_against_f32(name, rec32, rec64, against="float32"):
             bad.append(ts)
     log(f"{name}: wall {rec64['wall_s']:.1f} s against {rec32['wall_s']:.1f} s, "
         f"work-weighted {rec64['steps_per_s']} against {rec32['steps_per_s']} rpkt steps/s "
-        f"(the {against} run over {len(a)} timesteps)")
+        f"(the {against} run over {len(a)} timesteps, the float64 run over {len(b)})")
     return bad
 
 
@@ -3007,20 +3135,16 @@ def check_f64_default(rec32, rec64):
                            f"4/sqrt(n) of the float32 run")
 
 
-# the other float64 runs and their float32 runs: their luminosities are
-# logged beside 4/sqrt(n) (not a gate: these runs are cut in depth, and
-# their float32 twins compare the same physics through other random
-# draws); each run's own checks (_run_scene) and phase 3 hold them
-F64_TWINS = {"default_opacity3_f64": "default_opacity3", "big_scene_f64": "big_scene",
-             "kilonova_2d_2dgrid_f64": "kilonova_2d_2dgrid",
-             "kilonova_2d_2dgrid_expansionopac_f64": "kilonova_2d_2dgrid_expansionopac",
-             "nebular_1d_3dgrid_nont_f64": "nebular_1d_3dgrid_nont",
-             "classic_3d_f64": "classic_3d"}
-
-
 def log_f64_twins(runs):
-    for name64, name32 in F64_TWINS.items():
-        if name64 in runs and name32 in runs:
+    """The other float64 runs against their float32 twins (the run of the
+    same name without ``_f64``): their luminosities are logged beside
+    4/sqrt(n) (not a gate: the twins are cut in depth and packets, some
+    timesteps stop at a wall budget, and the twins compare the same physics
+    through other random draws); each run's own checks (_run_scene) and
+    phase 3 hold them."""
+    for name64 in runs:
+        name32 = name64[:-len(F64)]
+        if name64.endswith(F64) and name32 in runs and name64 != "default_scene_f64":
             bad = _f64_against_f32(name64, runs[name32], runs[name64])
             log(f"{name64}: timesteps outside 4/sqrt(n) of the float32 run: {bad}")
 
@@ -3261,8 +3385,79 @@ def phase_mesh(workdir, ref):
     return rec
 
 
-POST_RUN = {"classic_3d_vpkt": post_vpkt, "kilonova_2d_2dgrid_xcomgammaphotoion": post_xcom,
-            "default_opacity3": post_opacity3}
+def post_nebular_nt(rec):
+    check_nebular_nt(rec)
+    return dict(sf_card_vs_cpu=phase_sf_card_vs_cpu(rec))
+
+
+def post_nebular_nt_twin(rec):
+    """The twin of nebular_1d_3dgrid_f64 at its short wall budget:
+    ``check_nebular`` (its timesteps 0-1 may stop at the budget, which
+    ``check_nebular_nt`` does not allow), and its first Spencer-Fano solve
+    on the card against the CPU."""
+    check_nebular(rec)
+    return dict(sf_card_vs_cpu=phase_sf_card_vs_cpu(rec))
+
+
+def post_polarisation(rec):
+    """A classic run cut in depth: every escaped packet's Stokes Q / U
+    matches its electron scatterings (at this depth none need have been
+    scattered)."""
+    check_polarisation(rec["name"], rec["dir"])
+
+
+def post_classic_twin(rec):
+    """classic_3d_f64's twin: ``post_polarisation``, then the port's exspec
+    on its timestep 0 (``check_exspec_classic``)."""
+    post_polarisation(rec)
+    return dict(exspec_s=check_exspec_classic(rec))
+
+
+def post_expansion_bb(rec):
+    """Bin events activated the macro-atom on lines of their bins."""
+    n_bb = rec["counters"].get("ma_stat_activation_bb", 0)
+    log(f"{rec['name']}: {n_bb} macro-atom bound-bound activations")
+    if n_bb <= 0:
+        raise RuntimeError(f"{rec['name']}: no macro-atom bound-bound activation")
+
+
+def post_gamma(rec):
+    """The analytic schemes resolved gamma packets."""
+    log(f"{rec['name']}: gamma emission {rec['gamma_emission_lsun']} Lsun, gamma deposition "
+        f"{rec['gamma_dep_lsun']} Lsun (summed over timesteps)")
+    if rec["gamma_emission_lsun"] <= 0:
+        raise RuntimeError(f"{rec['name']}: no gamma packet was emitted")
+
+
+# what must hold of a run beyond _run_scene's checks, checked right after it
+# (before the next run frees its memory); a dict returned joins its record.
+# The float64 runs carry the checks at full depth, each float32 twin those
+# that hold at its depth.
+POST_RUN = {"default_opacity3": post_opacity3,
+            "kilonova_2d_2dgrid_expansionopac": post_expansion_bb,
+            "default_scene_barnes_guttman": post_gamma,
+            "default_scene_barnes_guttman_f64": post_gamma,
+            "nebular_1d_3dgrid_nont_f64": check_nebular,
+            "nebular_1d_3dgrid": post_nebular_nt_twin,
+            "nebular_1d_3dgrid_f64": post_nebular_nt,
+            "classic_3d": post_classic_twin,
+            "classic_3d_f64": check_classic,
+            "classic_3d_vpkt": post_vpkt,
+            "classic_3d_vpkt_f64": post_vpkt,
+            "kilonova_2d_2dgrid_xcomgammaphotoion": post_xcom,
+            "kilonova_2d_2dgrid_xcomgammaphotoion_f64": post_xcom,
+            "classic_dense": post_polarisation,
+            "classic_dense_f64": check_classic_dense}
+
+
+def check_pairs(runs):
+    """The checks that hold one run against another of the same call."""
+    for f64 in ("", F64):
+        if "classic_3d" + f64 in runs and "classic_3d_vpkt" + f64 in runs:
+            check_vpkt_ts0(runs["classic_3d" + f64], runs["classic_3d_vpkt" + f64])
+    if "default_scene" in runs and "default_scene_f64" in runs:
+        check_f64_default(runs["default_scene"], runs["default_scene_f64"])
+    log_f64_twins(runs)
 
 
 # the main-path runs of phase 4: name, scene, packets, grid, the kernel
@@ -3280,6 +3475,23 @@ EXPANSION = dict(expansionopacities_on=True, rpkt_boundbound_thermalisation_prob
 # until the smoke was cut in depth for the mesh phase (timestep 1 then
 # ran 265 iterations and 232 of its 2400 escapes were electron-scattered)
 CLASSIC_DENSE_BUDGET_S = 12.0
+CLASSIC_DENSE = dict(preset="classic", ncoordgrid_x=8, ncoordgrid_y=8, ncoordgrid_z=8,
+                     transport_wall_budget=CLASSIC_DENSE_BUDGET_S)
+BARNES_GUTTMAN = dict(particle_thermalisation_scheme="BARNES",
+                      gamma_thermalisation_scheme="GUTTMAN")
+# The presets' float64 (the ``_f64`` runs) carries the depth and the
+# checks. Each float32 twin (the same name without ``_f64``) runs its path
+# through the CLI at its cheapest depth: timestep 0 (0-1 where timestep 0
+# is grey, 0-3 for the Spencer-Fano solve), NPKTS_TWIN packets, and where
+# its float64 run stops at a wall budget, this shorter one
+TWIN_BUDGET_S = 6.0
+NEBULAR_FIELDS = CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin", "rpkt_crossing_jblue"]
+
+
+def big_scene_ts3(d):
+    big_scene(d, ntimesteps=3)
+
+
 SCENES = [
     ("default_scene", default_scene, NPKTS_DEFAULT, "SPHERICAL1D", ["rpkt_crossing_sph1d"], {}),
     # this slice's path: the default scene at the preset's float64, the
@@ -3294,72 +3506,88 @@ SCENES = [
     ("default_opacity3_f64", default_opacity3_scene, NPKTS_DEFAULT, "SPHERICAL1D",
      ["rpkt_crossing_sph1d" + F64, "rpkt_crossing_ffonly" + F64],
      dict(PRESET_DTYPE, **DIAGNOSTICS)),
-    # timestep 0 (0-1 until the smoke was cut in depth; phase 3 holds the
-    # kernel on the lanes its timestep 0 leaves in flight)
-    ("realistic_scene", upto(real_scene, 0), NPKTS_REAL, "SPHERICAL1D",
+    # the 128-shell / 101,010-line scene: the twin timestep 0 (grey), the
+    # preset's float64 timesteps 0-1 at 2^20 packets, the double K1 with
+    # the line list in global memory
+    ("realistic_scene", upto(real_scene, 0), NPKTS_TWIN, "SPHERICAL1D",
      ["rpkt_crossing_sph1d"], {}),
-    # timestep 0 (0-2 until the float64 runs joined the smoke, 0-1 until it
-    # was cut in depth), as deep as big_scene_f64
-    ("big_scene", upto(lambda d: big_scene(d, ntimesteps=3), 0), NPKTS_REAL, "CARTESIAN3D",
-     CART + ["rpkt_crossing_bfrate"], dict(detailed_bf_estimators_on=True)),
+    ("realistic_scene_f64", upto(real_scene, 1), NPKTS_REAL, "SPHERICAL1D",
+     ["rpkt_crossing_sph1d" + F64], PRESET_DTYPE),
     ("kilonova_2d_2dgrid", cyl_scene, NPKTS_2D, "CYLINDRICAL2D", ["rpkt_crossing_cyl2d"], {}),
     ("kilonova_2d_2dgrid_f64", cyl_scene, NPKTS_2D, "CYLINDRICAL2D",
      ["rpkt_crossing_cyl2d" + F64], PRESET_DTYPE),
-    # big in float64, timestep 0: the double K2 with K5-bfrate
-    ("big_scene_f64", upto(lambda d: big_scene(d, ntimesteps=3), 0), NPKTS_REAL, "CARTESIAN3D",
+    # the big 3D model with bf-rate estimators, timestep 0 (grey): K2 with
+    # K5-bfrate, the float64 run at 2^20 packets the double forms
+    ("big_scene", upto(big_scene_ts3, 0), NPKTS_TWIN, "CARTESIAN3D",
+     CART + ["rpkt_crossing_bfrate"], dict(detailed_bf_estimators_on=True)),
+    ("big_scene_f64", upto(big_scene_ts3, 0), NPKTS_REAL, "CARTESIAN3D",
      ["rpkt_crossing_cart3d" + F64, "rpkt_crossing_bfrate" + F64],
      dict(PRESET_DTYPE, detailed_bf_estimators_on=True)),
     # kilonova_2d_2dgrid at the production line list: the 25 x 50 cylinder
-    # with the 101,010-line Fe atom, lines walked (no expansion opacities);
-    # timesteps 0-1 (0-2 until the smoke was cut in depth)
-    ("kilonova_2d_2dgrid_fe", upto(cyl_fe_scene, 1), NPKTS_2D, "CYLINDRICAL2D",
+    # with the 101,010-line Fe atom, lines walked (no expansion opacities),
+    # timesteps 0-1 (0 is grey): K3 on the Fe line list, the float64 run at
+    # 2^18 packets the double K3
+    ("kilonova_2d_2dgrid_fe", upto(cyl_fe_scene, 1), NPKTS_TWIN, "CYLINDRICAL2D",
      ["rpkt_crossing_cyl2d"], {}),
+    ("kilonova_2d_2dgrid_fe_f64", upto(cyl_fe_scene, 1), NPKTS_2D, "CYLINDRICAL2D",
+     ["rpkt_crossing_cyl2d" + F64], PRESET_DTYPE),
     ("kilonova_2d_2dgrid_expansionopac", upto(cyl_fe_scene, 1), NPKTS_2D, "CYLINDRICAL2D",
      ["rpkt_crossing_cyl2d", "rpkt_crossing_expansion"], EXPANSION),
     # the same at the preset's float64, timesteps 0-1: the double K4
     ("kilonova_2d_2dgrid_expansionopac_f64", upto(cyl_fe_scene, 1), NPKTS_2D, "CYLINDRICAL2D",
      ["rpkt_crossing_cyl2d" + F64, "rpkt_crossing_expansion" + F64],
      dict(PRESET_DTYPE, **EXPANSION)),
-    ("default_scene_barnes_guttman", default_gamma_scene, NPKTS_DEFAULT, "SPHERICAL1D",
-     ["rpkt_crossing_sph1d"],
-     dict(particle_thermalisation_scheme="BARNES", gamma_thermalisation_scheme="GUTTMAN")),
-    # timesteps 0-2 (0-3 until the smoke was cut in depth; the scene with
-    # the solver runs timestep 3, the binned field's first)
-    ("nebular_1d_3dgrid_nont", upto(nebular_scene, 2), NPKTS_REAL, "CARTESIAN3D",
-     CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin", "rpkt_crossing_jblue"],
-     dict(preset="nltenebular", **NEBULAR)),
-    # the same at the preset's float64, timestep 0, 2^18 packets (every
-    # launch of the scene carries the multibin and J_b_lu fields): the
-    # double K5 forms, with 8-byte estimator rows
-    ("nebular_1d_3dgrid_nont_f64", upto(nebular_scene, 0), NPKTS_2D, "CARTESIAN3D",
-     [k + F64 for k in CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin",
-                               "rpkt_crossing_jblue"]],
-     dict(PRESET_DTYPE, preset="nltenebular", **NEBULAR)),
-    # the same with the non-thermal solver (the CI's nebular_1d_3dgrid)
-    ("nebular_1d_3dgrid", nebular_nt_scene, NPKTS_REAL, "CARTESIAN3D",
-     CART + ["rpkt_crossing_bfrate", "rpkt_crossing_multibin", "rpkt_crossing_jblue"],
-     dict(preset="nltenebular", **NEBULAR_NT)),
-    ("classic_3d", classic_scene, NPKTS_REAL, "CARTESIAN3D", CART + ["rpkt_crossing_deferred"],
-     dict(preset="classic")),
-    # the same at the preset's float64, timestep 0, 2^18 packets: the
-    # double K6
-    ("classic_3d_f64", upto(classic_scene, 0), NPKTS_2D, "CARTESIAN3D",
+    # Barnes particle and Guttman gamma thermalisation: the float32 twin
+    # timesteps 0-1, the float64 run 0-4
+    ("default_scene_barnes_guttman", upto(default_gamma_scene, 1), NPKTS_DEFAULT, "SPHERICAL1D",
+     ["rpkt_crossing_sph1d"], BARNES_GUTTMAN),
+    ("default_scene_barnes_guttman_f64", default_gamma_scene, NPKTS_DEFAULT, "SPHERICAL1D",
+     ["rpkt_crossing_sph1d" + F64], dict(PRESET_DTYPE, **BARNES_GUTTMAN)),
+    # nltenebular without the non-thermal solver: the twin timestep 0, the
+    # preset's float64 timesteps 0-2 at 2^20 packets, NLTE populations in
+    # timestep 2 (at the wall budget): the 3D walk with the multibin and
+    # J_b_lu fields, the double forms with 8-byte estimator rows
+    ("nebular_1d_3dgrid_nont", upto(nebular_scene, 0), NPKTS_TWIN, "CARTESIAN3D",
+     NEBULAR_FIELDS, dict(preset="nltenebular", **NEBULAR)),
+    ("nebular_1d_3dgrid_nont_f64", upto(nebular_scene, 2), NPKTS_REAL, "CARTESIAN3D",
+     [k + F64 for k in NEBULAR_FIELDS], dict(PRESET_DTYPE, preset="nltenebular", **NEBULAR)),
+    # the same with the non-thermal solver (the CI's nebular_1d_3dgrid),
+    # timesteps 0-3, the Spencer-Fano solve in 3: the twin at the short
+    # budget, the preset's float64 at 2^20 packets
+    ("nebular_1d_3dgrid", nebular_nt_scene, NPKTS_TWIN, "CARTESIAN3D", NEBULAR_FIELDS,
+     dict(preset="nltenebular", **dict(NEBULAR_NT, transport_wall_budget=TWIN_BUDGET_S))),
+    ("nebular_1d_3dgrid_f64", nebular_nt_scene, NPKTS_REAL, "CARTESIAN3D",
+     [k + F64 for k in NEBULAR_FIELDS], dict(PRESET_DTYPE, preset="nltenebular", **NEBULAR_NT)),
+    # the classic preset on the big model: the twin timestep 0 (then the
+    # port's exspec on it), the preset's float64 timesteps 0-2 at 2^20
+    # packets with the nlte grid update from timestep 1: K6 and the double K6
+    ("classic_3d", upto(classic_scene, 0), NPKTS_TWIN, "CARTESIAN3D",
+     CART + ["rpkt_crossing_deferred"], dict(preset="classic")),
+    ("classic_3d_f64", classic_scene, NPKTS_REAL, "CARTESIAN3D",
      ["rpkt_crossing_cart3d" + F64, "rpkt_crossing_deferred" + F64],
      dict(PRESET_DTYPE, preset="classic")),
-    # classic_3d's scene with virtual packets, timestep VPKT_SPAWN_TS
-    ("classic_3d_vpkt", classic_vpkt_scene, NPKTS_REAL, "CARTESIAN3D",
+    # classic_3d's scene with virtual packets, timestep VPKT_SPAWN_TS: the
+    # twin held to classic_3d's timestep 0, the float64 run at 2^20 to
+    # classic_3d_f64's
+    ("classic_3d_vpkt", classic_vpkt_scene, NPKTS_TWIN, "CARTESIAN3D",
      CART + ["rpkt_crossing_deferred"], dict(preset="classic", vpkt_on=True)),
-    # kilonova_2d_2dgrid with XCOM gamma photoionisation (timestep 0; 0-1
-    # until the smoke was cut in depth)
-    ("kilonova_2d_2dgrid_xcomgammaphotoion", upto(xcom_scene, 0), NPKTS_2D, "CYLINDRICAL2D",
+    ("classic_3d_vpkt_f64", classic_vpkt_scene, NPKTS_REAL, "CARTESIAN3D",
+     ["rpkt_crossing_cart3d" + F64, "rpkt_crossing_deferred" + F64],
+     dict(PRESET_DTYPE, preset="classic", vpkt_on=True)),
+    # kilonova_2d_2dgrid with XCOM gamma photoionisation, timestep 0
+    ("kilonova_2d_2dgrid_xcomgammaphotoion", upto(xcom_scene, 0), NPKTS_TWIN, "CYLINDRICAL2D",
      ["rpkt_crossing_cyl2d"], dict(use_xcom_gammaphotoion=True)),
+    ("kilonova_2d_2dgrid_xcomgammaphotoion_f64", upto(xcom_scene, 0), NPKTS_2D, "CYLINDRICAL2D",
+     ["rpkt_crossing_cyl2d" + F64], dict(PRESET_DTYPE, use_xcom_gammaphotoion=True)),
     # the dense classic scene on an 8^3 grid, at few packets: its k-packets
     # and macro-atoms cycle for about 1300 iterations in timestep 0, which
-    # stops at a wall budget (CLASSIC_DENSE_BUDGET_S)
-    ("classic_dense", classic_dense_scene, NPKTS_DENSE, "CARTESIAN3D",
-     CART + ["rpkt_crossing_deferred"],
-     dict(preset="classic", ncoordgrid_x=8, ncoordgrid_y=8, ncoordgrid_z=8,
-          transport_wall_budget=CLASSIC_DENSE_BUDGET_S)),
+    # stops at a wall budget: the twin timestep 0 at the short budget, the
+    # preset's float64 timesteps 0-1 at CLASSIC_DENSE_BUDGET_S each
+    ("classic_dense", upto(classic_dense_scene, 0), NPKTS_DENSE, "CARTESIAN3D",
+     CART + ["rpkt_crossing_deferred"], dict(CLASSIC_DENSE, transport_wall_budget=TWIN_BUDGET_S)),
+    ("classic_dense_f64", classic_dense_scene, NPKTS_DENSE, "CARTESIAN3D",
+     ["rpkt_crossing_cart3d" + F64, "rpkt_crossing_deferred" + F64],
+     dict(PRESET_DTYPE, **CLASSIC_DENSE)),
 ]
 
 
@@ -3398,25 +3626,10 @@ def scene_runs(workdir, names):
         if name not in table:
             raise SystemExit(f"unknown scene {name}; scenes: {sorted(table) + [MESH_SCENE]}")
         _, make, npkts, grid, expect, extra = table[name]
-        runs[name] = rec = _run_scene(workdir, name, make, npkts, grid, expect, **extra)
-        if name == "nebular_1d_3dgrid":
-            check_nebular_nt(rec)
-            phase_sf_card_vs_cpu(rec)
-        if name == "nebular_1d_3dgrid_nont":
-            check_nebular(rec)
-        if name == "classic_3d":
-            check_classic(rec)
-        if name == "classic_3d_f64":
-            check_exspec_classic(rec)
-        if name == "classic_dense":
-            check_classic_dense(rec)
+        runs[name] = _run_scene(workdir, name, make, npkts, grid, expect, **extra)
         if name == "default_opacity3":
             check_opacity_cases_differ(workdir)
-    if "classic_3d" in runs and "classic_3d_vpkt" in runs:
-        check_vpkt_ts0(runs["classic_3d"], runs["classic_3d_vpkt"])
-    if "default_scene" in runs and "default_scene_f64" in runs:
-        check_f64_default(runs["default_scene"], runs["default_scene_f64"])
-    log_f64_twins(runs)
+    check_pairs(runs)
 
 
 def main():
@@ -3451,88 +3664,41 @@ def main():
         log(f"phase 3 done at {time.time() - t_start:.1f} s")
         runs = {name: _run_scene(workdir, name, make, npkts, grid, expect, **extra)
                 for name, make, npkts, grid, expect, extra in SCENES}
-        check_nebular(runs["nebular_1d_3dgrid_nont"])
-        check_nebular_nt(runs["nebular_1d_3dgrid"])
-        phase_sf_card_vs_cpu(runs["nebular_1d_3dgrid"])
-        check_classic(runs["classic_3d"])
-        check_exspec_classic(runs["classic_3d_f64"])
-        check_vpkt_ts0(runs["classic_3d"], runs["classic_3d_vpkt"])
-        check_classic_dense(runs["classic_dense"])
-        check_f64_default(runs["default_scene"], runs["default_scene_f64"])
-        log_f64_twins(runs)
+        check_pairs(runs)
         check_diagnostics_observe(workdir)
         check_opacity_cases_differ(workdir)
         mesh_rec = phase_mesh(workdir, runs["default_scene_f64"])
-    # bin events activated the macro-atom on lines of their bins, and the
-    # analytic schemes resolved gamma packets
-    n_bb = runs["kilonova_2d_2dgrid_expansionopac"]["counters"].get("ma_stat_activation_bb", 0)
-    log(f"kilonova_2d_2dgrid_expansionopac: {n_bb} macro-atom bound-bound activations")
-    if n_bb <= 0:
-        raise RuntimeError("kilonova_2d_2dgrid_expansionopac: no macro-atom bound-bound "
-                           "activation")
-    bg = runs["default_scene_barnes_guttman"]
-    log(f"default_scene_barnes_guttman: gamma emission {bg['gamma_emission_lsun']} Lsun, "
-        f"gamma deposition {bg['gamma_dep_lsun']} Lsun (summed over timesteps)")
-    if bg["gamma_emission_lsun"] <= 0:
-        raise RuntimeError("default_scene_barnes_guttman: no gamma packet was emitted")
     # each configuration's launches come from the run of the main path that
-    # drives it
+    # drives it: each double form's from its float64 run at the preset's own
+    # dtype (the deep run where there is one), each float32 form's from that
+    # run's float32 twin
     main_run = {"rpkt_crossing_sph1d": "default_scene", "rpkt_crossing_cart3d": "classic_3d",
-                "rpkt_crossing_bfrate": "big_scene", "rpkt_crossing_cyl2d": "kilonova_2d_2dgrid",
+                "rpkt_crossing_bfrate": "nebular_1d_3dgrid_nont",
+                "rpkt_crossing_cyl2d": "kilonova_2d_2dgrid",
                 "rpkt_crossing_expansion": "kilonova_2d_2dgrid_expansionopac",
                 "rpkt_crossing_deferred": "classic_3d",
                 "rpkt_crossing_multibin": "nebular_1d_3dgrid_nont",
                 "rpkt_crossing_jblue": "nebular_1d_3dgrid_nont",
-                "rpkt_crossing_ffonly": "default_opacity3",
-                # the double forms, each from the float64 run of the main
-                # path that drives it at the preset's own dtype
-                "rpkt_crossing_sph1d" + F64: "default_scene_f64",
-                "rpkt_crossing_cyl2d" + F64: "kilonova_2d_2dgrid_f64",
-                "rpkt_crossing_cart3d" + F64: "big_scene_f64",
-                "rpkt_crossing_bfrate" + F64: "big_scene_f64",
-                "rpkt_crossing_expansion" + F64: "kilonova_2d_2dgrid_expansionopac_f64",
-                "rpkt_crossing_deferred" + F64: "classic_3d_f64",
-                "rpkt_crossing_multibin" + F64: "nebular_1d_3dgrid_nont_f64",
-                "rpkt_crossing_jblue" + F64: "nebular_1d_3dgrid_nont_f64",
-                "rpkt_crossing_ffonly" + F64: "default_opacity3_f64"}
+                "rpkt_crossing_ffonly": "default_opacity3"}
+    main_run.update({k + F64: v + F64 for k, v in main_run.items()})
     # K2's launches come from the classic run, the main path that launches
     # the cart3d geometry without bf-rate estimators (in the deferred mode);
     # its time is the big scene's in-kernel-scatter mode
-    rec["rpkt_crossing_cart3d"]["note"] = ("ms, plain_ms and bound_ms: the big scene, in-kernel "
-                                           "scattering; launches: classic_3d's, each also a "
-                                           "K6 launch")
-    # K3 at the production line list: its launches logged beside the main
-    # path's
-    rec["rpkt_crossing_cyl2d"]["launches_kilonova_2d_2dgrid_fe"] = \
-        runs["kilonova_2d_2dgrid_fe"]["launches"]["rpkt_crossing_cyl2d"]
-    # the nebular run with the non-thermal solver launches the NLTE 3D walk
-    # too: its counts beside the main path's
-    for key in ("rpkt_crossing_cart3d", "rpkt_crossing_bfrate", "rpkt_crossing_multibin",
-                "rpkt_crossing_jblue"):
-        rec[key]["launches_nebular_1d_3dgrid"] = runs["nebular_1d_3dgrid"]["launches"][key]
-    # the new main paths of virtual packets (K2's geometry in K6 mode) and
-    # XCOM (K3)
-    for key in ("rpkt_crossing_cart3d", "rpkt_crossing_deferred"):
-        rec[key]["launches_classic_3d_vpkt"] = runs["classic_3d_vpkt"]["launches"][key]
-    rec["rpkt_crossing_cyl2d"]["launches_kilonova_2d_2dgrid_xcomgammaphotoion"] = \
-        runs["kilonova_2d_2dgrid_xcomgammaphotoion"]["launches"]["rpkt_crossing_cyl2d"]
-    # the grey opacity case 3 (K1 with the free-free continuum)
-    rec["rpkt_crossing_sph1d"]["launches_default_opacity3"] = \
-        runs["default_opacity3"]["launches"]["rpkt_crossing_sph1d"]
+    for f64 in ("", F64):
+        rec["rpkt_crossing_cart3d" + f64]["note"] = (
+            f"ms, plain_ms and bound_ms: the big scene, in-kernel scattering; launches: "
+            f"classic_3d{f64}'s, each also a K6 launch")
     # this slice's path on the mesh: the double K1's launches on each rank
     # of the two-rank world and in the one-rank NCCL world, and the
     # collectives' seconds per timestep (rank 0)
     rec["rpkt_crossing_sph1d" + F64].update(mesh_rec)
-    rec["rpkt_crossing_cart3d" + F64]["note"] = ("ms, plain_ms and bound_ms: the big scene, "
-                                                 "in-kernel scattering; launches: big_scene_f64's, "
-                                                 "each also a K5-bfrate launch")
-    # the double forms' launches in the other float64 runs, beside the main
-    # path's
+    # each configuration's launches in the other runs of its precision,
+    # beside the main path's
     for key in CONFIGS:
-        if key.endswith(F64):
-            for name, run in runs.items():
-                if name.endswith(F64) and name != main_run[key] and run["launches"][key]:
-                    rec[key][f"launches_{name}"] = run["launches"][key]
+        for name, run in runs.items():
+            if (name.endswith(F64) == key.endswith(F64) and name != main_run[key]
+                    and run["launches"][key]):
+                rec[key][f"launches_{name}"] = run["launches"][key]
     kernels = []
     for key, (label, replaces) in CONFIGS.items():
         r = rec[key]
@@ -3549,8 +3715,9 @@ def main():
                                or k.startswith(("launches_", "mesh_"))}))
     # the virtual packets' trace is torch ops, not a kernel: its numbers
     # beside the kernels'
-    log("trace_vpkts: " + json.dumps(runs["classic_3d_vpkt"]["vpkt"]))
-    log("xcom: " + json.dumps(runs["kilonova_2d_2dgrid_xcomgammaphotoion"]["xcom"]))
+    for f64 in ("", F64):
+        log(f"trace_vpkts{f64}: " + json.dumps(runs["classic_3d_vpkt" + f64]["vpkt"]))
+        log(f"xcom{f64}: " + json.dumps(runs["kilonova_2d_2dgrid_xcomgammaphotoion" + f64]["xcom"]))
     log(f"total {time.time() - t_start:.1f} s")
     log(f"card: {card}")
     print(json.dumps({"kernels": kernels}), flush=True)

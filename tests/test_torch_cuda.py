@@ -186,8 +186,9 @@ def _check(sim, ctx, max_inner, test_mode, want_bfrate=True, shared_rows=None,
         float(sim.grid.max_path_step), shared_rows=shared_rows, stage=stage, **kw)
     torch.cuda.synchronize()
     # the second launch pair holds still every lane with a differing
-    # integer output
-    launches = 1 + (rep["held_lanes"] > 0)
+    # integer output (more launches find lanes whose counts alone differ)
+    launches = rep["launches"]
+    assert launches == 1 + (rep["held_lanes"] > 0) or rep["count_held_lanes"] > 0
     # the launches count for the configurations of the launch's precision
     # only
     added = launches * (1 + want_bfrate + expansion + defer + bool(nradbins) + bool(njblue)
@@ -285,6 +286,69 @@ def test_double_kernel_matches_plain_version(request, case, test_mode):
         kw = dict(kw, njblue=sim.dad.nlines)
     plain = _check(sim, ctx, 16, test_mode, dtype=torch.float64, **kw)
     assert plain["posx"].dtype == torch.float64 and plain["est"].dtype == torch.float64
+
+
+# every kernel that launch_geom in csrc/rpkt_crossing.cu can dispatch, by
+# (geometry, walk, NLTE fields): (fixture, scene, _check keywords); the NLTE
+# instantiations take the multibin rows (and the J_b_lu rows, LUT estimators
+# off, on the line walks); njblue None: every line a J_b_lu column
+INSTANTIATIONS = {
+    ("sph", "lines", False): ("scenes", "sph1d", dict(want_bfrate=False)),
+    ("sph", "lines", True): ("scenes", "sph1d", dict(nradbins=64, njblue=None)),
+    ("sph", "bins", False): ("expo_scenes", "sph1d", dict(want_bfrate=False, expansion=True)),
+    ("sph", "bins", True): ("expo_scenes", "sph1d", dict(want_bfrate=False, expansion=True,
+                                                        nradbins=64)),
+    ("cyl", "lines", False): ("scenes", "cyl2d", {}),
+    ("cyl", "lines", True): ("scenes", "cyl2d", dict(nradbins=64, njblue=None, lut=False)),
+    ("cyl", "bins", False): ("expo_scenes", "cyl2d", dict(want_bfrate=False, expansion=True)),
+    ("cyl", "bins", True): ("expo_scenes", "cyl2d", dict(want_bfrate=False, expansion=True,
+                                                        nradbins=64)),
+    ("cart", "lines", True): ("scenes", "3dmodel", {}),
+    ("cart", "bins", False): ("expo_scenes", "3dmodel", dict(want_bfrate=False, expansion=True)),
+    ("cart", "bins", True): ("expo_scenes", "3dmodel", dict(want_bfrate=False, expansion=True,
+                                                           nradbins=64)),
+}
+INSTANTIATION_LANES = 384
+
+
+def _instantiation_name(case, dtype):
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    geom, walk, nlte = case
+    return rpkt_kernel.kernel_name(getattr(rpkt_kernel, f"GEOM_{geom.upper()}"), walk == "bins",
+                                   nlte, f64=dtype == torch.float64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(INSTANTIATIONS),
+                         ids=lambda c: f"{c[0]}_{c[1]}{'_nlte' if c[2] else ''}")
+def test_every_instantiation_matches_plain_version(request, case, dtype):
+    """Each kernel the dispatcher can launch, in both precisions, at a few
+    hundred lanes against its plain version (Philox draws); the launch ran
+    the kernel the case names."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    fixture, name, kw = INSTANTIATIONS[case]
+    sim, ctx = request.getfixturevalue(fixture)[name]
+    if kw.get("njblue", 0) is None:
+        kw = dict(kw, njblue=sim.dad.nlines)
+    rpkt_kernel.propagate.kernels.clear()
+    _check(sim, ctx, 16, False, n=INSTANTIATION_LANES, dtype=dtype, **kw)
+    assert set().union(*rpkt_kernel.propagate.kernels.values()) == {
+        _instantiation_name(case, dtype)}
+
+
+def test_instantiation_cases_cover_the_dispatcher():
+    """The cases above name every kernel launch_geom can dispatch
+    (rpkt_kernel.dispatchable_kernels: 21 generic instantiations and the
+    float32 1D line walk's kernel), so that a change to the dispatcher cannot
+    leave one unchecked on the card."""
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    covered = {_instantiation_name(c, d) for c in INSTANTIATIONS
+               for d in (torch.float32, torch.float64)}
+    assert covered == rpkt_kernel.dispatchable_kernels() and len(covered) == 22
 
 
 # the redesigned double line walks (line_walk_w64):

@@ -10,9 +10,12 @@ against the JAX package's float64 XLA path, on the CPU.
   continuum split (tag 52) and the expansion-opacity bin split (tag 59),
   in every configuration of the kernel table: the 1D line walk (K1), the
   3D walk with the detailed bf-rate rows (K2, K5-bfrate), the cylinder
-  (K3), binned expansion opacities (K4), the deferred events with grey
-  cells (K6), the multibin and J_b_lu estimators (K5-multibin, K5-jblue)
-  and the free-free continuum of opacity case 3 (ff-only). Both event
+  (K3), binned expansion opacities (K4) on the 1D, 3D and cylindrical
+  grids (the cylinder's with the multibin rows), the deferred events with
+  grey cells (K6), the multibin and J_b_lu estimators (K5-multibin,
+  K5-jblue) on the 1D and the cylindrical line walk (the latter with LUT
+  photoionisation and bf heating off) and the free-free continuum of
+  opacity case 3 (ff-only). Both event
   passes are replaced by a probe of their inputs, which are compared
   instead. The kernel scatters electrons and thick-cell packets in flight
   where the XLA path ends the crossing at the event: those lanes must be
@@ -321,9 +324,22 @@ def sph(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def cart(tmp_path_factory):
+    """The 8 shells on a 6^3 grid with the bf-rate rows and binned
+    expansion opacities."""
     return _scene(tmp_path_factory, "f64_cart", dict(ncells=8),
                   dict(grid_type=_gt("CARTESIAN3D"), ncoordgrid_x=6, ncoordgrid_y=6,
-                       ncoordgrid_z=6, detailed_bf_estimators_on=True))
+                       ncoordgrid_z=6, detailed_bf_estimators_on=True,
+                       expansionopacities_on=True))
+
+
+@pytest.fixture(scope="module")
+def cyl(tmp_path_factory):
+    """A 4 x 8 cylinder with the tables of every cylindrical configuration
+    (binned expansion opacities, multibin and J_b_lu estimators)."""
+    return _scene(tmp_path_factory, "f64_cyl", dict(ncells=4, model_dim=2),
+                  dict(grid_type=_gt("CYLINDRICAL2D"), expansionopacities_on=True,
+                       multibin_radfield=True, detailed_line_estimators_on=True,
+                       jblue_elem_z=0))
 
 
 def _gt(name):
@@ -356,21 +372,40 @@ def test_ff_only_case3(sph):
     assert np.asarray(est.ffheating).sum() > 0 and np.asarray(est.bfrate).sum() > 0
 
 
-def test_k4_expansion_opacities(sph):
-    sc = _with(sph, expansionopacities_on=True)
-    _crossing_matches(sc, _shell_state(sc, 5), events=True, bb=True, crossings=True)
+def _state(sc, scene, seed):
+    return _shell_state(sc, seed) if scene == "sph" else forced_state(sc, seed=seed)
 
 
-def test_k5_multibin_and_jblue(sph):
-    sc = _with(sph, multibin_radfield=True, detailed_line_estimators_on=True)
-    kinds, est = _crossing_matches(sc, _shell_state(sc, 7), events=True, bb=True,
+@pytest.mark.parametrize("scene, multibin", [("sph", False), ("cart", False), ("cyl", True)],
+                         ids=["sph", "cart", "cyl_multibin"])
+def test_k4_expansion_opacities(request, scene, multibin):
+    """The bin walk of each geometry; on the cylinder with the multibin
+    rows, the bin walk's instantiation with the NLTE fields."""
+    sc = _with(request.getfixturevalue(scene), expansionopacities_on=True,
+               multibin_radfield=multibin)
+    kinds, est = _crossing_matches(sc, _state(sc, scene, 5), events=True, bb=True,
+                                   crossings=True)
+    assert np.asarray(est.radfieldbin_count).sum() > 0 or not multibin
+
+
+@pytest.mark.parametrize("scene", ["sph", "cyl"])
+def test_k5_multibin_and_jblue(request, scene):
+    """The multibin and J_b_lu rows of the 1D line walk, and of the
+    cylindrical one with LUT photoionisation and bf heating off (as
+    nltenebular runs them: no LUT rows)."""
+    lut = scene == "sph"
+    sc = _with(request.getfixturevalue(scene), multibin_radfield=True,
+               detailed_line_estimators_on=True, use_lut_photoion=lut, use_lut_bfheating=lut)
+    kinds, est = _crossing_matches(sc, _state(sc, scene, 7), events=True, bb=True,
                                    crossings=True)
     assert np.asarray(est.radfieldbin_count).sum() > 0
     assert np.asarray(est.jblue_count).sum() > 0
+    assert bool(np.asarray(est.gammaestimator).any()) == lut
 
 
 def test_k2_bfrate_3d_walk(cart):
-    kinds, est = _crossing_matches(cart, forced_state(cart, seed=3, nu_logrange=(14.2, 15.9)),
+    sc = _with(cart)
+    kinds, est = _crossing_matches(sc, forced_state(sc, seed=3, nu_logrange=(14.2, 15.9)),
                                    events=True, bb=True, bf=True, crossings=True)
     assert np.asarray(est.bfrate).sum() > 0
 
@@ -382,14 +417,13 @@ def test_k6_deferred_with_grey_cells(cart):
     nne, rho = np.asarray(cells.nne), np.asarray(cells.rho)
     cells = cells.replace(thick=jnp.asarray(np.arange(nne.size) % 2, cells.thick.dtype),
                           kappagrey=jnp.asarray(6.6524e-25 * nne / np.maximum(rho, 1e-30)))
-    sc = dict(cart, cells=cells, opts=cart["opts"].replace(dipole=True))
+    sc = _with(cart, cells, dipole=True)
     _crossing_matches(sc, forced_state(sc, seed=6, nu_logrange=(14.2, 15.9)), defer=True,
                       events=True, thick=True, crossings=True)
 
 
-def test_k3_cylinder(tmp_path_factory):
-    sc = _scene(tmp_path_factory, "f64_cyl", dict(ncells=4, model_dim=2),
-                dict(grid_type=_gt("CYLINDRICAL2D")))
+def test_k3_cylinder(cyl):
+    sc = _with(cyl)
     _crossing_matches(sc, forced_state(sc, seed=4), events=True, bb=True, crossings=True)
 
 

@@ -1,6 +1,7 @@
 """Runs of the port with the non-thermal solver on (the CPU, float32
 transport, the synthetic atom and non-thermal files), rebuilt from the JAX
-package's own cases (tests/test_nonthermal.py:166-316) on the port:
+package's own cases (tests/test_nonthermal.py:166-316) on the port; the
+two whole runs also at the presets' float64 transport:
 
 - ``test_nt_excitation_channel_end_to_end``: with ``nt_excitation_on``
   deposited leptons also activate macro-atoms at the upper levels of the
@@ -21,6 +22,7 @@ package's own cases (tests/test_nonthermal.py:166-316) on the port:
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -64,11 +66,13 @@ def _no_deposit_left(sim):
     return not np.any((p == TYPE_NTLEPTON_DEPOSITED) | (p == TYPE_NTALPHA_DEPOSITED))
 
 
-def test_nt_excitation_channel_end_to_end(tmp_path):
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_nt_excitation_channel_end_to_end(tmp_path, dtype):
     from artis_tpu_torch import stats
     from artis_tpu_torch.driver import Simulation
 
-    sim = Simulation(_run_dir(tmp_path), _opts(nt_excitation_on=True), device="cpu")
+    sim = Simulation(_run_dir(tmp_path), _opts(nt_excitation_on=True, transport_dtype=dtype),
+                     device="cpu")
     assert sim.ntd is not None and sim.ntd.nexc > 0
     total = np.zeros(3, np.int64)
     for ts in range(3):
@@ -89,10 +93,12 @@ def test_nt_excitation_channel_end_to_end(tmp_path):
     np.testing.assert_allclose(cum[:, -1], sim._sf_carry["frac_excitation"].numpy(), rtol=1e-9)
 
 
-def test_wf_mode_end_to_end(tmp_path):
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_wf_mode_end_to_end(tmp_path, dtype):
     from artis_tpu_torch.driver import Simulation
 
-    sim = Simulation(_run_dir(tmp_path), _opts(nt_solve_spencerfano=False), device="cpu")
+    sim = Simulation(_run_dir(tmp_path), _opts(nt_solve_spencerfano=False, transport_dtype=dtype),
+                     device="cpu")
     assert sim.ntd is None and sim.nt_wf is not None
     assert np.all(sim.nt_wf[0].numpy() > 0)
     total = np.zeros(3, np.int64)

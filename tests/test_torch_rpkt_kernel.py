@@ -377,3 +377,111 @@ def test_compare_outputs_rejects_each_fault(scene, kind, monkeypatch):
         out = _tiled(out, 65536 // n)
     ok, rep = rpkt_kernel.compare_outputs(_mutate(out, kind), out)
     assert ok == (kind is None), rep
+
+
+def _count_moving_launch(rpkt_kernel, adds):
+    """A stand-in for the card's launch: the plain version, except that for
+    each (lane_ids, row, line, passes) of ``adds`` each moving lane whose
+    lane_id is among them counts ``passes`` J_b_lu passes more of ``line``
+    (in estimator row ``row``, or where None in the row of the cell it ends
+    in) while every lane output of its agrees."""
+    def launch(seed, lanes, tables, *args, shared_rows=None, **kw):
+        o = rpkt_kernel.propagate_reference(seed, lanes, tables, *args, **kw)
+        for ids, row, line, passes in adds:
+            lane = torch.nonzero((lanes["moving"] > 0) & torch.isin(lanes["lane_id"], ids))[:, 0]
+            mgi = tables["mgi_of_cell"][o["where"][lane].clamp(min=0).long()].long()
+            if row is not None:
+                mgi = torch.full_like(mgi, row)
+            o["jblue"][:, 1, line].index_add_(0, mgi[mgi >= 0],
+                                              torch.full((int((mgi >= 0).sum()),), passes))
+        return o
+    return launch
+
+
+# the shell the near-tie case empties (no estimator row)
+EMPTY_SHELL = 5
+
+
+def _near_tie(rpkt_kernel, args, kw):
+    """Tables on which a lane's J_b_lu pass can tie with a boundary to an
+    empty cell: shell EMPTY_SHELL emptied (``mgi_of_cell`` -1), and the
+    first line below the cmf frequency at which some lane crosses into it
+    from a shell with rows moved onto that frequency and made transparent
+    (the lane's path is unchanged). Returns (tables, the lane's lane_id,
+    the row of the shell it leaves, the line)."""
+    tables = dict(args[2], mgi_of_cell=args[2]["mgi_of_cell"].clone(),
+                  line_nu=args[2]["line_nu"].clone(), tau_factor=args[2]["tau_factor"].clone())
+    mgi = tables["mgi_of_cell"].long()
+    tables["mgi_of_cell"][EMPTY_SHELL] = -1
+    log = []
+    rpkt_kernel.propagate_reference(args[0], args[1], tables, *args[3:], crossing_log=log, **kw)
+    for taken, cell, snext, nu_at, _ in log:
+        hit = torch.nonzero(taken & (snext == EMPTY_SHELL) & (cell != EMPTY_SHELL))[:, 0]
+        if hit.numel():
+            i = int(hit[0])
+            break
+    line_nu = tables["line_nu"]
+    assert bool((line_nu[:-1] >= line_nu[1:]).all())
+    line = int(torch.searchsorted(-line_nu, -nu_at[i]))
+    line_nu[line] = nu_at[i]
+    tables["tau_factor"][:, line] = 0.0
+    return tables, args[1]["lane_id"][i:i + 1], int(mgi[cell[i]]), line
+
+
+@pytest.mark.parametrize("case, nfaulty", [("tie", 1), ("tie+moved", 2), ("tie off the line", 1),
+                                           ("elsewhere", 2), ("tie+elsewhere", 2),
+                                           ("elsewhere", 17)])
+def test_check_kernel_holds_lanes_whose_counts_alone_differ(scene, case, nfaulty, monkeypatch):
+    """check_kernel finds the lanes whose own J_b_lu count differs while
+    every lane output agrees (``count_lanes``, by halves) and holds them
+    still only where each is a near-tie at a boundary to a cell that counts
+    nothing (``moved_to_nothing``): a line at the frequency where the lane
+    enters an empty shell, counted in the shell it leaves. A lane whose
+    pass only moved between two shells is left to compare_outputs, which
+    allows it. A pass of
+    another line in that shell, a pass added anywhere else (line 0 in the
+    lane's last cell), alone or beside such a tie, fails the comparison,
+    as do more such lanes than the tolerance's diverged lanes (16 in
+    float32)."""
+    from artis_tpu_torch.transport import engine as teng
+    from artis_tpu_torch.transport import rpkt_kernel
+
+    p = _port_inputs(scene, _forced_state(scene, seed=3, nu_logrange=(14.2, 15.95)))
+    ctx, dad = p["ctx"], p["dad"]
+    _, lanes = teng.rpkt_lanes(p["st"], ctx.t2)
+    n = lanes["posx"].shape[0]
+    rng = np.random.default_rng(5)
+    tables = rpkt_kernel.kernel_tables(dad, p["grid"], p["cells"], ctx)
+    tables["jblue_of_line"] = torch.arange(dad.nlines, dtype=torch.int32)
+    args = (1, lanes, tables,
+            torch.as_tensor(-np.log(rng.uniform(0.05, 0.95, n)).astype(np.float32)),
+            torch.as_tensor(rng.uniform(0.0, 1.0, n).astype(np.float32)), float(ctx.t2),
+            float(ctx.tmin), float(p["grid"].max_path_step))
+    kw = dict(nlines=dad.nlines, ncells=p["cells"].Te.shape[0],
+              ngc=max(dad.nbfcontinua_ground, 1), nphixs=dad.nphixspoints, max_inner=4,
+              relativistic=p["opts"].use_relativistic_doppler_shift,
+              phixs_dnu=float(dad.nphixsnuincrement),
+              last_nuovernuedge=float(dad.last_phixs_nuovernuedge), test_mode=True, nradbins=32,
+              njblue=dad.nlines)
+    moving = lanes["lane_id"][lanes["moving"] > 0]
+    adds = []
+    if case.startswith("tie"):
+        tables, tie_id, row, line = _near_tie(rpkt_kernel, args, kw)
+        args = args[:2] + (tables,) + args[3:]
+        if case.endswith("off the line"):
+            line = dad.nlines - 1 if line == 0 else 0
+        adds.append((tie_id, row, line, 1.0))
+        moving = moving[moving != tie_id]
+    if case.endswith("moved"):
+        adds += [(moving[:1], 0, 0, 1.0), (moving[:1], 1, 0, -1.0)]
+    if case.endswith("elsewhere"):
+        adds.append((moving[:nfaulty - len(adds)], None, 0, 1.0))
+    monkeypatch.setattr(rpkt_kernel, "_launch", _count_moving_launch(rpkt_kernel, adds))
+    ok, rep, k, out = rpkt_kernel.check_kernel(*args, **kw)
+    assert rep["diverged_lanes"] == 0 and rep["next_trans_agree"] == 1.0
+    assert ok == (case in ("tie", "tie+moved")), rep
+    assert rep["count_held_lanes"] == (1 if ok else 0)
+    assert rep["held_lanes"] == rep["count_held_lanes"]
+    unexplained = {"tie": 0, "tie+moved": 0, "tie off the line": 1, "tie+elsewhere": 1}
+    assert rep["count_lanes_unexplained"] == unexplained.get(
+        case, -1 if nfaulty > rpkt_kernel.DIVERGED_MIN else nfaulty)

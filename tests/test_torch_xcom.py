@@ -20,7 +20,10 @@ lines), Ni left out (no row) and a row for H, which the atom lacks.
 - A whole run of kilonova_2d_2dgrid_xcomgammaphotoion in miniature (with
   synthetic Ni56 / Co56 gamma lines) by both packages from the same
   pellets: every gamma opacity finite, and the gamma deposition of each
-  timestep within 4/sqrt(n) of the JAX package's."""
+  timestep within 4/sqrt(n) of the JAX package's.
+
+The port runs each case at transport dtype float32 and at the presets'
+float64; the JAX package's side is computed once for both."""
 
 import dataclasses
 
@@ -55,11 +58,12 @@ def test_readers_agree(tmp_path):
 
 
 @pytest.fixture(scope="module")
-def steps(tmp_path_factory):
-    """gamma_step of both packages on the same 40 gamma packets, one per
-    shell of a 40-shell model, for each of two energy sets: inside every
-    table (10 keV - 1 MeV) and above the Co table (1-9 MeV). Returns the
-    per-shell deposition of both and the inputs."""
+def jax_steps(tmp_path_factory):
+    """gamma_step of the JAX package on 40 gamma packets, one per shell of a
+    40-shell model, for each of two energy sets: inside every table (10 keV
+    - 1 MeV) and above the Co table (1-9 MeV). Returns the run directory,
+    the options, the number densities, each set's packets and per-shell
+    deposition."""
     import jax
     import jax.numpy as jnp
 
@@ -67,12 +71,7 @@ def steps(tmp_path_factory):
     import artis_tpu.options as jo
     from artis_tpu.packets import TYPE_GAMMA
     from artis_tpu.transport import engine as jeng
-    from artis_tpu_torch import interop
-    from artis_tpu_torch import driver as td
-    from artis_tpu_torch.estimators import zero_estimators
-    from artis_tpu_torch.packets import PacketState
     from artis_tpu_torch.synthdata import write_synthetic_xcom_data
-    from artis_tpu_torch.transport import engine as teng
 
     d = str(tmp_path_factory.mktemp("xcom_step"))
     make_run(d, ncells=40, ntimesteps=3, tmin_days=1.5, tmax_days=3.0, ngreyts=0)
@@ -81,12 +80,7 @@ def steps(tmp_path_factory):
                             maxtemp=20000.0, tablesize=12, use_xcom_gammaphotoion=True)
     sj = jd.Simulation(d, jopts, datadir="/nonexistent")
     jctx = sj.update_grid(0)
-    st = td.Simulation(d, port_opts(jopts, transport_dtype="float32"), datadir="/nonexistent",
-                       device="cpu")
-    tctx = st.update_grid(0)
-    # the same number densities on both sides, in float64
     nd = np.asarray(jctx.elem_numberdens, dtype=np.float64)
-    tctx = dataclasses.replace(tctx, elem_numberdens=torch.as_tensor(nd))
     ncells = int(sj.grid.nonempty_npts)
     n = 40
     rng = np.random.default_rng(7)
@@ -97,7 +91,7 @@ def steps(tmp_path_factory):
     pos = np.zeros((64, 3))
     pos[:n, 0] = r_mid * prop_time / float(sj.params.tmin)
     dirs = np.tile([1.0, 0.0, 0.0], (64, 1))
-    out = {}
+    out = dict(dir=d, jopts=jopts, nd=nd, ncells=ncells, n=n)
     for label, (lo, hi) in (("inside", (0.0101, 0.99)), ("above", (1.01, 9.0))):
         e_mev = np.exp(rng.uniform(np.log(lo), np.log(hi), 64))
         js = sj.state.replace(
@@ -109,13 +103,38 @@ def steps(tmp_path_factory):
         zero = jnp.zeros(ncells)
         _, jest = jeng.gamma_step(jax.random.PRNGKey(0), js, sj.est, jctx, sj.grid, zero, zero,
                                   zero, -1.0, jopts)
-        ts = interop.from_numpy(PacketState, np_fields(js), dtype=torch.float64)
+        out[label] = dict(state=np_fields(js), e_mev=e_mev[:n],
+                          jax=np.asarray(jest.dep_gamma, dtype=np.float64)[:n])
+    return out
+
+
+@pytest.fixture(scope="module", params=["float32", "float64"])
+def steps(jax_steps, request):
+    """The port's gamma_step on the JAX package's packets, in float64, with
+    its grid update at transport dtype ``request.param`` (float32, or the
+    presets' float64). Returns the per-shell deposition of both packages
+    and the inputs."""
+    from artis_tpu_torch import interop
+    from artis_tpu_torch import driver as td
+    from artis_tpu_torch.estimators import zero_estimators
+    from artis_tpu_torch.packets import PacketState
+    from artis_tpu_torch.transport import engine as teng
+
+    j = jax_steps
+    st = td.Simulation(j["dir"], port_opts(j["jopts"], transport_dtype=request.param),
+                       datadir="/nonexistent", device="cpu")
+    tctx = st.update_grid(0)
+    # the same number densities on both sides, in float64
+    tctx = dataclasses.replace(tctx, elem_numberdens=torch.as_tensor(j["nd"]))
+    ncells, n = j["ncells"], j["n"]
+    out = {}
+    for label in ("inside", "above"):
+        ts = interop.from_numpy(PacketState, j[label]["state"], dtype=torch.float64)
         z = torch.zeros(ncells, dtype=torch.float64)
         _, test = teng.gamma_step((1, 2), ts, zero_estimators(ncells, 1), tctx, st.grid, z, z, z,
                                   -1.0, st.opts)
-        out[label] = dict(jax=np.asarray(jest.dep_gamma, dtype=np.float64)[:n],
-                          port=test.dep_gamma.numpy()[:n], e_mev=e_mev[:n], nd=nd[:n],
-                          path=3.0)
+        out[label] = dict(jax=j[label]["jax"], port=test.dep_gamma.numpy()[:n],
+                          e_mev=j[label]["e_mev"], nd=j["nd"][:n], path=3.0)
     st.close()
     out["tables"] = tctx.xcom_energy.numpy(), tctx.xcom_sigma.numpy(), tctx.xcom_nrows.numpy()
     return out
@@ -157,39 +176,52 @@ def test_port_clamps_above_a_short_table(steps):
     assert np.isnan(slope)
 
 
-def test_whole_run_matches_jax(tmp_path):
+@pytest.fixture(scope="module")
+def jax_whole_run(tmp_path_factory):
     """kilonova_2d_2dgrid_xcomgammaphotoion in miniature (3 x 6 cylinder,
-    1000 packets, days 1.5-3, synthetic gamma lines), timesteps 0-1 by both
-    packages from the same pellets: the port's gamma deposition is finite
-    and positive in each timestep and within 4/sqrt(n) of the JAX
-    package's, n a quarter of the packets (the gamma packets' share of the
-    pellets is about half)."""
+    1000 packets, days 1.5-3, synthetic gamma lines), timesteps 0-1 of the
+    JAX package: its pellets and gamma deposition per timestep."""
     import artis_tpu.driver as jd
     import artis_tpu.options as jo
+
+    jopts = jo.kilonova_lte(npkts=1000, grid_type=jo.GridType.CYLINDRICAL2D, mintemp=1000.0,
+                            maxtemp=20000.0, tablesize=12, use_xcom_gammaphotoion=True)
+    sj = jd.Simulation(_xcom_run_dir(tmp_path_factory.mktemp("xcom_jax")), jopts,
+                       datadir="/nonexistent")
+    pellets = np_fields(sj.state)
+    for nts in range(2):
+        sj.do_timestep(nts)
+    return jopts, pellets, [float(sj.gamma_dep_ts[nts]) for nts in range(2)]
+
+
+def _xcom_run_dir(d):
+    from artis_tpu_torch.synthdata import write_synthetic_gamma_lines, write_synthetic_xcom_data
+
+    make_run(str(d), ncells=3, model_dim=2, ntimesteps=3, tmin_days=1.5, tmax_days=3.0,
+             ngreyts=0)
+    write_synthetic_xcom_data(str(d), ELEMENTS)
+    write_synthetic_gamma_lines(str(d))
+    return str(d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_whole_run_matches_jax(jax_whole_run, dtype, tmp_path):
+    """The JAX package's run (``jax_whole_run``) and the port's at transport
+    ``dtype`` (float32, and the presets' float64) from the same pellets: the
+    port's gamma deposition is finite and positive in each timestep and
+    within 4/sqrt(n) of the JAX package's, n a quarter of the packets (the
+    gamma packets' share of the pellets is about half)."""
     from artis_tpu_torch import interop
     from artis_tpu_torch import driver as td
     from artis_tpu_torch.packets import PacketState
-    from artis_tpu_torch.synthdata import write_synthetic_gamma_lines, write_synthetic_xcom_data
 
-    npkts = 1000
-    dirs = {}
-    for side in ("jax", "port"):
-        dirs[side] = tmp_path / side
-        dirs[side].mkdir()
-        make_run(str(dirs[side]), ncells=3, model_dim=2, ntimesteps=3, tmin_days=1.5,
-                 tmax_days=3.0, ngreyts=0)
-        write_synthetic_xcom_data(str(dirs[side]), ELEMENTS)
-        write_synthetic_gamma_lines(str(dirs[side]))
-    jopts = jo.kilonova_lte(npkts=npkts, grid_type=jo.GridType.CYLINDRICAL2D, mintemp=1000.0,
-                            maxtemp=20000.0, tablesize=12, use_xcom_gammaphotoion=True)
-    sj = jd.Simulation(str(dirs["jax"]), jopts, datadir="/nonexistent")
-    st = td.Simulation(str(dirs["port"]), port_opts(jopts, transport_dtype="float32"),
+    jopts, pellets, jax_dep = jax_whole_run
+    st = td.Simulation(_xcom_run_dir(tmp_path), port_opts(jopts, transport_dtype=dtype),
                        datadir="/nonexistent", device="cpu")
-    st.state = interop.from_numpy(PacketState, np_fields(sj.state), dtype=torch.float32)
+    st.state = interop.from_numpy(PacketState, pellets, dtype=getattr(torch, dtype))
     for nts in range(2):
-        sj.do_timestep(nts)
         st.do_timestep(nts)
-        a, b = float(sj.gamma_dep_ts[nts]), float(st.gamma_dep_ts[nts])
+        b = float(st.gamma_dep_ts[nts])
         assert np.isfinite(b) and b > 0, (nts, b)
-        rel_close(a, b, npkts // 4, f"gamma deposition ts{nts}")
+        rel_close(jax_dep[nts], b, jopts.npkts // 4, f"gamma deposition ts{nts}")
     st.close()
